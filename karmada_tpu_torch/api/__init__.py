@@ -1,0 +1,37 @@
+"""Typed API data model: the subset the scheduler consumes (ref: pkg/apis/*)."""
+
+from .core import (  # noqa: F401
+    Condition,
+    ObjectMeta,
+)
+from .cluster import (  # noqa: F401
+    NO_EXECUTE,
+    NO_SCHEDULE,
+    PREFER_NO_SCHEDULE,
+    PUSH,
+    AllocatableModeling,
+    Cluster,
+    ClusterSpec,
+    ClusterStatus,
+    ResourceModel,
+    ResourceModelRange,
+    ResourceSummary,
+    Taint,
+    Toleration,
+)
+from .policy import (  # noqa: F401
+    AGGREGATED,
+    DIVIDED,
+    DUPLICATED,
+    WEIGHTED,
+    ClusterAffinity,
+    ClusterAffinityTerm,
+    ClusterPreferences,
+    FieldSelector,
+    LabelSelector,
+    LabelSelectorRequirement,
+    Placement,
+    ReplicaSchedulingStrategy,
+    SpreadConstraint,
+    StaticClusterWeight,
+)

@@ -1,0 +1,131 @@
+"""Cluster API: member-cluster inventory and capacity status.
+
+The port's own copy of ``karmada_tpu.api.cluster`` (without the Lease).
+
+Ref: pkg/apis/cluster/v1alpha1/types.go —
+SyncMode (:77-80), Provider/Region/Zones (:119-139), Taints (:141-145),
+ResourceModels (:147-203), APIEnablements (:293-295),
+ResourceSummary Allocatable/Allocated/Allocating + AllocatableModelings
+(:305-369).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+from .core import Condition, ObjectMeta
+
+# SyncMode
+PUSH = "Push"
+
+# Taint effects (k8s core semantics; scheduler filters NoSchedule/NoExecute:
+# pkg/scheduler/framework/plugins/tainttoleration/taint_toleration.go:46-74)
+NO_SCHEDULE = "NoSchedule"
+PREFER_NO_SCHEDULE = "PreferNoSchedule"
+NO_EXECUTE = "NoExecute"
+
+
+@dataclass(frozen=True)
+class Taint:
+    key: str
+    effect: str
+    value: str = ""
+
+
+@dataclass(frozen=True)
+class Toleration:
+    """k8s-style toleration. operator: 'Equal' matches key+value, 'Exists'
+    matches key regardless of value; empty key + Exists tolerates everything.
+    ``toleration_seconds`` only applies to NoExecute (eviction delay)."""
+
+    key: str = ""
+    operator: str = "Equal"  # Equal | Exists
+    value: str = ""
+    effect: str = ""  # empty matches all effects
+    toleration_seconds: Optional[int] = None
+
+    def tolerates(self, taint: Taint) -> bool:
+        if self.effect and self.effect != taint.effect:
+            return False
+        if not self.key:  # empty key with Exists tolerates all taints
+            return self.operator == "Exists"
+        if self.key != taint.key:
+            return False
+        if self.operator == "Exists":
+            return True
+        return self.value == taint.value
+
+
+@dataclass
+class ResourceModelRange:
+    """[min, max) range for one resource in a model grade.
+    Ref: cluster types.go:147-203."""
+
+    name: str
+    min: int
+    max: int
+
+
+@dataclass
+class ResourceModel:
+    grade: int
+    ranges: list[ResourceModelRange] = field(default_factory=list)
+
+
+@dataclass
+class AllocatableModeling:
+    grade: int
+    count: int
+
+
+@dataclass
+class ResourceSummary:
+    """Cluster-level resource accounting (canonical int units, see
+    utils.quantity). Ref: cluster types.go:305-369."""
+
+    allocatable: dict[str, int] = field(default_factory=dict)
+    allocated: dict[str, int] = field(default_factory=dict)
+    allocating: dict[str, int] = field(default_factory=dict)
+    allocatable_modelings: list[AllocatableModeling] = field(default_factory=list)
+
+
+@dataclass
+class ClusterSpec:
+    sync_mode: str = PUSH
+    provider: str = ""
+    region: str = ""
+    zones: list[str] = field(default_factory=list)
+    taints: list[Taint] = field(default_factory=list)
+    resource_models: list[ResourceModel] = field(default_factory=list)
+    # endpoint/secret refs omitted: member access is via the cluster client
+    # registry (utils.member_clients), the analogue of Secret-stored
+    # kubeconfigs (pkg/util/membercluster_client.go).
+    api_endpoint: str = ""
+
+    @property
+    def zone(self) -> str:
+        return self.zones[0] if self.zones else ""
+
+
+@dataclass
+class ClusterStatus:
+    kubernetes_version: str = ""
+    api_enablements: list[str] = field(default_factory=list)  # list of GVK strings
+    conditions: list[Condition] = field(default_factory=list)
+    node_summary_total: int = 0
+    node_summary_ready: int = 0
+    resource_summary: ResourceSummary = field(default_factory=ResourceSummary)
+
+
+@dataclass
+class Cluster:
+    KIND = "Cluster"
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: ClusterSpec = field(default_factory=ClusterSpec)
+    status: ClusterStatus = field(default_factory=ClusterStatus)
+
+    @property
+    def name(self) -> str:
+        return self.meta.name

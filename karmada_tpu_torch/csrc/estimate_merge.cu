@@ -1,0 +1,115 @@
+// K1 estimate_merge: estimator availability for one binding chunk, fused.
+//
+// Replaces, in one pass over [B, C]:
+//   karmada_tpu/ops/estimate.py:25   general_estimate (per request profile)
+//   karmada_tpu/ops/estimate.py:87   general_estimate_interned, with its
+//                                    row gather (estimate.py:48
+//                                    gather_profile_rows) as a plain index
+//   karmada_tpu/scheduler/core.py:2291-2293 / parallel/solver.py:46
+//                                    no-summary clusters answer -1
+//   karmada_tpu/ops/estimate.py:109  merge_estimates (one estimator)
+//
+//   avail[b, c] = merge(replicas[b], has_summary[c] ? est(profiles[p], c) : -1)
+//   est(q, c)   = min over r with q[r] > 0 of floor(max(cap[c, r], 0) / q[r]),
+//                 MAX_INT32 when q requests nothing, clamped to MAX_INT32
+//   p           = prof_idx[b], wrapped like a negative numpy index and then
+//                 clamped to [0, U) as a jnp gather clamps
+//
+// What bounds it on an H100: bytes. It writes B*C*4 bytes of int32 and reads
+// little else (cap C*R*8, profiles U*R*8, B*8 of row scalars, C flags): at
+// the north-star chunk (4096 x 5000) that is 82 MB, about 24 us at
+// 3.35 TB/s. The int64 divisions (emulated on the card) are the only
+// arithmetic of note, and the design keeps them off the B axis: a block owns
+// a tile of 128 cluster columns and a run of 128 rows, computes the U x 128
+// profile table of its columns into shared memory once (U*R divisions a
+// thread), and then streams its rows out of that table. Each thread owns one
+// column, so a warp's stores are 128 contiguous bytes. Above U_SHARED
+// profiles (the un-interned schedule_step, where U == B) every element
+// divides directly.
+//
+// Integer division: C++ '/' truncates toward zero, JAX '//' floors. They
+// agree here only because both operands are clamped first, cap to >= 0 and
+// the request to >= 1 (estimate.py:31-36). Keep the clamps before the
+// division. The min runs in int64 and is clamped to 2^31-1 before the cast
+// to int32 (estimate.py:38), so an absurd ratio reads as the sentinel and
+// never wraps.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TILE_C = 128;   // cluster columns per block (one per thread)
+constexpr int ROWS = 128;     // binding rows per block
+constexpr int U_SHARED = 64;  // profiles held in the shared-memory table
+constexpr long long MAX_I32 = 2147483647LL;
+
+__device__ __forceinline__ int32_t profile_estimate(
+    const int64_t* __restrict__ cap_row, const int64_t* __restrict__ req,
+    int r_dims) {
+  long long best = MAX_I32;
+  for (int r = 0; r < r_dims; ++r) {
+    const long long q = req[r];
+    if (q > 0) {
+      long long c = cap_row[r];
+      c = c > 0 ? c : 0;  // clamp before dividing: '/' == floor for c >= 0
+      const long long ratio = c / q;  // q > 0, so max(q, 1) == q
+      best = ratio < best ? ratio : best;
+    }
+  }
+  return (int32_t)(best < MAX_I32 ? best : MAX_I32);
+}
+
+__global__ void estimate_merge_kernel(
+    const int64_t* __restrict__ cap, int c_n, int r_dims,
+    const int64_t* __restrict__ profiles, int u_n,
+    const int32_t* __restrict__ prof_idx,
+    const uint8_t* __restrict__ has_summary,
+    const int32_t* __restrict__ replicas, int b_n,
+    int32_t* __restrict__ out) {
+  extern __shared__ int32_t table[];  // [min(U, U_SHARED)][TILE_C]
+  const int tx = threadIdx.x;
+  const int c = blockIdx.x * TILE_C + tx;
+  if (c >= c_n) return;
+  const int64_t* cap_row = cap + (size_t)c * r_dims;
+  const bool summary = has_summary[c] != 0;
+  const bool use_table = u_n <= U_SHARED;
+  if (use_table) {
+    // each thread fills and later reads only its own column: no barrier
+    for (int u = 0; u < u_n; ++u)
+      table[u * TILE_C + tx] =
+          profile_estimate(cap_row, profiles + (size_t)u * r_dims, r_dims);
+  }
+  const int b0 = blockIdx.y * ROWS;
+  const int b1 = min(b0 + ROWS, b_n);
+  for (int b = b0; b < b1; ++b) {
+    int p = prof_idx[b];
+    if (p < 0) p += u_n;
+    p = p < 0 ? 0 : (p >= u_n ? u_n - 1 : p);
+    int32_t est = use_table
+        ? table[p * TILE_C + tx]
+        : profile_estimate(cap_row, profiles + (size_t)p * r_dims, r_dims);
+    if (!summary) est = -1;                    // UnauthenticReplica
+    const int32_t reps = replicas[b];
+    int32_t v = est == -1 ? (int32_t)MAX_I32 : est;  // min over answers
+    if (reps == 0) v = (int32_t)MAX_I32;       // non-workload short-circuit
+    if (v == (int32_t)MAX_I32) v = reps;       // untouched sentinel
+    out[(size_t)b * c_n + c] = v;
+  }
+}
+
+}  // namespace
+
+extern "C" int estimate_merge_launch(
+    const int64_t* cap, int c_n, int r_dims, const int64_t* profiles, int u_n,
+    const int32_t* prof_idx, const uint8_t* has_summary,
+    const int32_t* replicas, int b_n, int32_t* out, cudaStream_t stream) {
+  if (b_n == 0 || c_n == 0) return 0;
+  const dim3 grid((c_n + TILE_C - 1) / TILE_C, (b_n + ROWS - 1) / ROWS);
+  const size_t smem =
+      u_n <= U_SHARED ? (size_t)u_n * TILE_C * sizeof(int32_t) : 0;
+  estimate_merge_kernel<<<grid, TILE_C, smem, stream>>>(
+      cap, c_n, r_dims, profiles, u_n, prof_idx, has_summary, replicas, b_n,
+      out);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,39 @@
+"""Tensor ops of the scheduling hot path: estimate, dispense, divide.
+
+Plain torch functions with the JAX package's names and signatures, plus the
+two hand-written kernels of this slice behind wrappers that take the plain
+version on CPU tensors and launch the kernel on CUDA tensors:
+
+- ``estimate_merge`` (K1, ``csrc/estimate_merge.cu``): general estimate per
+  request profile, no-summary masking, row gather and estimator merge;
+- ``divide_replicas`` (K2, ``csrc/divide_replicas.cu``): the unified replica
+  division of all four strategies.
+
+Every dtype is pinned: storage stays int32/bool, accumulators are int64 (the
+JAX package turns on x64 for its whole process instead).
+"""
+
+from .dispense import (  # noqa: F401
+    acc_dtype,
+    take_by_weight,
+    take_by_weight_batch,
+)
+from .divide import (  # noqa: F401
+    AGGREGATED,
+    DUPLICATED,
+    DYNAMIC_WEIGHT,
+    STATIC_WEIGHT,
+    DivideResult,
+    divide_replicas,
+    divide_replicas_ref,
+)
+from .estimate import (  # noqa: F401
+    MAX_INT32,
+    UNAUTHENTIC,
+    estimate_merge,
+    estimate_merge_ref,
+    general_estimate,
+    general_estimate_interned,
+    merge_estimates,
+)
+from . import masks  # noqa: F401

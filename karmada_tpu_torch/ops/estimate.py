@@ -1,0 +1,150 @@
+"""Capacity estimation: MaxAvailableReplicas as batched integer math.
+
+General estimator (ref: pkg/estimator/client/general.go:96-196): per cluster,
+available = allocatable - allocated - allocating; max replicas = min over
+requested resource dims of floor(available / request). Each replica occupies
+one pod, so the pods dimension carries an implicit request of 1, which
+reproduces getAllowedPodNumber (general.go:96-114) as just another dimension.
+
+Counterpart of ``karmada_tpu/ops/estimate.py``. The plain torch functions
+(``general_estimate``, ``general_estimate_interned``, ``merge_estimates``)
+keep the JAX signatures; ``estimate_merge`` is the engine's fused form of the
+three, launched as the hand-written kernel K1 (``csrc/estimate_merge.cu``) on
+CUDA tensors and computed by ``estimate_merge_ref`` on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import native
+
+MAX_INT32 = 2**31 - 1
+UNAUTHENTIC = -1  # estimator "no answer" (client/interface.go:30)
+
+
+def general_estimate(
+    available_cap: torch.Tensor,  # int64[C, R]: allocatable-allocated-allocating
+    requests: torch.Tensor,  # int64[B, R]: per-replica requests (0 = not requested)
+) -> torch.Tensor:
+    """int32[B, C] max available replicas (>= 0); MAX_INT32 when the binding
+    requests nothing at all (best-effort) — callers clamp the sentinel."""
+    cap = available_cap.to(torch.int64).clamp_min(0)  # negative -> 0 replicas
+    requests = requests.to(torch.int64)
+    best = torch.full(
+        (requests.shape[0], cap.shape[0]), MAX_INT32,
+        dtype=torch.int64, device=cap.device,
+    )
+    for r in range(requests.shape[1]):
+        req_r = requests[:, r : r + 1]  # [B, 1]
+        # both operands are non-negative here, so floor == truncation
+        ratio = torch.div(cap[None, :, r], req_r.clamp_min(1), rounding_mode="floor")
+        best = torch.where(req_r > 0, torch.minimum(best, ratio), best)
+    return best.clamp_max(MAX_INT32).to(torch.int32)
+
+
+def _clip_rows(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Row indices as a jnp gather reads them: negative ones count from the
+    end, the rest clamp into [0, n). Torch indexing would raise instead."""
+    idx = idx.to(torch.int64)
+    return torch.where(idx < 0, idx + n, idx).clamp(0, max(n - 1, 0))
+
+
+def general_estimate_interned(
+    available_cap: torch.Tensor,  # int64[C, R]
+    profiles: torch.Tensor,  # int64[U, R]: unique request rows
+    prof_idx: torch.Tensor,  # int32[B]: row i uses profiles[prof_idx[i]]
+) -> torch.Tensor:
+    """int32[B, C] — ``general_estimate`` per unique request profile, then a
+    row gather. The JAX package gathers by a one-hot f32 matmul
+    (``gather_profile_rows``), exact only without TF32; the port indexes."""
+    per_profile = general_estimate(available_cap, profiles)  # [U, C]
+    return per_profile[_clip_rows(prof_idx, per_profile.shape[0])]
+
+
+def merge_estimates(
+    replicas: torch.Tensor,  # int32[B]
+    estimates: tuple[torch.Tensor, ...],  # each int32[B, C]; -1 = no answer
+) -> torch.Tensor:
+    """core/util.go:54-104: min across estimators ignoring UNAUTHENTIC,
+    then clamp an untouched MAX_INT32 sentinel to spec.Replicas, and
+    short-circuit zero-replica (non-workload) bindings to the sentinel path."""
+    reps = replicas.to(torch.int32)[:, None]
+    out = torch.full_like(estimates[0], MAX_INT32, dtype=torch.int32)
+    for est in estimates:
+        out = torch.where(est == UNAUTHENTIC, out, torch.minimum(out, est))
+    out = torch.where(reps == 0, MAX_INT32, out)
+    return torch.where(out == MAX_INT32, reps, out)
+
+
+def estimate_merge_ref(
+    available_cap: torch.Tensor,  # int64[C, R]
+    profiles: torch.Tensor,  # int64[U, R]
+    prof_idx: torch.Tensor,  # int32[B]
+    has_summary: torch.Tensor,  # bool[C]
+    replicas: torch.Tensor,  # int32[B]
+) -> torch.Tensor:
+    """Plain torch version of K1: int32[B, C] merged availability of the
+    general estimator alone, no-summary clusters giving no answer."""
+    table = general_estimate(available_cap, profiles)
+    table = torch.where(has_summary[None, :], table, UNAUTHENTIC)
+    return merge_estimates(replicas, (table[_clip_rows(prof_idx, table.shape[0])],))
+
+
+_MAX_ROWS = 65535 * 128  # grid.y limit times the kernel's rows per block
+
+
+def estimate_merge(
+    available_cap: torch.Tensor,
+    profiles: torch.Tensor,
+    prof_idx: torch.Tensor,
+    has_summary: torch.Tensor,
+    replicas: torch.Tensor,
+) -> torch.Tensor:
+    """K1: ``estimate_merge_ref`` as one kernel launch on CUDA tensors.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise. ``estimate_merge.launches`` counts kernel launches."""
+    args = (available_cap, profiles, prof_idx, has_summary, replicas)
+    if all(t.device.type == "cpu" for t in args):
+        return estimate_merge_ref(*args)
+    dev = available_cap.device
+    if dev.type != "cuda" or any(t.device != dev for t in args):
+        raise ValueError("estimate_merge: all inputs must be on one CUDA device")
+    want = (torch.int64, torch.int64, torch.int32, torch.bool, torch.int32)
+    for name, t, dt in zip(
+        ("available_cap", "profiles", "prof_idx", "has_summary", "replicas"),
+        args, want,
+    ):
+        if t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"estimate_merge: {name} must be contiguous {dt}")
+    c, r = available_cap.shape
+    u = profiles.shape[0]
+    b = prof_idx.shape[0]
+    if profiles.shape[1] != r or has_summary.shape != (c,) or replicas.shape != (b,):
+        raise ValueError("estimate_merge: inconsistent shapes")
+    if b > _MAX_ROWS or (b and not u):
+        raise ValueError(f"estimate_merge: {b} rows over {u} profiles not supported")
+    out = torch.empty((b, c), dtype=torch.int32, device=dev)
+    if b == 0 or c == 0:
+        return out
+    lib = native.load("estimate_merge")
+    fn = lib.estimate_merge_launch
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, ci, ci, vp, ci, vp, vp, vp, ci, vp, vp]
+    fn.restype = ci
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            available_cap.data_ptr(), c, r, profiles.data_ptr(), u,
+            prof_idx.data_ptr(), has_summary.data_ptr(), replicas.data_ptr(),
+            b, out.data_ptr(), stream,
+        )
+    native.check_launch("estimate_merge", err)
+    estimate_merge.launches += 1
+    return out
+
+
+estimate_merge.launches = 0

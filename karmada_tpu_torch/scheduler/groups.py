@@ -1,0 +1,223 @@
+"""Topology group selection: the region-DFS of spread constraints.
+
+Faithful re-execution of pkg/scheduler/core/spreadconstraint/
+{select_groups.go, select_clusters_by_region.go, group_clusters.go}: feasible
+group combinatorics are small (regions per fleet, not clusters), so this
+bounded search stays on host while scoring inputs (availability, locality
+scores) come from the batched device kernels (SURVEY.md section 7: "keep
+bounded search on host, tensorize scoring only").
+
+Semantics mirrored:
+- group score (group_clusters.go:138-330): Duplicated counts clusters whose
+  availability covers the full replica count; Divided walks the score-ordered
+  clusters until both cluster-min-groups and ceil(replicas/minGroups) are
+  covered; 1000x weighting makes capacity dominate score averages.
+- selectGroups DFS (select_groups.go:102-224): combinations of regions whose
+  total cluster count reaches the cluster min-groups, path length within
+  [minGroups, maxGroups]; ties broken by weight desc, value desc, discovery
+  id; subpaths preferred over superpaths.
+- region assembly (select_clusters_by_region.go:28-70): best cluster per
+  chosen region, remainder filled by (score desc, avail desc) up to the
+  cluster max-groups (0 max-groups quirk preserved: region-only constraints
+  select exactly one cluster per region).
+- zone/provider-only constraints are unsupported in the reference
+  (select_clusters.go:58 "just support cluster and region") -> FitError here
+  too.
+
+Counterpart of ``karmada_tpu/scheduler/groups.py``; region names come from
+the snapshot's region vocabulary rather than its Cluster objects, which a
+snapshot rebuilt from arrays does not hold.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Mapping, Optional
+
+import numpy as np
+
+from ..api.policy import SpreadConstraint
+from .snapshot import ClusterSnapshot
+
+WEIGHT_UNIT = 1000  # group_clusters.go:134
+
+
+def calc_group_score(
+    members: list[int],  # cluster indices in global (score, avail) order
+    score: np.ndarray,
+    credited: np.ndarray,
+    duplicated: bool,
+    replicas: int,
+    group_min_groups: int,
+    cluster_min_groups: int,
+) -> int:
+    """group_clusters.go:138-330."""
+    if duplicated:
+        valid = [j for j in members if int(credited[j]) >= replicas]
+        sum_valid_score = sum(int(score[j]) for j in valid)
+        n = len(valid)
+        return n * WEIGHT_UNIT + (sum_valid_score // n if n else 0)
+
+    target = math.ceil(replicas / max(group_min_groups, 1))
+    cmg = max(cluster_min_groups, group_min_groups)
+    sum_avail = 0
+    sum_score = 0
+    valid = 0
+    for j in members:
+        sum_avail += int(credited[j])
+        sum_score += int(score[j])
+        valid += 1
+        if valid >= cmg and sum_avail >= target:
+            break
+    if sum_avail < target:
+        return sum_avail * WEIGHT_UNIT + sum_score // max(len(members), 1)
+    return target * WEIGHT_UNIT + sum_score // max(valid, 1)
+
+
+@dataclass
+class _Group:
+    name: str
+    value: int  # number of clusters
+    weight: int  # group score
+
+
+@dataclass
+class _Path:
+    groups: list[_Group] = field(default_factory=list)
+    id: int = 0
+
+
+def _find_feasible_paths(
+    groups: list[_Group], min_c: int, max_c: int, target: int
+) -> list[tuple[list[_Group], int, int, int]]:
+    """select_groups.go:146-190. Returns (sorted groups, weight, value, id)."""
+    groups = sorted(groups, key=lambda g: (g.value, -g.weight, g.name))
+    paths: list[tuple[list[_Group], int, int, int]] = []
+    stack: list[_Group] = []
+    counter = [0]
+
+    def dfs(total: int, begin: int) -> None:
+        if total >= target and min_c <= len(stack) <= max_c:
+            counter[0] += 1
+            chosen = sorted(stack, key=lambda g: (-g.weight, g.name))
+            paths.append(
+                (
+                    chosen,
+                    sum(g.weight for g in chosen),
+                    sum(g.value for g in chosen),
+                    counter[0],
+                )
+            )
+            return
+        if len(stack) >= max_c:
+            return
+        for i in range(begin, len(groups)):
+            stack.append(groups[i])
+            dfs(total + groups[i].value, i + 1)
+            if len(groups) == min_c:
+                # select_groups.go:180-182: break without popping — every
+                # ancestor frame breaks on the same condition, so the dirty
+                # stack is never observed
+                return
+            stack.pop()
+
+    dfs(0, 0)
+    return paths
+
+
+def _prioritize_paths(
+    paths: list[tuple[list[_Group], int, int, int]]
+) -> list[_Group]:
+    """select_groups.go:192-224: weight desc, value desc, id asc; then prefer
+    the shortest matching sub-path."""
+    paths = sorted(paths, key=lambda p: (-p[1], -p[2], p[3]))
+    final = paths[0]
+    for cand in paths[1:]:
+        fg, cg = final[0], cand[0]
+        if len(cg) < len(fg) and all(
+            fg[i].name == g.name for i, g in enumerate(cg)
+        ):
+            final = cand
+    return final[0]
+
+
+def select_groups(
+    groups: list[_Group], min_c: int, max_c: int, target: int
+) -> list[_Group]:
+    if not groups:
+        return []
+    if max_c <= 0:
+        max_c = len(groups)
+    paths = _find_feasible_paths(groups, min_c, max_c, target)
+    if not paths:
+        return []
+    return _prioritize_paths(paths)
+
+
+def select_by_topology_groups(
+    snap: ClusterSnapshot,
+    by_field: Mapping[str, SpreadConstraint],
+    order: np.ndarray,  # feasible clusters in (score desc, avail desc) order
+    score: np.ndarray,
+    credited: np.ndarray,
+    need: int,
+    duplicated: bool,
+    replicas: int,
+) -> Optional[np.ndarray]:
+    """selectBestClustersByRegion (select_clusters_by_region.go:28-70).
+    Returns selected cluster indices or None (FitError)."""
+    if "region" not in by_field:
+        # zone/provider without region: unsupported upstream -> FitError
+        return None
+    region_sc = by_field["region"]
+    cluster_sc = by_field.get("cluster", SpreadConstraint(min_groups=0, max_groups=0))
+
+    regions: dict[str, list[int]] = {}
+    region_names = snap.region_names
+    for j in order:
+        rid = int(snap.region_ids[j])
+        if rid == 0:
+            continue
+        # real region names: group-name tiebreaks sort lexicographically
+        regions.setdefault(region_names[rid], []).append(int(j))
+
+    if len(regions) < max(region_sc.min_groups, 1):
+        return None
+
+    groups = [
+        _Group(
+            name=name,
+            value=len(members),
+            weight=calc_group_score(
+                members,
+                score,
+                credited,
+                duplicated,
+                replicas,
+                region_sc.min_groups,
+                cluster_sc.min_groups,
+            ),
+        )
+        for name, members in regions.items()
+    ]
+    chosen = select_groups(
+        groups, region_sc.min_groups, region_sc.max_groups, cluster_sc.min_groups
+    )
+    if not chosen:
+        return None
+
+    selected: list[int] = []
+    candidates: list[int] = []
+    for g in chosen:
+        members = regions[g.name]
+        selected.append(members[0])  # best cluster per region
+        candidates.extend(members[1:])
+    need_cnt = len(selected) + len(candidates)
+    if need_cnt > cluster_sc.max_groups:
+        need_cnt = cluster_sc.max_groups
+    rest = need_cnt - len(selected)
+    if rest > 0:
+        candidates.sort(key=lambda j: (-int(score[j]), -int(credited[j]), j))
+        selected.extend(candidates[:rest])
+    return np.asarray(selected, np.int64)

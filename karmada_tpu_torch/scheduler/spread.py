@@ -1,0 +1,193 @@
+"""Spread-constraint selection: narrow feasible clusters before assignment.
+
+Ref: pkg/scheduler/core/spreadconstraint/. The reference groups scored
+clusters by topology and runs a DFS over group combinations; this build keeps
+the batched tensor path for the dominant cases and a bounded host search for
+ragged group combinatorics (SURVEY.md section 7 "hard parts").
+
+Implemented here:
+- ignore rules (select_clusters.go:63-86): static-weighted division ignores
+  constraints entirely; Duplicated ignores available resource.
+- cluster-level constraint (select_clusters_by_cluster.go:26-99): order by
+  (score desc, credited availability desc, name asc), take maxGroups, then
+  swap-repair from the remainder until cumulative availability covers the
+  needed replicas.
+- region-level DFS group selection lives in karmada_tpu.scheduler.groups
+  (wired in by select_clusters_batch once constraints name region/provider/
+  zone fields).
+
+Scores: the in-tree score plugins sum to the locality score — 100 when the
+cluster already holds the resource (cluster_locality.go:43-56), 0 otherwise.
+Availability is credited with already-assigned replicas
+(group_clusters.go:344-347).
+
+Counterpart of ``karmada_tpu/scheduler/spread.py``.
+"""
+
+from __future__ import annotations
+
+from typing import TYPE_CHECKING, Sequence
+
+import numpy as np
+import torch
+
+from ..api.policy import DIVIDED, WEIGHTED, Placement, SpreadConstraint
+from .snapshot import ClusterSnapshot, CompiledPlacement
+
+if TYPE_CHECKING:
+    from .core import BindingProblem
+
+LOCALITY_SCORE = 100
+INVALID_REPLICAS = -1
+
+
+def should_ignore_spread_constraint(pl: Placement) -> bool:
+    """select_clusters.go:63-78: static-weighted division ignores spread."""
+    rs = pl.replica_scheduling
+    if (
+        rs is not None
+        and rs.replica_scheduling_type == DIVIDED
+        and rs.replica_division_preference == WEIGHTED
+        and (
+            rs.weight_preference is None
+            or (
+                len(rs.weight_preference.static_weight_list) != 0
+                and not rs.weight_preference.dynamic_weight
+            )
+        )
+    ):
+        return True
+    return False
+
+
+def should_ignore_available_resource(pl: Placement) -> bool:
+    """select_clusters.go:80-86: Duplicated ignores availability."""
+    rs = pl.replica_scheduling
+    return rs is None or rs.replica_scheduling_type != DIVIDED
+
+
+def cluster_order(
+    score: np.ndarray, avail_credited: np.ndarray, feasible: np.ndarray
+) -> np.ndarray:
+    """Indices of feasible clusters in (score desc, avail desc, idx asc)
+    order (spreadconstraint/util.go:43-57 with the name tiebreak replaced by
+    the snapshot index, which is name-stable for a sorted snapshot)."""
+    c = score.shape[0]
+    idx = np.arange(c)
+    order = np.lexsort((idx, -avail_credited, -score))
+    return order[feasible[order]]
+
+
+def select_by_cluster_constraint(
+    sc: SpreadConstraint,
+    order: np.ndarray,
+    avail_credited: np.ndarray,
+    need_replicas: int,
+) -> np.ndarray | None:
+    """select_clusters_by_cluster.go:26-99. Returns selected cluster indices
+    or None (FitError)."""
+    total = order.size
+    min_groups = max(sc.min_groups, 1)
+    if total < min_groups:
+        return None
+    max_groups = sc.max_groups if sc.max_groups and sc.max_groups > 0 else total
+    need_cnt = min(max_groups, total)
+
+    ret = list(order[:need_cnt])
+    rest = list(order[need_cnt:])
+    if need_replicas == INVALID_REPLICAS:
+        return np.asarray(ret, np.int64)
+
+    def total_avail(sel: list) -> int:
+        return int(sum(int(avail_credited[j]) for j in sel))
+
+    # swap-repair: replace lowest-score members with the highest-availability
+    # leftovers until the capacity covers need_replicas
+    update = len(ret) - 1
+    while total_avail(ret) < need_replicas and update >= 0:
+        if rest:
+            best = max(range(len(rest)), key=lambda k: int(avail_credited[rest[k]]))
+            if int(avail_credited[rest[best]]) > int(avail_credited[ret[update]]):
+                ret[update], rest[best] = rest[best], ret[update]
+                update -= 1
+                continue
+        update -= 1
+    if total_avail(ret) < need_replicas:
+        return None
+    return np.asarray(ret, np.int64)
+
+
+def select_clusters_batch(
+    snap: ClusterSnapshot,
+    problems: Sequence["BindingProblem"],
+    compiled: Sequence[CompiledPlacement],
+    term_round: int,
+    feasible: np.ndarray,  # bool[B, C]
+    avail,  # int32[B, C] estimator availability (numpy OR torch tensor —
+    # only pulled to host when a row actually carries spread constraints)
+    prev: np.ndarray,  # int32[B, C]
+) -> np.ndarray:
+    """SelectClusters stage over a chunk. Returns candidates bool[B, C]."""
+    out = feasible.copy()
+    rows_with_constraints = [
+        i
+        for i, cp in enumerate(compiled)
+        if cp.spread_constraints
+        and cp.placement is not None
+        and not should_ignore_spread_constraint(cp.placement)
+    ]
+    if not rows_with_constraints:
+        return out
+
+    # the one device->host copy of the estimate, and only for chunks with
+    # constrained rows (np.asarray would raise on a CUDA tensor)
+    avail = avail.cpu().numpy() if isinstance(avail, torch.Tensor) else np.asarray(avail)
+    score = np.where(prev > 0, LOCALITY_SCORE, 0)
+    credited = avail.astype(np.int64) + prev.astype(np.int64)
+
+    from .groups import select_by_topology_groups  # host group search
+
+    # the host group search is pure in (placement, need, replicas, and the
+    # row's score/credited/feasible vectors); fleets schedule many bindings
+    # that share all of those (same policy, same requests), so memoizing by
+    # row content collapses the per-binding DFS to one per distinct input —
+    # the "batch the binding axis" plan applied to the host stage
+    memo: dict = {}
+    for i in rows_with_constraints:
+        cp = compiled[i]
+        pl = cp.placement
+        assert pl is not None
+        need = (
+            INVALID_REPLICAS
+            if should_ignore_available_resource(pl)
+            else problems[i].replicas
+        )
+        key = (
+            id(cp), need, problems[i].replicas,
+            score[i].tobytes(), credited[i].tobytes(), feasible[i].tobytes(),
+        )
+        row = memo.get(key)
+        if row is None:
+            by_field = {sc.spread_by_field: sc for sc in cp.spread_constraints}
+            order = cluster_order(score[i], credited[i], feasible[i])
+            if "region" in by_field or "provider" in by_field or "zone" in by_field:
+                sel = select_by_topology_groups(
+                    snap, by_field, order, score[i], credited[i], need,
+                    duplicated=need == INVALID_REPLICAS,
+                    replicas=problems[i].replicas,
+                )
+            elif "cluster" in by_field:
+                sel = select_by_cluster_constraint(
+                    by_field["cluster"], order, credited[i], need
+                )
+            else:
+                # spreadByLabel-only constraints: the reference refuses
+                # ("just support cluster and region spread constraint",
+                # select_clusters.go:58) -> FitError, not silent pass-through
+                sel = None
+            row = np.zeros(snap.num_clusters, bool)
+            if sel is not None and sel.size > 0:
+                row[sel] = True
+            memo[key] = row
+        out[i] = row
+    return out

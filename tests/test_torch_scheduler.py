@@ -1,0 +1,212 @@
+"""The port's TensorScheduler against the JAX engine, result by result.
+
+Both packages build the same BASELINE workloads from the same seeds
+(``chip_smoke.build_workload``, the bench.py recipes) and schedule them;
+every result must agree on key, placed clusters, error and affinity name.
+Tolerance: exact equality (integer placements).
+
+Also here: the branches the port does not implement raise, the snapshot
+state carries across packages bit for bit, and the port imports neither jax
+nor the JAX package.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import karmada_tpu
+import karmada_tpu.scheduler as JS
+import karmada_tpu.utils.builders  # noqa: F401  (build_workload imports it by name)
+
+import karmada_tpu_torch
+import karmada_tpu_torch.scheduler as TS
+import karmada_tpu_torch.utils.builders as TB
+from karmada_tpu_torch.api import ClusterAffinityTerm, Placement, ResourceModel
+
+import chip_smoke
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def outcome(results):
+    return [(r.key, dict(r.clusters), r.error, r.affinity_name, tuple(r.feasible))
+            for r in results]
+
+
+def both(config, bindings=None, clusters=None):
+    return (
+        chip_smoke.build_workload(karmada_tpu, config, bindings, clusters),
+        chip_smoke.build_workload(karmada_tpu_torch, config, bindings, clusters),
+    )
+
+
+@pytest.mark.parametrize(
+    "config,bindings,clusters",
+    [(1, None, None), (2, None, None), (4, 1000, None), (5, 512, 256)],
+)
+def test_schedule_equals_jax_general_path(config, bindings, clusters):
+    """Configs 1 and 2 as bench.py builds them, config 4 with its 500
+    clusters and 1,000 bindings, config 5 at 512 x 256 (padded * C > 2^16,
+    so the estimate and divide tensor path runs, not the host-small one).
+    The JAX engine is held on its host general path, the path ported."""
+    (sj, pj), (st, pt) = both(config, bindings, clusters)
+    jax_eng = JS.TensorScheduler(sj)
+    jax_eng.fleet_threshold = len(pj) + 1  # keep it off the fleet table
+    want = jax_eng.schedule(pj)
+    port = TS.TensorScheduler(st, device="cpu")
+    got = port.schedule(pt)
+    assert outcome(got) == outcome(want)
+    assert sum(r.success for r in got) > 0
+    if config == 5:
+        assert 512 * st.num_clusters > 1 << 16
+
+
+def test_schedule_equals_jax_fleet_path():
+    """The JAX engine's default route for config 5 is its device-resident
+    fleet table; the port's general path gives the same placements."""
+    (sj, pj), (st, pt) = both(5, 512, 256)
+    want = JS.TensorScheduler(sj).schedule(pj)
+    got = TS.TensorScheduler(st, device="cpu").schedule(pt)
+    assert outcome(got) == outcome(want)
+
+
+def test_schedule_matches_numpy_divider_oracle():
+    """chip_smoke's per-row check (host pack -> numpy estimate -> host
+    spread selection -> numpy divider) agrees with the engine's tensor path."""
+    _, (st, pt) = both(4, 600, None)
+    port = TS.TensorScheduler(st, device="cpu")
+    assert chip_smoke.oracle_check(port, pt, port.schedule(pt)) == 0
+
+
+def test_snapshot_from_arrays_round_trip():
+    """The JAX snapshot's arrays rebuild a port snapshot without
+    re-packing; the port's own packing of the same seeded fleet gives the
+    same arrays; and the engine answers identically on either."""
+    (sj, pj), (st, pt) = both(5, 300, 200)
+    jax_arrays = TS.snapshot_arrays(sj)
+    port_arrays = TS.snapshot_arrays(st)
+    assert jax_arrays.keys() == port_arrays.keys()
+    for name in jax_arrays:
+        np.testing.assert_array_equal(port_arrays[name], jax_arrays[name], err_msg=name)
+    rebuilt = TS.snapshot_from_arrays(jax_arrays, sj.names, sj.dims)
+    for name, arr in TS.snapshot_arrays(rebuilt).items():
+        np.testing.assert_array_equal(arr, jax_arrays[name], err_msg=name)
+    assert rebuilt.mask_token == st.mask_token
+    want = TS.TensorScheduler(st, device="cpu").schedule(pt)
+    got = TS.TensorScheduler(rebuilt, device="cpu").schedule(pt)
+    assert outcome(got) == outcome(want)
+
+
+def test_update_snapshot_keeps_cluster_set():
+    fleet = TB.synthetic_fleet(40, seed=1)
+    eng = TS.TensorScheduler(TS.ClusterSnapshot(fleet), device="cpu")
+    assert eng.update_snapshot(TS.ClusterSnapshot(TB.synthetic_fleet(40, seed=1)))
+    assert not eng.update_snapshot(TS.ClusterSnapshot(TB.synthetic_fleet(41, seed=1)))
+
+
+def _engine():
+    snap = TS.ClusterSnapshot([TB.new_cluster(f"m{i}") for i in range(4)])
+    return snap, TS.TensorScheduler(snap, device="cpu")
+
+
+@pytest.mark.parametrize("branch", ["extra_estimators", "mesh", "quota", "explain",
+                                    "preemption", "ranked_affinities", "models"])
+def test_unported_branches_raise(branch):
+    """Where the JAX engine would take a branch this slice does not port,
+    the port raises instead of answering differently."""
+    snap, eng = _engine()
+    prob = TS.BindingProblem(key="b", placement=TB.dynamic_weight_placement(),
+                             replicas=3, requests={"cpu": 100})
+    with pytest.raises(NotImplementedError):
+        if branch == "extra_estimators":
+            TS.TensorScheduler(snap, extra_estimators=[lambda r, n: None], device="cpu")
+        elif branch == "mesh":
+            TS.TensorScheduler(snap, mesh=object(), device="cpu")
+        elif branch == "quota":
+            eng.set_quota(object())
+        elif branch == "explain":
+            eng.set_explain(object())
+        elif branch == "preemption":
+            eng.set_preemption(lambda keys: [])
+        elif branch == "ranked_affinities":
+            pl = Placement(cluster_affinities=[
+                ClusterAffinityTerm(affinity_name="a", cluster_names=["m0"]),
+                ClusterAffinityTerm(affinity_name="b", cluster_names=["m1"]),
+            ])
+            eng.schedule([TS.BindingProblem(key="r", placement=pl, replicas=1)])
+        else:
+            fleet = [TB.new_cluster(f"m{i}") for i in range(4)]
+            fleet[0].spec.resource_models = [ResourceModel(grade=0)]
+            fleet[0].status.resource_summary.allocatable_modelings = [
+                karmada_tpu_torch.api.AllocatableModeling(grade=0, count=1)
+            ]
+            TS.TensorScheduler(TS.ClusterSnapshot(fleet), device="cpu").schedule([prob])
+    # the disarmed settings stay accepted
+    eng.set_quota(None)
+    eng.set_explain(None)
+    eng.set_preemption(None)
+    assert eng.schedule([prob])[0].success
+
+
+def _modules(pkg_dir: pathlib.Path) -> list[str]:
+    return sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in pkg_dir.rglob("*.py")
+    )
+
+
+def test_port_imports_without_jax_or_karmada_tpu():
+    """Every module of the port imports with jax blocked and a finder that
+    refuses karmada_tpu and karmada_tpu.*."""
+    mods = _modules(ROOT / "karmada_tpu_torch")
+    code = f"""
+import importlib, importlib.abc, sys
+sys.modules["jax"] = None
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "karmada_tpu" or name.startswith("karmada_tpu."):
+            raise ImportError("port must not import " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+for m in {mods!r}:
+    importlib.import_module(m)
+import chip_smoke
+bad = [m for m in sys.modules if m == "jax" and sys.modules[m] is not None
+       or m == "karmada_tpu" or m.startswith("karmada_tpu.")]
+assert not bad, bad
+print(len({mods!r}))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) == len(mods) > 20
+
+
+def test_no_jax_or_karmada_tpu_imports_in_source():
+    files = sorted((ROOT / "karmada_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "karmada_tpu"), f"{path}: {name}"
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """No card: the smoke exits non-zero and prints no result line."""
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
