@@ -5,17 +5,32 @@
 
 1. prints the card (name and power limit), the torch and CUDA versions, and
    builds the port's kernels from ``karmada_tpu_torch/csrc`` (one nvcc per
-   source, all at once);
-2. kernel phase: holds each kernel against its plain PyTorch version on the
-   card, on seeded batches at the north-star chunk (4096 x 5000) and at
-   C = 10,000 — K1 ``estimate_merge`` and K2 ``divide_replicas``; equality
-   is exact (integer outputs, tolerance 0). Prints each kernel's median time
-   beside the plain version's and its byte bound;
-3. end-to-end phase: the port's ``TensorScheduler.schedule`` on BASELINE
-   configs 1, 2, 4 and 5 at full size (config 5 = the 100k bindings x 5k
-   clusters rebalance storm), every row checked against the port's numpy
-   divider on the same packed inputs; on config 5 both kernels' launch
-   counters must move. Prints wall time per pass and bindings/s;
+   CUDA source, all at once, and g++ for the host wire runtime ``fold.c``);
+2. kernel phase: holds K1 ``estimate_merge`` and K2 ``divide_replicas``
+   against their plain PyTorch versions on the card on seeded batches at the
+   north-star chunk (4096 x 5000) and at C = 10,000, and K1's table form
+   ``profile_table`` at U = 8 x 5000; equality is exact (integer outputs,
+   tolerance 0). Prints each kernel's median time beside the plain
+   version's and its bound;
+3. end-to-end phase, every row checked against the port's numpy divider on
+   the same packed inputs (``oracle_check``):
+   - BASELINE configs 1 and 2 (host-small numpy path) and 4 (10k x 500,
+     spread rows riding the fleet through derived selections);
+   - config 5, the 100k bindings x 5k clusters storm, through the fleet
+     table: one cold pass, 3 steady passes (the batch-identity route) and 3
+     churn passes (every cluster's allocation drifts, bench.py's recipe);
+     every row checked after the cold and the last churn pass. Before the
+     first churn pass it holds K3 (both forms), K4 (both stages), K5 (both
+     wires) and K6 (both entry points) against their plain versions on the
+     table's own inputs at config-5 shapes (exact), and times them;
+   - a mixed-strategy fleet phase (20k x 1000: the four strategies,
+     zero-replica, fresh and previous-site rows), whose second pass makes a
+     few hundred rows dirty: every row equal to the port's general path on
+     the card (a second engine with ``fleet_threshold`` raised);
+   - config 5 on the general path (the first slice's route: K1 + K2), one
+     warm and one timed pass, every row equal to the fleet's cold pass.
+   Each path sets the launch counters to 0 just before it and reads them
+   just after; every kernel of the path must have launched.
 4. prints one JSON line of per-kernel numbers, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -352,49 +367,45 @@ def chunk_breakdown(engine, problems, device) -> dict:
 
 def run_config(config: int, device, card: str, passes: int = 3,
                bindings: int | None = None, clusters: int | None = None) -> dict:
+    """One config through the port's default route: a first pass, then
+    ``passes`` timed passes of the same problem list, every row of the
+    first pass checked against the numpy divider."""
     import karmada_tpu_torch
-    from karmada_tpu_torch import ops
     from karmada_tpu_torch.scheduler import TensorScheduler
 
     t0 = time.perf_counter()
     snap, problems = build_workload(karmada_tpu_torch, config, bindings, clusters)
     build_s = time.perf_counter() - t0
     engine = TensorScheduler(snap, chunk_size=4096, device=device)
-    ops.estimate_merge.launches = 0
-    ops.divide_replicas.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
-    results = engine.schedule(problems)  # the main path: one full pass
+    results = engine.schedule(problems)
     sync(device)
     first_s = time.perf_counter() - t0
-    launches = {
-        "estimate_merge": ops.estimate_merge.launches,
-        "divide_replicas": ops.divide_replicas.launches,
-    }
+    launches = read_counts()
+    t0 = time.perf_counter()
+    bad = oracle_check(engine, problems, results)
+    check_s = time.perf_counter() - t0
+    first = outcomes(results)
     walls = []
     for _ in range(passes):
         t0 = time.perf_counter()
         again = engine.schedule(problems)
         sync(device)
         walls.append(time.perf_counter() - t0)
-    if [(r.clusters, r.error) for r in again] != [(r.clusters, r.error) for r in results]:
+    if outcomes(again) != first:
         raise AssertionError(f"config {config}: passes disagree")
-    stages = None
-    if len(problems) * snap.num_clusters > 1 << 16:
-        stages = chunk_breakdown(engine, problems, device)
-        print(f"# config {config} stages of one {min(len(problems), engine.chunk_size)}-row "
-              "chunk (s): " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
-              + f"; card {card}", flush=True)
-    t0 = time.perf_counter()
-    bad = oracle_check(engine, problems, results)
-    check_s = time.perf_counter() - t0
     ok = sum(r.success for r in results)
     wall = statistics.median(walls)
+    route = "fleet" if engine._fleet is not None else "general"
     print(
-        f"# config {config}: {len(problems)} bindings x {snap.num_clusters} clusters; "
-        f"{ok} scheduled; first pass {first_s:.3f} s; pass p50 {wall:.4f} s "
-        f"(walls {[round(w, 4) for w in walls]}); {len(problems) / wall:.0f} bindings/s; "
-        f"launches {launches}; numpy-divider check {len(problems) - bad} ok / {bad} bad "
-        f"({check_s:.1f} s); build {build_s:.1f} s; card {card}",
+        f"# config {config}: {len(problems)} bindings x {snap.num_clusters} clusters "
+        f"({route} route); {ok} scheduled; first pass {first_s:.3f} s; pass p50 "
+        f"{wall:.4f} s (walls {[round(w, 4) for w in walls]}); "
+        f"{len(problems) / wall:.0f} bindings/s; first-pass launches "
+        f"{ {k: v for k, v in launches.items() if v} }; numpy-divider check "
+        f"{len(problems) - bad} ok / {bad} bad ({check_s:.1f} s); build {build_s:.1f} s; "
+        f"card {card}",
         flush=True,
     )
     if bad:
@@ -402,13 +413,659 @@ def run_config(config: int, device, card: str, passes: int = 3,
     return {"config": config, "bindings": len(problems), "clusters": snap.num_clusters,
             "pass_s": wall, "walls": walls, "first_pass_s": first_s,
             "bindings_per_s": len(problems) / wall, "launches": launches,
-            "stages": stages}
+            "route": route}
 
 
+# --------------------------------------------------------------------------
+# launch counters
+# --------------------------------------------------------------------------
+
+#: every kernel wrapper: name -> (route, source, the JAX program it replaces)
 KERNELS = {
-    "estimate_merge": ("karmada_tpu_torch/csrc/estimate_merge.cu", "karmada_tpu/ops/estimate.py:25"),
-    "divide_replicas": ("karmada_tpu_torch/csrc/divide_replicas.cu", "karmada_tpu/ops/divide.py:233"),
+    "estimate_merge": ("cuda", "karmada_tpu_torch/csrc/estimate_merge.cu",
+                       "karmada_tpu/ops/estimate.py:25"),
+    "profile_table": ("cuda", "karmada_tpu_torch/csrc/estimate_merge.cu",
+                      "karmada_tpu/scheduler/core.py:2256"),
+    "divide_replicas": ("cuda", "karmada_tpu_torch/csrc/divide_replicas.cu",
+                        "karmada_tpu/ops/divide.py:233"),
+    "fleet_masks": ("cuda", "karmada_tpu_torch/csrc/fleet_masks.cu",
+                    "karmada_tpu/scheduler/fleet.py:184"),
+    "fleet_bits": ("cuda", "karmada_tpu_torch/csrc/fleet_masks.cu",
+                   "karmada_tpu/scheduler/fleet.py:788"),
+    "fleet_diff": ("cuda", "karmada_tpu_torch/csrc/fleet_diff.cu",
+                   "karmada_tpu/scheduler/fleet.py:493"),
+    "fleet_entry_rows": ("cuda", "karmada_tpu_torch/csrc/fleet_diff.cu",
+                         "karmada_tpu/scheduler/fleet.py:718"),
+    "fleet_wire": ("cuda", "karmada_tpu_torch/csrc/fleet_wire.cu",
+                   "karmada_tpu/scheduler/fleet.py:652"),
+    "entry_wire": ("cuda", "karmada_tpu_torch/csrc/fleet_wire.cu",
+                   "karmada_tpu/scheduler/fleet.py:155"),
+    "scatter_rows": ("cuda", "karmada_tpu_torch/csrc/scatter_rows.cu",
+                     "karmada_tpu/scheduler/fleet.py:1120"),
+    "gather_meta": ("cuda", "karmada_tpu_torch/csrc/scatter_rows.cu",
+                    "karmada_tpu/scheduler/fleet.py:828"),
 }
+#: the kernels each driven path must launch
+PATH_KERNELS = {
+    "config 5 fleet": ("profile_table", "divide_replicas", "fleet_masks",
+                       "fleet_diff", "fleet_entry_rows", "fleet_wire",
+                       "entry_wire", "gather_meta"),
+    "mixed fleet": ("profile_table", "divide_replicas", "fleet_masks",
+                    "fleet_bits", "fleet_diff", "fleet_wire", "scatter_rows"),
+    "config 5 general": ("estimate_merge", "divide_replicas"),
+}
+
+
+def wrappers() -> dict:
+    from karmada_tpu_torch import ops
+    from karmada_tpu_torch.scheduler import fleet_kernels as fk
+
+    return {name: getattr(ops if hasattr(ops, name) else fk, name) for name in KERNELS}
+
+
+def reset_counts() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+class uncounted:
+    """Launches inside the block (kernel-vs-plain checks) leave every
+    counter as it was."""
+
+    def __enter__(self):
+        self.saved = read_counts()
+
+    def __exit__(self, *exc):
+        for name, fn in wrappers().items():
+            fn.launches = self.saved[name]
+
+
+def require_launched(path: str, counts: dict) -> None:
+    missing = [k for k in PATH_KERNELS[path] if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels never launched: {missing}")
+
+
+def outcomes(results) -> list:
+    return [(r.key, dict(r.clusters), r.error, r.affinity_name, tuple(r.feasible))
+            for r in results]
+
+
+# --------------------------------------------------------------------------
+# fleet kernels against their plain versions, on a live table's inputs
+# --------------------------------------------------------------------------
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare(name: str, got, want) -> int:
+    """Max abs difference of two (tuples of) integer/bool tensors; raises
+    unless exactly 0."""
+    import torch
+
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    err = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}: {tuple(g.shape)}/{g.dtype} vs "
+                                 f"{tuple(w.shape)}/{w.dtype}")
+        if g.numel():
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max().item()))
+    if err:
+        raise AssertionError(f"{name}: kernel differs from its plain version "
+                             f"(max abs err {err})")
+    return err
+
+
+def report(name, ms, plain_ms, nbytes, ops, card, lib_ms=None) -> dict:
+    """Print a kernel's times beside its bound; the stats of its JSON entry."""
+    bound_ms, bound_by = _bound(nbytes, ops)
+    print(f"# kernel {name}: exact; {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms by {bound_by}"
+          + (f", library {lib_ms:.4f} ms" if lib_ms is not None else "")
+          + f"); card {card}", flush=True)
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def no_times() -> dict:
+    """A CPU rehearsal's stats: nothing is timed."""
+    return {"max_abs_err": 0, "ms": None, "plain_ms": None, "bound_ms": None,
+            "bound_by": None, "library_ms": None}
+
+
+def timed(name, kern, plain, nbytes, ops, card, reps=10, library=None) -> dict:
+    import torch
+
+    if not torch.cuda.is_available():
+        kern(), plain()
+        return no_times()
+    ms = cuda_ms(kern, reps)
+    plain_ms = cuda_ms(plain, max(3, reps // 3), batches=3)
+    lib_ms = cuda_ms(library, reps) if library is not None else None
+    return report(name, ms, plain_ms, nbytes, ops, card, lib_ms)
+
+
+def check_fleet_kernels(table, card: str) -> dict:
+    """K3-K6 against their plain versions on the table's live inputs, after
+    a snapshot drift has rebuilt the tables but before the pass: K3 on the
+    first chunk and (bits form) on every row, K2 -> K4 phase A on every
+    chunk against cloned residents, K5's phase-A wire with the caps the
+    table picks for this pass, K4 phase A again on a partial batch (a
+    permuted subset padded with -1, as the engine runs one), K4 phase B and
+    K5's entry wire over the changed rows, K6 on a dirty-row set padded as
+    the table pads it. Exact equality.
+
+    K4 phase A is timed inside the all-rows check, by CUDA events around
+    each chunk's launch of each version: every chunk writes rows no earlier
+    launch wrote, so the time is that of a real pass's diff, changes
+    included."""
+    import torch
+    from karmada_tpu_torch.ops import divide_replicas
+    from karmada_tpu_torch.scheduler import fleet_kernels as fk
+    from karmada_tpu_torch.scheduler.fleet import _cap_round, _pow2
+
+    stats = {}
+    tables, state = table._dev_tables, table._dev_state
+    n = table.n_rows
+    chunk = min(table.chunk, _pow2(max(n, 256)))  # the table's adaptive chunk
+    n_pad = -(-n // chunk) * chunk
+    rows_all = table._all_rows_dev
+    if rows_all is None or rows_all.shape[0] != n_pad:
+        raise AssertionError("the table has no all-rows index of this pass's size")
+    c = tables[1].shape[1]
+    k_prev = state[6].shape[1]
+    rows0 = rows_all[:chunk]
+
+    # K3 masks on chunk 0
+    got = fk.fleet_masks(*tables, rows0, *state)
+    want = fk.fleet_masks_ref(*tables, rows0, *state)
+    stats["fleet_masks"] = dict(timed(
+        "fleet_masks", lambda: fk.fleet_masks(*tables, rows0, *state),
+        lambda: fk.fleet_masks_ref(*tables, rows0, *state),
+        _nbytes(rows0) + chunk * (5 * 4 + 1 + 2 * 4 * k_prev)
+        + _nbytes(*[t for t in got]) + _nbytes(tables[4]),
+        chunk * c * 10 + chunk * k_prev, card,
+    ), max_abs_err=compare("fleet_masks", tuple(got), tuple(want)))
+    # K3 bits form over every row
+    got_b = fk.fleet_bits(*tables, rows_all, *state)
+    want_b = fk.fleet_bits_ref(*tables, rows_all, *state)
+    stats["fleet_bits"] = dict(timed(
+        "fleet_bits", lambda: fk.fleet_bits(*tables, rows_all, *state),
+        lambda: fk.fleet_bits_ref(*tables, rows_all, *state),
+        _nbytes(rows_all) + n * (2 * 4 + 2 * 4 * k_prev) + _nbytes(got_b),
+        # a few word operations per 32 cells: the planes are bit-packed in
+        # the words' own order; plus the prev pairs' bits
+        n_pad * got_b.shape[1] * 6 + n * k_prev, card, reps=3,
+    ), max_abs_err=compare("fleet_bits", got_b, want_b))
+    del want_b
+
+    # K2 -> K4 phase A over every chunk, against two clones of the residents
+    on_card = torch.cuda.is_available()
+    has_agg = bool((table._st["strategy"][:n] == 3).any())
+
+    def phase_a(rows_b, all_rows: bool, times=None):
+        """K3 -> K2 -> K4 and K4's plain version over the chunks of
+        ``rows_b``, each on its own clone of the residents: the chunks'
+        outputs and both clones, equal; per-chunk device ms in ``times``."""
+        st_k = (table._res_dense.clone(), table._res_meta.clone())
+        st_r = (table._res_dense.clone(), table._res_meta.clone())
+        parts = []
+        for i in range(rows_b.shape[0] // chunk):
+            rows_c = rows_b[i * chunk : (i + 1) * chunk]
+            m = fk.fleet_masks(*tables, rows_c, *state)
+            a, u = divide_replicas(m.strategy, m.replicas, m.feasible, m.static_w,
+                                   m.avail, m.prev, m.fresh, has_agg)
+            kw = dict(all_rows=all_rows, offset=i * chunk, d_slots=min(64, c))
+            args = (a, u, m.feasible, m.strategy, rows_c)
+            if on_card:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                ev[0].record()
+            g = fk.fleet_diff(*args, *st_k, **kw)
+            if on_card:
+                ev[1].record()
+                ev[2].record()
+            w = fk.fleet_diff_ref(*args, *st_r, **kw)
+            if on_card:
+                ev[3].record()
+                ev[3].synchronize()
+                if times is not None:
+                    times.append((ev[0].elapsed_time(ev[1]),
+                                  ev[2].elapsed_time(ev[3])))
+            compare("fleet_diff", tuple(g), tuple(w))
+            parts.append(g)
+        err = compare(f"fleet_diff residents (all_rows={all_rows})", st_k, st_r)
+        del st_r
+        return parts, st_k, err
+
+    k4_times = []
+    parts, st_k, err = phase_a(rows_all, True, k4_times)
+    k4_bytes = (chunk * c * (4 + 1 + 1 + 1) + chunk * (1 + 4 + 4 + 4 * 2)
+                + _nbytes(*parts[0]))
+    stats["fleet_diff"] = dict(report(
+        "fleet_diff (per chunk, mean over a phase-A pass)",
+        statistics.mean(t[0] for t in k4_times),
+        statistics.mean(t[1] for t in k4_times),
+        k4_bytes, chunk * c * 6, card,
+    ) if on_card else no_times(), max_abs_err=err)
+    # the partial-batch branch: a permuted subset padded with -1 to whole
+    # chunks, results written back by row index (padding rows write nothing)
+    sub = np.random.default_rng(SEED + 4).permutation(n)[: 2 * chunk + chunk // 3]
+    rows_p = torch.full((-(-sub.size // chunk) * chunk,), -1, dtype=torch.int32,
+                        device=rows_all.device)
+    rows_p[: sub.size] = torch.from_numpy(sub.astype(np.int32)).to(rows_all.device)
+    _, st_p, _ = phase_a(rows_p, False)
+    print(f"# fleet_diff partial batch: {sub.size} permuted rows padded to "
+          f"{rows_p.numel()}, exact", flush=True)
+    del st_p
+
+    # K5 phase-A wire with the caps this pass picks (the table's own rule)
+    changed = torch.cat([p.changed for p in parts])
+    meta = torch.cat([p.meta for p in parts])
+    dcount = torch.cat([p.dcount for p in parts])
+    deltas = torch.cat([p.deltas for p in parts])
+    # this pass follows steady passes, so the table keeps its current caps
+    m_cap, d_cap = table._m_cap_cur, table._d_cap_cur or 0
+    total = int(changed.sum().item())
+    wire_in = (changed, meta, dcount, rows_all, deltas)
+    got_w = fk.fleet_wire(*wire_in, m_cap=m_cap, d_cap=d_cap)
+    want_w = fk.fleet_wire_ref(*wire_in, m_cap=m_cap, d_cap=d_cap)
+    stats["fleet_wire"] = dict(timed(
+        "fleet_wire", lambda: fk.fleet_wire(*wire_in, m_cap=m_cap, d_cap=d_cap),
+        lambda: fk.fleet_wire_ref(*wire_in, m_cap=m_cap, d_cap=d_cap),
+        _nbytes(*wire_in) + _nbytes(*got_w), n_pad * (4 + 64), card,
+    ), max_abs_err=compare("fleet_wire", tuple(got_w), tuple(want_w)))
+    print(f"# fleet_wire check: {total} changed rows of {n}, m_cap {m_cap}, "
+          f"d_cap {d_cap}", flush=True)
+
+    # K4 phase B + K5 entry wire over the changed rows, as the exact fetch
+    ch_rows = torch.nonzero(changed).flatten().to(torch.int32)
+    m_pad = max(2048, _pow2(max(int(ch_rows.numel()), 1)))
+    rows_b = torch.full((m_pad,), -1, dtype=torch.int32, device=ch_rows.device)
+    rows_b[: ch_rows.numel()] = ch_rows
+    k_out = min(c, _pow2(int(table._st["replicas"][:n].max())))
+    res_d = st_k[0]
+    got_e = fk.fleet_entry_rows(res_d, rows_b, k_out)
+    want_e = fk.fleet_entry_rows_ref(res_d, rows_b, k_out)
+    valid_b = int(ch_rows.numel())
+    stats["fleet_entry_rows"] = dict(timed(
+        "fleet_entry_rows", lambda: fk.fleet_entry_rows(res_d, rows_b, k_out),
+        lambda: fk.fleet_entry_rows_ref(res_d, rows_b, k_out),
+        _nbytes(rows_b) + valid_b * c + _nbytes(got_e), valid_b * c * 3, card, reps=3,
+    ), max_abs_err=compare("fleet_entry_rows", got_e, want_e))
+    e_cap = _cap_round(max(int((got_e > 0).sum().item()), 1))
+    for pack21 in (True, False):
+        kw = dict(e_cap=e_cap, byte_wire=True, pack21=pack21)
+        got_x = fk.entry_wire(got_e, **kw)
+        want_x = fk.entry_wire_ref(got_e, **kw)
+        err = compare(f"entry_wire pack21={pack21}", got_x, want_x)
+        if pack21 == (c <= 1 << 13):
+            stats["entry_wire"] = dict(timed(
+                "entry_wire", lambda: fk.entry_wire(got_e, **kw),
+                lambda: fk.entry_wire_ref(got_e, **kw),
+                _nbytes(got_e) + _nbytes(got_x), got_e.numel() * 3, card,
+            ), max_abs_err=err)
+    compare("entry_wire int32 form",
+            fk.entry_wire(got_e, e_cap=e_cap, byte_wire=False),
+            fk.entry_wire_ref(got_e, e_cap=e_cap, byte_wire=False))
+    del want_e, got_e
+
+    # K6 on a dirty set of 300 random rows, pow2-padded to 512 by repeating
+    # the first row and its values as the table's _sync_device pads it, and
+    # the meta gather
+    rng = np.random.default_rng(SEED + 6)
+    k_u, k = 300, 512
+    pick = rng.choice(n, k_u, replace=False)
+    src = rng.permutation(n)[:k_u]
+    pick = np.concatenate([pick, np.full(k - k_u, pick[0])])
+    src = np.concatenate([src, np.full(k - k_u, src[0])])
+    rows6 = torch.from_numpy(pick.astype(np.int64)).to(rows_all.device)
+    vals = tuple(
+        torch.from_numpy(np.ascontiguousarray(table._st[f][src])).to(rows_all.device)
+        for f in ("cp_idx", "gvk_idx", "prof_idx", "replicas", "strategy", "fresh",
+                  "prev_sites", "prev_counts")
+    )
+    s_k = tuple(t.clone() for t in state)
+    s_r = tuple(t.clone() for t in state)
+    fk.scatter_rows(s_k, rows6, vals)
+    fk.scatter_rows_ref(s_r, rows6, vals)
+    err = compare("scatter_rows", s_k, s_r)
+    s_l = tuple(t.clone() for t in state)
+
+    def library():
+        for a_, v_ in zip(s_l, vals):
+            a_.index_copy_(0, rows6, v_)
+
+    stats["scatter_rows"] = dict(timed(
+        "scatter_rows", lambda: fk.scatter_rows(s_k, rows6, vals),
+        lambda: fk.scatter_rows_ref(s_r, rows6, vals),
+        # every value read once, each distinct row written once
+        _nbytes(rows6) + _nbytes(*vals) * (k + k_u) // k, k * 8, card,
+        library=library,
+    ), max_abs_err=err)
+    # the overflow gather's rows, padded as the table pads them
+    rows_g = torch.full((max(4096, _pow2(max(valid_b, 1))),), -1, dtype=torch.int32,
+                        device=rows_b.device)
+    rows_g[:valid_b] = ch_rows
+    got_g = fk.gather_meta(st_k[1], rows_g)
+    want_g = fk.gather_meta_ref(st_k[1], rows_g)
+    stats["gather_meta"] = dict(timed(
+        "gather_meta", lambda: fk.gather_meta(st_k[1], rows_g),
+        lambda: fk.gather_meta_ref(st_k[1], rows_g),
+        _nbytes(rows_g) * 2 + _nbytes(got_g), rows_g.numel() * 3, card,
+    ), max_abs_err=compare("gather_meta", got_g, want_g))
+    del st_k, s_k, s_r, s_l
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return stats
+
+
+def check_profile_table(device, card: str, rng) -> dict:
+    """K1's table form at U = 8 profiles x 5000 clusters."""
+    from karmada_tpu_torch import ops
+
+    arrays = estimate_batch(rng, 1, 5000, u=8)
+    t = to_device({k: arrays[k] for k in ("available_cap", "profiles", "has_summary")}, device)
+    args = (t["available_cap"], t["profiles"], t["has_summary"])
+    err = compare("profile_table", ops.profile_table(*args), ops.profile_table_ref(*args))
+    u, c = t["profiles"].shape[0], t["available_cap"].shape[0]
+    r = t["profiles"].shape[1]
+    return dict(timed(
+        "profile_table (K1 table form) 8x5000", lambda: ops.profile_table(*args),
+        lambda: ops.profile_table_ref(*args),
+        _nbytes(*args) + u * c * 4, u * c * r * 2, card,
+    ), max_abs_err=err)
+
+
+# --------------------------------------------------------------------------
+# the fleet storm (config 5), the mixed phase and the general path
+# --------------------------------------------------------------------------
+
+
+def drift_snapshots(pkg, snap, count: int, seed: int = 99) -> list:
+    """bench.py's churn recipe (bench.py:942-980): every cluster's
+    allocation drifts by a few 1/200ths of its allocatable per pass."""
+    import importlib
+
+    s = importlib.import_module(f"{pkg.__name__}.scheduler")
+    clusters = snap.clusters
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        for cl in clusters:
+            rs = cl.status.resource_summary
+            for dim, q in list(rs.allocated.items()):
+                alloc = rs.allocatable.get(dim, 0)
+                rs.allocated[dim] = int(
+                    min(max(0, q + int(rng.integers(-3, 4)) * max(1, alloc // 200)), alloc)
+                )
+        out.append(s.ClusterSnapshot(clusters))
+    return out
+
+
+def breakdown_line(engine) -> str:
+    keys = ("compile", "upsert", "sync", "prep", "dispatch", "device", "fetch",
+            "post", "changed_rows", "fetch_mb")
+    bd = engine.last_breakdown
+    return ", ".join(
+        f"{k} {bd[k]:.4f}" if k not in ("changed_rows",) else f"{k} {int(bd[k])}"
+        for k in keys if k in bd
+    )
+
+
+def device_profile(fn, device, top: int = 6) -> dict:
+    """One call of ``fn`` under torch.profiler: the device time of every
+    kernel and copy it ran (they run on one stream, so the sum is the busy
+    time), the wall of the profiled call, and the largest names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        wall = time.perf_counter() - t0
+    per_name = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us:
+            per_name[e.key] = per_name.get(e.key, 0.0) + us / 1e6
+    busy = sum(per_name.values())
+    names = sorted(per_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"wall_s": wall, "busy_s": busy, "top": names}
+
+
+def run_fleet_storm(device, card: str, bindings=None, clusters=None,
+                    steady: int = 3, churn: int = 3) -> dict:
+    """Config 5 through the fleet table: cold, steady and churn passes, the
+    oracle after the cold and the last churn pass, and (on the card) the
+    fleet kernels' checks before the first churn pass."""
+    import karmada_tpu_torch
+    from karmada_tpu_torch.scheduler import TensorScheduler
+
+    snap, problems = build_workload(karmada_tpu_torch, 5, bindings, clusters)
+    traced = device.type == "cuda"  # torch.profiler traces the card only
+    drift = drift_snapshots(karmada_tpu_torch, snap, churn + traced)
+    engine = TensorScheduler(snap, chunk_size=4096, device=device)
+    reset_counts()
+    t0 = time.perf_counter()
+    cold = engine.schedule(problems)
+    sync(device)
+    cold_s = time.perf_counter() - t0
+    if engine._fleet is None:
+        raise AssertionError("config 5 did not ride the fleet table")
+    on_card = device.type == "cuda"
+    if on_card and read_counts()["profile_table"] < 1:
+        raise AssertionError("the cold pass did not launch K1's table form")
+    cold_bd = breakdown_line(engine)
+    t0 = time.perf_counter()
+    bad = oracle_check(engine, problems, cold)
+    check_s = time.perf_counter() - t0
+    cold_out = outcomes(cold)
+    print(f"# config 5 fleet cold pass {cold_s:.4f} s [{cold_bd}]; numpy-divider "
+          f"check {len(problems) - bad} ok / {bad} bad ({check_s:.1f} s); card {card}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"config 5 fleet cold pass: {bad} rows differ")
+    steady_s = []
+    for _ in range(steady):
+        t0 = time.perf_counter()
+        res = engine.schedule(problems)
+        sync(device)
+        steady_s.append(time.perf_counter() - t0)
+        print(f"# config 5 fleet steady pass {steady_s[-1]:.4f} s "
+              f"[{breakdown_line(engine)}]", flush=True)
+    if outcomes(res) != cold_out:
+        raise AssertionError("config 5 fleet: steady pass disagrees with the cold pass")
+    profiles = {}
+    if device.type == "cuda":  # one more steady pass, traced
+        profiles["steady"] = device_profile(lambda: engine.schedule(problems), device)
+    churn_s, stats = [], {}
+    for i, snap_i in enumerate(drift[:churn]):
+        k1_before = read_counts()["profile_table"]
+        t0 = time.perf_counter()
+        if not engine.update_snapshot(snap_i):
+            raise AssertionError("drifted snapshot refused")
+        before = 0.0
+        if i == 0:
+            # the pass's own table rebuild (K1's table form, counted), then
+            # the kernel checks on its inputs (not counted, not timed)
+            engine._fleet._sync_device()
+            sync(device)
+            before = time.perf_counter() - t0
+            with uncounted():
+                stats = check_fleet_kernels(engine._fleet, card)
+            t0 = time.perf_counter()
+        res = engine.schedule(problems)
+        sync(device)
+        churn_s.append(before + time.perf_counter() - t0)
+        if on_card and read_counts()["profile_table"] <= k1_before:
+            raise AssertionError(f"churn pass {i} did not launch K1's table form")
+        print(f"# config 5 fleet churn pass {churn_s[-1]:.4f} s "
+              f"[{breakdown_line(engine)}]", flush=True)
+    if traced:  # one more churn pass, traced: the last churn pass checked
+        def traced_churn():
+            if not engine.update_snapshot(drift[-1]):
+                raise AssertionError("drifted snapshot refused")
+            return engine.schedule(problems)
+
+        out = []
+        profiles["churn"] = device_profile(lambda: out.append(traced_churn()), device)
+        res = out[0]
+    for kind, prof in profiles.items():
+        print(f"# config 5 fleet traced {kind} pass: wall {prof['wall_s']:.4f} s under "
+              f"the profiler; device busy {prof['busy_s']:.4f} s; largest: "
+              + ", ".join(f"{k[:48]} {v * 1e3:.2f} ms" for k, v in prof["top"])
+              + f"; card {card}", flush=True)
+    launches = read_counts()
+    t0 = time.perf_counter()
+    bad = oracle_check(engine, problems, res)
+    check_s = time.perf_counter() - t0
+    n = len(problems)
+    p50 = {k: statistics.median(v) for k, v in
+           (("cold", [cold_s]), ("steady", steady_s), ("churn", churn_s))}
+    for kind, prof in profiles.items():
+        share = (f"idle share {1 - prof['busy_s'] / p50[kind]:.3f}" if prof["busy_s"]
+                 else "the profiler saw no device time: idle share not measured")
+        print(f"# config 5 fleet {kind}: device busy {prof['busy_s']:.4f} s of a "
+              f"{p50[kind]:.4f} s p50 pass: {share}; card {card}", flush=True)
+    print(f"# config 5 fleet: {n} bindings x {snap.num_clusters} clusters; cold "
+          f"{cold_s:.4f} s; steady p50 {p50['steady']:.4f} s ({n / p50['steady']:.0f} "
+          f"bindings/s, walls {[round(w, 4) for w in steady_s]}); churn p50 "
+          f"{p50['churn']:.4f} s ({n / p50['churn']:.0f} bindings/s, walls "
+          f"{[round(w, 4) for w in churn_s]}); launches "
+          f"{ {k: v for k, v in launches.items() if v} }; last churn pass "
+          f"numpy-divider check {n - bad} ok / {bad} bad ({check_s:.1f} s); card {card}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"config 5 fleet last churn pass: {bad} rows differ")
+    return {"launches": launches, "stats": stats, "cold_out": cold_out,
+            "cold_s": cold_s, "steady_s": steady_s, "churn_s": churn_s, "p50": p50,
+            "profiles": profiles}
+
+
+def mixed_problems(pkg, clusters, n: int, seed: int) -> list:
+    """tests/test_fleet_engine.py's mix: Dynamic, Duplicated, Static and
+    Aggregated placements in turn, replicas 0..39 (zero-replica rows
+    included), up to 4 previous sites, 20% fresh."""
+    import importlib
+
+    b = importlib.import_module(f"{pkg.__name__}.utils.builders")
+    q = importlib.import_module(f"{pkg.__name__}.utils.quantity")
+    s = importlib.import_module(f"{pkg.__name__}.scheduler")
+    req = q.parse_resource_list({"cpu": "250m", "memory": "512Mi"})
+    rng = np.random.default_rng(seed)
+    pls = [
+        b.dynamic_weight_placement(),
+        b.duplicated_placement(),
+        b.static_weight_placement({c.name: (i % 3) + 1 for i, c in enumerate(clusters[:10])}),
+        b.aggregated_placement(),
+    ]
+    out = []
+    for i in range(n):
+        prev_idx = rng.choice(len(clusters), int(rng.integers(0, 5)), replace=False)
+        out.append(s.BindingProblem(
+            key=f"m{i}", placement=pls[i % 4], replicas=int(rng.integers(0, 40)),
+            requests=req, gvk="apps/v1/Deployment",
+            prev={clusters[j].name: int(rng.integers(1, 9)) for j in prev_idx},
+            fresh=bool(rng.random() < 0.2),
+        ))
+    return out
+
+
+def run_mixed(device, card: str, bindings: int = 20_000, clusters: int = 1000,
+              changed: int = 300) -> dict:
+    """Mixed strategies through the fleet, two passes (the second replaces
+    ``changed`` problems: dirty rows for K6), every row equal to the port's
+    general path on the same device."""
+    import karmada_tpu_torch
+    from karmada_tpu_torch.scheduler import BindingProblem, ClusterSnapshot, TensorScheduler
+    import karmada_tpu_torch.utils.builders as tb
+
+    fleet = tb.synthetic_fleet(clusters, seed=11)
+    snap = ClusterSnapshot(fleet)
+    problems = mixed_problems(karmada_tpu_torch, fleet, bindings, 5)
+    rng = np.random.default_rng(12)
+    second = list(problems)
+    for i in rng.choice(bindings, changed, replace=False):
+        p = problems[i]
+        second[i] = BindingProblem(
+            key=p.key, placement=p.placement, replicas=(p.replicas + 3) % 40,
+            requests=p.requests, gvk=p.gvk, prev=p.prev, fresh=not p.fresh,
+        )
+    engine = TensorScheduler(snap, chunk_size=4096, device=device)
+    general = TensorScheduler(snap, chunk_size=4096, device=device)
+    general.fleet_threshold = bindings + 1
+    reset_counts()
+    walls, bad = [], 0
+    for batch in (problems, second):
+        t0 = time.perf_counter()
+        res = engine.schedule(batch)
+        sync(device)
+        walls.append(time.perf_counter() - t0)
+        got = outcomes(res)
+        with uncounted():
+            want = outcomes(general.schedule(batch))
+        bad += sum(g != w for g, w in zip(got, want))
+    launches = read_counts()
+    if engine._fleet is None:
+        raise AssertionError("the mixed phase did not ride the fleet table")
+    print(f"# mixed fleet phase: {bindings} bindings x {clusters} clusters, 2 passes "
+          f"(second: {changed} replaced problems) {[round(w, 4) for w in walls]} s; "
+          f"launches { {k: v for k, v in launches.items() if v} }; equal to the "
+          f"general path: {2 * bindings - bad} ok / {bad} bad; card {card}", flush=True)
+    if bad:
+        raise AssertionError(f"mixed phase: {bad} rows differ from the general path")
+    return {"launches": launches, "walls": walls}
+
+
+def run_general(device, card: str, reference: list, bindings=None, clusters=None) -> dict:
+    """Config 5 on the general path (K1 + K2 per chunk): one warm and one
+    timed pass; every row equal to the fleet's cold pass, which the numpy
+    divider has checked."""
+    import karmada_tpu_torch
+    from karmada_tpu_torch.scheduler import TensorScheduler
+
+    snap, problems = build_workload(karmada_tpu_torch, 5, bindings, clusters)
+    engine = TensorScheduler(snap, chunk_size=4096, device=device)
+    engine.fleet_threshold = len(problems) + 1
+    reset_counts()
+    t0 = time.perf_counter()
+    first = engine.schedule(problems)
+    sync(device)
+    first_s = time.perf_counter() - t0
+    launches = read_counts()
+    t0 = time.perf_counter()
+    engine.schedule(problems)
+    sync(device)
+    wall = time.perf_counter() - t0
+    bad = sum(g != w for g, w in zip(outcomes(first), reference))
+    stages = chunk_breakdown(engine, problems, device)
+    print(f"# config 5 general path stages of one 4096-row chunk (s): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()) + f"; card {card}",
+          flush=True)
+    print(f"# config 5 general path (all {len(problems)} rows, one warm and one timed "
+          f"pass, checked row by row against the fleet's oracle-checked cold pass): "
+          f"first pass {first_s:.4f} s, timed pass {wall:.4f} s "
+          f"({len(problems) / wall:.0f} bindings/s); launches "
+          f"{ {k: v for k, v in launches.items() if v} }; equal to the checked fleet "
+          f"cold pass: {len(problems) - bad} ok / {bad} bad; card {card}", flush=True)
+    if bad:
+        raise AssertionError(f"config 5 general path: {bad} rows differ from the fleet")
+    return {"launches": launches, "first_s": first_s, "pass_s": wall}
 
 
 def main() -> int:
@@ -419,12 +1076,15 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from karmada_tpu_torch import native
+    from karmada_tpu_torch.native import fold
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     card = card_line()
     print(f"# card: {card}; torch {torch.__version__}; CUDA {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
     built = native.build()
+    built["fold.c (g++)"] = fold.build()
     print(f"# kernels built in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()), flush=True)
 
@@ -441,24 +1101,36 @@ def main() -> int:
                   f"{st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms by "
                   f"{st['bound_by']}); card {card}", flush=True)
             if (b, c) == (4096, 5000):
-                stats[name] = st
+                stats[name] = dict(st, library_ms=None)
+    stats["profile_table"] = check_profile_table(device, card, rng)
 
     print("# config 3 (Aggregated + ResourceModels) needs the resource-model "
           "estimator, not ported yet: skipped", flush=True)
-    runs = {cfg: run_config(cfg, device, card) for cfg in (1, 2, 4, 5)}
-    launches = runs[5]["launches"]
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"config 5 never launched {name}")
+    for cfg in (1, 2, 4):
+        run_config(cfg, device, card)
+    storm = run_fleet_storm(device, card)
+    stats.update(storm["stats"])
+    require_launched("config 5 fleet", storm["launches"])
+    mixed = run_mixed(device, card)
+    require_launched("mixed fleet", mixed["launches"])
+    general = run_general(device, card, storm["cold_out"])
+    require_launched("config 5 general", general["launches"])
 
+    # launches: each kernel's count on the path that drives it
+    where = {"estimate_merge": general["launches"], "fleet_bits": mixed["launches"],
+             "scatter_rows": mixed["launches"]}
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "launches": launches[name],
-         "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
-         "plain_ms": stats[name]["plain_ms"], "bound_ms": stats[name]["bound_ms"],
-         "bound_by": stats[name]["bound_by"], "library_ms": None}
+        {"name": name, "route": KERNELS[name][0], "source": KERNELS[name][1],
+         "replaces": KERNELS[name][2],
+         "launches": where.get(name, storm["launches"])[name],
+         "launches_on": ("config 5 general path" if name == "estimate_merge"
+                         else "mixed fleet phase" if name in where
+                         else "config 5 fleet passes"),
+         **{k: stats[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}}
         for name in KERNELS
     ]}))
+    print(f"# total wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

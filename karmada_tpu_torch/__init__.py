@@ -8,18 +8,21 @@ and is held placement-identical to it by the ``tests/test_torch_*.py``
 suite. The port imports neither jax nor anything of ``karmada_tpu``; the
 jax-free modules it needs are its own copies.
 
-Layer map (this slice):
+Layer map:
 
 - :mod:`karmada_tpu_torch.api`       — typed data model subset
 - :mod:`karmada_tpu_torch.utils`     — quantities, feature gate, builders
 - :mod:`karmada_tpu_torch.ops`       — estimate and division: plain torch
                                        functions plus the K1/K2 kernels
 - :mod:`karmada_tpu_torch.refimpl`   — the numpy host divider
-- :mod:`karmada_tpu_torch.scheduler` — snapshot packing and the host
-                                       general path of ``TensorScheduler``
+- :mod:`karmada_tpu_torch.scheduler` — snapshot packing, ``TensorScheduler``
+                                       (the fleet path and the host general
+                                       path) and the fleet table with its
+                                       K3-K6 kernels
 - :mod:`karmada_tpu_torch.parallel`  — the fused single-device step
 - :mod:`karmada_tpu_torch.native`    — nvcc build and ctypes loading of
-                                       ``csrc/*.cu``
+                                       ``csrc/*.cu``, and the g++-built
+                                       host wire runtime (``fold.c``)
 
 Every entry point that touches tensors takes ``device`` and defaults to
 ``"cuda"``; on CPU tensors the kernels' plain versions run instead.

@@ -33,6 +33,12 @@
 // division. The min runs in int64 and is clamped to 2^31-1 before the cast
 // to int32 (estimate.py:38), so an absurd ratio reads as the sentinel and
 // never wraps.
+//
+// Table form (profile_table_launch): karmada_tpu/scheduler/core.py:2256
+// _profile_table's general branch, the fleet path's per-profile table.
+// The same kernel with table_form set: row b IS profile b (no prof_idx
+// gather) and the output is the estimate itself, -1 where the cluster has
+// no summary (no merge). Its bound is the U x C int32 write.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -66,14 +72,14 @@ __global__ void estimate_merge_kernel(
     const int32_t* __restrict__ prof_idx,
     const uint8_t* __restrict__ has_summary,
     const int32_t* __restrict__ replicas, int b_n,
-    int32_t* __restrict__ out) {
+    int32_t* __restrict__ out, int table_form) {
   extern __shared__ int32_t table[];  // [min(U, U_SHARED)][TILE_C]
   const int tx = threadIdx.x;
   const int c = blockIdx.x * TILE_C + tx;
   if (c >= c_n) return;
   const int64_t* cap_row = cap + (size_t)c * r_dims;
   const bool summary = has_summary[c] != 0;
-  const bool use_table = u_n <= U_SHARED;
+  const bool use_table = !table_form && u_n <= U_SHARED;
   if (use_table) {
     // each thread fills and later reads only its own column: no barrier
     for (int u = 0; u < u_n; ++u)
@@ -83,6 +89,13 @@ __global__ void estimate_merge_kernel(
   const int b0 = blockIdx.y * ROWS;
   const int b1 = min(b0 + ROWS, b_n);
   for (int b = b0; b < b1; ++b) {
+    if (table_form) {  // one row per profile, no gather and no merge
+      out[(size_t)b * c_n + c] =
+          summary ? profile_estimate(cap_row, profiles + (size_t)b * r_dims,
+                                     r_dims)
+                  : -1;
+      continue;
+    }
     int p = prof_idx[b];
     if (p < 0) p += u_n;
     p = p < 0 ? 0 : (p >= u_n ? u_n - 1 : p);
@@ -110,6 +123,18 @@ extern "C" int estimate_merge_launch(
       u_n <= U_SHARED ? (size_t)u_n * TILE_C * sizeof(int32_t) : 0;
   estimate_merge_kernel<<<grid, TILE_C, smem, stream>>>(
       cap, c_n, r_dims, profiles, u_n, prof_idx, has_summary, replicas, b_n,
-      out);
+      out, 0);
+  return (int)cudaGetLastError();
+}
+
+// out int32[U, C] = has_summary ? general_estimate(profiles[u], c) : -1
+extern "C" int profile_table_launch(
+    const int64_t* cap, int c_n, int r_dims, const int64_t* profiles, int u_n,
+    const uint8_t* has_summary, int32_t* out, cudaStream_t stream) {
+  if (u_n == 0 || c_n == 0) return 0;
+  const dim3 grid((c_n + TILE_C - 1) / TILE_C, (u_n + ROWS - 1) / ROWS);
+  estimate_merge_kernel<<<grid, TILE_C, 0, stream>>>(
+      cap, c_n, r_dims, profiles, u_n, nullptr, has_summary, nullptr, u_n,
+      out, 1);
   return (int)cudaGetLastError();
 }

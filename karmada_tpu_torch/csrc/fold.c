@@ -1,0 +1,121 @@
+/* Native host-side hot loops for the fleet engine's wire handling.
+ *
+ * A copy of karmada_tpu/native/fold.c for the PyTorch port, which imports
+ * nothing of the JAX package. These loops are the host cost of a churn
+ * pass at scale, where numpy needs several strided passes:
+ *
+ *  - decode3/decode2: byte-wire widening (3-byte packed entries / 2-byte
+ *    meta words -> int32) without numpy's three strided passes;
+ *  - fold_entries: scatter variable-length entry runs into the
+ *    [cap, k_res] int32 host mirror row-contiguously (memcpy + zero-fill
+ *    per row instead of a 32M-element advanced-index assignment).
+ *
+ * Compiled on first use by karmada_tpu_torch.native.fold (g++ -O2 -shared
+ * -fPIC) into the package's git-ignored _build/; a failed build raises.
+ * The numpy forms beside the wrappers are the reference the tests hold
+ * these loops to.
+ */
+
+#include <stdint.h>
+#include <string.h>
+
+#ifdef __cplusplus
+extern "C" {
+#endif
+
+void decode3(const uint8_t *src, int64_t n, int32_t *dst) {
+    for (int64_t i = 0; i < n; i++) {
+        const uint8_t *p = src + 3 * i;
+        dst[i] = (int32_t)p[0] | ((int32_t)p[1] << 8) | ((int32_t)p[2] << 16);
+    }
+}
+
+void decode2(const uint8_t *src, int64_t n, int32_t *dst) {
+    for (int64_t i = 0; i < n; i++) {
+        const uint8_t *p = src + 2 * i;
+        dst[i] = (int32_t)p[0] | ((int32_t)p[1] << 8);
+    }
+}
+
+/* 21-bit little-endian bitstream -> int32[n]; src must carry 3 pad bytes
+ * past the packed payload (the device wire appends them). */
+void decode21(const uint8_t *src, int64_t n, int32_t *dst) {
+    for (int64_t i = 0; i < n; i++) {
+        int64_t bit = 21 * i;
+        const uint8_t *p = src + (bit >> 3);
+        uint32_t v = (uint32_t)p[0] | ((uint32_t)p[1] << 8) |
+                     ((uint32_t)p[2] << 16) | ((uint32_t)p[3] << 24);
+        dst[i] = (int32_t)((v >> (bit & 7)) & 0x1FFFFF);
+    }
+}
+
+/* mirror: int32[cap * k_res]; rows/counts: per changed row; stream: the
+ * concatenated entry runs in row order. Each row's run lands at the row
+ * start, with the remainder of the row zeroed (results decode the first
+ * n_placed lanes, but a stale tail must not survive a shrink). */
+void fold_entries(int32_t *mirror, int64_t k_res, const int32_t *rows,
+                  const int64_t *counts, int64_t n_rows,
+                  const int32_t *stream) {
+    int64_t off = 0;
+    for (int64_t i = 0; i < n_rows; i++) {
+        int32_t *dst = mirror + (int64_t)rows[i] * k_res;
+        int64_t c = counts[i];
+        if (c > k_res) c = k_res;
+        memcpy(dst, stream + off, (size_t)(c * 4));
+        memset(dst + c, 0, (size_t)((k_res - c) * 4));
+        off += counts[i];
+    }
+}
+
+/* Cell-delta fold: merge per-row sorted (site<<9 | newcount+1) deltas
+ * into the [cap, k_res] host mirror of sorted (site<<8 | count) entry
+ * runs. newcount 0 removes the site; an existing site updates in place;
+ * a new site inserts in site order. The merged row is clamped to k_res
+ * entries (same clamp as fold_entries) and zero-padded. `scratch` must
+ * hold k_res int32s. */
+void apply_deltas(int32_t *mirror, int64_t k_res, const int32_t *rows,
+                  const int64_t *dcounts, int64_t n_rows,
+                  const int32_t *stream, int32_t *scratch) {
+    int64_t off = 0;
+    for (int64_t i = 0; i < n_rows; i++) {
+        int32_t *row = mirror + (int64_t)rows[i] * k_res;
+        int64_t nd = dcounts[i];
+        const int32_t *d = stream + off;
+        off += nd;
+        if (nd == 0) continue;
+        int64_t e = 0, j = 0, out = 0;
+        while (e < k_res && row[e] != 0 && j < nd) {
+            int32_t site_e = row[e] >> 8;
+            int32_t site_d = d[j] >> 9;
+            int32_t cnt_d = (d[j] & 0x1FF) - 1;
+            if (site_e < site_d) {
+                if (out < k_res) scratch[out++] = row[e];
+                e++;
+            } else if (site_e > site_d) {
+                if (cnt_d > 0 && out < k_res)
+                    scratch[out++] = (site_d << 8) | cnt_d;
+                j++;
+            } else {
+                if (cnt_d > 0 && out < k_res)
+                    scratch[out++] = (site_d << 8) | cnt_d;
+                e++;
+                j++;
+            }
+        }
+        while (e < k_res && row[e] != 0) {
+            if (out < k_res) scratch[out++] = row[e];
+            e++;
+        }
+        for (; j < nd; j++) {
+            int32_t cnt_d = (d[j] & 0x1FF) - 1;
+            if (cnt_d > 0 && out < k_res)
+                scratch[out++] = ((d[j] >> 9) << 8) | cnt_d;
+        }
+        memcpy(row, scratch, (size_t)(out * 4));
+        memset(row + out, 0, (size_t)((k_res - out) * 4));
+    }
+}
+
+#ifdef __cplusplus
+}
+#endif

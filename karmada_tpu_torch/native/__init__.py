@@ -8,6 +8,16 @@ the file name means an edited kernel is never served from a stale build.
 ``build()`` starts one ``nvcc`` per source, all at once, so a cold start
 pays for the slowest kernel only.
 
+``SIGNATURES`` declares every launch entry point's C arguments; ``load``
+sets each function's ``argtypes`` once, when its library loads, and
+``launch`` is the one way a wrapper calls a kernel: on the current stream
+of the tensors' device, raising on a failed launch and counting it on the
+wrapper. ``on_cpu`` and ``check`` are the wrappers' shared device, dtype
+and contiguity checks.
+
+The host wire runtime of the fleet path (``csrc/fold.c``, built with the
+host compiler) is ``native.fold``.
+
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine with no ``nvcc`` and no card.
 """
@@ -22,17 +32,51 @@ import subprocess
 import threading
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 #: every kernel source of the port, by name (``csrc/<name>.cu``)
-KERNELS = ("estimate_merge", "divide_replicas")
+KERNELS = (
+    "estimate_merge", "divide_replicas", "fleet_masks", "fleet_diff",
+    "fleet_wire", "scatter_rows",
+)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+
+#: each launch entry point's C arguments before its trailing
+#: ``cudaStream_t``, one letter each: ``p`` a pointer (a tensor's data or a
+#: ctypes array), ``i`` an int, ``q`` a long long. Every entry point
+#: returns its ``cudaGetLastError`` as an int.
+SIGNATURES = {
+    "estimate_merge": {
+        "estimate_merge_launch": "piipipppip",
+        "profile_table_launch": "piipipp",
+    },
+    "divide_replicas": {"divide_replicas_launch": "pppppppiiipp"},
+    "fleet_masks": {
+        "fleet_masks_launch": "pppppiipi" "pppppppp" "i" "ppppppp",
+        "fleet_bits_launch": "pppppiipi" "pppppppp" "i" "p",
+    },
+    "fleet_diff": {
+        "fleet_diff_launch": "pppppii" "pp" "iiii" "pppp",
+        "fleet_entry_rows_launch": "piipiip",
+    },
+    "fleet_wire": {
+        "fleet_wire_launch": "ppppp" "iiii" "ppppp" "i",
+        "entry_wire_launch": "pqiiipppi",
+    },
+    "scatter_rows": {
+        "scatter_rows_launch": "pppipii",
+        "gather_meta_launch": "pipip",
+    },
+}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -96,7 +140,8 @@ def build(names=KERNELS) -> dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed, with
+    the argument types of its entry points set from ``SIGNATURES``."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
@@ -105,6 +150,10 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             build((name,))
             lib = ctypes.CDLL(so_path(name))
+            for fn_name, sig in SIGNATURES.get(name, {}).items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = [_CTYPES[k] for k in sig] + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
             _LIBS[name] = lib
     return lib
 
@@ -113,3 +162,35 @@ def check_launch(name: str, err: int) -> None:
     """Raise on a non-zero ``cudaGetLastError`` returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def on_cpu(tensors) -> bool:
+    """True when every tensor lies on the CPU (the plain version runs);
+    raises unless they all lie on one CUDA device otherwise."""
+    devs = {t.device for t in tensors}
+    if all(d.type == "cpu" for d in devs):
+        return True
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"inputs must all lie on one CUDA device, got {devs}")
+    return False
+
+
+def check(name: str, **tensors) -> None:
+    """Each value is (tensor, dtype): contiguous and of that dtype."""
+    for arg, (t, dt) in tensors.items():
+        if t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous {dt} tensor, "
+                             f"got {t.dtype}")
+
+
+def launch(wrapper, lib_name: str, fn_name: str, device, *args) -> None:
+    """Call a kernel's C entry point on the current stream of ``device``;
+    each argument is a tensor (its data pointer is passed), a Python int or
+    a ctypes array, as ``SIGNATURES`` declares. Raises on a non-zero launch
+    status; otherwise adds one to ``wrapper.launches``."""
+    fn = getattr(load(lib_name), fn_name)
+    vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = fn(*vals, torch.cuda.current_stream(device).cuda_stream)
+    check_launch(fn_name, err)
+    wrapper.launches += 1

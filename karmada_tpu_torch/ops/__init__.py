@@ -1,13 +1,17 @@
 """Tensor ops of the scheduling hot path: estimate, dispense, divide.
 
 Plain torch functions with the JAX package's names and signatures, plus the
-two hand-written kernels of this slice behind wrappers that take the plain
+hand-written kernels behind wrappers that take the plain
 version on CPU tensors and launch the kernel on CUDA tensors:
 
 - ``estimate_merge`` (K1, ``csrc/estimate_merge.cu``): general estimate per
   request profile, no-summary masking, row gather and estimator merge;
 - ``divide_replicas`` (K2, ``csrc/divide_replicas.cu``): the unified replica
-  division of all four strategies.
+  division of all four strategies;
+- ``profile_table`` (K1's table form): the estimate per interned request
+  profile that the fleet path gathers by row on the device.
+
+The fleet path's own kernels (K3-K6) live in ``scheduler/fleet_kernels.py``.
 
 Every dtype is pinned: storage stays int32/bool, accumulators are int64 (the
 JAX package turns on x64 for its whole process instead).
@@ -35,5 +39,7 @@ from .estimate import (  # noqa: F401
     general_estimate,
     general_estimate_interned,
     merge_estimates,
+    profile_table,
+    profile_table_ref,
 )
 from . import masks  # noqa: F401

@@ -30,7 +30,6 @@ signature parity and compute the wide form.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
@@ -189,40 +188,26 @@ def divide_replicas(
     (one thread block per row) or raise — above ``max_clusters()`` columns
     too. ``divide_replicas.launches`` counts kernel launches."""
     args = (strategy, replicas, candidates, static_w, avail, prev, fresh)
-    if all(t.device.type == "cpu" for t in args):
+    if native.on_cpu(args):
         return divide_replicas_ref(*args, has_aggregated, wide, fast)
+    native.check("divide_replicas",
+                 **{n: (t, dt) for n, t, dt in zip(_ARGS, args, _DTYPES)})
     dev = candidates.device
-    if dev.type != "cuda" or any(t.device != dev for t in args):
-        raise ValueError("divide_replicas: all inputs must be on one CUDA device")
-    for name, t, dt in zip(_ARGS, args, _DTYPES):
-        if t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"divide_replicas: {name} must be contiguous {dt}")
     b, c = candidates.shape
     if any(t.shape != (b,) for t in (strategy, replicas, fresh)) or any(
         t.shape != (b, c) for t in (static_w, avail, prev)
     ):
         raise ValueError("divide_replicas: inconsistent shapes")
-    lib = native.load("divide_replicas")
     if c > max_clusters():
         raise ValueError(
             f"divide_replicas: {c} clusters exceed the kernel's {max_clusters()}"
         )
     out = torch.empty((b, c), dtype=torch.int32, device=dev)
     unsched = torch.empty((b,), dtype=torch.bool, device=dev)
-    if b == 0:
-        return DivideResult(assignment=out, unschedulable=unsched)
-    fn = lib.divide_replicas_launch
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 7 + [ci, ci, ci, vp, vp, vp]
-    fn.restype = ci
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            *(t.data_ptr() for t in args), b, c, int(bool(has_aggregated)),
-            out.data_ptr(), unsched.data_ptr(), stream,
-        )
-    native.check_launch("divide_replicas", err)
-    divide_replicas.launches += 1
+    if b:
+        native.launch(divide_replicas, "divide_replicas",
+                      "divide_replicas_launch", dev, *args, b, c,
+                      int(bool(has_aggregated)), out, unsched)
     return DivideResult(assignment=out, unschedulable=unsched)
 
 

@@ -15,7 +15,6 @@ CUDA tensors and computed by ``estimate_merge_ref`` on CPU tensors.
 
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -108,18 +107,13 @@ def estimate_merge(
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise. ``estimate_merge.launches`` counts kernel launches."""
     args = (available_cap, profiles, prof_idx, has_summary, replicas)
-    if all(t.device.type == "cpu" for t in args):
+    if native.on_cpu(args):
         return estimate_merge_ref(*args)
+    native.check(
+        "estimate_merge", available_cap=(available_cap, torch.int64),
+        profiles=(profiles, torch.int64), prof_idx=(prof_idx, torch.int32),
+        has_summary=(has_summary, torch.bool), replicas=(replicas, torch.int32))
     dev = available_cap.device
-    if dev.type != "cuda" or any(t.device != dev for t in args):
-        raise ValueError("estimate_merge: all inputs must be on one CUDA device")
-    want = (torch.int64, torch.int64, torch.int32, torch.bool, torch.int32)
-    for name, t, dt in zip(
-        ("available_cap", "profiles", "prof_idx", "has_summary", "replicas"),
-        args, want,
-    ):
-        if t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"estimate_merge: {name} must be contiguous {dt}")
     c, r = available_cap.shape
     u = profiles.shape[0]
     b = prof_idx.shape[0]
@@ -128,23 +122,57 @@ def estimate_merge(
     if b > _MAX_ROWS or (b and not u):
         raise ValueError(f"estimate_merge: {b} rows over {u} profiles not supported")
     out = torch.empty((b, c), dtype=torch.int32, device=dev)
-    if b == 0 or c == 0:
-        return out
-    lib = native.load("estimate_merge")
-    fn = lib.estimate_merge_launch
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci, ci, vp, ci, vp, vp, vp, ci, vp, vp]
-    fn.restype = ci
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            available_cap.data_ptr(), c, r, profiles.data_ptr(), u,
-            prof_idx.data_ptr(), has_summary.data_ptr(), replicas.data_ptr(),
-            b, out.data_ptr(), stream,
-        )
-    native.check_launch("estimate_merge", err)
-    estimate_merge.launches += 1
+    if b and c:
+        native.launch(estimate_merge, "estimate_merge", "estimate_merge_launch",
+                      dev, available_cap, c, r, profiles, u, prof_idx,
+                      has_summary, replicas, b, out)
     return out
 
 
 estimate_merge.launches = 0
+
+
+def profile_table_ref(
+    available_cap: torch.Tensor,  # int64[C, R]
+    profiles: torch.Tensor,  # int64[U, R]
+    has_summary: torch.Tensor,  # bool[C]
+) -> torch.Tensor:
+    """Plain torch version of K1's table form: int32[U, C] general estimate
+    per request profile, -1 (no answer) where the cluster has no summary —
+    the general branch of the JAX engine's ``_profile_table``
+    (karmada_tpu/scheduler/core.py:2256)."""
+    table = general_estimate(available_cap, profiles)
+    return torch.where(has_summary[None, :], table, UNAUTHENTIC).to(torch.int32)
+
+
+def profile_table(
+    available_cap: torch.Tensor,
+    profiles: torch.Tensor,
+    has_summary: torch.Tensor,
+) -> torch.Tensor:
+    """K1 table form: ``profile_table_ref`` as one launch of the K1 kernel
+    with its row gather and merge switched off.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise. ``profile_table.launches`` counts kernel launches."""
+    args = (available_cap, profiles, has_summary)
+    if native.on_cpu(args):
+        return profile_table_ref(*args)
+    native.check(
+        "profile_table", available_cap=(available_cap, torch.int64),
+        profiles=(profiles, torch.int64), has_summary=(has_summary, torch.bool))
+    dev = available_cap.device
+    c, r = available_cap.shape
+    u = profiles.shape[0]
+    if profiles.shape[1] != r or has_summary.shape != (c,):
+        raise ValueError("profile_table: inconsistent shapes")
+    if u > _MAX_ROWS:
+        raise ValueError(f"profile_table: {u} profiles not supported")
+    out = torch.empty((u, c), dtype=torch.int32, device=dev)
+    if u and c:
+        native.launch(profile_table, "estimate_merge", "profile_table_launch",
+                      dev, available_cap, c, r, profiles, u, has_summary, out)
+    return out
+
+
+profile_table.launches = 0

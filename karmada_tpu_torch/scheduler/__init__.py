@@ -1,4 +1,5 @@
-"""Batched scheduler (ref: pkg/scheduler): the host general path."""
+"""Batched scheduler (ref: pkg/scheduler): the fleet path and the host
+general path."""
 
 from .core import (  # noqa: F401
     INSUFFICIENT_ERROR,

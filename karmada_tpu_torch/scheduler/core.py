@@ -1,31 +1,37 @@
 """TensorScheduler: the batched Filter/Score/Select/Assign pipeline.
 
-Counterpart of ``karmada_tpu/scheduler/core.py``, host general path only.
-Re-architecture of the reference's per-binding pipeline
-(core/generic_scheduler.go:70-115 — findClustersThatFit ->
-prioritizeClusters -> SelectClusters -> AssignReplicas) as chunked tensor
-programs over [bindings, clusters] arrays:
+Counterpart of ``karmada_tpu/scheduler/core.py``. Re-architecture of the
+reference's per-binding pipeline (core/generic_scheduler.go:70-115 —
+findClustersThatFit -> prioritizeClusters -> SelectClusters ->
+AssignReplicas) as tensor programs over [bindings, clusters] arrays, on two
+routes, chosen per row exactly as the JAX engine chooses:
 
-- Filter: mask composition from compiled placements + per-binding leniency
-  (already-placed) and eviction masks, on the host in numpy.
-- Score: the estimator (``ops.estimate_merge``, kernel K1 on the card).
-- Select: spread-constraint group selection (``scheduler.spread``), host.
-- Assign: the unified division (``ops.divide_replicas``, kernel K2).
+- the fleet path (``scheduler/fleet.py``): a batch with at least
+  ``fleet_threshold`` fleet-eligible rows (single affinity term, no
+  effective spread constraint, no eviction tasks, at most K_PREV previous
+  sites, at most MAX_REPLICAS_FAST replicas unless Duplicated) schedules
+  those rows through the device-resident ``FleetTable``: K1's table form
+  per interned request profile, then per chunk K3 (masks), K2 (division)
+  and K4 (resident diff), K5 (wire), and phase B where needed. Spread-
+  constraint rows ride it too: their host group selection is interned as a
+  derived placement (``_derive_spread_selections``). Re-passing the same
+  problem objects against the same snapshot takes the batch-identity fast
+  path, which skips the host prologue;
+- the host general path for every other row: chunked mask packing on the
+  host in numpy (Filter), the estimator (``ops.estimate_merge``, K1),
+  spread selection on the host (Select), and the division
+  (``ops.divide_replicas``, K2). A chunk with ``padded * C <= 2**16`` is
+  answered on the host by the numpy divider, the JAX engine's own rule.
 
-Bindings stream through chunks of ``chunk_size`` rows, padded to a power of
-two. A chunk with ``padded * C <= 2**16`` is answered on the host by the
-numpy divider, the JAX engine's own rule; every other chunk runs K1 and K2
-on ``device``.
-
-What this slice does not port, and where the port raises
-``NotImplementedError`` instead of answering differently from the JAX
-engine: the quota plane (``set_quota``), provenance capture
-(``set_explain``), the preemption plane (``set_preemption``), out-of-tree
-estimators (``extra_estimators``), a device mesh, ranked multi-term
-ClusterAffinities (``_schedule_ranked``), and the resource-model estimator.
-The JAX engine's device-resident fleet table and its batch-identity replay
-are placement-identical to this general path (held so by the JAX package's
-own tests); the port schedules every row on the general path.
+What is not ported yet, and where the port raises ``NotImplementedError``
+instead of answering differently from the JAX engine: the quota plane
+(``set_quota``), provenance capture (``set_explain``), the preemption plane
+(``set_preemption``), out-of-tree estimators (``extra_estimators``), a
+device mesh, ranked multi-term ClusterAffinities (``_schedule_ranked``),
+the resource-model estimator, and fleet tables over the dense resident
+budget (the JAX ``_fleet_solve``). ``dirty_keys`` is accepted; the JAX
+delta pass it feeds is result-identical to a full pass, and the port runs
+the full pass.
 """
 
 from __future__ import annotations
@@ -38,8 +44,8 @@ import numpy as np
 import torch
 
 from ..api.policy import Placement
-from ..ops.divide import AGGREGATED, divide_replicas
-from ..ops.estimate import MAX_INT32, estimate_merge
+from ..ops.divide import AGGREGATED, DUPLICATED, divide_replicas
+from ..ops.estimate import MAX_INT32, estimate_merge, profile_table
 from ..utils.features import CUSTOMIZED_CLUSTER_RESOURCE_MODELING, feature_gate
 from .snapshot import ClusterSnapshot, CompiledPlacement, compile_placement
 
@@ -152,6 +158,11 @@ class TensorScheduler:
     """Schedules batches of bindings against one cluster snapshot."""
 
     PLACEMENT_CACHE_CAP = 8192
+    #: minimum eligible-batch size before the device-resident fleet path
+    #: engages (the JAX engine's threshold)
+    fleet_threshold = 256
+    #: cap on interned spread-selection variants
+    SELECTION_CACHE_CAP = 8192
 
     def __init__(
         self,
@@ -183,8 +194,30 @@ class TensorScheduler:
         self._snapshot_gen = 0
         # device copies of the snapshot's estimator inputs, per generation
         self._dev_state: Optional[tuple] = None
-        # batched solves dispatched (host chunks)
+        # device-resident fleet table (scheduler.fleet), built on the first
+        # batch that reaches fleet_threshold eligible rows
+        self._fleet = None
+        # (id(base compiled), selection bytes) -> (derived cp, pinned base)
+        self._selection_cache: dict = {}
+        # batch-identity fast path: id() array of the last all-fleet batch
+        # and its (problems, compiled) lists, which pin the problem objects
+        # so a recycled id() cannot alias a stale batch
+        self._batch_ids: Optional[np.ndarray] = None
+        self._batch_gen = -1
+        self._batch_cache: Optional[tuple] = None
+        self._batch_spread = True  # batch holds derived spread selections
+        self._batch_token = None  # snapshot.mask_token at cache time
+        # the wave's dirty keys (schedule's dirty_keys), staged per pass
+        self._dirty_keys: Optional[set] = None
+        # binding key -> (row fingerprint, pinned placement, derived cp | None)
+        self._derived_rows: dict = {}
+        # request-profile bytes -> availability row [C] (per snapshot gen)
+        self._sel_profile_rows: dict = {}
+        self._sel_profile_gen = -1
+        # batched solves dispatched (host chunks + fleet passes)
         self.solve_batches = 0
+        # host-clock seconds of the last pass's phases (prologue + fleet)
+        self.last_breakdown: dict[str, float] = {}
 
     # -- compilation -------------------------------------------------------
 
@@ -195,8 +228,21 @@ class TensorScheduler:
             self._placement_cache.move_to_end(key)
             return hit[1]
         cp = compile_placement(placement, self.snapshot)
+        # placement-level half of the fleet-eligibility predicate, computed
+        # once per compiled placement (the per-row half is a hot loop)
+        from .spread import should_ignore_spread_constraint
+
+        cp.fleet_single_term = len(cp.terms) == 1 and (
+            not cp.spread_constraints
+            or should_ignore_spread_constraint(cp.placement or Placement())
+        )
         self._placement_cache[key] = (placement, cp)
-        if len(self._placement_cache) > self.PLACEMENT_CACHE_CAP:
+        # the cap must exceed the fleet's live-slot budget, or a storm's
+        # cyclic access recompiles (and re-interns) every placement
+        cache_cap = self.PLACEMENT_CACHE_CAP
+        if self._fleet is not None:
+            cache_cap = max(cache_cap, 2 * self._fleet._max_slots())
+        if len(self._placement_cache) > cache_cap:
             self._placement_cache.popitem(last=False)
         return cp
 
@@ -215,6 +261,8 @@ class TensorScheduler:
             return False
         if snapshot.mask_token != self.snapshot.mask_token:
             self._placement_cache.clear()
+            self._selection_cache.clear()
+        self._derived_rows.clear()  # selections depend on capacities
         self.snapshot = snapshot
         self._snapshot_gen += 1
         return True
@@ -239,17 +287,250 @@ class TensorScheduler:
         problems: Sequence[BindingProblem],
         dirty_keys: Optional[set] = None,
     ) -> list[ScheduleResult]:
-        """Schedule one wave. ``dirty_keys`` is accepted for signature
-        parity with the JAX engine, whose delta pass reads it; the general
-        path solves every row, so it changes nothing here."""
-        del dirty_keys
-        return self._schedule_inner(problems)
+        """Schedule one wave. ``dirty_keys`` (binding keys whose problems
+        changed since the last wave) turns the batch-identity fast path off
+        for this pass, as in the JAX engine; where the JAX engine then runs
+        its delta pass (result-identical to a full pass), the port runs the
+        full pass."""
+        self._dirty_keys = set(dirty_keys) if dirty_keys else None
+        try:
+            return self._schedule_inner(problems)
+        finally:
+            self._dirty_keys = None
 
     def _schedule_inner(
         self, problems: Sequence[BindingProblem]
     ) -> list[ScheduleResult]:
+        import time
+
+        # batch-identity fast path: re-scheduling the SAME problem objects
+        # against the same snapshot generation (or, for spread-free
+        # batches, the same filter fields) is pure in those inputs, so one
+        # id() sweep replaces compilation, selection and the eligibility
+        # partition. Like the fleet's per-row fast path, it assumes problem
+        # objects are not mutated in place between passes.
+        if (
+            self._batch_ids is not None
+            and (
+                self._batch_gen == self._snapshot_gen
+                or (
+                    not self._batch_spread
+                    and self._batch_token == self.snapshot.mask_token
+                )
+            )
+            and not (self.custom_filters or self.disabled_plugins)
+            and len(problems) == len(self._batch_ids)
+        ):
+            t0 = time.perf_counter()
+            ids = np.fromiter(map(id, problems), np.int64, len(problems))
+            if np.array_equal(ids, self._batch_ids) and not self._dirty_keys:
+                self.last_breakdown = {"compile": time.perf_counter() - t0}
+                fp, fc = self._batch_cache
+                self.solve_batches += 1
+                res = self._fleet.schedule(fp, fc)
+                self.last_breakdown.update(self._fleet.last_breakdown)
+                return res
+
+        t0 = time.perf_counter()
         compiled = [self._compiled(p.placement) for p in problems]
+        self.last_breakdown = {"compile": time.perf_counter() - t0}
+        # engine-level features the fleet does not model force the host
+        # path for the whole batch
+        if not (self.custom_filters or self.disabled_plugins):
+            from .fleet import K_PREV, MAX_REPLICAS_FAST
+
+            t0 = time.perf_counter()
+            compiled = self._derive_spread_selections(problems, compiled)
+            self.last_breakdown["select"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            # THE fleet-eligibility predicate (the JAX engine's, inline: it
+            # runs once per row per pass)
+            fast_idx = [
+                i
+                for i, (p, cp) in enumerate(zip(problems, compiled))
+                if cp.fleet_single_term
+                and not p.evict_clusters
+                and len(p.prev) <= K_PREV
+                and (cp.strategy == DUPLICATED or p.replicas <= MAX_REPLICAS_FAST)
+            ]
+            self.last_breakdown["eligible"] = time.perf_counter() - t0
+            if len(fast_idx) >= self.fleet_threshold:
+                from .fleet import FleetTable
+
+                if self._fleet is not None and self._fleet.slots_exhausted:
+                    import sys
+
+                    print("# fleet table rebuild: "
+                          + self._fleet.exhaustion_summary(),
+                          file=sys.stderr, flush=True)
+                    self._fleet = None
+                if self._fleet is None:
+                    self._fleet = FleetTable(self)
+                fp = [problems[i] for i in fast_idx]
+                fc = [compiled[i] for i in fast_idx]
+                self.solve_batches += 1
+                fast_res = self._fleet.schedule(fp, fc)
+                self.last_breakdown.update(self._fleet.last_breakdown)
+                if len(fast_idx) == len(problems):
+                    # all rows rode the fleet: hand back the lazy result
+                    # list, and arm the batch-identity fast path (fp/fc are
+                    # the list objects the fleet keys its own reuse on)
+                    self._batch_ids = np.fromiter(map(id, fp), np.int64, len(fp))
+                    self._batch_gen = self._snapshot_gen
+                    self._batch_cache = (fp, fc)
+                    self._batch_spread = any(
+                        getattr(cp, "derived", False) for cp in fc
+                    )
+                    self._batch_token = self.snapshot.mask_token
+                    return fast_res
+                results: list = [None] * len(problems)
+                for i, res in zip(fast_idx, fast_res):
+                    results[i] = res
+                slow_idx = [i for i in range(len(problems)) if results[i] is None]
+                if slow_idx:
+                    slow_res = self._schedule_host(
+                        [problems[i] for i in slow_idx],
+                        [compiled[i] for i in slow_idx],
+                    )
+                    for i, res in zip(slow_idx, slow_res):
+                        results[i] = res
+                return results
         return self._schedule_host(problems, compiled)
+
+    def _derive_spread_selections(
+        self,
+        problems: Sequence[BindingProblem],
+        compiled: list[CompiledPlacement],
+    ) -> list[CompiledPlacement]:
+        """Replace each single-term spread-constraint row's compiled
+        placement by a DERIVED one whose affinity term is the selected
+        candidate set (SelectClusters folded into placement compilation),
+        which makes the row fleet-eligible. Selection runs on the host as
+        the general path's Select stage does; rows it rejects keep their
+        placement and fall through to the host path, which reports the
+        failure. Selections are memoized per binding key (pure in snapshot
+        generation, placement, replicas, requests and prev) and per
+        selection content."""
+        from .spread import select_clusters_batch
+
+        spread_idx = [
+            i for i, cp in enumerate(compiled)
+            if len(cp.terms) == 1 and not cp.fleet_single_term
+        ]
+        if not spread_idx:
+            return compiled
+        compiled = list(compiled)
+        snap = self.snapshot
+        gen = self._snapshot_gen
+        cache = self._selection_cache
+        row_cache = self._derived_rows
+        pending: list[int] = []
+        for i in spread_idx:
+            p = problems[i]
+            fp = (gen, id(p.placement), p.replicas,
+                  tuple(p.requests.items()), tuple(p.prev.items()))
+            hit = row_cache.get(p.key)
+            # hit[1] pins the Placement whose id() the fingerprint embeds
+            if hit is not None and hit[0] == fp and hit[1] is p.placement:
+                if hit[2] is not None:
+                    compiled[i] = hit[2]
+                continue  # None = cached FitError: stays on the host path
+            pending.append(i)
+        if not pending:
+            return compiled
+
+        for start in range(0, len(pending), self.chunk_size):
+            idx = pending[start : start + self.chunk_size]
+            sub_p = [problems[i] for i in idx]
+            sub_c = [compiled[i] for i in idx]
+            feasible, _strat, replicas, _sw, requests, prev, _fr = (
+                self._pack_chunk(sub_p, sub_c, 0)
+            )
+            avail = self._selection_availability(requests, replicas, gen)
+            candidates = select_clusters_batch(
+                snap, sub_p, sub_c, 0, feasible, avail, prev
+            )
+            for k, i in enumerate(idx):
+                p = problems[i]
+                fp = (gen, id(p.placement), p.replicas,
+                      tuple(p.requests.items()), tuple(p.prev.items()))
+                sel = candidates[k]
+                if not sel.any():
+                    row_cache[p.key] = (fp, p.placement, None)
+                    continue
+                base = compiled[i]
+                key = (id(base), sel.tobytes())
+                entry = cache.get(key)
+                if entry is None:
+                    c = snap.num_clusters
+                    derived = CompiledPlacement(
+                        placement=base.placement,
+                        terms=[(base.terms[0][0], sel.copy())],
+                        # selection already ran on the post-filter set;
+                        # all-true keeps the fleet's leniency re-composition
+                        # idempotent
+                        taint_ok=np.ones(c, bool),
+                        spread_field_ok=np.ones(c, bool),
+                        strategy=base.strategy,
+                        static_weights=base.static_weights,
+                        spread_constraints=[],
+                        fleet_single_term=True,
+                    )
+                    derived.derived = True  # the fleet keys rows on id(derived)
+                    if len(cache) >= self.SELECTION_CACHE_CAP:
+                        cache.clear()
+                    cache[key] = (derived, base)  # pin base: the key embeds id(base)
+                else:
+                    derived = entry[0]
+                compiled[i] = derived
+                row_cache[p.key] = (fp, p.placement, derived)
+        if len(row_cache) > 4 * max(len(problems), 1) + 65536:
+            row_cache.clear()  # key-churn bound; repopulates next pass
+        return compiled
+
+    def _selection_availability(
+        self, requests: np.ndarray, replicas: np.ndarray, gen: int
+    ) -> np.ndarray:
+        """Per-row availability for the Select stage from a per-profile
+        cache (one device table fetch per NEW request profile per snapshot
+        generation), with merge_estimates' semantics: -1 ignored, the
+        sentinel clamped to spec.Replicas, zero-replica rows zero."""
+        if self._sel_profile_gen != gen:
+            self._sel_profile_gen = gen
+            self._sel_profile_rows.clear()
+        uniq, inv = np.unique(requests, axis=0, return_inverse=True)
+        missing = [
+            u for u in range(len(uniq))
+            if uniq[u].tobytes() not in self._sel_profile_rows
+        ]
+        if missing:
+            table = (
+                self._profile_table(uniq[np.asarray(missing)])
+                .cpu().numpy().astype(np.int64)
+            )
+            for row, u in enumerate(missing):
+                self._sel_profile_rows[uniq[u].tobytes()] = table[row]
+        dense = np.stack(
+            [self._sel_profile_rows[uniq[u].tobytes()] for u in range(len(uniq))]
+        )[inv.reshape(-1)]
+        reps_col = replicas.astype(np.int64)[:, None]
+        avail = np.where(
+            dense == MAX_INT32, reps_col, np.where(dense < 0, reps_col, dense)
+        )
+        avail = np.where(reps_col == 0, 0, avail)
+        return np.minimum(avail, MAX_INT32).astype(np.int32)
+
+    def _profile_table(self, profiles_np: np.ndarray) -> torch.Tensor:
+        """int32[P, C] general availability per unique request profile, -1
+        where the cluster gives no answer: K1's table form on ``device``.
+        The shared estimator core of the fleet path and spread selection."""
+        if self._models_active():
+            raise _not_ported("the resource-model estimator (estimate_by_models)")
+        cap, has_summary = self._device_state()
+        profiles = torch.from_numpy(
+            np.ascontiguousarray(profiles_np, np.int64)
+        ).to(self.device)
+        return profile_table(cap, profiles, has_summary)
 
     def _schedule_host(
         self,

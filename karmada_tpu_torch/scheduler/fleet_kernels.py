@@ -1,0 +1,671 @@
+"""The fleet path's device programs: hand-written kernels K3-K6 and their
+plain versions.
+
+Counterparts of the jitted programs of ``karmada_tpu/scheduler/fleet.py``:
+
+===================  ==============================================  =========
+wrapper              replaces                                        kernel
+===================  ==============================================  =========
+``fleet_masks``      ``_unpack_bits`` + ``_row_masks`` (fleet.py:174,  K3
+                     184) and the per-chunk state gather, profile-
+                     row gather and ``merge_estimates`` of
+                     ``_fleet_pass`` (fleet.py:538-569)
+``fleet_bits``       ``_fleet_bits`` (fleet.py:788)                   K3 bits
+``fleet_diff``       ``_fleet_pass``'s per-chunk tail (fleet.py:574-   K4
+                     634): Duplicated zeroing, dense8, meta, the
+                     in-place resident diff and the cell deltas
+``fleet_entry_rows`` ``_fleet_entries``' per-row stage (fleet.py:736-  K4 rows
+                     745)
+``fleet_wire``       ``_fleet_pass``'s wire (fleet.py:652-707)         K5
+``entry_wire``       ``_fleet_entries``' compaction and wire, with     K5 entries
+                     ``_entry_wire``/``_pack21`` (fleet.py:134-166,
+                     747-769)
+``scatter_rows``     ``_scatter_rows`` (fleet.py:1120)                K6
+``gather_meta``      ``_gather_meta`` (fleet.py:828)                  K6 gather
+===================  ==============================================  =========
+
+``fleet_pass`` and ``fleet_entries`` chain the kernels exactly as
+``_fleet_pass`` and ``_fleet_entries`` compose their stages, with the JAX
+signatures minus ``mesh``/``shard_c``; K2 (``ops.divide_replicas``) divides
+between K3 and K4.
+
+Every wrapper takes its plain version (``*_ref``) on CPU tensors and, on
+CUDA tensors, launches its kernel or raises: dtypes, shapes and contiguity
+are checked, and ``<wrapper>.launches`` counts launches. The plain versions
+follow the JAX programs line by line (sorts where JAX sorts, cumsums where
+it scans); the kernels replace the sorts by ordered compactions, which give
+the same words because every sorted key is unique per row with the site in
+its high bits.
+
+Dtypes are pinned as in the reference: the residents are uint8[cap, C] and
+int32[cap], wires are uint8, bitset words are computed in int64 and stored
+as int32 (the uint32 bit pattern: ``.numpy().view(np.uint32)``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+
+from .. import native
+from ..ops.divide import DUPLICATED, divide_replicas
+from ..ops.estimate import MAX_INT32, merge_estimates
+
+I32, I64, U8, BOOL = torch.int32, torch.int64, torch.uint8, torch.bool
+#: the widest previous-assignment list K3 takes per row (fleet.K_PREV = 32)
+MAX_PREV = 64
+
+
+# --------------------------------------------------------------------------
+# wire helpers
+# --------------------------------------------------------------------------
+
+
+def _le32(total: torch.Tensor) -> torch.Tensor:
+    """uint8[4]: an int32 scalar's little-endian bytes, by shifts."""
+    t = total.to(I64)
+    return torch.stack([(t >> s) & 0xFF for s in (0, 8, 16, 24)]).to(U8)
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding a uint32 value -> int32 with the same bit pattern."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 2**31, x - 2**32, x).to(I32)
+
+
+# --------------------------------------------------------------------------
+# K3: row masks
+# --------------------------------------------------------------------------
+
+
+class ChunkMasks(NamedTuple):
+    feasible: torch.Tensor  # bool[chunk, C]
+    static_w: torch.Tensor  # int32[chunk, C]
+    prev: torch.Tensor  # int32[chunk, C]
+    avail: torch.Tensor  # int32[chunk, C] merged availability
+    replicas: torch.Tensor  # int32[chunk] (0 on padding rows)
+    strategy: torch.Tensor  # int32[chunk]
+    fresh: torch.Tensor  # bool[chunk] (False on padding rows)
+
+
+def unpack_bits_ref(bits_u8: torch.Tensor, c: int) -> torch.Tensor:
+    """uint8[B, W8] (little bit order) -> bool[B, C]: ``_unpack_bits``."""
+    shifts = torch.arange(8, dtype=U8, device=bits_u8.device)
+    x = (bits_u8[:, :, None] >> shifts[None, None, :]) & 1
+    return x.reshape(bits_u8.shape[0], -1)[:, :c] != 0
+
+
+def row_masks_ref(cp_bits, cp_static, gvk_bits, incomplete_en, cpc, gvc, psc,
+                  pcc, vc, chunk: int, c: int):
+    """``_row_masks``: (prev, static_w, feasible) for one chunk of gathered
+    slot indices. The previous-assignment scatter accumulates (padding
+    pairs (site 0, count 0) add nothing) and drops sites outside [0, C)."""
+    ok = (psc >= 0) & (psc < c)
+    prev = torch.zeros((chunk, c), dtype=I32, device=cp_static.device)
+    prev.scatter_add_(1, torch.where(ok, psc, 0).to(I64),
+                      torch.where(ok, pcc, 0).to(I32))
+    prev_mask = prev > 0
+    cpc, gvc = cpc.to(I64), gvc.to(I64)
+    bits = cp_bits[cpc]
+    w8 = bits.shape[1] // 2
+    aff_ok = unpack_bits_ref(bits[:, :w8], c)
+    taint_ok = unpack_bits_ref(bits[:, w8:], c)
+    static_w = cp_static[cpc]
+    gvk_ok = unpack_bits_ref(gvk_bits[gvc], c)
+    feasible = (
+        aff_ok
+        & (gvk_ok | (prev_mask & incomplete_en[None, :]))
+        & (taint_ok | prev_mask)
+        & vc[:, None]
+    )
+    return prev, static_w, feasible
+
+
+def _scan_rows(rows: torch.Tensor, chunk: int, n_chunks: int) -> torch.Tensor:
+    """The rows a JAX scan of ``n_chunks`` chunks of ``chunk`` rows reads."""
+    return rows[: chunk * n_chunks] if chunk else rows
+
+
+def _gather_rows(rows, cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh,
+                 prev_sites, prev_counts):
+    """The per-row state of a run of table rows (-1 = padding, read as row
+    0 with replicas, fresh and counts zeroed), as _fleet_pass gathers it."""
+    valid = rows >= 0
+    r = rows.clamp_min(0).to(I64)
+    return (
+        valid, cp_idx[r], gvk_idx[r], prof_idx[r],
+        torch.where(valid, replicas[r], 0).to(I32), strategy[r],
+        fresh[r] & valid, prev_sites[r],
+        torch.where(valid[:, None], prev_counts[r], 0).to(I32),
+    )
+
+
+def fleet_masks_ref(cp_bits, cp_static, gvk_bits, prof_table, incomplete_en,
+                    rows, cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh,
+                    prev_sites, prev_counts) -> ChunkMasks:
+    """Plain version of K3 over one chunk of ``rows``."""
+    valid, cpc, gvc, pfc, reps, st, fr, psc, pcc = _gather_rows(
+        rows, cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh,
+        prev_sites, prev_counts,
+    )
+    c = cp_static.shape[1]
+    prev, static_w, feasible = row_masks_ref(
+        cp_bits, cp_static, gvk_bits, incomplete_en, cpc, gvc, psc, pcc,
+        valid, rows.shape[0], c,
+    )
+    avail = merge_estimates(reps, (prof_table[pfc.to(I64)],))
+    return ChunkMasks(feasible, static_w, prev, avail, reps, st, fr)
+
+
+def fleet_bits_ref(cp_bits, cp_static, gvk_bits, prof_table, incomplete_en,
+                   rows, cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh,
+                   prev_sites, prev_counts, *, chunk: int = 0,
+                   n_chunks: int = 0) -> torch.Tensor:
+    """Plain version of K3's bits form: ``_fleet_bits``' feasibility packed
+    into 32-bit words (bit j of word w = cluster 32w + j), computed in
+    int64 and stored as int32[n, ceil(C/32)], over the first
+    ``chunk * n_chunks`` rows as the JAX scan reads them (all rows when
+    ``chunk`` is 0)."""
+    rows = _scan_rows(rows, chunk, n_chunks)
+    valid, cpc, gvc, _, _, _, _, psc, pcc = _gather_rows(
+        rows, cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh,
+        prev_sites, prev_counts,
+    )
+    c = cp_static.shape[1]
+    n = rows.shape[0]
+    _, _, feasible = row_masks_ref(
+        cp_bits, cp_static, gvk_bits, incomplete_en, cpc, gvc, psc, pcc,
+        valid, n, c,
+    )
+    pad = torch.zeros((n, (-c) % 32), dtype=BOOL, device=feasible.device)
+    f = torch.cat([feasible, pad], dim=1).reshape(n, -1, 32).to(I64)
+    shifts = torch.arange(32, dtype=I64, device=f.device)
+    return _wrap32((f << shifts).sum(dim=-1))
+
+
+_TABLE_DTYPES = (U8, I32, U8, I32, BOOL)
+_STATE_DTYPES = (I32, I32, I32, I32, I32, BOOL, I32, I32)
+_TABLE_NAMES = ("cp_bits", "cp_static", "gvk_bits", "prof_table", "incomplete_en")
+_STATE_NAMES = ("cp_idx", "gvk_idx", "prof_idx", "replicas", "strategy",
+                "fresh", "prev_sites", "prev_counts")
+
+
+def _check_masks_inputs(name, tables, rows, state) -> None:
+    native.check(
+        name, rows=(rows, I32),
+        **{k: (t, d) for k, t, d in zip(_TABLE_NAMES, tables, _TABLE_DTYPES)},
+        **{k: (t, d) for k, t, d in zip(_STATE_NAMES, state, _STATE_DTYPES)})
+    cp_bits, cp_static, gvk_bits, prof_table, inc = tables
+    c = cp_static.shape[1]
+    w8 = (c + 7) // 8
+    k_prev = state[6].shape[1]
+    if (cp_bits.shape[1] != 2 * w8 or gvk_bits.shape[1] != w8
+            or prof_table.shape[1] != c or inc.shape != (c,)
+            or state[7].shape != state[6].shape or not 0 < k_prev <= MAX_PREV):
+        raise ValueError(f"{name}: inconsistent table or state shapes")
+
+
+def fleet_masks(cp_bits, cp_static, gvk_bits, prof_table, incomplete_en, rows,
+                cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh,
+                prev_sites, prev_counts) -> ChunkMasks:
+    """K3: for each row of the chunk, resolve its slots, scatter-add its
+    previous sites, unpack the gathered affinity/taint/GVK bit planes and
+    write feasible, static weights, prev and the merged availability that
+    K2 takes, plus the row's replicas, strategy and fresh flag."""
+    tables = (cp_bits, cp_static, gvk_bits, prof_table, incomplete_en)
+    state = (cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh,
+             prev_sites, prev_counts)
+    if native.on_cpu((*tables, rows, *state)):
+        return fleet_masks_ref(*tables, rows, *state)
+    _check_masks_inputs("fleet_masks", tables, rows, state)
+    dev = rows.device
+    b, c = rows.shape[0], cp_static.shape[1]
+    out = ChunkMasks(
+        torch.empty((b, c), dtype=BOOL, device=dev),
+        torch.empty((b, c), dtype=I32, device=dev),
+        torch.empty((b, c), dtype=I32, device=dev),
+        torch.empty((b, c), dtype=I32, device=dev),
+        torch.empty((b,), dtype=I32, device=dev),
+        torch.empty((b,), dtype=I32, device=dev),
+        torch.empty((b,), dtype=BOOL, device=dev),
+    )
+    if b and c:
+        native.launch(fleet_masks, "fleet_masks", "fleet_masks_launch", dev,
+                      *tables, c, gvk_bits.shape[1], rows, b, *state,
+                      prev_sites.shape[1], *out)
+    return out
+
+
+fleet_masks.launches = 0
+
+
+def fleet_bits(cp_bits, cp_static, gvk_bits, prof_table, incomplete_en, rows,
+               cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh,
+               prev_sites, prev_counts, *, chunk: int = 0,
+               n_chunks: int = 0) -> torch.Tensor:
+    """K3 bits form: the same feasibility as ``fleet_masks``, packed into
+    int32[n, ceil(C/32)] words (one warp ballot per word)."""
+    rows = _scan_rows(rows, chunk, n_chunks)
+    tables = (cp_bits, cp_static, gvk_bits, prof_table, incomplete_en)
+    state = (cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh,
+             prev_sites, prev_counts)
+    if native.on_cpu((*tables, rows, *state)):
+        return fleet_bits_ref(*tables, rows, *state, chunk=chunk,
+                              n_chunks=n_chunks)
+    _check_masks_inputs("fleet_bits", tables, rows, state)
+    dev = rows.device
+    b, c = rows.shape[0], cp_static.shape[1]
+    out = torch.zeros((b, (c + 31) // 32), dtype=I32, device=dev)
+    if b and c:
+        native.launch(fleet_bits, "fleet_masks", "fleet_bits_launch", dev,
+                      *tables, c, gvk_bits.shape[1], rows, b, *state,
+                      prev_sites.shape[1], out)
+    return out
+
+
+fleet_bits.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K4: resident diff (phase A tail) and entry rows (phase B)
+# --------------------------------------------------------------------------
+
+
+class ChunkDiff(NamedTuple):
+    changed: torch.Tensor  # bool[chunk]
+    meta: torch.Tensor  # int32[chunk]: n_placed | unsched<<8 | has_cand<<9
+    dcount: torch.Tensor  # int32[chunk]: changed cells
+    deltas: torch.Tensor  # int32[chunk, d_slots]: site<<9 | count+1
+
+
+def fleet_diff_ref(assignment, unsched, feasible, strategy, rows, res_dense,
+                   res_meta, *, all_rows: bool, offset: int,
+                   d_slots: int) -> ChunkDiff:
+    """Plain version of K4 phase A: ``_fleet_pass``'s body after the divide.
+    Writes the chunk's dense rows and meta words into ``res_dense`` and
+    ``res_meta`` IN PLACE (the port of the JAX donation): all_rows chunks
+    own the contiguous rows [offset, offset + chunk), partial batches write
+    their valid rows only (padding is dropped, as ``.at[].set(mode="drop")``
+    drops it)."""
+    chunk, c = assignment.shape
+    valid = rows >= 0
+    assignment = torch.where((strategy == DUPLICATED)[:, None], 0, assignment)
+    dense8 = (assignment & 0xFF).to(U8)  # counts <= MAX_REPLICAS_FAST
+    n_placed = (assignment > 0).sum(dim=1).to(I32)
+    has_cand = feasible.any(dim=1)
+    meta = n_placed | (unsched.to(I32) << 8) | (has_cand.to(I32) << 9)
+    if all_rows:
+        sl = slice(offset, offset + chunk)
+        old_d = res_dense[sl].clone()
+        old_m = res_meta[sl].clone()
+        res_dense[sl] = dense8
+        res_meta[sl] = meta
+    else:
+        rc = rows.clamp_min(0).to(I64)
+        old_d = res_dense[rc]
+        old_m = res_meta[rc]
+        keep = rows[valid].to(I64)
+        res_dense[keep] = dense8[valid]
+        res_meta[keep] = meta[valid]
+    cell_changed = (dense8 != old_d) & valid[:, None]
+    dcount = cell_changed.sum(dim=1).to(I32)
+    changed = (cell_changed.any(dim=1) | (meta != old_m)) & valid
+    if d_slots:
+        idxs = torch.arange(c, dtype=I32, device=assignment.device)[None, :]
+        dp = torch.where(cell_changed, (idxs << 9) | (dense8.to(I32) + 1),
+                         MAX_INT32)
+        srt = torch.sort(dp, dim=1).values[:, :d_slots]
+        deltas = torch.where(srt == MAX_INT32, 0, srt)
+    else:
+        deltas = torch.zeros((chunk, 0), dtype=I32, device=assignment.device)
+    return ChunkDiff(changed, meta, dcount, deltas)
+
+
+def fleet_diff(assignment, unsched, feasible, strategy, rows, res_dense,
+               res_meta, *, all_rows: bool, offset: int,
+               d_slots: int) -> ChunkDiff:
+    """K4 phase A: one block per row zeroes Duplicated rows, writes dense8
+    and the meta word over the resident IN PLACE, and emits the changed
+    flag, the changed-cell count and the first ``d_slots`` cell deltas in
+    site order (an ordered compaction in place of the JAX sort)."""
+    args = (assignment, unsched, feasible, strategy, rows, res_dense, res_meta)
+    if native.on_cpu(args):
+        return fleet_diff_ref(*args, all_rows=all_rows, offset=offset,
+                              d_slots=d_slots)
+    native.check("fleet_diff", assignment=(assignment, I32),
+                 unsched=(unsched, BOOL), feasible=(feasible, BOOL),
+                 strategy=(strategy, I32), rows=(rows, I32),
+                 res_dense=(res_dense, U8), res_meta=(res_meta, I32))
+    b, c = assignment.shape
+    cap = res_dense.shape[0]
+    if (feasible.shape != (b, c) or res_dense.shape[1] != c
+            or res_meta.shape != (cap,)
+            or any(t.shape != (b,) for t in (unsched, strategy, rows))
+            or not 0 <= d_slots <= min(64, c)
+            or (all_rows and not 0 <= offset <= cap - b)):
+        raise ValueError("fleet_diff: inconsistent shapes")
+    dev = rows.device
+    out = ChunkDiff(
+        torch.empty((b,), dtype=BOOL, device=dev),
+        torch.empty((b,), dtype=I32, device=dev),
+        torch.empty((b,), dtype=I32, device=dev),
+        torch.empty((b, d_slots), dtype=I32, device=dev),
+    )
+    if b:
+        native.launch(fleet_diff, "fleet_diff", "fleet_diff_launch", dev,
+                      assignment, unsched, feasible, strategy, rows, b, c,
+                      res_dense, res_meta, cap, int(all_rows), offset,
+                      d_slots, *out)
+    return out
+
+
+fleet_diff.launches = 0
+
+
+def fleet_entry_rows_ref(res_dense, rows, k_out: int) -> torch.Tensor:
+    """Plain version of K4 phase B: ``_fleet_entries``' per-row stage —
+    the site-ascending (site<<8 | count) words of each row's nonzero
+    cells, first ``k_out``; rows -1 give zeros."""
+    c = res_dense.shape[1]
+    vc = rows >= 0
+    dense = res_dense[rows.clamp_min(0).to(I64)].to(I32)
+    dense = torch.where(vc[:, None], dense, 0)
+    idxs = torch.arange(c, dtype=I32, device=res_dense.device)[None, :]
+    packed = torch.where(dense > 0, (idxs << 8) | dense, MAX_INT32)
+    srt = torch.sort(packed, dim=1).values[:, :k_out]
+    return torch.where(srt == MAX_INT32, 0, srt)
+
+
+def fleet_entry_rows(res_dense, rows, k_out: int) -> torch.Tensor:
+    """K4 phase B: one block per row, an ordered compaction of the row's
+    nonzero cells into int32[m, k_out]."""
+    if native.on_cpu((res_dense, rows)):
+        return fleet_entry_rows_ref(res_dense, rows, k_out)
+    native.check("fleet_entry_rows", res_dense=(res_dense, U8),
+                 rows=(rows, I32))
+    cap, c = res_dense.shape
+    if rows.dim() != 1 or not 0 < k_out <= max(c, 1):
+        raise ValueError("fleet_entry_rows: inconsistent shapes")
+    m = rows.shape[0]
+    out = torch.empty((m, k_out), dtype=I32, device=rows.device)
+    if m:
+        native.launch(fleet_entry_rows, "fleet_diff",
+                      "fleet_entry_rows_launch", rows.device, res_dense, cap,
+                      c, rows, m, k_out, out)
+    return out
+
+
+fleet_entry_rows.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K5: ordered capped compaction and the wire serialisers
+# --------------------------------------------------------------------------
+
+
+def compact_ref(values: torch.Tensor, flags: torch.Tensor, cap: int,
+                fill: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out[cap], total): the flagged values in input order, the first
+    ``cap`` of them (``fill`` beyond the total); ``total`` counts them all.
+    The cumsum-and-scatter compaction of fleet.py:388-393/659-662."""
+    flags = flags.to(BOOL)
+    f32 = flags.to(I32)
+    offs = torch.cumsum(f32, 0, dtype=I32) - f32
+    total = f32.sum(dtype=I32)
+    write = torch.where(flags & (offs < cap), offs, cap).to(I64)
+    buf = torch.full((cap + 1,), fill, dtype=I32, device=values.device)
+    buf[write[flags]] = values.to(I32)[flags]
+    return buf[:cap], total
+
+
+def pack21_ref(stream: torch.Tensor, e_cap: int) -> torch.Tensor:
+    """``_pack21``: int32 values < 2^21 as a 21-bit little-endian bit
+    stream, each output byte drawn from at most two adjacent fields
+    (computed in int64: the low byte of each shift is the int32 one)."""
+    nb = (e_cap * 21 + 7) // 8
+    idx = torch.arange(nb, dtype=I64, device=stream.device) * 8
+    k1 = idx // 21
+    off = idx - 21 * k1
+    s_ext = torch.cat([stream.to(I64), torch.zeros(1, dtype=I64, device=stream.device)])
+    lo = s_ext[k1] >> off
+    hi = s_ext[torch.clamp_max(k1 + 1, e_cap)] << (21 - off)
+    return ((lo | hi) & 0xFF).to(U8)
+
+
+def entry_bytes_ref(stream: torch.Tensor, e_cap: int, pack21: bool) -> torch.Tensor:
+    """``_entry_wire``: the 21-bit stream plus 3 pad bytes, or 3 bytes an
+    entry."""
+    if pack21:
+        return torch.cat([pack21_ref(stream, e_cap),
+                          torch.zeros(3, dtype=U8, device=stream.device)])
+    s = stream.to(I64)
+    return torch.stack([s & 0xFF, (s >> 8) & 0xFF, (s >> 16) & 0xFF],
+                       dim=-1).to(U8).reshape(-1)
+
+
+def fleet_wire_ref(changed, meta, dcount, rows, deltas, *, m_cap: int,
+                   d_cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K5's phase-A wire (fleet.py:652-707): (flat uint8,
+    rowbuf int32[m_cap]). Layout: 4 B total | changed bitmask n/8 B |
+    m_cap x 2 B changed metas (min(dcount, 63) << 10 in the spare bits) |
+    when d_cap: 4 B dtotal | d_cap x 3 B cell deltas of changed rows with
+    dcount <= 62."""
+    n = changed.shape[0]
+    changed = changed.to(BOOL)
+    wire_meta = meta | (torch.clamp_max(dcount, 63) << 10)
+    mstream, total = compact_ref(wire_meta, changed, m_cap)
+    rowbuf, _ = compact_ref(rows.clamp_min(0), changed, m_cap, fill=-1)
+    bits = changed.reshape(n // 8, 8).to(I64)
+    mask_u8 = (bits << torch.arange(8, dtype=I64, device=bits.device)).sum(-1).to(U8)
+    ms = mstream.to(I64)
+    meta_u8 = torch.stack([ms & 0xFF, (ms >> 8) & 0xFF], dim=-1).to(U8).reshape(-1)
+    parts = [_le32(total), mask_u8, meta_u8]
+    if d_cap:
+        contrib = changed & (dcount <= 62)
+        rowv = torch.where(contrib[:, None], deltas, 0).reshape(-1)
+        dstream, dtotal = compact_ref(rowv, rowv != 0, d_cap)
+        parts += [_le32(dtotal), entry_bytes_ref(dstream, d_cap, False)]
+    return torch.cat(parts), rowbuf
+
+
+def entry_wire_ref(entries: torch.Tensor, *, e_cap: int, byte_wire: bool,
+                   pack21: bool = False) -> torch.Tensor:
+    """Plain version of K5's entry wire (fleet.py:755-769): the positive
+    words of ``entries`` in row-major order compacted into ``e_cap``, then
+    4 B total + entry bytes (uint8), or int32 [total, stream...] without
+    the byte wire."""
+    flat = entries.reshape(-1)
+    stream, total = compact_ref(flat, flat > 0, e_cap)
+    if byte_wire:
+        return torch.cat([_le32(total), entry_bytes_ref(stream, e_cap, pack21)])
+    return torch.cat([total.reshape(1), stream])
+
+
+def _wire_scratch(n_blocks: int, dev) -> torch.Tensor:
+    # per-block counts, per-block offsets, and the totals
+    return torch.empty((2 * n_blocks + 4,), dtype=I32, device=dev)
+
+
+_ITEMS = 2048  # items per compaction block (csrc/fleet_wire.cu ITEMS)
+
+
+def fleet_wire(changed, meta, dcount, rows, deltas, *, m_cap: int,
+               d_cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5 phase-A wire: two ordered capped compactions (changed rows ->
+    metas and rowbuf; delta words of contributing rows -> the delta
+    stream), each a block-count pass, an offset scan and a write pass, then
+    one serialiser pass over the output bytes."""
+    args = (changed, meta, dcount, rows, deltas)
+    if native.on_cpu(args):
+        return fleet_wire_ref(*args, m_cap=m_cap, d_cap=d_cap)
+    native.check("fleet_wire", changed=(changed, BOOL), meta=(meta, I32),
+                 dcount=(dcount, I32), rows=(rows, I32), deltas=(deltas, I32))
+    n = changed.shape[0]
+    d_slots = deltas.shape[1] if deltas.dim() == 2 else -1
+    if (n % 8 or any(t.shape != (n,) for t in (meta, dcount, rows))
+            or deltas.dim() != 2 or deltas.shape[0] != n
+            or (d_cap and not d_slots) or m_cap < 0 or d_cap < 0):
+        raise ValueError("fleet_wire: inconsistent shapes")
+    dev = changed.device
+    length = 4 + n // 8 + 2 * m_cap + (4 + 3 * d_cap if d_cap else 0)
+    flat = torch.empty((length,), dtype=U8, device=dev)
+    rowbuf = torch.empty((m_cap,), dtype=I32, device=dev)
+    mstream = torch.empty((m_cap,), dtype=I32, device=dev)
+    dstream = torch.empty((max(d_cap, 1),), dtype=I32, device=dev)
+    nb_m = -(-n // _ITEMS)
+    nb_d = -(-(n * max(d_slots, 0)) // _ITEMS) if d_cap else 0
+    scratch = _wire_scratch(max(nb_m, nb_d, 1), dev)
+    native.launch(fleet_wire, "fleet_wire", "fleet_wire_launch", dev,
+                  changed, meta, dcount, rows, deltas, n, max(d_slots, 0),
+                  m_cap, d_cap, mstream, rowbuf, dstream, flat, scratch,
+                  max(nb_m, nb_d, 1))
+    return flat, rowbuf
+
+
+fleet_wire.launches = 0
+
+
+def entry_wire(entries: torch.Tensor, *, e_cap: int, byte_wire: bool,
+               pack21: bool = False) -> torch.Tensor:
+    """K5 entry wire: the ordered capped compaction of the positive entry
+    words, then the 3-byte or 21-bit serialiser (or the int32 form)."""
+    if native.on_cpu((entries,)):
+        return entry_wire_ref(entries, e_cap=e_cap, byte_wire=byte_wire,
+                              pack21=pack21)
+    native.check("entry_wire", entries=(entries, I32))
+    n = entries.numel()
+    dev = entries.device
+    if byte_wire:
+        body = ((e_cap * 21 + 7) // 8 + 3) if pack21 else 3 * e_cap
+        out = torch.empty((4 + body,), dtype=U8, device=dev)
+    else:
+        out = torch.empty((1 + e_cap,), dtype=I32, device=dev)
+    stream = torch.empty((max(e_cap, 1),), dtype=I32, device=dev)
+    nb = max(-(-n // _ITEMS), 1)
+    scratch = _wire_scratch(nb, dev)
+    native.launch(entry_wire, "fleet_wire", "entry_wire_launch", dev,
+                  entries, n, e_cap, int(byte_wire), int(pack21), stream, out,
+                  scratch, nb)
+    return out
+
+
+entry_wire.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K6: dirty-row upsert and the meta gather
+# --------------------------------------------------------------------------
+
+
+def scatter_rows_ref(state: tuple, rows: torch.Tensor, vals: tuple) -> tuple:
+    """Plain version of K6: ``_scatter_rows``, in place — each state array
+    takes ``vals`` at ``rows`` (rows outside [0, cap) are dropped)."""
+    for a, v in zip(state, vals):
+        ok = (rows >= 0) & (rows < a.shape[0])
+        a[rows[ok].to(I64)] = v[ok]
+    return state
+
+
+def scatter_rows(state: tuple, rows: torch.Tensor, vals: tuple) -> tuple:
+    """K6: one launch writes the dirty rows of every state array in place
+    (one block per dirty row, a byte copy of each field). Repeated rows —
+    the pow2 padding repeats the first — write identical values."""
+    if native.on_cpu((*state, rows, *vals)):
+        return scatter_rows_ref(state, rows, vals)
+    if len(state) != len(vals) or not 0 < len(state) <= 8:
+        raise ValueError("scatter_rows: one value array per state array, at most 8")
+    native.check("scatter_rows", rows=(rows, I64))
+    k = rows.shape[0]
+    cap = state[0].shape[0]
+    widths = []
+    for a, v in zip(state, vals):
+        if (not a.is_contiguous() or not v.is_contiguous() or a.dtype != v.dtype
+                or a.shape[0] != cap or v.shape != (k, *a.shape[1:])):
+            raise ValueError("scatter_rows: state/value arrays disagree")
+        widths.append(a[0].numel() * a.element_size() if cap else 0)
+    nf = len(state)
+    ptrs = ctypes.c_void_p * 8
+    dst = ptrs(*[a.data_ptr() for a in state], *[None] * (8 - nf))
+    src = ptrs(*[v.data_ptr() for v in vals], *[None] * (8 - nf))
+    wid = (ctypes.c_int * 8)(*widths, *[0] * (8 - nf))
+    if k:
+        native.launch(scatter_rows, "scatter_rows", "scatter_rows_launch",
+                      rows.device, dst, src, wid, nf, rows, k, cap)
+    return state
+
+
+scatter_rows.launches = 0
+
+
+def gather_meta_ref(res_meta: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``_gather_meta``: the 2-byte wire of the meta words at ``rows``
+    (-1 gives 0)."""
+    m = torch.where(rows >= 0, res_meta[rows.clamp_min(0).to(I64)], 0).to(I64)
+    return torch.stack([m & 0xFF, (m >> 8) & 0xFF], dim=-1).to(U8).reshape(-1)
+
+
+def gather_meta(res_meta: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """K6 gather: ``gather_meta_ref`` as one launch, a thread per row."""
+    if native.on_cpu((res_meta, rows)):
+        return gather_meta_ref(res_meta, rows)
+    native.check("gather_meta", res_meta=(res_meta, I32), rows=(rows, I32))
+    m = rows.shape[0]
+    out = torch.empty((2 * m,), dtype=U8, device=rows.device)
+    if m:
+        native.launch(gather_meta, "scatter_rows", "gather_meta_launch",
+                      rows.device, res_meta, res_meta.shape[0], rows, m, out)
+    return out
+
+
+gather_meta.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the two phases, chained as the JAX programs compose their stages
+# --------------------------------------------------------------------------
+
+
+def fleet_pass(cp_bits, cp_static, gvk_bits, prof_table, incomplete_en, rows,
+               cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh,
+               prev_sites, prev_counts, res_dense, res_meta, *, chunk: int,
+               n_chunks: int, wide: bool, fast: Optional[tuple],
+               has_aggregated: bool, all_rows: bool, m_cap: int,
+               d_cap: int = 0):
+    """Phase A (``_fleet_pass``): per chunk K3 -> K2 -> K4, then K5 over the
+    whole pass. Returns (flat_wire_u8, rowbuf, res_dense, res_meta); the
+    residents are updated in place and returned for signature parity."""
+    c = cp_static.shape[1]
+    d_slots = min(64, c) if d_cap else 0
+    tables = (cp_bits, cp_static, gvk_bits, prof_table, incomplete_en)
+    state = (cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh,
+             prev_sites, prev_counts)
+    parts = []
+    for i in range(n_chunks):
+        rows_c = rows[i * chunk : (i + 1) * chunk]
+        m = fleet_masks(*tables, rows_c, *state)
+        assignment, unsched = divide_replicas(
+            m.strategy, m.replicas, m.feasible, m.static_w, m.avail, m.prev,
+            m.fresh, has_aggregated, wide, fast,
+        )
+        parts.append(fleet_diff(
+            assignment, unsched, m.feasible, m.strategy, rows_c, res_dense,
+            res_meta, all_rows=all_rows, offset=i * chunk, d_slots=d_slots,
+        ))
+    changed = torch.cat([p.changed for p in parts])
+    meta = torch.cat([p.meta for p in parts])
+    dcount = torch.cat([p.dcount for p in parts])
+    deltas = torch.cat([p.deltas for p in parts])
+    flat, rowbuf = fleet_wire(changed, meta, dcount, rows, deltas,
+                              m_cap=m_cap, d_cap=d_cap)
+    return flat, rowbuf, res_dense, res_meta
+
+
+def fleet_entries(res_dense, rows, *, chunk: int, n_chunks: int, k_out: int,
+                  e_cap: int, byte_wire: bool, pack21: bool = False):
+    """Phase B (``_fleet_entries``): K4's entry rows over the first
+    ``chunk * n_chunks`` rows (the rows the JAX scan reads; one launch
+    takes them all), then K5's entry wire."""
+    ents = fleet_entry_rows(res_dense, _scan_rows(rows, chunk, n_chunks), k_out)
+    return entry_wire(ents, e_cap=e_cap, byte_wire=byte_wire, pack21=pack21)

@@ -1,0 +1,358 @@
+"""The port's fleet device programs (karmada_tpu_torch/scheduler/
+fleet_kernels.py) against the JAX package's (karmada_tpu/scheduler/fleet.py)
+on the same seeded inputs, on the CPU: the wrappers take their plain
+versions here, the same code the card's kernels are held to by
+chip_smoke.py. Tolerance: exact — every wire byte for byte, the residents
+and the row buffer element for element. Shapes are small: cap 1024, C 50
+and 300, chunk 256."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import karmada_tpu.scheduler.core as jcore
+import karmada_tpu.scheduler.fleet as jf
+
+from karmada_tpu_torch import native
+from karmada_tpu_torch.scheduler import fleet_kernels as fk
+from karmada_tpu_torch.scheduler.fleet import _cap_round, _pow2
+
+CAP, CHUNK, K_PREV = 1024, 256, 32
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The shapes here are small: one intra-op thread keeps this module
+    from contending with the other test workers for the cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+MI = 2**31 - 1
+
+
+def tables_state(seed: int, c: int, cap: int = CAP, u: int = 12, g: int = 3,
+                 p: int = 6) -> tuple[tuple, tuple]:
+    """Slot tables and per-row state as the fleet table holds them: packed
+    affinity/taint/GVK planes, static weights, a profile table with -1
+    (no summary) and sentinel cells, and rows with up to 8 distinct
+    previous sites padded with (0, 0) pairs."""
+    rng = np.random.default_rng(seed)
+    pack = lambda m: np.packbits(m, axis=1, bitorder="little")  # noqa: E731
+    cp_bits = np.concatenate([pack(rng.random((u, c)) < 0.8),
+                              pack(rng.random((u, c)) < 0.85)], axis=1)
+    cp_static = rng.integers(0, 5, (u, c)).astype(np.int32)
+    cp_static[0] = 0  # all-zero static weights: every candidate weighs 1
+    gvk_bits = pack(rng.random((g, c)) < 0.9)
+    prof = rng.integers(-1, 60, (p, c)).astype(np.int32)
+    prof[0] = MI  # a profile requesting nothing
+    prof[1, rng.random(c) < 0.3] = -1
+    incomplete = rng.random(c) < 0.3
+    replicas = rng.integers(0, 129, cap).astype(np.int32)
+    replicas[rng.random(cap) < 0.05] = 0
+    sites = np.zeros((cap, K_PREV), np.int32)
+    counts = np.zeros((cap, K_PREV), np.int32)
+    for r in range(cap):
+        k = int(rng.integers(0, 9))
+        sites[r, :k] = rng.choice(c, k, replace=False)
+        counts[r, :k] = rng.integers(1, 30, k)
+    state = (
+        rng.integers(0, u, cap).astype(np.int32),
+        rng.integers(0, g, cap).astype(np.int32),
+        rng.integers(0, p, cap).astype(np.int32),
+        replicas,
+        rng.integers(0, 4, cap).astype(np.int32),
+        rng.random(cap) < 0.2,
+        sites,
+        counts,
+    )
+    return (cp_bits, cp_static, gvk_bits, prof, incomplete), state
+
+
+def rows_for(kind: str, n: int, n_pad: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed + 100)
+    out = np.full(n_pad, -1, np.int32)
+    out[:n] = np.arange(n) if kind == "all" else rng.permutation(CAP)[:n]
+    return out
+
+
+def T(a):  # numpy -> torch (CPU)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def J(a):  # numpy -> jax
+    return jnp.asarray(np.ascontiguousarray(a))
+
+
+def variant(tables, state, c):
+    reps = state[3]
+    prof = tables[3]
+    return jcore.kernel_variant(
+        max(int(prof[prof != MI].max()), int(reps.max())), int(tables[1].max()),
+        int(state[7].max()), int(reps.max()), c,
+    )
+
+
+# --------------------------------------------------------------------------
+# K3: masks and bits
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("c", [50, 300])
+def test_unpack_bits_and_row_masks_equal_jax(c):
+    tables, state = tables_state(1, c)
+    cp_bits, cp_static, gvk_bits, _, inc = tables
+    np.testing.assert_array_equal(
+        fk.unpack_bits_ref(T(cp_bits), c).numpy(),
+        np.asarray(jf._unpack_bits(J(cp_bits), c)))
+    rows = rows_for("part", 200, CHUNK, 1)
+    valid = rows >= 0
+    r = np.maximum(rows, 0)
+    cpc, gvc = state[0][r], state[1][r]
+    psc = state[6][r]
+    pcc = np.where(valid[:, None], state[7][r], 0)
+    want = jf._row_masks(J(cp_bits), J(cp_static), J(gvk_bits), J(inc), J(cpc),
+                         J(gvc), J(psc), J(pcc), J(valid), CHUNK, c)
+    got = fk.row_masks_ref(T(cp_bits), T(cp_static), T(gvk_bits), T(inc), T(cpc),
+                           T(gvc), T(psc), T(pcc), T(valid), CHUNK, c)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[2].any() and not got[2].all()
+
+
+@pytest.mark.parametrize("c", [50, 300])
+@pytest.mark.parametrize("kind", ["all", "part"])
+def test_fleet_bits_equal_jax(c, kind):
+    tables, state = tables_state(2, c)
+    rows = rows_for(kind, 700, 768, 2)
+    want = np.asarray(jf._fleet_bits(*map(J, tables), J(rows), *map(J, state),
+                                     chunk=CHUNK, n_chunks=3))
+    got = fk.fleet_bits(*map(T, tables), T(rows), *map(T, state), chunk=CHUNK,
+                        n_chunks=3)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+# --------------------------------------------------------------------------
+# K6: meta gather and row scatter
+# --------------------------------------------------------------------------
+
+
+def test_gather_meta_equals_jax():
+    rng = np.random.default_rng(3)
+    res_meta = rng.integers(0, 1 << 10, CAP).astype(np.int32)
+    rows = np.full(4096, -1, np.int32)
+    rows[:300] = rng.choice(CAP, 300, replace=False)
+    got = fk.gather_meta(T(res_meta), T(rows))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jf._gather_meta(J(res_meta), J(rows))))
+
+
+def test_scatter_rows_equals_jax():
+    _, state = tables_state(4, 50)
+    rng = np.random.default_rng(4)
+    rows = rng.choice(CAP, 40, replace=False).astype(np.int64)
+    rows_p = np.concatenate([rows, np.full(24, rows[0])])  # pow2 padding
+    _, donor = tables_state(5, 50)
+    vals = tuple(a[rows_p] for a in donor)
+    want = jf._scatter_rows(tuple(map(J, state)), J(rows_p), tuple(map(J, vals)))
+    got = tuple(T(a.copy()) for a in state)
+    out = fk.scatter_rows(got, T(rows_p), tuple(map(T, vals)))
+    assert out is got  # in place
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# --------------------------------------------------------------------------
+# K5 serialisers
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("e_cap", [1, 7, 1024, 1031])
+def test_pack21_and_entry_wire_equal_jax(e_cap):
+    rng = np.random.default_rng(e_cap)
+    stream = ((rng.integers(0, 1 << 13, e_cap) << 8)
+              | rng.integers(1, 129, e_cap)).astype(np.int32)
+    stream[rng.random(e_cap) < 0.2] = 0
+    np.testing.assert_array_equal(fk.pack21_ref(T(stream), e_cap).numpy(),
+                                  np.asarray(jf._pack21(J(stream), e_cap)))
+    for pack21 in (True, False):
+        np.testing.assert_array_equal(
+            fk.entry_bytes_ref(T(stream), e_cap, pack21).numpy(),
+            np.asarray(jf._entry_wire(J(stream), e_cap, pack21)))
+
+
+# --------------------------------------------------------------------------
+# phase A and phase B
+# --------------------------------------------------------------------------
+
+
+def residents(tables, state, rows, c, *, n_chunks, wide, fast, has_agg, seed,
+              overflow_row):
+    """Residents one JAX pass wrote, then perturbed: random cells of some
+    rows, a meta word, and one row rewritten in > 62 cells."""
+    rd, rm = jnp.zeros((CAP, c), jnp.uint8), jnp.zeros((CAP,), jnp.int32)
+    _, _, rd, rm = jf._fleet_pass(
+        *map(J, tables), J(rows), *map(J, state), rd, rm, chunk=CHUNK,
+        n_chunks=n_chunks, wide=wide, fast=fast, has_aggregated=has_agg,
+        all_rows=False, m_cap=CHUNK * n_chunks, d_cap=0)
+    rd, rm = np.array(rd), np.array(rm)
+    rng = np.random.default_rng(seed)
+    live = rows[rows >= 0]
+    for r in rng.choice(live, 40, replace=False):
+        cells = rng.choice(c, 3, replace=False)
+        rd[r, cells] = rng.integers(0, 9, 3)
+    rm[live[5]] ^= 1 << 8  # meta-only change
+    if overflow_row:
+        rd[live[7], : min(c, 100)] = 77  # > 62 changed cells when C = 300
+    return rd, rm
+
+
+@pytest.mark.parametrize("c,kind,n,m_cap,d_cap", [
+    (300, "all", 900, 1024, 0),
+    (300, "all", 900, 1024, 8192),
+    (300, "part", 500, 16, 8192),
+    (300, "part", 500, 1024, 32),
+    (50, "all", 900, 1024, 8192),
+    (50, "all", 900, 16, 0),
+    (50, "part", 500, 1024, 0),
+    (50, "part", 500, 1024, 32),
+])
+def test_fleet_pass_wire_equals_jax(c, kind, n, m_cap, d_cap):
+    """``_fleet_pass`` byte for byte: the flat wire, the row buffer and both
+    residents, on all-rows and partial batches, without and with the delta
+    section, with an m_cap overflow (16) and a delta-stream overflow (32),
+    and a row with more than 62 changed cells when C = 300."""
+    tables, state = tables_state(6, c)
+    n_pad = -(-n // CHUNK) * CHUNK
+    n_chunks = n_pad // CHUNK
+    rows = rows_for(kind, n, n_pad, 6)
+    wide, fast = variant(tables, state, c)
+    has_agg = bool((state[4] == 3).any())
+    rd, rm = residents(tables, state, rows, c, n_chunks=n_chunks, wide=wide,
+                       fast=fast, has_agg=has_agg, seed=7, overflow_row=True)
+    # the next pass sees new replicas on some rows
+    state = list(state)
+    state[3] = state[3].copy()
+    state[3][rows[:50].clip(0)] = (state[3][rows[:50].clip(0)] + 5) % 129
+    kw = dict(chunk=CHUNK, n_chunks=n_chunks, wide=wide, fast=fast,
+              has_aggregated=has_agg, all_rows=kind == "all", m_cap=m_cap,
+              d_cap=d_cap)
+    w_flat, w_rowbuf, w_rd, w_rm = jf._fleet_pass(
+        *map(J, tables), J(rows), *map(J, state), J(rd.copy()), J(rm.copy()), **kw)
+    t_rd, t_rm = T(rd.copy()), T(rm.copy())
+    g_flat, g_rowbuf, g_rd, g_rm = fk.fleet_pass(
+        *map(T, tables), T(rows), *map(T, state), t_rd, t_rm, **kw)
+    assert g_rd is t_rd and g_rm is t_rm  # updated in place
+    assert g_flat.dtype == torch.uint8
+    np.testing.assert_array_equal(g_flat.numpy(), np.asarray(w_flat))
+    np.testing.assert_array_equal(g_rowbuf.numpy(), np.asarray(w_rowbuf))
+    np.testing.assert_array_equal(g_rd.numpy(), np.asarray(w_rd))
+    np.testing.assert_array_equal(g_rm.numpy(), np.asarray(w_rm))
+    flat = g_flat.numpy()
+    total = int(flat[:4].view("<i4")[0])
+    assert total > (m_cap if m_cap == 16 else 40)
+    if d_cap and c == 300:
+        metas = flat[4 + n_pad // 8 :][: 2 * min(total, m_cap)]
+        assert (metas[1::2] >> 2).max() == 63  # the > 62 overflow sentinel
+
+
+@pytest.mark.parametrize("c,byte_wire,pack21", [
+    (300, True, True), (300, True, False), (300, False, True), (300, False, False),
+    (50, True, True), (50, False, False),
+])
+def test_fleet_entries_equal_jax(c, byte_wire, pack21):
+    tables, state = tables_state(8, c)
+    rows = rows_for("all", 900, 1024, 8)
+    wide, fast = variant(tables, state, c)
+    rd, _ = residents(tables, state, rows, c, n_chunks=4, wide=wide, fast=fast,
+                      has_agg=True, seed=9, overflow_row=False)
+    rng = np.random.default_rng(9)
+    ch = rng.choice(900, 333, replace=False).astype(np.int32)
+    rows_b = np.full(2048, -1, np.int32)
+    rows_b[: len(ch)] = ch
+    k_out = min(c, _pow2(int(state[3].max())))
+    e_want = int((rd[ch] > 0).sum(axis=1).clip(max=k_out).sum())
+    e_cap = _cap_round(e_want)
+    kw = dict(chunk=CHUNK, n_chunks=8, k_out=k_out, e_cap=e_cap,
+              byte_wire=byte_wire, pack21=pack21)
+    want = np.asarray(jf._fleet_entries(J(rd), J(rows_b), **kw))
+    got = fk.fleet_entries(T(rd), T(rows_b), **kw)
+    assert got.dtype == (torch.uint8 if byte_wire else torch.int32)
+    np.testing.assert_array_equal(got.numpy(), want)
+    total = int(got[:4].numpy().view("<i4")[0]) if byte_wire else int(got[0])
+    assert total == e_want > 0
+    # the entry rows alone: each row's nonzero cells in site order, first
+    # k_out; padding rows give zeros
+    ents = fk.fleet_entry_rows(T(rd), T(rows_b), k_out).numpy()
+    for j, r in enumerate(ch):
+        nz = np.flatnonzero(rd[r])[:k_out]
+        want_row = np.zeros(k_out, np.int32)
+        want_row[: len(nz)] = (nz << 8) | rd[r, nz]
+        np.testing.assert_array_equal(ents[j], want_row)
+    assert not ents[len(ch):].any()
+    # an e_cap below the total
+    kw["e_cap"] = 64
+    np.testing.assert_array_equal(
+        fk.fleet_entries(T(rd), T(rows_b), **kw).numpy(),
+        np.asarray(jf._fleet_entries(J(rd), J(rows_b), **kw)))
+
+
+def test_compact_ref_counts_past_the_cap():
+    vals = torch.arange(10, dtype=torch.int32)
+    flags = vals % 3 == 0  # 0, 3, 6, 9
+    out, total = fk.compact_ref(vals, flags, 2, fill=-1)
+    assert out.tolist() == [0, 3] and int(total) == 4
+    out, total = fk.compact_ref(vals, flags, 6, fill=-1)
+    assert out.tolist() == [0, 3, 6, 9, -1, -1] and int(total) == 4
+
+
+def test_wrappers_refuse_mixed_devices_and_bad_dtypes():
+    """On the CPU the plain versions run; anything that is not all-CPU must
+    be one CUDA device, and there is none here, so a wrapper raises
+    instead of falling back."""
+    a = torch.zeros((4, 8), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        fk.gather_meta(torch.zeros(4, dtype=torch.int32, device="meta"), torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        fk.fleet_entry_rows(a, torch.zeros(2, dtype=torch.int32, device="meta"), 4)
+
+
+def _c_signature(src: str, fn_name: str) -> str:
+    """The argument kinds of ``extern "C" int fn_name(...)`` in a kernel
+    source, in ``native.SIGNATURES`` letters, without the trailing stream."""
+    import re
+
+    m = re.search(r'extern "C" int ' + fn_name + r"\((.*?)\)\s*\{", src, re.S)
+    assert m, fn_name
+    params = [p.strip() for p in m.group(1).split(",")]
+    assert params[-1].startswith("cudaStream_t"), fn_name
+    kinds = []
+    for p in params[:-1]:
+        if "*" in p:
+            kinds.append("p")
+        elif p.startswith("long long") or p.startswith("int64_t"):
+            kinds.append("q")
+        else:
+            assert p.split()[0] == "int", (fn_name, p)
+            kinds.append("i")
+    return "".join(kinds)
+
+
+@pytest.mark.parametrize("lib_name", sorted(native.SIGNATURES))
+def test_native_signatures_match_the_c_entry_points(lib_name):
+    """ctypes passes arguments as ``native.SIGNATURES`` declares them, set
+    once at load: each declaration must match its C entry point, and every
+    launch entry point of the source must be declared."""
+    import os
+    import re
+
+    with open(os.path.join(native.CSRC, f"{lib_name}.cu")) as f:
+        src = f.read()
+    declared = native.SIGNATURES[lib_name]
+    assert set(declared) == set(re.findall(r'extern "C" int (\w+_launch)\(', src))
+    for fn_name, sig in declared.items():
+        assert _c_signature(src, fn_name) == sig, fn_name
