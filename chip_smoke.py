@@ -8,13 +8,16 @@
    CUDA source, all at once, and g++ for the host wire runtime ``fold.c``);
 2. kernel phase: holds K1 ``estimate_merge`` and K2 ``divide_replicas``
    against their plain PyTorch versions on the card on seeded batches at the
-   north-star chunk (4096 x 5000) and at C = 10,000, and K1's table form
-   ``profile_table`` at U = 8 x 5000; equality is exact (integer outputs,
-   tolerance 0). Prints each kernel's median time beside the plain
-   version's and its bound;
+   north-star chunk (4096 x 5000) and at C = 10,000, K1's table form
+   ``profile_table`` at U = 8 x 5000, K1's merge form
+   ``estimate_merge_table`` at 4096 x 5000 with 0, 1 and 2 extra estimates,
+   and K8 ``node_sum_estimate`` at 4096 profile rows x 5000 nodes; equality
+   is exact (integer outputs, tolerance 0). Prints each kernel's median
+   time beside the plain version's and its bound;
 3. end-to-end phase, every row checked against the port's numpy divider on
    the same packed inputs (``oracle_check``):
-   - BASELINE configs 1 and 2 (host-small numpy path) and 4 (10k x 500,
+   - BASELINE configs 1 and 2 (host-small numpy path), 3 (resource models
+     on the host-small numpy path; no kernel may launch) and 4 (10k x 500,
      spread rows riding the fleet through derived selections);
    - config 5, the 100k bindings x 5k clusters storm, through the fleet
      table: one cold pass, 3 steady passes (the batch-identity route) and 3
@@ -23,12 +26,23 @@
      first churn pass it holds K3 (both forms), K4 (both stages), K5 (both
      wires) and K6 (both entry points) against their plain versions on the
      table's own inputs at config-5 shapes (exact), and times them;
-   - a mixed-strategy fleet phase (20k x 1000: the four strategies,
+   - a mixed-strategy fleet phase (10k x 1000: the four strategies,
      zero-replica, fresh and previous-site rows), whose second pass makes a
      few hundred rows dirty: every row equal to the port's general path on
      the card (a second engine with ``fleet_threshold`` raised);
-   - config 5 on the general path (the first slice's route: K1 + K2), one
-     warm and one timed pass, every row equal to the fleet's cold pass.
+   - config 5 on the general path (the first slice's route: K1 + K2), its
+     first 40k rows in one pass, every row equal to the fleet's cold pass;
+   - config 5 again under Karmada's nine default resource-model grades:
+     the storm as above (K7's overlay form in every table rebuild; K7's
+     two forms held to their plain versions on the table's inputs and on
+     a seeded U = 64 batch), then one 20k-row pass on the general path
+     (K1 table form, K7 overlay, K1 merge form, K2);
+   - the in-process accurate estimator: 128 clusters of 4000 seeded nodes
+     behind an ``EstimatorRegistry``, 10k bindings through
+     ``extra_estimators``; cold, steady, hard-refresh and pod-event passes
+     must launch K8 128, 0, 128 and 4 times and leave no registered
+     cluster unanswered; the cold and pod-event passes are checked against
+     the numpy divider over merge(general, the node-sum numpy mirror).
    Each path sets the launch counters to 0 just before it and reads them
    just after; every kernel of the path must have launched.
 4. prints one JSON line of per-kernel numbers, the card line again, and last
@@ -73,14 +87,32 @@ def card_line() -> str:
 # --------------------------------------------------------------------------
 
 
+def with_default_models(pkg, clusters, seed: int = 5, max_count: int = 6) -> None:
+    """Give every cluster Karmada's nine default cpu/memory grades
+    (``default_resource_models``, what the cluster webhook sets on a
+    Cluster that declares none) and seeded AllocatableModelings: 0 to
+    ``max_count - 1`` allocatable nodes in each grade."""
+    cl_api = importlib.import_module(f"{pkg.__name__}.api.cluster")
+    rng = np.random.default_rng(seed)
+    grades = len(cl_api.default_resource_models())
+    counts = rng.integers(0, max_count, (len(clusters), grades))
+    for cl, row in zip(clusters, counts):
+        cl.spec.resource_models = cl_api.default_resource_models()
+        cl.status.resource_summary.allocatable_modelings = [
+            cl_api.AllocatableModeling(grade=g, count=int(n)) for g, n in enumerate(row)
+        ]
+
+
 def build_workload(pkg, config: int, bindings: int | None = None,
-                   clusters: int | None = None):
-    """(snapshot, problems) of BASELINE config 1, 2, 4 or 5, built with the
+                   clusters: int | None = None, models: bool = False):
+    """(snapshot, problems) of BASELINE config 1, 2, 3, 4 or 5, built with the
     api/builders/scheduler modules of ``pkg`` (karmada_tpu_torch, or any
     package with the same layout): the same seeds and placement mix as
     bench.py ``run_engine_config`` (configs 1-4) and
     ``build_headline_workload`` (config 5). ``bindings``/``clusters`` cut
-    configs 4 and 5 below their full 10k x 500 and 100k x 5k."""
+    configs 4 and 5 below their full 10k x 500 and 100k x 5k. With
+    ``models``, config 5's clusters carry the nine default resource-model
+    grades and seeded allocatable modelings (``with_default_models``)."""
     api = importlib.import_module(f"{pkg.__name__}.api")
     b = importlib.import_module(f"{pkg.__name__}.utils.builders")
     q = importlib.import_module(f"{pkg.__name__}.utils.quantity")
@@ -95,6 +127,28 @@ def build_workload(pkg, config: int, bindings: int | None = None,
             key, reps = "web", 10
         problems = [s.BindingProblem(key=key, placement=pl, replicas=reps,
                                      requests=req, gvk="apps/v1/Deployment")]
+        return s.ClusterSnapshot(fleet), problems
+    if config == 3:  # per-cluster ResourceModels (bench.py:384-409)
+        fleet = b.synthetic_fleet(20, seed=3)
+        for cl in fleet:
+            cl.spec.resource_models = [
+                api.ResourceModel(grade=g, ranges=[
+                    api.ResourceModelRange(name="cpu", min=1000 * 2**g,
+                                           max=1000 * 2**(g + 1)),
+                    api.ResourceModelRange(name="memory", min=(2 << 30) * 2**g,
+                                           max=(2 << 30) * 2**(g + 1)),
+                ])
+                for g in range(3)
+            ]
+            cl.status.resource_summary.allocatable_modelings = [
+                api.AllocatableModeling(grade=g, count=10 * (g + 1)) for g in range(3)
+            ]
+        pl = b.aggregated_placement()
+        problems = [
+            s.BindingProblem(key=f"b{i}", placement=pl, replicas=(i % 20) + 1,
+                             requests=req, gvk="apps/v1/Deployment")
+            for i in range(100)
+        ]
         return s.ClusterSnapshot(fleet), problems
     if config == 4:
         fleet = b.synthetic_fleet(clusters or 500, seed=4)
@@ -117,7 +171,10 @@ def build_workload(pkg, config: int, bindings: int | None = None,
         raise ValueError(f"no workload for config {config}")
     c = clusters or 5_000
     n = bindings or 100_000
-    snap = s.ClusterSnapshot(b.synthetic_fleet(c, seed=7, taint_fraction=0.08))
+    fleet = b.synthetic_fleet(c, seed=7, taint_fraction=0.08)
+    if models:
+        with_default_models(pkg, fleet)
+    snap = s.ClusterSnapshot(fleet)
     names = snap.names
     tol = api.Toleration(key="fleet.io/dedicated", operator="Exists")
     pl_plain = b.dynamic_weight_placement()
@@ -151,6 +208,60 @@ def build_workload(pkg, config: int, bindings: int | None = None,
         for i in range(n)
     ]
     return snap, problems
+
+
+def node_states(pkg, n: int, seed: int) -> list:
+    """Seeded member nodes of ``pkg``'s estimator: 8-64 cores, 32-256 GiB
+    and 110 pods each, 0-90% of cpu, memory and pods requested."""
+    acc = importlib.import_module(f"{pkg.__name__}.estimator.accurate")
+    rng = np.random.default_rng(seed)
+    cores = rng.integers(8, 65, n) * 1000
+    mem = rng.integers(32, 257, n) << 30
+    frac = rng.uniform(0.0, 0.9, n)
+    req_cpu = (cores * frac).astype(np.int64)
+    req_mem = (mem * frac).astype(np.int64)
+    pods = (110 * frac).astype(np.int64)
+    return [
+        acc.NodeState(name=f"n{i}",
+                      allocatable={"cpu": int(cores[i]), "memory": int(mem[i]), "pods": 110},
+                      requested={"cpu": int(req_cpu[i]), "memory": int(req_mem[i])},
+                      num_pods=int(pods[i]))
+        for i in range(n)
+    ]
+
+
+def estimator_workload(pkg, clusters: int = 128, nodes: int = 4000,
+                       bindings: int = 10_000):
+    """bench.py's estimator tier (``run_estimator_tier``: dynamic weight, 8
+    request profiles, replicas 1-79, fleet seed 77) over ``clusters``
+    members of ``nodes`` seeded nodes each. Each cluster's ResourceSummary
+    is the sum of its nodes, as the cluster-status controller aggregates
+    it. Returns (snapshot, {cluster name: nodes}, problems)."""
+    b = importlib.import_module(f"{pkg.__name__}.utils.builders")
+    q = importlib.import_module(f"{pkg.__name__}.utils.quantity")
+    s = importlib.import_module(f"{pkg.__name__}.scheduler")
+    fleet = b.synthetic_fleet(clusters, seed=77)
+    per_cluster = {}
+    for ci, cl in enumerate(fleet):
+        ns = node_states(pkg, nodes, 1000 + ci)
+        per_cluster[cl.name] = ns
+        rs = cl.status.resource_summary
+        rs.allocatable = {d: sum(n.allocatable[d] for n in ns) for d in ("cpu", "memory", "pods")}
+        rs.allocated = {d: sum(n.requested[d] for n in ns) for d in ("cpu", "memory")}
+        rs.allocated["pods"] = sum(n.num_pods for n in ns)
+    pl = b.dynamic_weight_placement()
+    profiles = [
+        q.parse_resource_list({"cpu": f"{250 * (p + 1)}m", "memory": f"{512 * (p + 1)}Mi"})
+        for p in range(8)
+    ]
+    rng = np.random.default_rng(17)
+    problems = [
+        s.BindingProblem(key=f"e{i}", placement=pl, replicas=int(rng.integers(1, 80)),
+                         requests=profiles[int(rng.integers(0, 8))],
+                         gvk="apps/v1/Deployment")
+        for i in range(bindings)
+    ]
+    return s.ClusterSnapshot(fleet), per_cluster, problems
 
 
 # --------------------------------------------------------------------------
@@ -293,33 +404,45 @@ def check_kernel(name: str, arrays: dict, device, reps: int = 10) -> dict:
 # --------------------------------------------------------------------------
 
 
-def oracle_check(engine, problems, results) -> int:
+def oracle_check(engine, problems, results, extra=None) -> int:
     """Re-solve every row on the host from the same packed inputs: the
-    engine's packing, the numpy estimate, the host spread selection and the
-    numpy divider. Returns the number of rows that differ."""
+    engine's packing, the numpy estimate (the engine's tiny-batch mirror
+    ``_availability_np``, merged with ``extra``'s answer when given), the
+    host spread selection and the numpy
+    divider. Returns the number of rows that differ. Chunks are checked on
+    a pool of threads (numpy releases the GIL in its array work); the
+    placements are compiled first, on this thread."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
     from karmada_tpu_torch.refimpl import assign_batch_np
     from karmada_tpu_torch.scheduler.spread import select_clusters_batch
 
-    bad = 0
     snap = engine.snapshot
-    for start in range(0, len(problems), engine.chunk_size):
+    compiled_all = [engine._compiled(p.placement) for p in problems]
+
+    def chunk_bad(start: int) -> int:
         chunk = problems[start : start + engine.chunk_size]
-        compiled = [engine._compiled(p.placement) for p in chunk]
+        compiled = compiled_all[start : start + engine.chunk_size]
         feasible, strategy, replicas, static_w, requests, prev, fresh = (
             engine._pack_chunk(chunk, compiled, 0)
         )
-        avail = engine._availability_np(requests, replicas)
+        extras = () if extra is None else (extra(requests, replicas),)
+        avail = engine._availability_np(requests, replicas, extras)
         cand = select_clusters_batch(snap, chunk, compiled, 0, feasible, avail, prev)
         assignment, unsched = assign_batch_np(
             strategy, replicas, cand, static_w, avail, prev, fresh
         )
         want = engine._unpack(chunk, compiled, 0, cand, assignment, unsched)
-        for got, exp in zip(results[start : start + len(chunk)], want):
-            if (got.key, got.clusters, got.error, got.feasible) != (
-                exp.key, exp.clusters, exp.error, exp.feasible
-            ):
-                bad += 1
-    return bad
+        return sum(
+            (got.key, got.clusters, got.error, got.feasible)
+            != (exp.key, exp.clusters, exp.error, exp.feasible)
+            for got, exp in zip(results[start : start + len(chunk)], want)
+        )
+
+    starts = range(0, len(problems), engine.chunk_size)
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        return sum(pool.map(chunk_bad, starts))
 
 
 def sync(device) -> None:
@@ -444,6 +567,14 @@ KERNELS = {
                      "karmada_tpu/scheduler/fleet.py:1120"),
     "gather_meta": ("cuda", "karmada_tpu_torch/csrc/scatter_rows.cu",
                     "karmada_tpu/scheduler/fleet.py:828"),
+    "model_estimate": ("cuda", "karmada_tpu_torch/csrc/model_estimate.cu",
+                       "karmada_tpu/models/modeling.py:72"),
+    "model_overlay": ("cuda", "karmada_tpu_torch/csrc/model_estimate.cu",
+                      "karmada_tpu/scheduler/core.py:2263"),
+    "estimate_merge_table": ("cuda", "karmada_tpu_torch/csrc/estimate_merge.cu",
+                             "karmada_tpu/scheduler/core.py:2376"),
+    "node_sum_estimate": ("cuda", "karmada_tpu_torch/csrc/node_sum.cu",
+                          "karmada_tpu/estimator/accurate.py:255"),
 }
 #: the kernels each driven path must launch
 PATH_KERNELS = {
@@ -453,14 +584,25 @@ PATH_KERNELS = {
     "mixed fleet": ("profile_table", "divide_replicas", "fleet_masks",
                     "fleet_bits", "fleet_diff", "fleet_wire", "scatter_rows"),
     "config 5 general": ("estimate_merge", "divide_replicas"),
+    "config 5 models fleet": ("profile_table", "model_overlay", "divide_replicas",
+                              "fleet_masks", "fleet_diff", "fleet_entry_rows",
+                              "fleet_wire", "entry_wire"),
+    "config 5 models general": ("profile_table", "model_overlay",
+                                "estimate_merge_table", "divide_replicas"),
+    "estimator": ("profile_table", "estimate_merge_table", "divide_replicas",
+                  "node_sum_estimate"),
 }
 
 
 def wrappers() -> dict:
     from karmada_tpu_torch import ops
+    from karmada_tpu_torch.estimator import accurate
+    from karmada_tpu_torch.models import modeling
     from karmada_tpu_torch.scheduler import fleet_kernels as fk
 
-    return {name: getattr(ops if hasattr(ops, name) else fk, name) for name in KERNELS}
+    mods = (ops, fk, modeling, accurate)
+    return {name: getattr(next(m for m in mods if hasattr(m, name)), name)
+            for name in KERNELS}
 
 
 def reset_counts() -> None:
@@ -789,6 +931,162 @@ def check_profile_table(device, card: str, rng) -> dict:
     ), max_abs_err=err)
 
 
+def model_batch(rng, u: int, c: int, g: int = 9, r: int = 4) -> dict:
+    """K7 inputs over every branch at the engine's widths: grades sorted by
+    their bounds with undefined (-1) entries and padding grades, uncovered
+    dims, requests of nothing, of 1 (per-node answers near the 2^62
+    sentinel) and beyond every grade, and clusters whose count x per-node
+    products and grade sums wrap int64."""
+    mb = np.sort(rng.integers(0, 64_000, (c, g, r)), axis=1).astype(np.int64)
+    mb[rng.random((c, g, r)) < 0.1] = -1
+    pad = rng.random(c) < 0.3
+    mb[pad, -1] = -1
+    counts = rng.integers(0, 50, (c, g)).astype(np.int32)
+    counts[pad, -1] = 0
+    mb[:64, :, 0] = rng.integers(2**61, 2**62 - 1, (64, g), dtype=np.int64)
+    counts[:64] = rng.integers(2**30, 2**31 - 1, (64, g))
+    req = rng.integers(0, 70_000, (u, r)).astype(np.int64)
+    req[rng.random((u, r)) < 0.35] = 0
+    req[0] = 0
+    req[1] = [1] + [0] * (r - 1)
+    req[2] = 10**9
+    cap = rng.integers(-50, 1 << 40, (c, r)).astype(np.int64)
+    return {"min_bounds": mb, "counts": counts, "covered": rng.random((c, r)) < 0.85,
+            "requests": req, "has_models": rng.random(c) < 0.8,
+            "has_summary": rng.random(c) < 0.9, "available_cap": cap}
+
+
+def _model_ops(u: int, c: int, g: int, r: int) -> int:
+    """K7's operations in its plain definition: per (profile, cluster,
+    grade) a compliance compare and a division per dim, a multiply-add."""
+    return u * c * g * (2 * r + 2)
+
+
+def check_model_forms(t: dict, pods_dim: int, card: str, label: str) -> dict:
+    """K7's plain form against ``estimate_by_models`` and its overlay form
+    against its plain version, on the device tensors ``t``; exact. Returns
+    the stats of both forms."""
+    from karmada_tpu_torch import ops
+    from karmada_tpu_torch.models import modeling as mm
+
+    pack = (t["min_bounds"], t["counts"], t["covered"], t["requests"])
+    c, g, r = t["min_bounds"].shape
+    u = t["requests"].shape[0]
+    got, want = mm.model_estimate(*pack), mm.estimate_by_models(*pack)
+    stats = {"model_estimate": dict(timed(
+        f"model_estimate (K7 plain form) {label}", lambda: mm.model_estimate(*pack),
+        lambda: mm.estimate_by_models(*pack),
+        _nbytes(*pack, *got), _model_ops(u, c, g, r), card,
+    ), max_abs_err=compare("model_estimate", got, want))}
+    base = ops.profile_table(t["available_cap"], t["requests"], t["has_summary"])
+    rest = (t["has_models"], t["has_summary"], t["available_cap"])
+    t_k, t_r = base.clone(), base.clone()
+    mm.model_overlay(t_k, *pack, *rest, pods_dim)
+    mm.model_overlay_ref(t_r, *pack, *rest, pods_dim)
+    err = compare("model_overlay", t_k, t_r)
+    changed = int((t_k != base).sum().item())
+    # the overlay is idempotent on its table, so repeated launches time it
+    stats["model_overlay"] = dict(timed(
+        f"model_overlay (K7 overlay form) {label}",
+        lambda: mm.model_overlay(t_k, *pack, *rest, pods_dim),
+        lambda: mm.model_overlay_ref(t_r, *pack, *rest, pods_dim),
+        _nbytes(*pack, *rest) + 2 * _nbytes(base), _model_ops(u, c, g, r), card,
+    ), max_abs_err=err)
+    print(f"# K7 {label}: {u} profiles x {c} clusters x {g} grades; overlay changed "
+          f"{changed} of {u * c} cells", flush=True)
+    return stats
+
+
+def check_model_kernels(engine, card: str, rng) -> dict:
+    """K7 on the config-5 table's own inputs (its padded interned profiles
+    x 5000 clusters x 9 grades), then on a seeded U = 64 batch at C = 5000."""
+    import torch
+
+    cap, has_summary = engine._device_state()
+    min_bounds, counts, covered, has_models = engine._device_models()
+    profs = np.stack(engine._fleet._profiles)
+    from karmada_tpu_torch.scheduler.fleet import _pow2
+
+    padded = np.zeros((_pow2(max(len(profs), 4)), profs.shape[1]), np.int64)
+    padded[: len(profs)] = profs
+    t = {"min_bounds": min_bounds, "counts": counts, "covered": covered,
+         "requests": torch.from_numpy(padded).to(cap.device), "has_models": has_models,
+         "has_summary": has_summary, "available_cap": cap}
+    pods = engine.snapshot.dim_index("pods")
+    stats = check_model_forms(t, -1 if pods is None else pods, card, "config-5 table")
+    check_model_forms(to_device(model_batch(rng, 64, 5000), cap.device), 2, card,
+                      "seeded U=64")
+    return stats
+
+
+def node_batch(rng, b: int, n: int, r: int = 4) -> dict:
+    """K8 inputs: node headroom with negative and near-2^62 entries,
+    requests of nothing and of 1 (sums that wrap int64), and a prefilter
+    mask that drops a fifth of the nodes per row."""
+    avail = rng.integers(-2000, 200_000, (n, r)).astype(np.int64)
+    big = rng.random((n, r)) < 0.01
+    avail[big] = rng.integers(2**61, 2**62 - 1, int(big.sum()), dtype=np.int64)
+    req = rng.integers(0, 5000, (b, r)).astype(np.int64)
+    req[rng.random((b, r)) < 0.3] = 0
+    req[0] = 0
+    req[1] = [1] + [0] * (r - 1)
+    return {"node_avail": avail, "node_ok": rng.random((b, n)) < 0.8, "requests": req}
+
+
+def check_node_sum(arrays: dict, device, card: str, label: str) -> dict:
+    """K8 against its plain version on the card; exact."""
+    from karmada_tpu_torch.estimator import accurate as acc
+
+    t = to_device(arrays, device)
+    args = (t["node_avail"], t["node_ok"], t["requests"])
+    b, n = t["node_ok"].shape
+    r = t["requests"].shape[1]
+    got, want = acc.node_sum_estimate(*args), acc.node_sum_estimate_ref(*args)
+    return dict(timed(
+        f"node_sum_estimate (K8) {label}", lambda: acc.node_sum_estimate(*args),
+        lambda: acc.node_sum_estimate_ref(*args),
+        _nbytes(*args, got), b * n * (2 * r + 2), card,
+    ), max_abs_err=compare("node_sum_estimate", got, want))
+
+
+def check_merge_table(rng, device, card: str, b: int = 4096, c: int = 5000,
+                      u: int = 9) -> dict:
+    """K1's merge form at b x c with E = 0, 1 and 2 extra estimates holding
+    -1 and MAX_INT32 cells, against its plain version; exact. Returns the
+    stats at E = 1 (an estimator registered, the estimator phase's shape)."""
+    import torch
+    from karmada_tpu_torch import ops
+
+    hi = 2**31 - 1
+    table = rng.integers(-1, 400, (u, c)).astype(np.int32)
+    table[rng.random((u, c)) < 0.05] = hi
+    t = to_device({"table": table, "prof_inv": rng.integers(0, u, b).astype(np.int32),
+                   "replicas": np.where(rng.random(b) < 0.1, 0,
+                                        rng.integers(1, 100, b)).astype(np.int32)}, device)
+    stats = {}
+    for e_n in (0, 1, 2):
+        extras = []
+        for _ in range(e_n):
+            e = rng.integers(-1, 300, (b, c)).astype(np.int32)
+            e[rng.random((b, c)) < 0.05] = hi
+            extras.append(torch.from_numpy(e).to(device))
+        extras = tuple(extras)
+        args = (t["table"], t["prof_inv"], extras, t["replicas"])
+        got = ops.estimate_merge_table(*args)
+        st = dict(timed(
+            f"estimate_merge_table (K1 merge form) {b}x{c}, E={e_n}",
+            lambda: ops.estimate_merge_table(*args),
+            lambda: ops.estimate_merge_table_ref(*args),
+            _nbytes(t["table"], t["prof_inv"], t["replicas"], *extras, got),
+            b * c * (2 * (e_n + 1) + 3), card,
+        ), max_abs_err=compare(f"estimate_merge_table E={e_n}", got,
+                               ops.estimate_merge_table_ref(*args)))
+        if e_n == 1:
+            stats = st
+        del extras, got
+    return stats
+
+
 # --------------------------------------------------------------------------
 # the fleet storm (config 5), the mixed phase and the general path
 # --------------------------------------------------------------------------
@@ -848,15 +1146,32 @@ def device_profile(fn, device, top: int = 6) -> dict:
     return {"wall_s": wall, "busy_s": busy, "top": names}
 
 
+def model_share(engine) -> tuple[float, int]:
+    """Share of the fleet table's (profile, cluster) cells where the model
+    answer is used and differs from the summary answer (host mirrors), and
+    the number of cells."""
+    from karmada_tpu_torch.scheduler import host_profile_table
+
+    profs = np.stack(engine._fleet._profiles)
+    with_m = host_profile_table(engine.snapshot, profs, models_active=True)
+    without = host_profile_table(engine.snapshot, profs, models_active=False)
+    return float((with_m != without).mean()), with_m.size
+
+
 def run_fleet_storm(device, card: str, bindings=None, clusters=None,
-                    steady: int = 3, churn: int = 3) -> dict:
+                    steady: int = 3, churn: int = 3, models: bool = False) -> dict:
     """Config 5 through the fleet table: cold, steady and churn passes, the
     oracle after the cold and the last churn pass, and (on the card) the
-    fleet kernels' checks before the first churn pass."""
+    fleet kernels' checks before the first churn pass. With ``models``,
+    every cluster carries the nine default grades (K7's overlay form runs
+    in each table rebuild) and K7 is checked on the table's inputs
+    instead."""
     import karmada_tpu_torch
     from karmada_tpu_torch.scheduler import TensorScheduler
 
-    snap, problems = build_workload(karmada_tpu_torch, 5, bindings, clusters)
+    tag = "config 5 fleet" + (" (default models)" if models else "")
+    table_kernels = ("profile_table", "model_overlay") if models else ("profile_table",)
+    snap, problems = build_workload(karmada_tpu_torch, 5, bindings, clusters, models)
     traced = device.type == "cuda"  # torch.profiler traces the card only
     drift = drift_snapshots(karmada_tpu_torch, snap, churn + traced)
     engine = TensorScheduler(snap, chunk_size=4096, device=device)
@@ -866,36 +1181,43 @@ def run_fleet_storm(device, card: str, bindings=None, clusters=None,
     sync(device)
     cold_s = time.perf_counter() - t0
     if engine._fleet is None:
-        raise AssertionError("config 5 did not ride the fleet table")
+        raise AssertionError(f"{tag} did not ride the fleet table")
     on_card = device.type == "cuda"
-    if on_card and read_counts()["profile_table"] < 1:
-        raise AssertionError("the cold pass did not launch K1's table form")
+    if on_card and any(read_counts()[k] < 1 for k in table_kernels):
+        raise AssertionError(f"{tag}: the cold pass did not launch {table_kernels}")
+    if models:
+        share, cells = model_share(engine)
+        print(f"# {tag}: the model answer is used and differs from the summary "
+              f"answer in {share:.4f} of the table's {cells} (profile, cluster) "
+              f"cells", flush=True)
+        if not share > 0.05:
+            raise AssertionError(f"{tag}: the models barely bind ({share})")
     cold_bd = breakdown_line(engine)
     t0 = time.perf_counter()
     bad = oracle_check(engine, problems, cold)
     check_s = time.perf_counter() - t0
     cold_out = outcomes(cold)
-    print(f"# config 5 fleet cold pass {cold_s:.4f} s [{cold_bd}]; numpy-divider "
+    print(f"# {tag} cold pass {cold_s:.4f} s [{cold_bd}]; numpy-divider "
           f"check {len(problems) - bad} ok / {bad} bad ({check_s:.1f} s); card {card}",
           flush=True)
     if bad:
-        raise AssertionError(f"config 5 fleet cold pass: {bad} rows differ")
+        raise AssertionError(f"{tag} cold pass: {bad} rows differ")
     steady_s = []
     for _ in range(steady):
         t0 = time.perf_counter()
         res = engine.schedule(problems)
         sync(device)
         steady_s.append(time.perf_counter() - t0)
-        print(f"# config 5 fleet steady pass {steady_s[-1]:.4f} s "
+        print(f"# {tag} steady pass {steady_s[-1]:.4f} s "
               f"[{breakdown_line(engine)}]", flush=True)
     if outcomes(res) != cold_out:
-        raise AssertionError("config 5 fleet: steady pass disagrees with the cold pass")
+        raise AssertionError(f"{tag}: steady pass disagrees with the cold pass")
     profiles = {}
     if device.type == "cuda":  # one more steady pass, traced
         profiles["steady"] = device_profile(lambda: engine.schedule(problems), device)
     churn_s, stats = [], {}
     for i, snap_i in enumerate(drift[:churn]):
-        k1_before = read_counts()["profile_table"]
+        k1_before = {k: read_counts()[k] for k in table_kernels}
         t0 = time.perf_counter()
         if not engine.update_snapshot(snap_i):
             raise AssertionError("drifted snapshot refused")
@@ -907,14 +1229,15 @@ def run_fleet_storm(device, card: str, bindings=None, clusters=None,
             sync(device)
             before = time.perf_counter() - t0
             with uncounted():
-                stats = check_fleet_kernels(engine._fleet, card)
+                stats = (check_model_kernels(engine, card, np.random.default_rng(SEED + 7))
+                         if models else check_fleet_kernels(engine._fleet, card))
             t0 = time.perf_counter()
         res = engine.schedule(problems)
         sync(device)
         churn_s.append(before + time.perf_counter() - t0)
-        if on_card and read_counts()["profile_table"] <= k1_before:
-            raise AssertionError(f"churn pass {i} did not launch K1's table form")
-        print(f"# config 5 fleet churn pass {churn_s[-1]:.4f} s "
+        if on_card and any(read_counts()[k] <= k1_before[k] for k in table_kernels):
+            raise AssertionError(f"{tag}: churn pass {i} did not launch {table_kernels}")
+        print(f"# {tag} churn pass {churn_s[-1]:.4f} s "
               f"[{breakdown_line(engine)}]", flush=True)
     if traced:  # one more churn pass, traced: the last churn pass checked
         def traced_churn():
@@ -926,7 +1249,7 @@ def run_fleet_storm(device, card: str, bindings=None, clusters=None,
         profiles["churn"] = device_profile(lambda: out.append(traced_churn()), device)
         res = out[0]
     for kind, prof in profiles.items():
-        print(f"# config 5 fleet traced {kind} pass: wall {prof['wall_s']:.4f} s under "
+        print(f"# {tag} traced {kind} pass: wall {prof['wall_s']:.4f} s under "
               f"the profiler; device busy {prof['busy_s']:.4f} s; largest: "
               + ", ".join(f"{k[:48]} {v * 1e3:.2f} ms" for k, v in prof["top"])
               + f"; card {card}", flush=True)
@@ -940,9 +1263,9 @@ def run_fleet_storm(device, card: str, bindings=None, clusters=None,
     for kind, prof in profiles.items():
         share = (f"idle share {1 - prof['busy_s'] / p50[kind]:.3f}" if prof["busy_s"]
                  else "the profiler saw no device time: idle share not measured")
-        print(f"# config 5 fleet {kind}: device busy {prof['busy_s']:.4f} s of a "
+        print(f"# {tag} {kind}: device busy {prof['busy_s']:.4f} s of a "
               f"{p50[kind]:.4f} s p50 pass: {share}; card {card}", flush=True)
-    print(f"# config 5 fleet: {n} bindings x {snap.num_clusters} clusters; cold "
+    print(f"# {tag}: {n} bindings x {snap.num_clusters} clusters; cold "
           f"{cold_s:.4f} s; steady p50 {p50['steady']:.4f} s ({n / p50['steady']:.0f} "
           f"bindings/s, walls {[round(w, 4) for w in steady_s]}); churn p50 "
           f"{p50['churn']:.4f} s ({n / p50['churn']:.0f} bindings/s, walls "
@@ -951,7 +1274,7 @@ def run_fleet_storm(device, card: str, bindings=None, clusters=None,
           f"numpy-divider check {n - bad} ok / {bad} bad ({check_s:.1f} s); card {card}",
           flush=True)
     if bad:
-        raise AssertionError(f"config 5 fleet last churn pass: {bad} rows differ")
+        raise AssertionError(f"{tag} last churn pass: {bad} rows differ")
     return {"launches": launches, "stats": stats, "cold_out": cold_out,
             "cold_s": cold_s, "steady_s": steady_s, "churn_s": churn_s, "p50": p50,
             "profiles": profiles}
@@ -986,7 +1309,7 @@ def mixed_problems(pkg, clusters, n: int, seed: int) -> list:
     return out
 
 
-def run_mixed(device, card: str, bindings: int = 20_000, clusters: int = 1000,
+def run_mixed(device, card: str, bindings: int = 10_000, clusters: int = 1000,
               changed: int = 300) -> dict:
     """Mixed strategies through the fleet, two passes (the second replaces
     ``changed`` problems: dirty rows for K6), every row equal to the port's
@@ -1032,40 +1355,188 @@ def run_mixed(device, card: str, bindings: int = 20_000, clusters: int = 1000,
     return {"launches": launches, "walls": walls}
 
 
-def run_general(device, card: str, reference: list, bindings=None, clusters=None) -> dict:
-    """Config 5 on the general path (K1 + K2 per chunk): one warm and one
-    timed pass; every row equal to the fleet's cold pass, which the numpy
-    divider has checked."""
+def run_general(device, card: str, reference: list, bindings=None, clusters=None,
+                rows: int | None = None) -> dict:
+    """Config 5 on the general path (K1 + K2 per chunk), cut to its first
+    ``rows`` bindings when given (rows are solved independently, so a
+    prefix of the storm's problems is a smaller storm): one untimed warm
+    pass over the first chunk's rows, then one timed pass, every row equal
+    to the same row of the fleet's cold pass, which the numpy divider has
+    checked."""
     import karmada_tpu_torch
     from karmada_tpu_torch.scheduler import TensorScheduler
 
     snap, problems = build_workload(karmada_tpu_torch, 5, bindings, clusters)
+    problems = problems[:rows]
     engine = TensorScheduler(snap, chunk_size=4096, device=device)
     engine.fleet_threshold = len(problems) + 1
+    engine.schedule(problems[: engine.chunk_size])
+    sync(device)
     reset_counts()
     t0 = time.perf_counter()
     first = engine.schedule(problems)
     sync(device)
-    first_s = time.perf_counter() - t0
-    launches = read_counts()
-    t0 = time.perf_counter()
-    engine.schedule(problems)
-    sync(device)
     wall = time.perf_counter() - t0
+    launches = read_counts()
     bad = sum(g != w for g, w in zip(outcomes(first), reference))
     stages = chunk_breakdown(engine, problems, device)
     print(f"# config 5 general path stages of one 4096-row chunk (s): "
           + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()) + f"; card {card}",
           flush=True)
-    print(f"# config 5 general path (all {len(problems)} rows, one warm and one timed "
-          f"pass, checked row by row against the fleet's oracle-checked cold pass): "
-          f"first pass {first_s:.4f} s, timed pass {wall:.4f} s "
+    print(f"# config 5 general path (the first {len(problems)} rows, one timed pass "
+          f"after a warm pass over the first {engine.chunk_size}, checked "
+          f"row by row against the fleet's oracle-checked cold pass): {wall:.4f} s "
           f"({len(problems) / wall:.0f} bindings/s); launches "
           f"{ {k: v for k, v in launches.items() if v} }; equal to the checked fleet "
           f"cold pass: {len(problems) - bad} ok / {bad} bad; card {card}", flush=True)
     if bad:
         raise AssertionError(f"config 5 general path: {bad} rows differ from the fleet")
-    return {"launches": launches, "first_s": first_s, "pass_s": wall}
+    return {"launches": launches, "pass_s": wall}
+
+
+def run_general_models(device, card: str, bindings: int = 20_000,
+                       clusters: int | None = None) -> dict:
+    """Config 5 under default models on the general path at reduced depth
+    (``bindings`` rows x 5000 clusters): per chunk K1's table form, K7's
+    overlay form, K1's merge form and K2. One pass, every row checked
+    against the numpy divider over the model-aware host table."""
+    import karmada_tpu_torch
+    from karmada_tpu_torch.scheduler import TensorScheduler
+
+    snap, problems = build_workload(karmada_tpu_torch, 5, bindings, clusters, models=True)
+    engine = TensorScheduler(snap, chunk_size=4096, device=device)
+    engine.fleet_threshold = len(problems) + 1
+    reset_counts()
+    t0 = time.perf_counter()
+    res = engine.schedule(problems)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    t0 = time.perf_counter()
+    bad = oracle_check(engine, problems, res)
+    check_s = time.perf_counter() - t0
+    print(f"# config 5 general path (default models): {len(problems)} bindings x "
+          f"{snap.num_clusters} clusters, one pass {wall:.4f} s "
+          f"({len(problems) / wall:.0f} bindings/s); launches "
+          f"{ {k: v for k, v in launches.items() if v} }; numpy-divider check "
+          f"{len(problems) - bad} ok / {bad} bad ({check_s:.1f} s); card {card}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"config 5 general path (models): {bad} rows differ")
+    return {"launches": launches, "pass_s": wall}
+
+
+def node_sum_referent(snap, caches):
+    """extra(requests, replicas) -> int32[B, C]: the node-sum numpy mirror
+    over each cluster's live node arrays, -1 for zero-replica rows (the
+    registry asks nothing for them) — the registry's answer, computed
+    without it."""
+    from karmada_tpu_torch.estimator.accurate import _node_sum_estimate_np
+
+    def extra(requests, replicas):
+        out = np.full((len(requests), snap.num_clusters), -1, np.int32)
+        live = replicas > 0
+        if not live.any():
+            return out
+        uniq, inv = np.unique(requests[live], axis=0, return_inverse=True)
+        table = np.empty((len(uniq), snap.num_clusters), np.int32)
+        for ci, name in enumerate(snap.names):
+            cache = caches[name]
+            n = len(cache.nodes)
+            table[:, ci] = _node_sum_estimate_np(
+                cache.available[:n], np.ones((len(uniq), n), bool), uniq)
+        out[live] = table[inv.reshape(-1)]
+        return out
+
+    return extra
+
+
+def run_estimator(device, card: str, clusters: int = 128, nodes: int = 4000,
+                  bindings: int = 10_000) -> dict:
+    """The in-process accurate estimator at bench.py's estimator-tier shape:
+    ``clusters`` members of ``nodes`` seeded nodes behind an
+    EstimatorRegistry, fed to the engine through ``extra_estimators``.
+    Passes: cold (a fan-out: one K8 launch per cluster), steady (the
+    batch-identity replay: none), hard refresh (``invalidate(drop=True)``:
+    one per cluster) and pod events on 4 clusters then ``invalidate()``
+    (4). Every row after the cold pass and after the pod events equals the
+    numpy divider over merge(general, node-sum numpy mirror); no
+    registered cluster may go unanswered."""
+    import karmada_tpu_torch
+    from karmada_tpu_torch.estimator import AccurateEstimator, EstimatorRegistry, NodeCache
+    from karmada_tpu_torch.scheduler import TensorScheduler
+
+    t0 = time.perf_counter()
+    snap, per_cluster, problems = estimator_workload(karmada_tpu_torch, clusters, nodes,
+                                                     bindings)
+    caches = {name: NodeCache(snap.dims, per_cluster[name]) for name in snap.names}
+    registry = EstimatorRegistry()
+    for name in snap.names:
+        registry.register(AccurateEstimator(name, caches[name], device=device))
+    batch = registry.make_batch_estimator(snap.names)
+    engine = TensorScheduler(snap, chunk_size=4096, extra_estimators=[batch], device=device)
+    build_s = time.perf_counter() - t0
+    referent = node_sum_referent(snap, caches)
+    on_card = device.type == "cuda"
+    want_k8 = {"cold": clusters, "steady": 0, "hard refresh": clusters, "pod events": 4}
+    out = {"walls": {}, "k8": {}}
+    first = None
+    for kind in ("cold", "steady", "hard refresh", "pod events"):
+        if kind == "hard refresh":
+            registry.invalidate(drop=True)
+        elif kind == "pod events":
+            for name in snap.names[:: clusters // 4][:4]:
+                for k in range(3):
+                    caches[name].add_pod(f"n{k}", {"cpu": 2000, "memory": 4 << 30})
+            registry.invalidate()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = engine.schedule(problems)
+        sync(device)
+        out["walls"][kind] = time.perf_counter() - t0
+        counts = read_counts()
+        out["k8"][kind] = counts["node_sum_estimate"]
+        if kind == "cold":
+            out["launches"] = counts
+            first = outcomes(res)
+        if batch.unanswered:
+            raise AssertionError(f"estimator {kind} pass: unanswered clusters "
+                                 f"{sorted(batch.unanswered)[:5]}")
+        if on_card and out["k8"][kind] != want_k8[kind]:
+            raise AssertionError(f"estimator {kind} pass: {out['k8'][kind]} K8 launches, "
+                                 f"expected {want_k8[kind]}")
+        if kind in ("steady", "hard refresh") and outcomes(res) != first:
+            raise AssertionError(f"estimator {kind} pass disagrees with the cold pass")
+        check = ""
+        if kind in ("cold", "pod events"):
+            t1 = time.perf_counter()
+            bad = oracle_check(engine, problems, res, extra=referent)
+            check = (f"; numpy-divider check over merge(general, node sums) "
+                     f"{len(problems) - bad} ok / {bad} bad ({time.perf_counter() - t1:.1f} s)")
+            if bad:
+                raise AssertionError(f"estimator {kind} pass: {bad} rows differ")
+        print(f"# estimator {kind} pass {out['walls'][kind]:.4f} s; K8 launches "
+              f"{out['k8'][kind]}{check}; card {card}", flush=True)
+    general = TensorScheduler(snap, chunk_size=4096, device=device)
+    general.fleet_threshold = len(problems) + 1
+    with uncounted():
+        moved = sum(a != b for a, b in zip(outcomes(general.schedule(problems)), first))
+    print(f"# estimator phase: {clusters} clusters x {nodes} nodes, {len(problems)} "
+          f"bindings; build {build_s:.1f} s; rows the node sums move off the "
+          f"summary-only answer: {moved}; fan-out seconds "
+          f"{registry.fanout_seconds_total:.4f}; card {card}", flush=True)
+    # K8 at this phase's shape: one cluster's nodes x the 8 profiles
+    name0 = snap.names[0]
+    cache0 = caches[name0]
+    profiles = np.unique(engine._pack_chunk(problems[:4096], [
+        engine._compiled(p.placement) for p in problems[:4096]], 0)[4], axis=0)
+    n0 = len(cache0.nodes)
+    with uncounted():
+        out["k8_stats"] = check_node_sum(
+            {"node_avail": cache0.available[:n0].copy(),
+             "node_ok": np.ones((len(profiles), n0), bool), "requests": profiles},
+            device, card, f"{len(profiles)}x{n0} (estimator phase)")
+    return out
 
 
 def main() -> int:
@@ -1089,47 +1560,100 @@ def main() -> int:
           + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()), flush=True)
 
     rng = np.random.default_rng(SEED)
-    stats = {}
-    # the main path's chunk (U = 9 profiles: the shared-table branch of K1),
-    # then the 10k-cluster tier with U = 300 (K1's direct branch)
-    for b, c, u in ((4096, 5000, 9), (4096, 10_000, 300)):
-        batches = (("estimate_merge", estimate_batch(rng, b, c, u=u)),
-                   ("divide_replicas", divide_batch(rng, b, c)))
-        for name, arrays in batches:
-            st = check_kernel(name, arrays, device)
-            print(f"# kernel {name} {b}x{c}: exact; {st['ms']:.4f} ms (plain "
-                  f"{st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms by "
-                  f"{st['bound_by']}); card {card}", flush=True)
-            if (b, c) == (4096, 5000):
-                stats[name] = dict(st, library_ms=None)
-    stats["profile_table"] = check_profile_table(device, card, rng)
+    stats, paths = {}, {}
 
-    print("# config 3 (Aggregated + ResourceModels) needs the resource-model "
-          "estimator, not ported yet: skipped", flush=True)
-    for cfg in (1, 2, 4):
-        run_config(cfg, device, card)
-    storm = run_fleet_storm(device, card)
-    stats.update(storm["stats"])
-    require_launched("config 5 fleet", storm["launches"])
-    mixed = run_mixed(device, card)
-    require_launched("mixed fleet", mixed["launches"])
-    general = run_general(device, card, storm["cold_out"])
-    require_launched("config 5 general", general["launches"])
+    def phase(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        print(f"# phase {name}: {time.perf_counter() - t:.1f} s", flush=True)
+        return out
+
+    def kernels():
+        # the main path's chunk (U = 9 profiles: the shared-table branch of
+        # K1), then the 10k-cluster tier with U = 300 (K1's direct branch)
+        for b, c, u in ((4096, 5000, 9), (4096, 10_000, 300)):
+            batches = (("estimate_merge", estimate_batch(rng, b, c, u=u)),
+                       ("divide_replicas", divide_batch(rng, b, c)))
+            for name, arrays in batches:
+                st = check_kernel(name, arrays, device)
+                print(f"# kernel {name} {b}x{c}: exact; {st['ms']:.4f} ms (plain "
+                      f"{st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms by "
+                      f"{st['bound_by']}); card {card}", flush=True)
+                if (b, c) == (4096, 5000):
+                    stats[name] = dict(st, library_ms=None)
+        stats["profile_table"] = check_profile_table(device, card, rng)
+        stats["estimate_merge_table"] = check_merge_table(rng, device, card)
+        # an estimator server's batch: 4096 profile rows x 5000 nodes (the
+        # Kubernetes node limit), prefilter mask included
+        stats["node_sum_estimate"] = check_node_sum(node_batch(rng, 4096, 5000), device,
+                                                    card, "4096x5000")
+
+    def configs():
+        for cfg in (1, 2, 3, 4):
+            st = run_config(cfg, device, card)
+            if cfg == 3 and any(st["launches"].values()):
+                raise AssertionError(f"config 3 launched kernels: {st['launches']}")
+
+    def storm():
+        out = run_fleet_storm(device, card)
+        stats.update(out["stats"])
+        require_launched("config 5 fleet", out["launches"])
+        paths["storm"] = out
+
+    def mixed():
+        out = run_mixed(device, card)
+        require_launched("mixed fleet", out["launches"])
+        paths["mixed"] = out
+
+    def general():
+        out = run_general(device, card, paths["storm"]["cold_out"], rows=40_000)
+        require_launched("config 5 general", out["launches"])
+        paths["general"] = out
+
+    def models():
+        out = run_fleet_storm(device, card, models=True)
+        stats.update(out["stats"])
+        require_launched("config 5 models fleet", out["launches"])
+        paths["models"] = out
+        out = run_general_models(device, card)
+        require_launched("config 5 models general", out["launches"])
+        paths["models general"] = out
+
+    def estimator():
+        out = run_estimator(device, card)
+        require_launched("estimator", out["launches"])
+        paths["estimator"] = out
+
+    for name, fn in (("kernels", kernels), ("configs", configs), ("storm", storm),
+                     ("mixed", mixed), ("general", general), ("models", models),
+                     ("estimator", estimator)):
+        phase(name, fn)
 
     # launches: each kernel's count on the path that drives it
-    where = {"estimate_merge": general["launches"], "fleet_bits": mixed["launches"],
-             "scatter_rows": mixed["launches"]}
-    print(json.dumps({"kernels": [
-        {"name": name, "route": KERNELS[name][0], "source": KERNELS[name][1],
-         "replaces": KERNELS[name][2],
-         "launches": where.get(name, storm["launches"])[name],
-         "launches_on": ("config 5 general path" if name == "estimate_merge"
-                         else "mixed fleet phase" if name in where
-                         else "config 5 fleet passes"),
-         **{k: stats[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")}}
-        for name in KERNELS
-    ]}))
+    where = {
+        "estimate_merge": ("general", "config 5 general path"),
+        "fleet_bits": ("mixed", "mixed fleet phase"),
+        "scatter_rows": ("mixed", "mixed fleet phase"),
+        "model_overlay": ("models", "config 5 fleet passes under default models"),
+        "estimate_merge_table": ("models general",
+                                 "config 5 general pass under default models"),
+        "node_sum_estimate": ("estimator", "estimator phase, cold pass"),
+    }
+    print(f"# estimator K8 launches by pass: {paths['estimator']['k8']}", flush=True)
+    entries = []
+    for name in KERNELS:
+        if name == "model_estimate":
+            launches, on = 0, ("no path: the engine runs K7's overlay form; the plain "
+                               "form is held to estimate_by_models")
+        else:
+            key, on = where.get(name, ("storm", "config 5 fleet passes"))
+            launches = paths[key]["launches"][name]
+        entries.append({
+            "name": name, "route": KERNELS[name][0], "source": KERNELS[name][1],
+            "replaces": KERNELS[name][2], "launches": launches, "launches_on": on,
+            **{k: stats[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}})
+    print(json.dumps({"kernels": entries}))
     print(f"# total wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {

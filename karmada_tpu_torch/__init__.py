@@ -14,11 +14,16 @@ Layer map:
 - :mod:`karmada_tpu_torch.utils`     — quantities, feature gate, builders
 - :mod:`karmada_tpu_torch.ops`       — estimate and division: plain torch
                                        functions plus the K1/K2 kernels
+                                       (K1 with its table and merge forms)
 - :mod:`karmada_tpu_torch.refimpl`   — the numpy host divider
 - :mod:`karmada_tpu_torch.scheduler` — snapshot packing, ``TensorScheduler``
                                        (the fleet path and the host general
                                        path) and the fleet table with its
                                        K3-K6 kernels
+- :mod:`karmada_tpu_torch.models`    — resource-model grades: packing, the
+                                       plain estimate and the K7 kernel
+- :mod:`karmada_tpu_torch.estimator` — the node-level accurate estimator,
+                                       its registry and the K8 kernel
 - :mod:`karmada_tpu_torch.parallel`  — the fused single-device step
 - :mod:`karmada_tpu_torch.native`    — nvcc build and ctypes loading of
                                        ``csrc/*.cu``, and the g++-built

@@ -17,6 +17,8 @@ from .cluster import (  # noqa: F401
     ResourceModelRange,
     ResourceSummary,
     Taint,
+    default_resource_models,
+    standardize_resource_models,
     Toleration,
 )
 from .policy import (  # noqa: F401
@@ -35,3 +37,4 @@ from .policy import (  # noqa: F401
     SpreadConstraint,
     StaticClusterWeight,
 )
+from .work import NodeClaim, ReplicaRequirements  # noqa: F401

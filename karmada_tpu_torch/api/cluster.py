@@ -79,6 +79,55 @@ class AllocatableModeling:
     count: int
 
 
+#: (grade, cpu-min cores, cpu-max cores, mem-min GB, mem-max GB); the last
+#: grade's max is open-ended (apis/cluster/mutation/mutation.go:81-215)
+_DEFAULT_GRADES = (
+    (0, 0, 1, 0, 4),
+    (1, 1, 2, 4, 16),
+    (2, 2, 4, 16, 32),
+    (3, 4, 8, 32, 64),
+    (4, 8, 16, 64, 128),
+    (5, 16, 32, 128, 256),
+    (6, 32, 64, 256, 512),
+    (7, 64, 128, 512, 1024),
+    (8, 128, None, 1024, None),
+)
+
+MAX_INT64 = 2**63 - 1
+_GB = 1 << 30
+
+
+def default_resource_models() -> list[ResourceModel]:
+    """The reference's nine default cpu/memory grades, in canonical units
+    (cpu milli, memory bytes) — SetDefaultClusterResourceModels."""
+    out = []
+    for grade, cmin, cmax, mmin, mmax in _DEFAULT_GRADES:
+        out.append(ResourceModel(grade=grade, ranges=[
+            ResourceModelRange(
+                name="cpu", min=cmin * 1000,
+                max=MAX_INT64 if cmax is None else cmax * 1000,
+            ),
+            ResourceModelRange(
+                name="memory", min=mmin * _GB,
+                max=MAX_INT64 if mmax is None else mmax * _GB,
+            ),
+        ]))
+    return out
+
+
+def standardize_resource_models(models: list[ResourceModel]) -> None:
+    """StandardizeClusterResourceModels: sort by grade; the first grade's
+    mins act as zero and the last grade's maxes as MaxInt64, so the model
+    space is gapless at both ends."""
+    if not models:
+        return
+    models.sort(key=lambda m: m.grade)
+    for rng in models[0].ranges:
+        rng.min = 0
+    for rng in models[-1].ranges:
+        rng.max = MAX_INT64
+
+
 @dataclass
 class ResourceSummary:
     """Cluster-level resource accounting (canonical int units, see

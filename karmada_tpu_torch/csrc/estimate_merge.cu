@@ -49,6 +49,7 @@ constexpr int TILE_C = 128;   // cluster columns per block (one per thread)
 constexpr int ROWS = 128;     // binding rows per block
 constexpr int U_SHARED = 64;  // profiles held in the shared-memory table
 constexpr long long MAX_I32 = 2147483647LL;
+constexpr int MAX_EXTRAS = 4;  // extra estimates the merge form takes
 
 __device__ __forceinline__ int32_t profile_estimate(
     const int64_t* __restrict__ cap_row, const int64_t* __restrict__ req,
@@ -111,6 +112,40 @@ __global__ void estimate_merge_kernel(
   }
 }
 
+__global__ void estimate_merge_table_kernel(
+    const int32_t* __restrict__ table, int u_n, int c_n,
+    const int32_t* __restrict__ prof_inv, const int32_t* __restrict__ e0,
+    const int32_t* __restrict__ e1, const int32_t* __restrict__ e2,
+    const int32_t* __restrict__ e3, int e_n,
+    const int32_t* __restrict__ replicas, int b_n,
+    int32_t* __restrict__ out) {
+  const int c = blockIdx.x * TILE_C + threadIdx.x;
+  if (c >= c_n) return;
+  const int32_t* extras[MAX_EXTRAS] = {e0, e1, e2, e3};
+  const int b0 = blockIdx.y * ROWS;
+  const int b1 = min(b0 + ROWS, b_n);
+  for (int b = b0; b < b1; ++b) {
+    int p = prof_inv[b];
+    if (p < 0) p += u_n;
+    p = p < 0 ? 0 : (p >= u_n ? u_n - 1 : p);
+    const size_t o = (size_t)b * c_n + c;
+    int32_t v = (int32_t)MAX_I32;  // min over answers, -1 ignored
+    int32_t est = table[(size_t)p * c_n + c];
+    if (est != -1) v = est < v ? est : v;
+#pragma unroll
+    for (int e = 0; e < MAX_EXTRAS; ++e) {
+      if (e < e_n) {
+        est = extras[e][o];
+        if (est != -1) v = est < v ? est : v;
+      }
+    }
+    const int32_t reps = replicas[b];
+    if (reps == 0) v = (int32_t)MAX_I32;  // non-workload short-circuit
+    if (v == (int32_t)MAX_I32) v = reps;  // untouched sentinel
+    out[o] = v;
+  }
+}
+
 }  // namespace
 
 extern "C" int estimate_merge_launch(
@@ -136,5 +171,21 @@ extern "C" int profile_table_launch(
   estimate_merge_kernel<<<grid, TILE_C, 0, stream>>>(
       cap, c_n, r_dims, profiles, u_n, nullptr, has_summary, nullptr, u_n,
       out, 1);
+  return (int)cudaGetLastError();
+}
+
+// out int32[B, C] = merge_estimates(replicas, (table[prof_inv], e0..e{E-1}))
+// for E = e_n <= MAX_EXTRAS extra estimates (unused pointers may be null)
+extern "C" int estimate_merge_table_launch(
+    const int32_t* table, int u_n, int c_n, const int32_t* prof_inv,
+    const int32_t* e0, const int32_t* e1, const int32_t* e2,
+    const int32_t* e3, int e_n, const int32_t* replicas, int b_n,
+    int32_t* out, cudaStream_t stream) {
+  if (e_n < 0 || e_n > MAX_EXTRAS || (b_n > 0 && u_n <= 0))
+    return (int)cudaErrorInvalidValue;
+  if (b_n == 0 || c_n == 0) return 0;
+  const dim3 grid((c_n + TILE_C - 1) / TILE_C, (b_n + ROWS - 1) / ROWS);
+  estimate_merge_table_kernel<<<grid, TILE_C, 0, stream>>>(
+      table, u_n, c_n, prof_inv, e0, e1, e2, e3, e_n, replicas, b_n, out);
   return (int)cudaGetLastError();
 }

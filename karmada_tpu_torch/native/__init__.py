@@ -41,7 +41,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 #: every kernel source of the port, by name (``csrc/<name>.cu``)
 KERNELS = (
     "estimate_merge", "divide_replicas", "fleet_masks", "fleet_diff",
-    "fleet_wire", "scatter_rows",
+    "fleet_wire", "scatter_rows", "model_estimate", "node_sum",
 )
 
 NVCC_FLAGS = (
@@ -57,6 +57,7 @@ SIGNATURES = {
     "estimate_merge": {
         "estimate_merge_launch": "piipipppip",
         "profile_table_launch": "piipipp",
+        "estimate_merge_table_launch": "piip" "pppp" "i" "pip",
     },
     "divide_replicas": {"divide_replicas_launch": "pppppppiiipp"},
     "fleet_masks": {
@@ -75,10 +76,16 @@ SIGNATURES = {
         "scatter_rows_launch": "pppipii",
         "gather_meta_launch": "pipip",
     },
+    "model_estimate": {
+        "model_estimate_launch": "pppiiipipp",
+        "model_overlay_launch": "pppiiipi" "ppp" "i" "p",
+    },
+    "node_sum": {"node_sum_launch": "piippip"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong}
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -193,4 +200,5 @@ def launch(wrapper, lib_name: str, fn_name: str, device, *args) -> None:
     with torch.cuda.device(device):
         err = fn(*vals, torch.cuda.current_stream(device).cuda_stream)
     check_launch(fn_name, err)
-    wrapper.launches += 1
+    with _COUNT_LOCK:  # estimator fan-out threads launch concurrently
+        wrapper.launches += 1

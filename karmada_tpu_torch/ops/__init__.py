@@ -9,7 +9,10 @@ version on CPU tensors and launch the kernel on CUDA tensors:
 - ``divide_replicas`` (K2, ``csrc/divide_replicas.cu``): the unified replica
   division of all four strategies;
 - ``profile_table`` (K1's table form): the estimate per interned request
-  profile that the fleet path gathers by row on the device.
+  profile that the fleet path gathers by row on the device;
+- ``estimate_merge_table`` (K1's merge form): the row gather of a profile
+  table and the min-merge with extra estimates, when the resource-model
+  estimator or extra estimators answer.
 
 The fleet path's own kernels (K3-K6) live in ``scheduler/fleet_kernels.py``.
 
@@ -32,10 +35,13 @@ from .divide import (  # noqa: F401
     divide_replicas_ref,
 )
 from .estimate import (  # noqa: F401
+    MAX_EXTRAS,
     MAX_INT32,
     UNAUTHENTIC,
     estimate_merge,
     estimate_merge_ref,
+    estimate_merge_table,
+    estimate_merge_table_ref,
     general_estimate,
     general_estimate_interned,
     merge_estimates,

@@ -10,7 +10,10 @@ Counterpart of ``karmada_tpu/ops/estimate.py``. The plain torch functions
 (``general_estimate``, ``general_estimate_interned``, ``merge_estimates``)
 keep the JAX signatures; ``estimate_merge`` is the engine's fused form of the
 three, launched as the hand-written kernel K1 (``csrc/estimate_merge.cu``) on
-CUDA tensors and computed by ``estimate_merge_ref`` on CPU tensors.
+CUDA tensors and computed by ``estimate_merge_ref`` on CPU tensors. K1 has
+two more forms: ``profile_table`` (the estimate per request profile) and
+``estimate_merge_table`` (the row gather of a profile table merged with
+extra estimates).
 """
 
 from __future__ import annotations
@@ -176,3 +179,60 @@ def profile_table(
 
 
 profile_table.launches = 0
+
+
+#: extra estimates K1's merge form takes beside the profile table
+MAX_EXTRAS = 4
+
+
+def estimate_merge_table_ref(
+    table: torch.Tensor,  # int32[U, C]: per-profile answers, -1 = no answer
+    prof_inv: torch.Tensor,  # int32[B]: row b uses table[prof_inv[b]]
+    extras: tuple[torch.Tensor, ...],  # each int32[B, C]; -1 = no answer
+    replicas: torch.Tensor,  # int32[B]
+) -> torch.Tensor:
+    """Plain version of K1's merge form: ``merge_estimates`` over the
+    gathered profile table and the extra estimates — the JAX engine's
+    ``_availability`` with models or extra estimators
+    (karmada_tpu/scheduler/core.py:2376-2385)."""
+    gathered = table[_clip_rows(prof_inv, table.shape[0])]
+    return merge_estimates(replicas, (gathered, *extras))
+
+
+def estimate_merge_table(
+    table: torch.Tensor,
+    prof_inv: torch.Tensor,
+    extras: tuple[torch.Tensor, ...],
+    replicas: torch.Tensor,
+) -> torch.Tensor:
+    """K1 merge form: ``estimate_merge_table_ref`` as one kernel launch, for
+    at most ``MAX_EXTRAS`` extra estimates.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise. ``estimate_merge_table.launches`` counts kernel launches."""
+    extras = tuple(extras)
+    if native.on_cpu((table, prof_inv, *extras, replicas)):
+        return estimate_merge_table_ref(table, prof_inv, extras, replicas)
+    native.check(
+        "estimate_merge_table", table=(table, torch.int32),
+        prof_inv=(prof_inv, torch.int32), replicas=(replicas, torch.int32),
+        **{f"extras[{e}]": (x, torch.int32) for e, x in enumerate(extras)})
+    u, c = table.shape
+    b = prof_inv.shape[0]
+    if replicas.shape != (b,) or any(x.shape != (b, c) for x in extras):
+        raise ValueError("estimate_merge_table: inconsistent shapes")
+    if len(extras) > MAX_EXTRAS:
+        raise ValueError(f"estimate_merge_table: {len(extras)} extra estimates, "
+                         f"at most {MAX_EXTRAS}")
+    if b > _MAX_ROWS or (b and not u):
+        raise ValueError(f"estimate_merge_table: {b} rows over {u} profiles not supported")
+    out = torch.empty((b, c), dtype=torch.int32, device=table.device)
+    if b and c:
+        ptrs = list(extras) + [None] * (MAX_EXTRAS - len(extras))
+        native.launch(estimate_merge_table, "estimate_merge",
+                      "estimate_merge_table_launch", table.device, table, u, c,
+                      prof_inv, *ptrs, len(extras), replicas, b, out)
+    return out
+
+
+estimate_merge_table.launches = 0

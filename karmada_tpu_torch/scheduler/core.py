@@ -26,12 +26,11 @@ routes, chosen per row exactly as the JAX engine chooses:
 What is not ported yet, and where the port raises ``NotImplementedError``
 instead of answering differently from the JAX engine: the quota plane
 (``set_quota``), provenance capture (``set_explain``), the preemption plane
-(``set_preemption``), out-of-tree estimators (``extra_estimators``), a
+(``set_preemption``), more than ``ops.MAX_EXTRAS`` out-of-tree estimators, a
 device mesh, ranked multi-term ClusterAffinities (``_schedule_ranked``),
-the resource-model estimator, and fleet tables over the dense resident
-budget (the JAX ``_fleet_solve``). ``dirty_keys`` is accepted; the JAX
-delta pass it feeds is result-identical to a full pass, and the port runs
-the full pass.
+and fleet tables over the dense resident budget (the JAX ``_fleet_solve``).
+``dirty_keys`` is accepted; the JAX delta pass it feeds is result-identical
+to a full pass, and the port runs the full pass.
 """
 
 from __future__ import annotations
@@ -45,7 +44,14 @@ import torch
 
 from ..api.policy import Placement
 from ..ops.divide import AGGREGATED, DUPLICATED, divide_replicas
-from ..ops.estimate import MAX_INT32, estimate_merge, profile_table
+from ..models.modeling import estimate_by_models_np, model_overlay
+from ..ops.estimate import (
+    MAX_EXTRAS,
+    MAX_INT32,
+    estimate_merge,
+    estimate_merge_table,
+    profile_table,
+)
 from ..utils.features import CUSTOMIZED_CLUSTER_RESOURCE_MODELING, feature_gate
 from .snapshot import ClusterSnapshot, CompiledPlacement, compile_placement
 
@@ -94,14 +100,12 @@ def host_profile_table(
 ) -> np.ndarray:
     """numpy mirror of the estimator over unique request profiles:
     int64[U, C], MAX_INT32 sentinel where nothing is requested or the cluster
-    gives no summary (ops/estimate.py general_estimate). Values are clamped
+    gives no summary (ops/estimate.py general_estimate), with the resource-
+    model estimator over the summary answer where applicable when
+    ``models_active``. The tiny-batch path reads it through
+    ``TensorScheduler._availability_np``. Values are clamped
     to the sentinel before comparison, so an absurd-but-legal ratio above
     2^31-1 reads as "no answer -> clamp to spec.Replicas"."""
-    if models_active:
-        raise NotImplementedError(
-            "resource-model estimator is not ported yet (karmada_tpu "
-            "models/modeling.py estimate_by_models)"
-        )
     mi = MAX_INT32
     cap = np.maximum(np.asarray(snapshot.available_cap), 0)
     table = np.full((uniq.shape[0], cap.shape[0]), mi, np.int64)
@@ -110,6 +114,26 @@ def host_profile_table(
         ratio = cap[None, :, d] // np.maximum(req[:, None], 1)
         table = np.where((req > 0)[:, None], np.minimum(table, ratio), table)
     table = np.minimum(table, mi)
+    if models_active:
+        # the model answer replaces the summary answer where applicable,
+        # capped by allowed pods, exactly like the device form (K7's
+        # overlay form): the pods column is no model dimension
+        mp = snapshot.model_pack
+        pods_dim = snapshot.dim_index("pods")
+        req_models = np.asarray(uniq)
+        if pods_dim is not None:
+            req_models = req_models.copy()
+            req_models[:, pods_dim] = 0
+        model_avail, applicable = estimate_by_models_np(
+            np.asarray(mp.min_bounds), np.asarray(mp.counts),
+            np.asarray(mp.covered), req_models,
+        )
+        model_avail = model_avail.astype(np.int64)
+        if pods_dim is not None:
+            allowed = np.minimum(np.maximum(cap[:, pods_dim], 0), mi)
+            model_avail = np.minimum(model_avail, allowed[None, :])
+        use_model = np.asarray(mp.has_models)[None, :] & applicable
+        table = np.where(use_model, model_avail, table)
     return np.where(np.asarray(snapshot.has_summary)[None, :], table, mi)
 
 
@@ -174,13 +198,17 @@ class TensorScheduler:
         mesh=None,
         device: str | torch.device = "cuda",
     ):
-        if extra_estimators:
-            raise _not_ported("extra_estimators (out-of-tree estimators)")
+        if len(extra_estimators) > MAX_EXTRAS:
+            raise _not_ported(f"more than {MAX_EXTRAS} extra_estimators")
         if mesh is not None:
             raise _not_ported("a device mesh (multi-GPU scheduling)")
         self.snapshot = snapshot
         self.chunk_size = chunk_size
         self.device = torch.device(device)
+        # callables (requests[B,R] int64, replicas[B] int32), given tensors
+        # on ``device`` -> int32[B,C] availability (numpy or tensor) with -1
+        # for "no answer" (accurate estimators plug here)
+        self.extra_estimators = list(extra_estimators)
         # --plugins enable/disable list (scheduler.go:243-247)
         self.disabled_plugins = set(disabled_plugins)
         # out-of-tree filter plugins: callables (snapshot, problems) ->
@@ -194,6 +222,8 @@ class TensorScheduler:
         self._snapshot_gen = 0
         # device copies of the snapshot's estimator inputs, per generation
         self._dev_state: Optional[tuple] = None
+        # device copies of the snapshot's model pack, per generation
+        self._dev_models: Optional[tuple] = None
         # device-resident fleet table (scheduler.fleet), built on the first
         # batch that reaches fleet_threshold eligible rows
         self._fleet = None
@@ -207,6 +237,11 @@ class TensorScheduler:
         self._batch_cache: Optional[tuple] = None
         self._batch_spread = True  # batch holds derived spread selections
         self._batch_token = None  # snapshot.mask_token at cache time
+        # estimator-backed batch-identity fast path: (ids, snapshot gen,
+        # estimator ids, confirm tokens, results, pinned problems) of the
+        # last host-path batch whose estimators could all prove their memo
+        # content via refresh_token
+        self._est_batch: Optional[tuple] = None
         # the wave's dirty keys (schedule's dirty_keys), staged per pass
         self._dirty_keys: Optional[set] = None
         # binding key -> (row fingerprint, pinned placement, derived cp | None)
@@ -303,6 +338,31 @@ class TensorScheduler:
     ) -> list[ScheduleResult]:
         import time
 
+        # estimator-backed batch-identity fast path: extra estimators force
+        # the host path, but re-scheduling the SAME problem objects against
+        # the SAME snapshot generation is pure in (problems, snapshot,
+        # estimator answers), and a registry-backed estimator can PROVE its
+        # answers unchanged via refresh_token; any unprovable estimator
+        # falls through to the full path
+        if (
+            self._est_batch is not None
+            and self.extra_estimators
+            and not self.custom_filters
+        ):
+            ids0, gen0, est_ids0, tokens0, results0, _pinned = self._est_batch
+            if (
+                gen0 == self._snapshot_gen
+                and len(problems) == len(results0)
+                and est_ids0 == tuple(map(id, self.extra_estimators))
+            ):
+                t0 = time.perf_counter()
+                ids = np.fromiter(map(id, problems), np.int64, len(problems))
+                if np.array_equal(ids, ids0):
+                    tokens = self._est_tokens()
+                    if None not in tokens and tokens == tokens0:
+                        self.last_breakdown = {"compile": time.perf_counter() - t0}
+                        return list(results0)
+
         # batch-identity fast path: re-scheduling the SAME problem objects
         # against the same snapshot generation (or, for spread-free
         # batches, the same filter fields) is pure in those inputs, so one
@@ -318,7 +378,8 @@ class TensorScheduler:
                     and self._batch_token == self.snapshot.mask_token
                 )
             )
-            and not (self.custom_filters or self.disabled_plugins)
+            and not (self.custom_filters or self.extra_estimators
+                     or self.disabled_plugins)
             and len(problems) == len(self._batch_ids)
         ):
             t0 = time.perf_counter()
@@ -336,7 +397,7 @@ class TensorScheduler:
         self.last_breakdown = {"compile": time.perf_counter() - t0}
         # engine-level features the fleet does not model force the host
         # path for the whole batch
-        if not (self.custom_filters or self.disabled_plugins):
+        if not (self.custom_filters or self.extra_estimators or self.disabled_plugins):
             from .fleet import K_PREV, MAX_REPLICAS_FAST
 
             t0 = time.perf_counter()
@@ -395,7 +456,38 @@ class TensorScheduler:
                     for i, res in zip(slow_idx, slow_res):
                         results[i] = res
                 return results
-        return self._schedule_host(problems, compiled)
+        res = self._schedule_host(problems, compiled)
+        self._arm_est_batch(problems, res)
+        return res
+
+    def _est_tokens(self) -> tuple:
+        """One refresh_token probe per extra estimator (None for
+        estimators without the protocol)."""
+        tokens = []
+        for est in self.extra_estimators:
+            probe = getattr(est, "refresh_token", None)
+            tokens.append(probe() if probe is not None else None)
+        return tuple(tokens)
+
+    def _arm_est_batch(self, problems, res) -> None:
+        """Arm the estimator-backed batch-identity fast path after a full
+        host-path pass: cache the results keyed by problem ids, snapshot
+        generation and each estimator's confirm token. The problems list is
+        pinned so a recycled id() cannot alias a stale batch."""
+        if not self.extra_estimators or self.custom_filters:
+            return
+        tokens = self._est_tokens()
+        if None in tokens:
+            self._est_batch = None
+            return
+        self._est_batch = (
+            np.fromiter(map(id, problems), np.int64, len(problems)),
+            self._snapshot_gen,
+            tuple(map(id, self.extra_estimators)),
+            tokens,
+            list(res),
+            list(problems),
+        )
 
     def _derive_spread_selections(
         self,
@@ -521,16 +613,23 @@ class TensorScheduler:
         return np.minimum(avail, MAX_INT32).astype(np.int32)
 
     def _profile_table(self, profiles_np: np.ndarray) -> torch.Tensor:
-        """int32[P, C] general availability per unique request profile, -1
-        where the cluster gives no answer: K1's table form on ``device``.
-        The shared estimator core of the fleet path and spread selection."""
-        if self._models_active():
-            raise _not_ported("the resource-model estimator (estimate_by_models)")
+        """int32[P, C] general+model availability per unique request
+        profile, -1 where the cluster gives no answer: K1's table form on
+        ``device``, then K7's overlay form when the model estimator is
+        active. The shared estimator core of the fleet path, spread
+        selection and ``_availability``."""
         cap, has_summary = self._device_state()
         profiles = torch.from_numpy(
             np.ascontiguousarray(profiles_np, np.int64)
         ).to(self.device)
-        return profile_table(cap, profiles, has_summary)
+        table = profile_table(cap, profiles, has_summary)
+        if self._models_active():
+            min_bounds, counts, covered, has_models = self._device_models()
+            pods_dim = self.snapshot.dim_index("pods")
+            model_overlay(table, min_bounds, counts, covered, profiles,
+                          has_models, has_summary, cap,
+                          -1 if pods_dim is None else pods_dim)
+        return table
 
     def _schedule_host(
         self,
@@ -715,21 +814,30 @@ class TensorScheduler:
         engine's predicate, core.py:2320)."""
         return bool(
             feature_gate.enabled(CUSTOMIZED_CLUSTER_RESOURCE_MODELING)
-            and np.asarray(self.snapshot.has_models).any()
+            and np.asarray(self.snapshot.model_pack.has_models).any()
         )
 
     def _availability_np(
-        self, requests: np.ndarray, replicas: np.ndarray
+        self,
+        requests: np.ndarray,
+        replicas: np.ndarray,
+        extras: Sequence[np.ndarray] = (),
     ) -> np.ndarray:
         """Host mirror of ``_availability`` for the tiny-batch path: the
-        shared ``host_profile_table`` plus merge_estimates' exact sentinel
+        shared ``host_profile_table``, min-merged with each of ``extras``
+        (int32[B, C], -1 = no answer), plus merge_estimates' exact sentinel
         semantics (no-summary -> no answer -> clamp to spec.Replicas;
-        zero-replica short-circuit)."""
+        zero-replica short-circuit). The engine passes no extras (it never
+        takes this path with estimators); a host check of the general route
+        passes their answers."""
         mi = MAX_INT32
         uniq, inv = np.unique(requests, axis=0, return_inverse=True)
         dense = host_profile_table(
             self.snapshot, uniq, models_active=self._models_active()
         )[inv.reshape(-1)]
+        for e in extras:
+            e = np.asarray(e).astype(np.int64)
+            dense = np.where(e == -1, dense, np.minimum(dense, e))
         reps_col = replicas.astype(np.int64)[:, None]
         avail = np.where(reps_col == 0, mi, dense)
         avail = np.where(avail == mi, reps_col, avail)
@@ -749,25 +857,54 @@ class TensorScheduler:
             self._dev_state = st
         return st[1], st[2]
 
+    def _device_models(self) -> tuple[torch.Tensor, ...]:
+        """(min_bounds int64[C, G, R], counts int32[C, G], covered bool[C, R],
+        has_models bool[C]) on the device, uploaded once per snapshot
+        generation when the model estimator is active."""
+        st = self._dev_models
+        if st is None or st[0] != self._snapshot_gen:
+            mp = self.snapshot.model_pack
+            st = (self._snapshot_gen,) + tuple(
+                torch.from_numpy(np.ascontiguousarray(a, dt)).to(self.device)
+                for a, dt in ((mp.min_bounds, np.int64), (mp.counts, np.int32),
+                              (mp.covered, bool), (mp.has_models, bool))
+            )
+            self._dev_models = st
+        return st[1:]
+
     def _availability(
         self, requests: np.ndarray, replicas: np.ndarray
     ) -> torch.Tensor:
         """calAvailableReplicas (core/util.go:54-104) on the device: request
-        rows are interned host-side (np.unique), and K1 computes the general
-        estimate per unique profile, masks no-summary clusters, gathers the
-        rows and merges — one launch. Returns int32[B, C] on ``device``."""
-        if self._models_active():
-            raise _not_ported("the resource-model estimator (estimate_by_models)")
+        rows are interned host-side (np.unique). With the general estimator
+        alone, K1 computes the estimate per unique profile, masks
+        no-summary clusters, gathers the rows and merges — one launch. With
+        the resource-model estimator or extra estimators, the profile table
+        (``_profile_table``: K1's table form and K7's overlay) is gathered
+        and min-merged with every extra estimate by K1's merge form.
+        Returns int32[B, C] on ``device``."""
         profiles, prof_inv = np.unique(requests, axis=0, return_inverse=True)
-        cap, has_summary = self._device_state()
         dev = self.device
-        return estimate_merge(
-            cap,
-            torch.from_numpy(np.ascontiguousarray(profiles, np.int64)).to(dev),
-            torch.from_numpy(prof_inv.reshape(-1).astype(np.int32)).to(dev),
-            has_summary,
-            torch.from_numpy(np.ascontiguousarray(replicas, np.int32)).to(dev),
-        )
+        inv = torch.from_numpy(prof_inv.reshape(-1).astype(np.int32)).to(dev)
+        reps = torch.from_numpy(np.ascontiguousarray(replicas, np.int32)).to(dev)
+        if not (self.extra_estimators or self._models_active()):
+            cap, has_summary = self._device_state()
+            return estimate_merge(
+                cap,
+                torch.from_numpy(np.ascontiguousarray(profiles, np.int64)).to(dev),
+                inv, has_summary, reps,
+            )
+        table = self._profile_table(profiles)
+        extras = []
+        if self.extra_estimators:
+            # out-of-tree estimators see the full per-binding requests
+            req = torch.from_numpy(np.ascontiguousarray(requests, np.int64)).to(dev)
+            for est in self.extra_estimators:
+                ans = est(req, reps)
+                if not isinstance(ans, torch.Tensor):
+                    ans = torch.from_numpy(np.asarray(ans))
+                extras.append(ans.to(device=dev, dtype=torch.int32).contiguous())
+        return estimate_merge_table(table, inv, tuple(extras), reps)
 
     def _schedule_chunk(
         self,
@@ -797,7 +934,11 @@ class TensorScheduler:
             fresh = np.pad(fresh, (0, pad))
         # tiny-batch host path: the JAX engine's own rule, placement-
         # identical (the numpy divider is the oracle-verified referent)
-        host_small = padded * snap.num_clusters <= 1 << 16
+        # (the resource-model estimator has its exact numpy mirror in
+        # host_profile_table; only out-of-tree estimators force the device)
+        host_small = (
+            padded * snap.num_clusters <= 1 << 16 and not self.extra_estimators
+        )
         avail = (
             self._availability_np(requests, replicas)
             if host_small

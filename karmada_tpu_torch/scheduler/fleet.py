@@ -86,6 +86,14 @@ def _pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
+def _table_max(table: torch.Tensor) -> int:
+    """Largest answer of a profile table, the MAX_INT32 sentinel excluded;
+    no-summary cells (-1) and an empty table read as 0."""
+    if table.numel() == 0:
+        return 0
+    return max(int(torch.where(table != MAX_INT32, table, 0).max()), 0)
+
+
 def _cap_round(v: int) -> int:
     """Entry-buffer quantization: powers of two (floor 1024) up to the
     quantum, then quarter-octave buckets (5/8 .. 8/8 of the next power of
@@ -715,22 +723,12 @@ class FleetTable:
             profs_dev = np.zeros((pad_p, profs.shape[1]), profs.dtype)
             profs_dev[: len(profs)] = profs
         prof_table = self.engine._profile_table(profs_dev)
-        # host mirror of the estimator max for kernel_variant (a device max
-        # would cost a sync each churn pass)
-        self._avail_max = self._host_avail_max(profs)
+        # the estimator max for kernel_variant, read from the table just
+        # built (resource models included): one reduction and one sync
+        self._avail_max = _table_max(prof_table[: len(profs)])
         self._dev_tables = (cp_bits_dev, cp_static_dev, gvk_dev, prof_table, inc_dev)
         self._mask_token = token
         self._tables_dirty = False
-
-    def _host_avail_max(self, profs: np.ndarray) -> int:
-        """Sentinel-excluded max of the host mirror of the profile table."""
-        from .core import host_profile_table
-
-        table = host_profile_table(
-            self.engine.snapshot, profs, models_active=self.engine._models_active()
-        )
-        valid = table != MAX_INT32
-        return int(table[valid].max()) if valid.any() else 0
 
     def _upload_state(self) -> tuple:
         """Full packed-state upload."""

@@ -22,11 +22,11 @@ Mask semantics per plugin:
   downstream from graceful-eviction tasks.
 
 Counterpart of ``karmada_tpu/scheduler/snapshot.py``, pointed at the port's
-ops. Two differences: the resource-model pack is reduced to ``has_models``
-(the model estimator is not in this slice; the engine raises where it would
-answer), and ``snapshot_from_arrays`` rebuilds a snapshot from the packed
-arrays and vocabularies alone, so two engines can be handed bit-identical
-state without re-packing.
+ops and carrying the same resource-model pack (``model_pack``, built by
+``models.pack_models`` over the snapshot's dims). One addition:
+``snapshot_from_arrays`` rebuilds a snapshot from the packed arrays and
+vocabularies alone, so two engines can be handed bit-identical state
+without re-packing.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from ..api.policy import (
     Placement,
     SpreadConstraint,
 )
+from ..models.modeling import ModelPack, pack_models
 from ..ops import masks as mops
 from ..ops.divide import AGGREGATED, DUPLICATED as S_DUPLICATED, DYNAMIC_WEIGHT, STATIC_WEIGHT
 
@@ -159,17 +160,8 @@ class ClusterSnapshot:
                     - rs_.allocating.get(d, 0)
                 )
 
-        # --- resource-model grades (CustomizedClusterResourceModeling):
-        # which clusters the model estimator would answer for (the
-        # has_models half of karmada_tpu/models/modeling.py pack_models)
-        self.has_models = np.array(
-            [
-                bool(cl.spec.resource_models)
-                and bool(cl.status.resource_summary.allocatable_modelings)
-                for cl in self.clusters
-            ],
-            bool,
-        )
+        # --- resource-model grades (CustomizedClusterResourceModeling) ---
+        self.model_pack = pack_models(self.clusters, self.dims)
 
     @property
     def num_clusters(self) -> int:
@@ -229,23 +221,28 @@ class ClusterSnapshot:
 VOCABS = ("label", "key", "taint", "gvk", "provider", "region", "zone")
 #: numpy planes of a snapshot, by attribute name
 PLANES = (
-    "available_cap", "has_summary", "has_models", "label_bits", "key_bits",
+    "available_cap", "has_summary", "label_bits", "key_bits",
     "taint_bits", "gvk_bits", "complete_enablements", "provider_ids",
     "region_ids", "zone_ids",
 )
+#: the resource-model pack's planes: array name -> ModelPack field
+MODEL_PLANES = {
+    "has_models": "has_models", "model_min_bounds": "min_bounds",
+    "model_counts": "counts", "model_covered": "covered",
+}
 
 
 def snapshot_arrays(snap) -> dict[str, np.ndarray]:
     """Every array and vocabulary a snapshot is made of, as numpy arrays:
-    the planes of ``PLANES``, ``<name>_vocab`` string tables in id order and
-    the taint triples. Reads a port snapshot, or any object with the same
-    attributes (``has_models`` may sit on a ``model_pack`` instead)."""
+    the planes of ``PLANES``, the model pack's (``MODEL_PLANES``),
+    ``<name>_vocab`` string tables in id order and the taint triples. Reads
+    a port snapshot, or any object with the same attributes (the JAX
+    package's ClusterSnapshot)."""
     out = {}
     for name in PLANES:
-        arr = getattr(snap, name, None)
-        if arr is None and name == "has_models":
-            arr = snap.model_pack.has_models
-        out[name] = np.asarray(arr).copy()
+        out[name] = np.asarray(getattr(snap, name)).copy()
+    for name, fld in MODEL_PLANES.items():
+        out[name] = np.asarray(getattr(snap.model_pack, fld)).copy()
     for name in VOCABS:
         out[f"{name}_vocab"] = np.array(list(getattr(snap, f"{name}_vocab")._ids), dtype=str)
     out["taint_key"] = np.array([t.key for t in snap.taints], dtype=str)
@@ -270,6 +267,9 @@ def snapshot_from_arrays(
     c, r = len(snap.names), len(snap.dims)
     for name in PLANES:
         setattr(snap, name, np.array(arrays[name], copy=True))
+    snap.model_pack = ModelPack(**{
+        fld: np.array(arrays[name], copy=True) for name, fld in MODEL_PLANES.items()
+    })
     for name in VOCABS:
         vocab = mops.Vocab()
         for s in arrays[f"{name}_vocab"]:
@@ -281,7 +281,9 @@ def snapshot_from_arrays(
             arrays["taint_key"], arrays["taint_value"], arrays["taint_effect"]
         )
     ]
-    if snap.available_cap.shape != (c, r) or snap.has_summary.shape != (c,):
+    mp = snap.model_pack
+    if (snap.available_cap.shape != (c, r) or snap.has_summary.shape != (c,)
+            or mp.min_bounds.shape[::2] != (c, r) or mp.has_models.shape != (c,)):
         raise ValueError("snapshot_from_arrays: planes do not match names x dims")
     return snap
 

@@ -25,7 +25,8 @@ import karmada_tpu.utils.builders  # noqa: F401  (build_workload imports it by n
 import karmada_tpu_torch
 import karmada_tpu_torch.scheduler as TS
 import karmada_tpu_torch.utils.builders as TB
-from karmada_tpu_torch.api import ClusterAffinityTerm, Placement, ResourceModel
+import karmada_tpu_torch.estimator.accurate as TA
+from karmada_tpu_torch.api import ClusterAffinityTerm, Placement
 
 import chip_smoke
 
@@ -101,6 +102,26 @@ def test_snapshot_from_arrays_round_trip():
     assert outcome(got) == outcome(want)
 
 
+def test_snapshot_arrays_carry_the_model_pack():
+    """Under the nine default grades the JAX snapshot's model pack crosses
+    to the port bit for bit, the port packs the same seeded fleet to the
+    same arrays, and the rebuilt snapshot schedules identically."""
+    sj, _ = chip_smoke.build_workload(karmada_tpu, 5, 300, 200, models=True)
+    st, pt = chip_smoke.build_workload(karmada_tpu_torch, 5, 300, 200, models=True)
+    jax_arrays = TS.snapshot_arrays(sj)
+    port_arrays = TS.snapshot_arrays(st)
+    assert jax_arrays.keys() == port_arrays.keys()
+    for name in jax_arrays:
+        np.testing.assert_array_equal(port_arrays[name], jax_arrays[name], err_msg=name)
+    assert jax_arrays["has_models"].all() and jax_arrays["model_min_bounds"].shape == (200, 9, 4)
+    rebuilt = TS.snapshot_from_arrays(jax_arrays, sj.names, sj.dims)
+    for name, arr in TS.snapshot_arrays(rebuilt).items():
+        np.testing.assert_array_equal(arr, jax_arrays[name], err_msg=name)
+    want = TS.TensorScheduler(st, device="cpu").schedule(pt)
+    got = TS.TensorScheduler(rebuilt, device="cpu").schedule(pt)
+    assert outcome(got) == outcome(want)
+
+
 def test_update_snapshot_keeps_cluster_set():
     fleet = TB.synthetic_fleet(40, seed=1)
     eng = TS.TensorScheduler(TS.ClusterSnapshot(fleet), device="cpu")
@@ -113,8 +134,8 @@ def _engine():
     return snap, TS.TensorScheduler(snap, device="cpu")
 
 
-@pytest.mark.parametrize("branch", ["extra_estimators", "mesh", "quota", "explain",
-                                    "preemption", "ranked_affinities", "models"])
+@pytest.mark.parametrize("branch", ["mesh", "quota", "explain", "preemption",
+                                    "ranked_affinities", "remote_estimator"])
 def test_unported_branches_raise(branch):
     """Where the JAX engine would take a branch this slice does not port,
     the port raises instead of answering differently."""
@@ -122,9 +143,7 @@ def test_unported_branches_raise(branch):
     prob = TS.BindingProblem(key="b", placement=TB.dynamic_weight_placement(),
                              replicas=3, requests={"cpu": 100})
     with pytest.raises(NotImplementedError):
-        if branch == "extra_estimators":
-            TS.TensorScheduler(snap, extra_estimators=[lambda r, n: None], device="cpu")
-        elif branch == "mesh":
+        if branch == "mesh":
             TS.TensorScheduler(snap, mesh=object(), device="cpu")
         elif branch == "quota":
             eng.set_quota(object())
@@ -139,12 +158,10 @@ def test_unported_branches_raise(branch):
             ])
             eng.schedule([TS.BindingProblem(key="r", placement=pl, replicas=1)])
         else:
-            fleet = [TB.new_cluster(f"m{i}") for i in range(4)]
-            fleet[0].spec.resource_models = [ResourceModel(grade=0)]
-            fleet[0].status.resource_summary.allocatable_modelings = [
-                karmada_tpu_torch.api.AllocatableModeling(grade=0, count=1)
-            ]
-            TS.TensorScheduler(TS.ClusterSnapshot(fleet), device="cpu").schedule([prob])
+            # an estimator behind the gRPC transport (RemoteAccurateEstimator)
+            est = TA.AccurateEstimator("m0", TA.NodeSnapshot([], snap.dims), device="cpu")
+            est.conn = object()
+            TA.EstimatorRegistry().register(est)
     # the disarmed settings stay accepted
     eng.set_quota(None)
     eng.set_explain(None)
