@@ -11,8 +11,10 @@
    north-star chunk (4096 x 5000) and at C = 10,000, K1's table form
    ``profile_table`` at U = 8 x 5000, K1's merge form
    ``estimate_merge_table`` at 4096 x 5000 with 0, 1 and 2 extra estimates,
-   and K8 ``node_sum_estimate`` at 4096 profile rows x 5000 nodes; equality
-   is exact (integer outputs, tolerance 0). Prints each kernel's median
+   K8 ``node_sum_estimate`` at 4096 profile rows x 5000 nodes, K12
+   ``quota_admit`` at 131072 rows x 32 namespaces and K13's per-row form
+   ``quota_cluster_caps`` at 4096 x 5000; equality is exact (integer
+   outputs, tolerance 0). Prints each kernel's median
    time beside the plain version's and its bound;
 3. end-to-end phase, every row checked against the port's numpy divider on
    the same packed inputs (``oracle_check``):
@@ -33,16 +35,29 @@
    - config 5 on the general path (the first slice's route: K1 + K2), its
      first 40k rows in one pass, every row equal to the fleet's cold pass;
    - config 5 again under Karmada's nine default resource-model grades:
-     the storm as above (K7's overlay form in every table rebuild; K7's
-     two forms held to their plain versions on the table's inputs and on
-     a seeded U = 64 batch), then one 20k-row pass on the general path
+     the storm as above (K7 in every table rebuild, held to its plain
+     version on the table's inputs and on a seeded U = 64 batch), then one
+     20k-row pass on the general path
      (K1 table form, K7 overlay, K1 merge form, K2);
    - the in-process accurate estimator: 128 clusters of 4000 seeded nodes
      behind an ``EstimatorRegistry``, 10k bindings through
      ``extra_estimators``; cold, steady, hard-refresh and pod-event passes
      must launch K8 128, 0, 128 and 4 times and leave no registered
      cluster unanswered; the cold and pod-event passes are checked against
-     the numpy divider over merge(general, the node-sum numpy mirror).
+     the numpy divider over merge(general, the node-sum numpy mirror);
+   - the quota plane (bench.py ``run_quota``'s recipe at the engine):
+     config 5 in 32 namespaces, one FederatedResourceQuota each, four of
+     them capping cluster 0; cold, steady (replay), surge, raise and delta
+     passes on the fleet route must launch K12 1, 0, 1, 1 and 1 times, and
+     every partition equals the sequential ``admit_wave_np``; admitted rows
+     equal the numpy divider on cap-folded availability; then 20k rows on
+     the general route (K12, K13's per-row form, K1's merge form), equal to
+     the fleet's. K12 is held to its plain version at B = 131072, N = 32,
+     K13 at 4096 x 5000 and (fold form) on the quota table;
+   - the ranked multi-term path: 10k rows with three ClusterAffinities
+     groups over the config-5 fleet, half in namespaces capping 600
+     clusters; every row equal to the ordered-failover referent, some on a
+     fallback group.
    Each path sets the launch counters to 0 just before it and reads them
    just after; every kernel of the path must have launched.
 4. prints one JSON line of per-kernel numbers, the card line again, and last
@@ -264,6 +279,143 @@ def estimator_workload(pkg, clusters: int = 128, nodes: int = 4000,
     return s.ClusterSnapshot(fleet), per_cluster, problems
 
 
+#: the quota cell's namespaces (bench.py ``run_quota``: binding i goes to
+#: namespace i % 32), of which the first CAP_NAMESPACES carry a static-
+#: assignment cap on cluster 0 (bench.py:2513-2528)
+QUOTA_NAMESPACES = tuple(f"nsq{k:02d}" for k in range(32))
+CAP_NAMESPACES = 4
+#: generous limits: a cold wave admits every row
+GENEROUS = {"cpu": 1 << 40, "memory": 1 << 50}
+
+
+def quota_workload(pkg, bindings: int | None = None, clusters: int | None = None):
+    """Config 5 (``build_workload``) with binding i in namespace
+    ``QUOTA_NAMESPACES[i % 32]``: the quota tier's recipe (bench.py
+    ``run_quota``) driven at the engine."""
+    snap, problems = build_workload(pkg, 5, bindings, clusters)
+    for i, p in enumerate(problems):
+        p.namespace = QUOTA_NAMESPACES[i % len(QUOTA_NAMESPACES)]
+    return snap, problems
+
+
+def quota_frqs(pkg, snap, limits: dict, used: dict | None = None,
+               caps: dict | None = None) -> list:
+    """One FederatedResourceQuota per namespace of ``limits`` (namespace ->
+    spec.overall). ``used`` (namespace -> usage) gives each a status
+    reconciled with its spec. ``caps`` (namespace -> {cluster: hard}) adds
+    static assignments; by default the first ``CAP_NAMESPACES`` namespaces
+    cap cluster 0 at 2 cpus (bench.py:2513-2528)."""
+    pol = importlib.import_module(f"{pkg.__name__}.api.policy")
+    core = importlib.import_module(f"{pkg.__name__}.api.core")
+    if caps is None:
+        caps = {ns: {snap.names[0]: {"cpu": 2000}}
+                for ns in sorted(limits)[:CAP_NAMESPACES]}
+    out = []
+    for ns in sorted(limits):
+        q = pol.FederatedResourceQuota(
+            meta=core.ObjectMeta(name="quota", namespace=ns),
+            spec=pol.FederatedResourceQuotaSpec(
+                overall=dict(limits[ns]),
+                static_assignments=[
+                    pol.StaticClusterAssignment(cluster_name=c, hard=dict(h))
+                    for c, h in caps.get(ns, {}).items()
+                ],
+            ),
+        )
+        if used is not None:
+            q.status = pol.FederatedResourceQuotaStatus(
+                overall=dict(limits[ns]), overall_used=dict(used[ns]))
+        out.append(q)
+    return out
+
+
+def wave_demand(snap, problems, ns_index: dict) -> tuple[list, np.ndarray]:
+    """(namespace id per row, int64[B, R] demand): each quota'd row's
+    per-replica request over the snapshot's dims (a replica occupies one
+    pod) times its replica delta over its previous placement, clamped at
+    2^44 — the admission inputs, computed here without the engine."""
+    dims = list(snap.dims)
+    clamp = 2**44
+    ns_ids = [ns_index.get(p.namespace, -1) for p in problems]
+    demand = np.zeros((len(problems), len(dims)), np.int64)
+    for i, p in enumerate(problems):
+        delta = p.replicas - sum(p.prev.values())
+        if ns_ids[i] < 0 or delta <= 0:
+            continue
+        for j, d in enumerate(dims):
+            v = int(p.requests.get(d, 0))
+            if d == "pods":
+                v = max(v, 1)
+            demand[i, j] = min(v * delta, clamp)
+    return ns_ids, demand
+
+
+#: the ranked cell's three ClusterAffinities groups, by the config-5 fleet's
+#: ``tier`` label (t0..t15): a small primary group and two fallbacks
+RANKED_GROUPS = (("t0",), tuple(f"t{k}" for k in range(1, 8)),
+                 tuple(f"t{k}" for k in range(8, 16)))
+RANKED_NAMESPACES = tuple(f"rk{k}" for k in range(8))
+
+
+def ranked_workload(pkg, bindings: int = 10_000, clusters: int | None = None,
+                    seed: int = 23):
+    """Ordered-failover rows over the config-5 fleet: every row's placement
+    lists three ClusterAffinities terms, the tier groups of
+    ``RANKED_GROUPS`` in order (dynamic weight, every fourth row
+    Aggregated). Every third row asks 50-99 replicas of 2048 cpus each,
+    more than the small primary group holds, so it falls back; the others
+    ask config 5's profiles. A third of the rows carry previous sites, 5%
+    are fresh. Row i is in namespace ``RANKED_NAMESPACES[i % 8]``; the
+    first four namespaces cap the first 600 clusters at 16 cpus each
+    (``ranked_caps``). Returns (snapshot, problems)."""
+    api = importlib.import_module(f"{pkg.__name__}.api")
+    b = importlib.import_module(f"{pkg.__name__}.utils.builders")
+    q = importlib.import_module(f"{pkg.__name__}.utils.quantity")
+    s = importlib.import_module(f"{pkg.__name__}.scheduler")
+    snap, _ = build_workload(pkg, 5, 1, clusters)
+    names = snap.names
+
+    def term(k):
+        return api.ClusterAffinityTerm(
+            affinity_name=f"tier-group-{k}",
+            label_selector=api.LabelSelector(match_expressions=[
+                api.LabelSelectorRequirement(key="tier", operator="In",
+                                             values=RANKED_GROUPS[k])]),
+        )
+
+    terms = [term(k) for k in range(3)]
+    pls = (b.dynamic_weight_placement(cluster_affinities=list(terms)),
+           b.aggregated_placement(cluster_affinities=list(terms)))
+    profiles = [
+        q.parse_resource_list({"cpu": f"{250 * (p + 1)}m", "memory": f"{512 * (p + 1)}Mi"})
+        for p in range(8)
+    ]
+    big = q.parse_resource_list({"cpu": "2048", "memory": "512Mi"})
+    rng = np.random.default_rng(seed)
+    problems = []
+    for i in range(bindings):
+        heavy = i % 3 == 0
+        prev = {}
+        if rng.random() < 1 / 3:
+            sites = rng.choice(len(names), int(rng.integers(1, 4)), replace=False)
+            prev = {names[j]: int(rng.integers(1, 10)) for j in sites}
+        problems.append(s.BindingProblem(
+            key=f"r{i}", placement=pls[int(i % 4 == 3)],
+            replicas=int(rng.integers(50, 100) if heavy else rng.integers(1, 100)),
+            requests=big if heavy else profiles[int(rng.integers(0, 8))],
+            gvk="apps/v1/Deployment", prev=prev, fresh=bool(rng.random() < 0.05),
+            namespace=RANKED_NAMESPACES[i % len(RANKED_NAMESPACES)],
+        ))
+    return snap, problems
+
+
+def ranked_caps(snap) -> dict:
+    """The ranked cell's static assignments: the first four namespaces cap
+    each of the first 600 clusters at 16 cpus."""
+    return {ns: {c: {"cpu": 16_000} for c in snap.names[:600]}
+            for ns in RANKED_NAMESPACES[:4]}
+
+
 # --------------------------------------------------------------------------
 # seeded kernel batches
 # --------------------------------------------------------------------------
@@ -404,12 +556,44 @@ def check_kernel(name: str, arrays: dict, device, reps: int = 10) -> dict:
 # --------------------------------------------------------------------------
 
 
+def referent_caps(engine, problems, requests):
+    """The rows' static-assignment caps computed here, from the quota
+    snapshot's cap tensor and not through the port's cap body (which K13's
+    plain version and the engine's host mirror share): int32[B, C] of
+    floor(cap / request) minimised over the requested dims, MAX_INT32 where
+    the namespace is uncapped, nothing is requested or the cap is
+    UNLIMITED. None when the engine holds no caps. The answers merge into
+    the numpy availability as an estimator's (``extras``), which ignores
+    -1, so a negative answer raises: this script's caps are all positive."""
+    from karmada_tpu_torch.ops.quota import MAX_INT32, UNLIMITED
+
+    q = engine.quota
+    if q is None or not q.has_caps:
+        return None
+    out = np.full((len(problems), q.cluster_caps.shape[1]), MAX_INT32, np.int64)
+    for i, p in enumerate(problems):
+        k = q.cap_index.get(p.namespace)
+        dims = np.flatnonzero(requests[i] > 0)
+        if k is None or not len(dims):
+            continue
+        cap = q.cluster_caps[k][:, dims]
+        fit = np.where(cap >= UNLIMITED, MAX_INT32, cap // requests[i, dims])
+        out[i] = np.minimum(fit.min(axis=1), MAX_INT32)
+    if (out < 0).any():
+        raise AssertionError("referent_caps: a negative cap answer cannot merge as an extra")
+    return out.astype(np.int32)
+
+
 def oracle_check(engine, problems, results, extra=None) -> int:
     """Re-solve every row on the host from the same packed inputs: the
     engine's packing, the numpy estimate (the engine's tiny-batch mirror
-    ``_availability_np``, merged with ``extra``'s answer when given), the
-    host spread selection and the numpy
-    divider. Returns the number of rows that differ. Chunks are checked on
+    ``_availability_np``, merged with the rows' static-assignment quota caps
+    from ``referent_caps`` when the engine has any and with ``extra``'s
+    answer when given),
+    the host spread selection and the numpy divider. Returns the number of
+    rows that differ. ``problems`` may be any sub-list of a wave with its
+    results (rows are solved independently): a quota'd wave checks its
+    admitted rows. Chunks are checked on
     a pool of threads (numpy releases the GIL in its array work); the
     placements are compiled first, on this thread."""
     import os
@@ -427,8 +611,10 @@ def oracle_check(engine, problems, results, extra=None) -> int:
         feasible, strategy, replicas, static_w, requests, prev, fresh = (
             engine._pack_chunk(chunk, compiled, 0)
         )
-        extras = () if extra is None else (extra(requests, replicas),)
-        avail = engine._availability_np(requests, replicas, extras)
+        caps = referent_caps(engine, chunk, requests)
+        extras = (() if caps is None else (caps,)) + (
+            () if extra is None else (extra(requests, replicas),))
+        avail = engine._availability_np(requests, replicas, extras=extras)
         cand = select_clusters_batch(snap, chunk, compiled, 0, feasible, avail, prev)
         assignment, unsched = assign_batch_np(
             strategy, replicas, cand, static_w, avail, prev, fresh
@@ -567,14 +753,18 @@ KERNELS = {
                      "karmada_tpu/scheduler/fleet.py:1120"),
     "gather_meta": ("cuda", "karmada_tpu_torch/csrc/scatter_rows.cu",
                     "karmada_tpu/scheduler/fleet.py:828"),
-    "model_estimate": ("cuda", "karmada_tpu_torch/csrc/model_estimate.cu",
-                       "karmada_tpu/models/modeling.py:72"),
     "model_overlay": ("cuda", "karmada_tpu_torch/csrc/model_estimate.cu",
                       "karmada_tpu/scheduler/core.py:2263"),
     "estimate_merge_table": ("cuda", "karmada_tpu_torch/csrc/estimate_merge.cu",
                              "karmada_tpu/scheduler/core.py:2376"),
     "node_sum_estimate": ("cuda", "karmada_tpu_torch/csrc/node_sum.cu",
                           "karmada_tpu/estimator/accurate.py:255"),
+    "quota_admit": ("cuda", "karmada_tpu_torch/csrc/quota_admit.cu",
+                    "karmada_tpu/ops/quota.py:64"),
+    "quota_cluster_caps": ("cuda", "karmada_tpu_torch/csrc/quota_caps.cu",
+                           "karmada_tpu/ops/quota.py:150"),
+    "quota_caps_fold": ("cuda", "karmada_tpu_torch/csrc/quota_caps.cu",
+                        "karmada_tpu/scheduler/core.py:2295"),
 }
 #: the kernels each driven path must launch
 PATH_KERNELS = {
@@ -591,6 +781,12 @@ PATH_KERNELS = {
                                 "estimate_merge_table", "divide_replicas"),
     "estimator": ("profile_table", "estimate_merge_table", "divide_replicas",
                   "node_sum_estimate"),
+    "quota fleet": ("quota_admit", "quota_caps_fold", "profile_table", "divide_replicas",
+                    "fleet_masks", "fleet_diff", "fleet_wire"),
+    "quota general": ("quota_admit", "quota_cluster_caps", "profile_table",
+                      "estimate_merge_table", "divide_replicas"),
+    "ranked": ("quota_admit", "quota_cluster_caps", "profile_table",
+               "estimate_merge_table", "divide_replicas"),
 }
 
 
@@ -963,21 +1159,15 @@ def _model_ops(u: int, c: int, g: int, r: int) -> int:
 
 
 def check_model_forms(t: dict, pods_dim: int, card: str, label: str) -> dict:
-    """K7's plain form against ``estimate_by_models`` and its overlay form
-    against its plain version, on the device tensors ``t``; exact. Returns
-    the stats of both forms."""
+    """K7 against its plain version on the device tensors ``t``; exact.
+    Returns its stats."""
     from karmada_tpu_torch import ops
     from karmada_tpu_torch.models import modeling as mm
 
     pack = (t["min_bounds"], t["counts"], t["covered"], t["requests"])
     c, g, r = t["min_bounds"].shape
     u = t["requests"].shape[0]
-    got, want = mm.model_estimate(*pack), mm.estimate_by_models(*pack)
-    stats = {"model_estimate": dict(timed(
-        f"model_estimate (K7 plain form) {label}", lambda: mm.model_estimate(*pack),
-        lambda: mm.estimate_by_models(*pack),
-        _nbytes(*pack, *got), _model_ops(u, c, g, r), card,
-    ), max_abs_err=compare("model_estimate", got, want))}
+    stats = {}
     base = ops.profile_table(t["available_cap"], t["requests"], t["has_summary"])
     rest = (t["has_models"], t["has_summary"], t["available_cap"])
     t_k, t_r = base.clone(), base.clone()
@@ -987,7 +1177,7 @@ def check_model_forms(t: dict, pods_dim: int, card: str, label: str) -> dict:
     changed = int((t_k != base).sum().item())
     # the overlay is idempotent on its table, so repeated launches time it
     stats["model_overlay"] = dict(timed(
-        f"model_overlay (K7 overlay form) {label}",
+        f"model_overlay (K7) {label}",
         lambda: mm.model_overlay(t_k, *pack, *rest, pods_dim),
         lambda: mm.model_overlay_ref(t_r, *pack, *rest, pods_dim),
         _nbytes(*pack, *rest) + 2 * _nbytes(base), _model_ops(u, c, g, r), card,
@@ -1539,6 +1729,524 @@ def run_estimator(device, card: str, clusters: int = 128, nodes: int = 4000,
     return out
 
 
+# --------------------------------------------------------------------------
+# the quota plane and the ranked multi-term path
+# --------------------------------------------------------------------------
+
+
+def admit_batch(rng, b: int = 131_072, n: int = 32, r: int = 4) -> dict:
+    """K12 inputs at the admission bound (B = 2^17 rows): ids interleaved
+    over -1..N+1 (unquota'd rows and ids at or above N), demand up to
+    2^20 with zero rows and rows at DEMAND_CLAMP, remaining that denies
+    about half of each namespace's rows, and unlimited dims."""
+    ns = (np.arange(b) % (n + 3) - 1).astype(np.int32)
+    demand = rng.integers(0, 1 << 20, (b, r)).astype(np.int64)
+    demand[rng.random((b, r)) < 0.1] = 0
+    demand[rng.random(b) < 0.001] = 2**44
+    per_ns = b // (n + 3)
+    remaining = rng.integers(0, per_ns << 20, (n, r)).astype(np.int64)
+    remaining[rng.random((n, r)) < 0.2] = 2**62
+    return {"ns_ids": ns, "demand": demand, "remaining": remaining}
+
+
+def caps_batch(rng, b: int = 4096, c: int = 5000, n: int = 8, r: int = 4) -> dict:
+    """K13 inputs: caps with unlimited cells, negative hard limits and
+    near-2^62 values; rows uncapped (-1), capped, and at or above N;
+    requests of nothing, of 1 and beyond every cap."""
+    caps = rng.integers(-5000, 1 << 24, (n, c, r)).astype(np.int64)
+    caps[rng.random((n, c, r)) < 0.5] = 2**62
+    caps[rng.random((n, c, r)) < 0.01] = 2**62 - 1
+    req = rng.integers(0, 1 << 12, (b, r)).astype(np.int64)
+    req[rng.random((b, r)) < 0.3] = 0
+    req[0] = 0
+    req[1] = [1] + [0] * (r - 1)
+    req[2] = 1 << 40
+    return {"caps": caps, "ns_rows": rng.integers(-1, n + 2, b).astype(np.int32),
+            "requests": req}
+
+
+def check_quota_kernels(rng, device, card: str) -> dict:
+    """K12 at B = 131072, N = 32 and K13's per-row form at 4096 x 5000
+    against their plain versions on the card; exact."""
+    from karmada_tpu_torch import ops
+
+    stats = {}
+    t = to_device(admit_batch(rng), device)
+    args = (t["ns_ids"], t["demand"], t["remaining"])
+    got = ops.quota_admit(*args)
+    b, r = t["demand"].shape
+    n = t["remaining"].shape[0]
+    err = compare("quota_admit", got, ops.quota_admit_ref(*args))
+    denied = int((~got[0]).sum().item())
+    stats["quota_admit"] = dict(timed(
+        f"quota_admit (K12) B={b} N={n}", lambda: ops.quota_admit(*args),
+        lambda: ops.quota_admit_ref(*args),
+        _nbytes(*args, *got),
+        # per row and dim: the scan's add, the compare, the admitted add
+        b * r * 3, card,
+    ), max_abs_err=err)
+    print(f"# K12 check: {denied} of {b} rows denied", flush=True)
+    t = to_device(caps_batch(rng), device)
+    args = (t["caps"], t["ns_rows"], t["requests"])
+    got = ops.quota_cluster_caps(*args)
+    b, c = got.shape
+    err = compare("quota_cluster_caps", got, ops.cluster_caps_ref(*args))
+    stats["quota_cluster_caps"] = dict(timed(
+        f"quota_cluster_caps (K13 per-row form) {b}x{c}",
+        lambda: ops.quota_cluster_caps(*args), lambda: ops.cluster_caps_ref(*args),
+        # the caps of the rows' namespaces, the requests, the answers
+        _nbytes(*args, got), b * c * r * 3, card,
+    ), max_abs_err=err)
+    return stats
+
+
+def check_caps_fold(engine, card: str) -> dict:
+    """K13's fold form against its plain version on the quota cell's own
+    profile table (the fleet's padded interned profiles x 5000 clusters,
+    K1's table form before the fold) and cap tensor; exact."""
+    import torch
+    from karmada_tpu_torch import ops
+    from karmada_tpu_torch.scheduler.fleet import _pow2
+
+    fleet = engine._fleet
+    profs = np.stack(fleet._profiles)
+    pad = _pow2(max(len(profs), 4))
+    profs_p = np.zeros((pad, profs.shape[1]), np.int64)
+    profs_p[: len(profs)] = profs
+    prof_ns = np.full(pad, -1, np.int32)
+    prof_ns[: len(profs)] = fleet._prof_ns
+    base = engine._profile_table(profs_p)
+    dev = base.device
+    rest = (engine._caps_device(), torch.from_numpy(prof_ns).to(dev),
+            torch.from_numpy(profs_p).to(dev))
+    t_k, t_r = base.clone(), base.clone()
+    ops.quota_caps_fold(t_k, *rest)
+    ops.quota_caps_fold_ref(t_r, *rest)
+    err = compare("quota_caps_fold", t_k, t_r)
+    if not torch.equal(t_k, fleet._dev_tables[3]):
+        raise AssertionError("quota_caps_fold: the fleet's table differs from a fresh fold")
+    u, c = base.shape
+    r = profs.shape[1]
+    changed = int((t_k != base).sum().item())
+    capped = int((prof_ns >= 0).sum())
+    used_ns = torch.from_numpy(np.unique(prof_ns[prof_ns >= 0]).astype(np.int64)).to(dev)
+    print(f"# K13 fold on the quota table: {u} profiles ({capped} capped) x {c} "
+          f"clusters; the fold changed {changed} cells", flush=True)
+    # the fold is idempotent on its table, so repeated launches time it
+    return dict(timed(
+        f"quota_caps_fold (K13 fold form) {u}x{c}",
+        lambda: ops.quota_caps_fold(t_k, *rest),
+        lambda: ops.quota_caps_fold_ref(t_r, *rest),
+        # the capped rows' int32 table cells read and written once, the
+        # caps of the namespaces they name read once
+        _nbytes(rest[0][used_ns], rest[1], rest[2]) + capped * c * 2 * base.element_size(),
+        capped * c * r * 3, card,
+    ), max_abs_err=err)
+
+
+def check_partition(tag, snap, problems, results, q, rem0) -> tuple[int, int, np.ndarray]:
+    """The pass's admitted/denied partition against the sequential numpy
+    oracle (``admit_wave_np``) over the remaining quota the pass started
+    from. Returns (admitted quota'd rows, denied rows, the wave's admitted
+    demand per namespace); raises on any difference."""
+    from karmada_tpu_torch.refimpl.quota_np import admit_wave_np
+    from karmada_tpu_torch.scheduler.quota import QUOTA_EXCEEDED_ERROR
+
+    ns_ids, demand = wave_demand(snap, problems, q.ns_index)
+    flags, used = admit_wave_np(ns_ids, demand, rem0)
+    denied = np.fromiter((r.error == QUOTA_EXCEEDED_ERROR for r in results), bool,
+                         len(results))
+    bad = int((denied == np.asarray(flags, bool)).sum())
+    if bad:
+        raise AssertionError(f"{tag}: {bad} rows' admission differs from admit_wave_np")
+    quotad = np.asarray(ns_ids) >= 0
+    return int((quotad & ~denied).sum()), int(denied.sum()), used
+
+
+def check_admitted(tag, engine, problems, results, rows=None) -> tuple[int, float]:
+    """Every admitted row (of ``rows`` when given) against the numpy
+    divider on cap-folded availability (``oracle_check``); raises on any
+    difference. Returns (rows checked, seconds)."""
+    from karmada_tpu_torch.scheduler.quota import QUOTA_EXCEEDED_ERROR
+
+    idx = [i for i in (range(len(problems)) if rows is None else rows)
+           if results[i].error != QUOTA_EXCEEDED_ERROR]
+    t0 = time.perf_counter()
+    bad = oracle_check(engine, [problems[i] for i in idx], [results[i] for i in idx])
+    secs = time.perf_counter() - t0
+    if bad:
+        raise AssertionError(f"{tag}: {bad} admitted rows differ from the numpy divider")
+    return len(idx), secs
+
+
+def cpu_usage(problems, results) -> dict:
+    """namespace -> {"cpu": bound replicas x per-replica cpu}, the FRQ
+    status controller's usage after a pass: a row that placed is bound
+    where it placed, any other row where it was before."""
+    used = {ns: {"cpu": 0} for ns in QUOTA_NAMESPACES}
+    for p, r in zip(problems, results):
+        bound = r.clusters if r.success else p.prev
+        used[p.namespace]["cpu"] += sum(bound.values()) * int(p.requests.get("cpu", 0))
+    return used
+
+
+def run_quota(device, card: str, bindings=None, clusters=None, general_rows: int = 20_000,
+              raised: str = "nsq02") -> dict:
+    """The quota cell: config 5 in 32 namespaces, one FRQ each, the first
+    four also capping cluster 0 (K13's fold runs in the table rebuild).
+    Passes on the fleet route: cold (generous limits: every row admitted),
+    steady (the ``_quota_cache`` replay: no K12 launch), surge (the even
+    rows grow by 3 replicas, every row's previous placement is its cold
+    one, and each namespace's cpu limit is its cold usage plus 0.4 x its
+    surge demand), raise (``raised``'s limit lifted with a generation bump;
+    rows the surge placed hold their placement), delta (2% of the rows
+    rebuilt in the same generation: the delta admission). Every pass's
+    partition equals ``admit_wave_np`` (the delta pass's over its rebuilt
+    rows, the rest replaying the raise pass); the cold and surge passes'
+    admitted rows, the raised namespace's rows and the delta pass's rebuilt
+    admitted rows equal the numpy divider on cap-folded availability. Then the surge wave's first ``general_rows`` rows on the
+    general route (K12, K13's per-row form, K1 table and merge forms, K2)
+    against the fleet's rows."""
+    import karmada_tpu_torch
+    from karmada_tpu_torch.scheduler import BindingProblem, TensorScheduler
+    from karmada_tpu_torch.scheduler.quota import build_quota_snapshot
+
+    pkg = karmada_tpu_torch
+    t0 = time.perf_counter()
+    snap, problems = quota_workload(pkg, bindings, clusters)
+    n = len(problems)
+    build_s = time.perf_counter() - t0
+    engine = TensorScheduler(snap, chunk_size=4096, device=device)
+    limits = {ns: dict(GENEROUS) for ns in QUOTA_NAMESPACES}
+    engine.set_quota(build_quota_snapshot(quota_frqs(pkg, snap, limits), snap, 1))
+    on_card = device.type == "cuda"
+    out = {"walls": {}, "k12": {}, "admitted": {}, "denied": {}}
+    reset_counts()
+
+    def one_pass(kind, batch, replay=False, rows=None):
+        """One pass of ``batch``: its K12 launches, and its partition and
+        debit against ``admit_wave_np`` over ``rows`` (every row when
+        None; the delta pass admits only its rebuilt rows again)."""
+        q = engine.quota
+        rem0 = q.remaining.copy()
+        k12 = read_counts()["quota_admit"]
+        t0 = time.perf_counter()
+        res = engine.schedule(batch)
+        sync(device)
+        out["walls"][kind] = time.perf_counter() - t0
+        out["k12"][kind] = read_counts()["quota_admit"] - k12
+        if on_card and out["k12"][kind] != (0 if replay else 1):
+            raise AssertionError(f"quota {kind} pass: {out['k12'][kind]} K12 launches")
+        part = (batch, res) if rows is None else (
+            [batch[i] for i in rows], [res[i] for i in rows])
+        adm, den, used = check_partition(f"quota {kind} pass", snap, *part, q, rem0)
+        want = rem0 if replay else np.where(rem0 < 2**62, np.maximum(rem0 - used, 0), rem0)
+        if not np.array_equal(q.remaining, want):
+            raise AssertionError(f"quota {kind} pass: the debit differs from the oracle's")
+        out["admitted"][kind], out["denied"][kind] = adm, den
+        print(f"# quota {kind} pass {out['walls'][kind]:.4f} s [{breakdown_line(engine)}]; "
+              f"K12 launches {out['k12'][kind]}; {adm} quota'd rows admitted, {den} "
+              f"denied, equal to admit_wave_np; card {card}", flush=True)
+        return res
+
+    cold = one_pass("cold", problems)
+    if engine._fleet is None:
+        raise AssertionError("the quota cold pass did not ride the fleet table")
+    if out["denied"]["cold"]:
+        raise AssertionError("quota cold pass: generous limits denied rows")
+    rows, secs = check_admitted("quota cold pass", engine, problems, cold)
+    print(f"# quota cold pass: numpy-divider check over cap-folded availability "
+          f"{rows} ok / 0 bad ({secs:.1f} s)", flush=True)
+    with uncounted():
+        out["fold_stats"] = check_caps_fold(engine, card)
+    steady = one_pass("steady", problems, replay=True)
+    if outcomes(steady) != outcomes(cold):
+        raise AssertionError("quota steady pass disagrees with the cold pass")
+
+    # the surge: the even rows grow by 3 replicas over their cold placement
+    surge = []
+    for i, (p, r) in enumerate(zip(problems, cold)):
+        surge.append(BindingProblem(
+            key=p.key, placement=p.placement, replicas=p.replicas + 3 * (i % 2 == 0),
+            requests=p.requests, gvk=p.gvk,
+            prev=dict(r.clusters) if r.success else dict(p.prev),
+            namespace=p.namespace))
+    used = cpu_usage(problems, cold)
+    ns_index = {ns: k for k, ns in enumerate(QUOTA_NAMESPACES)}
+    ns_ids, demand = wave_demand(snap, surge, ns_index)
+    cpu_dim = list(snap.dims).index("cpu")
+    surge_cpu = {ns: 0 for ns in QUOTA_NAMESPACES}
+    for i, p in enumerate(surge):
+        surge_cpu[p.namespace] += int(demand[i, cpu_dim])
+    limits = {ns: {"cpu": used[ns]["cpu"] + int(0.4 * surge_cpu[ns])}
+              for ns in QUOTA_NAMESPACES}
+    surge_frqs = quota_frqs(pkg, snap, limits, used)
+    engine.set_quota(build_quota_snapshot(surge_frqs, snap, 2))
+    if engine._fleet is None:
+        raise AssertionError("a generation bump with the same caps dropped the fleet table")
+    from karmada_tpu_torch.scheduler.fleet import K_PREV
+
+    print(f"# quota surge wave: {sum(len(p.prev) > K_PREV for p in surge)} of {n} rows "
+          f"hold more than K_PREV = {K_PREV} previous sites (the host general route)",
+          flush=True)
+    surge_res = one_pass("surge", surge)
+    if not (out["admitted"]["surge"] > 0 and out["denied"]["surge"] > 0):
+        raise AssertionError(f"quota surge: admitted {out['admitted']['surge']}, "
+                             f"denied {out['denied']['surge']}")
+    rows, secs = check_admitted("quota surge pass", engine, surge, surge_res)
+    print(f"# quota surge pass: numpy-divider check over cap-folded availability "
+          f"{rows} ok / 0 bad ({secs:.1f} s)", flush=True)
+    surge_out = outcomes(surge_res)
+
+    # the raise: placed surge rows hold their placement; one namespace's
+    # limit is lifted
+    raise_wave = [
+        BindingProblem(key=p.key, placement=p.placement, replicas=p.replicas,
+                       requests=p.requests, gvk=p.gvk, prev=dict(r.clusters),
+                       namespace=p.namespace)
+        if r.success else p
+        for p, r in zip(surge, surge_res)
+    ]
+    used = cpu_usage(surge, surge_res)
+    limits[raised] = {"cpu": 1 << 40}
+    engine.set_quota(build_quota_snapshot(quota_frqs(pkg, snap, limits, used), snap, 3))
+    raised_res = one_pass("raise", raise_wave)
+    in_ns = [i for i, p in enumerate(raise_wave) if p.namespace == raised]
+    from karmada_tpu_torch.scheduler.quota import QUOTA_EXCEEDED_ERROR
+
+    was = sum(surge_res[i].error == QUOTA_EXCEEDED_ERROR for i in in_ns)
+    now = sum(raised_res[i].error == QUOTA_EXCEEDED_ERROR for i in in_ns)
+    if not (was > 0 and now == 0):
+        raise AssertionError(f"quota raise: {raised} denials {was} -> {now}")
+    rows, secs = check_admitted("quota raise pass", engine, raise_wave, raised_res, in_ns)
+    print(f"# quota raise of {raised}: its denials {was} -> 0; its {rows} rows equal the "
+          f"numpy divider ({secs:.1f} s)", flush=True)
+    raised_out = outcomes(raised_res)  # decoded before a later pass rewrites the table
+
+    # the delta admission: the same generation, 2% of the rows rebuilt as
+    # new problem objects (a controller rebuilding changed bindings): only
+    # they are admitted again, the rest replay uncharged
+    moved = np.random.default_rng(SEED + 8).choice(n, n // 50, replace=False)
+    delta_wave = list(raise_wave)
+    for i in moved:
+        p = raise_wave[i]
+        delta_wave[i] = BindingProblem(key=p.key, placement=p.placement,
+                                       replicas=p.replicas, requests=p.requests,
+                                       gvk=p.gvk, prev=dict(p.prev), namespace=p.namespace)
+    sub = sorted(map(int, moved))
+    delta_res = one_pass("delta", delta_wave, rows=sub)
+    kept = sorted(set(range(n)) - set(sub))
+    delta_out = outcomes(delta_res)
+    if any(delta_out[i] != raised_out[i] for i in kept):
+        raise AssertionError("quota delta pass: an unchanged row moved")
+    rows, secs = check_admitted("quota delta pass", engine, delta_wave, delta_res, sub)
+    print(f"# quota delta pass: {len(sub)} rebuilt rows admitted again, {len(kept)} "
+          f"replayed; the rebuilt admitted rows equal the numpy divider ({rows} rows, "
+          f"{secs:.1f} s)", flush=True)
+    out["launches"] = read_counts()
+
+    # the general route: the surge wave's first rows, the surge's quota
+    general = TensorScheduler(snap, chunk_size=4096, device=device)
+    head = surge[:general_rows]
+    general.fleet_threshold = len(head) + 1
+    general.set_quota(build_quota_snapshot(surge_frqs, snap, 2))
+    reset_counts()
+    t0 = time.perf_counter()
+    g_res = general.schedule(head)
+    sync(device)
+    out["walls"]["general"] = time.perf_counter() - t0
+    out["general_launches"] = read_counts()
+    bad = sum(a != b for a, b in zip(outcomes(g_res), surge_out[: len(head)]))
+    print(f"# quota general route: the surge wave's first {len(head)} rows in "
+          f"{out['walls']['general']:.4f} s; launches "
+          f"{ {k: v for k, v in out['general_launches'].items() if v} }; equal to the "
+          f"fleet's checked surge rows: {len(head) - bad} ok / {bad} bad; card {card}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"quota general route: {bad} rows differ from the fleet's")
+    print(f"# quota phase: {n} bindings x {snap.num_clusters} clusters in "
+          f"{len(QUOTA_NAMESPACES)} namespaces ({CAP_NAMESPACES} capped); build "
+          f"{build_s:.1f} s; launches { {k: v for k, v in out['launches'].items() if v} }",
+          flush=True)
+    return out
+
+
+def referent_groups(snap, placement) -> tuple[list[str], np.ndarray]:
+    """(group names, bool[T, C]) of ``placement``'s ClusterAffinities terms,
+    evaluated here on the clusters' names and labels and not through the
+    port's placement compiler: the exclude list wins, then the cluster
+    names (when given) and the label selector (match_labels, and In, NotIn,
+    Exists, DoesNotExist expressions) must all pass. A field selector
+    raises: no ranked workload of this script names one."""
+    out = np.zeros((len(placement.cluster_affinities), snap.num_clusters), bool)
+    for t, term in enumerate(placement.cluster_affinities):
+        if term.field_selector is not None:
+            raise NotImplementedError("referent_groups: field selectors")
+        sel = term.label_selector
+        for j, cl in enumerate(snap.clusters):
+            labels = cl.meta.labels
+            ok = cl.name not in term.exclude and (
+                not term.cluster_names or cl.name in term.cluster_names)
+            if ok and sel is not None:
+                ok = all(labels.get(k) == v for k, v in sel.match_labels.items())
+                for e in sel.match_expressions:
+                    has = e.key in labels
+                    ok = ok and {"In": has and labels.get(e.key) in e.values,
+                                 "NotIn": not has or labels[e.key] not in e.values,
+                                 "Exists": has, "DoesNotExist": not has}[e.operator]
+            out[t, j] = ok
+    return [term.affinity_name for term in placement.cluster_affinities], out
+
+
+def ranked_referent(engine, problems, results) -> int:
+    """Every row against the port's copy of the ordered-failover referent
+    (``failover_np.solve_one_ordered``: try each group in order, divide with
+    the numpy divider, keep the first that schedules), run per row. The
+    group masks come from ``referent_groups`` and the caps from
+    ``referent_caps``; the other filters
+    (taints, API enablement), the requests and the numpy estimate come from
+    the engine's packing (``with_affinity=False``) and host mirror. Returns
+    the number of rows whose placement, group or error differs. Rows are
+    checked on a pool of threads."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from karmada_tpu_torch.refimpl.failover_np import solve_one_ordered
+
+    snap = engine.snapshot
+    names = snap.names
+    groups = {}
+    for p in problems:
+        if id(p.placement) not in groups:
+            groups[id(p.placement)] = referent_groups(snap, p.placement)
+    compiled_all = [engine._compiled(p.placement) for p in problems]
+
+    def chunk_bad(start: int) -> int:
+        chunk = problems[start : start + engine.chunk_size]
+        compiled = compiled_all[start : start + engine.chunk_size]
+        base, strategy, replicas, static_w, requests, prev, fresh = (
+            engine._pack_chunk(chunk, compiled, 0, with_affinity=False)
+        )
+        caps = referent_caps(engine, chunk, requests)
+        avail = engine._availability_np(requests, replicas,
+                                        extras=() if caps is None else (caps,))
+        bad = 0
+        for i, (p, got) in enumerate(zip(chunk, results[start : start + len(chunk)])):
+            term_names, terms = groups[id(p.placement)]
+            a, ti, err = solve_one_ordered(terms, base[i], int(strategy[i]),
+                                           int(replicas[i]), static_w[i], avail[i],
+                                           prev[i], bool(fresh[i]))
+            want = {} if a is None else {names[j]: int(a[j]) for j in np.flatnonzero(a > 0)}
+            bad += (got.clusters, got.affinity_name, got.error) != (
+                want, term_names[ti], err)
+        return bad
+
+    starts = range(0, len(problems), engine.chunk_size)
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        return sum(pool.map(chunk_bad, starts))
+
+
+def ranked_breakdown(engine, problems, device) -> dict:
+    """Host-clock seconds of each stage of ``_schedule_chunk_ranked`` on the
+    first chunk of ``problems``, synchronising the card after each device
+    stage: pack (numpy masks and the [B, T, C] term stack), estimate
+    (uploads, K1 table form, K13, K1 merge form), fetch (availability to
+    the host), first_fit_group (host numpy), assign (uploads +
+    kernel_variant's max + K2, with the result fetched), unpack."""
+    import torch
+    from karmada_tpu_torch.ops import masks as mops
+    from karmada_tpu_torch.ops.divide import AGGREGATED, DYNAMIC_WEIGHT
+
+    chunk = problems[: engine.chunk_size]
+    compiled = [engine._compiled(p.placement) for p in chunk]
+    out = {}
+    t0 = time.perf_counter()
+    base, strategy, replicas, static_w, requests, prev, fresh = (
+        engine._pack_chunk(chunk, compiled, 0, with_affinity=False))
+    terms = np.stack([np.stack([m for _, m in cp.terms]) for cp in compiled])
+    cand = base[:, None, :] & terms
+    out["pack"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    avail = engine._availability(requests, replicas, engine._quota_cap_rows(chunk))
+    sync(device)
+    out["estimate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    avail_np = avail.cpu().numpy()
+    out["fetch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rank, _ = mops.first_fit_group(
+        cand, np.full(len(chunk), terms.shape[1], np.int32), avail_np.astype(np.int64),
+        replicas.astype(np.int64), prev.astype(np.int64),
+        (strategy == DYNAMIC_WEIGHT) | (strategy == AGGREGATED), fresh.astype(bool))
+    feasible = np.take_along_axis(cand, rank[:, None, None].astype(np.intp), axis=1)[:, 0]
+    out["first_fit_group"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = engine._assign(strategy, replicas, feasible, static_w,
+                         torch.from_numpy(avail_np).to(device), prev, fresh)
+    assignment = res.assignment.cpu().numpy()
+    unsched = res.unschedulable.cpu().numpy()
+    out["assign"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine._unpack(chunk, compiled, rank, feasible, assignment, unsched)
+    out["unpack"] = time.perf_counter() - t0
+    return out
+
+
+def run_ranked(device, card: str, bindings: int = 10_000, clusters=None) -> dict:
+    """The ranked cell (``ranked_workload``): ordered-failover rows with
+    three ClusterAffinities terms over the config-5 fleet, half of them in
+    namespaces whose static assignments cap 600 clusters, through the
+    engine's ranked path on the card (K12 admission, then per chunk K1's
+    table form, K13's per-row form, K1's merge form, first_fit_group on the
+    host and K2). Every row equals the ordered-failover referent; some rows
+    must land on a fallback group."""
+    import karmada_tpu_torch
+    from karmada_tpu_torch.scheduler import TensorScheduler
+    from karmada_tpu_torch.scheduler.quota import build_quota_snapshot
+
+    pkg = karmada_tpu_torch
+    t0 = time.perf_counter()
+    snap, problems = ranked_workload(pkg, bindings, clusters)
+    limits = {ns: dict(GENEROUS) for ns in RANKED_NAMESPACES}
+    quota = build_quota_snapshot(quota_frqs(pkg, snap, limits, caps=ranked_caps(snap)),
+                                 snap, 1)
+    engine = TensorScheduler(snap, chunk_size=4096, device=device)
+    engine.set_quota(quota)
+    build_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    res = engine.schedule(problems)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    t0 = time.perf_counter()
+    bad = ranked_referent(engine, problems, res)
+    check_s = time.perf_counter() - t0
+    first = {cp.terms[0][0] for cp in (engine._compiled(p.placement) for p in problems[:4])}
+    by_group = {}
+    for r in res:
+        key = r.affinity_name if r.success else "failed"
+        by_group[key] = by_group.get(key, 0) + 1
+    fallback = sum(v for k, v in by_group.items() if k not in first and k != "failed")
+    with uncounted():
+        stages = ranked_breakdown(engine, problems, device)
+    print(f"# ranked chunk stages of one 4096-row chunk (s): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()) + f"; card {card}",
+          flush=True)
+    print(f"# ranked phase: {len(problems)} bindings x {snap.num_clusters} clusters, "
+          f"3 affinity groups, one pass {wall:.4f} s ({len(problems) / wall:.0f} "
+          f"bindings/s); rows by group {dict(sorted(by_group.items()))}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; ordered-failover referent "
+          f"{len(problems) - bad} ok / {bad} bad ({check_s:.1f} s); build {build_s:.1f} s; "
+          f"card {card}", flush=True)
+    if bad:
+        raise AssertionError(f"ranked phase: {bad} rows differ from the referent")
+    if not fallback:
+        raise AssertionError("ranked phase: no row landed on a fallback group")
+    return {"launches": launches, "pass_s": wall, "by_group": by_group,
+            "stages": stages, "fallback": fallback}
+
+
 def main() -> int:
     import torch
 
@@ -1587,6 +2295,7 @@ def main() -> int:
         # Kubernetes node limit), prefilter mask included
         stats["node_sum_estimate"] = check_node_sum(node_batch(rng, 4096, 5000), device,
                                                     card, "4096x5000")
+        stats.update(check_quota_kernels(rng, device, card))
 
     def configs():
         for cfg in (1, 2, 3, 4):
@@ -1624,9 +2333,22 @@ def main() -> int:
         require_launched("estimator", out["launches"])
         paths["estimator"] = out
 
+    def quota():
+        out = run_quota(device, card)
+        require_launched("quota fleet", out["launches"])
+        require_launched("quota general", out["general_launches"])
+        stats["quota_caps_fold"] = out["fold_stats"]
+        paths["quota"] = out
+        paths["quota general"] = {"launches": out["general_launches"]}
+
+    def ranked():
+        out = run_ranked(device, card)
+        require_launched("ranked", out["launches"])
+        paths["ranked"] = out
+
     for name, fn in (("kernels", kernels), ("configs", configs), ("storm", storm),
                      ("mixed", mixed), ("general", general), ("models", models),
-                     ("estimator", estimator)):
+                     ("estimator", estimator), ("quota", quota), ("ranked", ranked)):
         phase(name, fn)
 
     # launches: each kernel's count on the path that drives it
@@ -1638,16 +2360,17 @@ def main() -> int:
         "estimate_merge_table": ("models general",
                                  "config 5 general pass under default models"),
         "node_sum_estimate": ("estimator", "estimator phase, cold pass"),
+        "quota_admit": ("quota", "quota phase, fleet passes (cold, steady replay, "
+                                 "surge, raise, delta)"),
+        "quota_caps_fold": ("quota", "quota phase, fleet passes (table rebuilds)"),
+        "quota_cluster_caps": ("quota general", "quota phase, general-route pass"),
     }
     print(f"# estimator K8 launches by pass: {paths['estimator']['k8']}", flush=True)
+    print(f"# quota K12 launches by pass: {paths['quota']['k12']}", flush=True)
     entries = []
     for name in KERNELS:
-        if name == "model_estimate":
-            launches, on = 0, ("no path: the engine runs K7's overlay form; the plain "
-                               "form is held to estimate_by_models")
-        else:
-            key, on = where.get(name, ("storm", "config 5 fleet passes"))
-            launches = paths[key]["launches"][name]
+        key, on = where.get(name, ("storm", "config 5 fleet passes"))
+        launches = paths[key]["launches"][name]
         entries.append({
             "name": name, "route": KERNELS[name][0], "source": KERNELS[name][1],
             "replaces": KERNELS[name][2], "launches": launches, "launches_on": on,

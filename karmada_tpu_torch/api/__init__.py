@@ -29,12 +29,16 @@ from .policy import (  # noqa: F401
     ClusterAffinity,
     ClusterAffinityTerm,
     ClusterPreferences,
+    FederatedResourceQuota,
+    FederatedResourceQuotaSpec,
+    FederatedResourceQuotaStatus,
     FieldSelector,
     LabelSelector,
     LabelSelectorRequirement,
     Placement,
     ReplicaSchedulingStrategy,
     SpreadConstraint,
+    StaticClusterAssignment,
     StaticClusterWeight,
 )
 from .work import NodeClaim, ReplicaRequirements  # noqa: F401

@@ -3,15 +3,18 @@
 The scheduler-facing subset of ``karmada_tpu.api.policy``, kept as the
 port's own copy. Ref: pkg/apis/policy/v1alpha1/propagation_types.go —
 Placement (:393-447), ClusterAffinity/ClusterAffinities (:400-433),
-SpreadConstraint (:453-487), ReplicaSchedulingStrategy (:546-614).
+SpreadConstraint (:453-487), ReplicaSchedulingStrategy (:546-614); and the
+FederatedResourceQuota the quota plane packs
+(federatedresourcequota_types.go).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Optional
 
 from .cluster import Toleration
+from .core import ObjectMeta
 
 # ReplicaSchedulingType
 DUPLICATED = "Duplicated"
@@ -112,3 +115,38 @@ class Placement:
         if self.replica_scheduling is None:
             return DUPLICATED
         return self.replica_scheduling.replica_scheduling_type or DUPLICATED
+
+
+# ---------------------------------------------------------------------------
+# FederatedResourceQuota (ref: federatedresourcequota_types.go)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class StaticClusterAssignment:
+    cluster_name: str = ""
+    hard: dict[str, int] = field(default_factory=dict)
+
+
+@dataclass
+class FederatedResourceQuotaSpec:
+    overall: dict[str, int] = field(default_factory=dict)
+    static_assignments: list[StaticClusterAssignment] = field(default_factory=list)
+
+
+@dataclass
+class FederatedResourceQuotaStatus:
+    overall: dict[str, int] = field(default_factory=dict)
+    overall_used: dict[str, int] = field(default_factory=dict)
+    aggregated_status: list[Any] = field(default_factory=list)
+
+
+@dataclass
+class FederatedResourceQuota:
+    KIND = "FederatedResourceQuota"
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: FederatedResourceQuotaSpec = field(default_factory=FederatedResourceQuotaSpec)
+    status: FederatedResourceQuotaStatus = field(
+        default_factory=FederatedResourceQuotaStatus
+    )

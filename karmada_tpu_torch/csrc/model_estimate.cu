@@ -1,8 +1,9 @@
-// K7 model_estimate: the resource-model grade estimate per (profile, cluster).
+// K7 model_overlay: the resource-model grade estimate per (profile, cluster),
+// written over the engine's profile table.
 //
-// Replaces karmada_tpu/models/modeling.py:72 estimate_by_models, and in its
-// overlay form the model branch of karmada_tpu/scheduler/core.py:2256
-// _profile_table (:2263-2293).
+// Replaces karmada_tpu/models/modeling.py:72 estimate_by_models as the model
+// branch of karmada_tpu/scheduler/core.py:2256 _profile_table (:2263-2293)
+// runs it.
 //
 // For one request row q and one cluster c with G grades of R min bounds:
 //   first[r]  = the first grade g with mb[c,g,r] >= q[r] and mb[c,g,r] >= 0,
@@ -22,8 +23,8 @@
 // wrapped negative. Division: both operands are clamped non-negative first
 // (max(mb, 0) and a request > 0), so C++'s truncation equals JAX's floor.
 //
-// Overlay form (model_overlay_launch): the engine's profile table, written
-// by K1's table form, is updated in place:
+// The engine's profile table, written by K1's table form, is updated in
+// place (model_overlay_launch):
 //   table = has_summary ? (has_models & applicable ? min(model, pods) : table)
 //                       : -1
 // with the requests' pods column counted as 0 (models never declare the
@@ -95,13 +96,11 @@ __device__ __forceinline__ int32_t model_cell(
   return (int32_t)(uint32_t)(unsigned long long)s;
 }
 
-// plain form when table == nullptr (writes total/applicable), overlay form
-// otherwise (updates table in place)
-__global__ void model_estimate_kernel(
+// the model answer over the general one, in place on table
+__global__ void model_overlay_kernel(
     const int64_t* __restrict__ mb, const int32_t* __restrict__ counts,
     const uint8_t* __restrict__ covered, int c_n, int g_n, int r_dims,
-    const int64_t* __restrict__ req, int u_n, int32_t* __restrict__ total,
-    uint8_t* __restrict__ applicable, const uint8_t* __restrict__ has_models,
+    const int64_t* __restrict__ req, const uint8_t* __restrict__ has_models,
     const uint8_t* __restrict__ has_summary, const int64_t* __restrict__ cap,
     int pods_dim, int32_t* __restrict__ table) {
   const int c = blockIdx.x * TILE_C + threadIdx.x;
@@ -113,12 +112,6 @@ __global__ void model_estimate_kernel(
   const uint8_t* covered_c = covered + (size_t)c * r_dims;
   const int64_t* req_u = req + (size_t)u * r_dims;
   bool app;
-  if (table == nullptr) {
-    total[o] = model_cell(mb_c, counts_c, covered_c, req_u, g_n, r_dims, -1,
-                          &app);
-    applicable[o] = app ? 1 : 0;
-    return;
-  }
   if (!has_summary[c]) {
     table[o] = -1;
     return;
@@ -138,20 +131,6 @@ __global__ void model_estimate_kernel(
 
 }  // namespace
 
-// total int32[U, C], applicable bool[U, C] = estimate_by_models(mb, counts,
-// covered, req)
-extern "C" int model_estimate_launch(
-    const int64_t* mb, const int32_t* counts, const uint8_t* covered, int c_n,
-    int g_n, int r_dims, const int64_t* req, int u_n, int32_t* total,
-    uint8_t* applicable, cudaStream_t stream) {
-  if (u_n == 0 || c_n == 0) return 0;
-  const dim3 grid((c_n + TILE_C - 1) / TILE_C, u_n);
-  model_estimate_kernel<<<grid, TILE_C, 0, stream>>>(
-      mb, counts, covered, c_n, g_n, r_dims, req, u_n, total, applicable,
-      nullptr, nullptr, nullptr, -1, nullptr);
-  return (int)cudaGetLastError();
-}
-
 // table int32[U, C], in place: the model answer over the general one
 extern "C" int model_overlay_launch(
     const int64_t* mb, const int32_t* counts, const uint8_t* covered, int c_n,
@@ -160,8 +139,8 @@ extern "C" int model_overlay_launch(
     int pods_dim, int32_t* table, cudaStream_t stream) {
   if (u_n == 0 || c_n == 0) return 0;
   const dim3 grid((c_n + TILE_C - 1) / TILE_C, u_n);
-  model_estimate_kernel<<<grid, TILE_C, 0, stream>>>(
-      mb, counts, covered, c_n, g_n, r_dims, req, u_n, nullptr, nullptr,
-      has_models, has_summary, cap, pods_dim, table);
+  model_overlay_kernel<<<grid, TILE_C, 0, stream>>>(
+      mb, counts, covered, c_n, g_n, r_dims, req, has_models, has_summary, cap,
+      pods_dim, table);
   return (int)cudaGetLastError();
 }

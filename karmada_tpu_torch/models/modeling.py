@@ -1,5 +1,5 @@
 """Resource-model grade estimation: the plain torch function, its numpy
-mirror and the K7 kernel (``csrc/model_estimate.cu``).
+mirror and the K7 kernel's overlay form (``csrc/model_estimate.cu``).
 
 Counterpart of ``karmada_tpu/models/modeling.py``. Semantics
 (general.go:195-249 + modeling.go):
@@ -20,10 +20,10 @@ The JAX program runs in int64 with wrap-around (``counts x per_node`` and
 its sum over grades), then clamps to 2^31-1 and truncates to int32; the
 plain version and the kernel reproduce both.
 
-Two kernel forms: ``model_estimate`` returns ``(int32[U, C], bool[U, C])``
-exactly as ``estimate_by_models``; ``model_overlay`` writes the model answer
-over the engine's general profile table in place, as the JAX engine's
-``_profile_table`` does (karmada_tpu/scheduler/core.py:2263-2293).
+The kernel, ``model_overlay``, writes the model answer over the engine's
+general profile table in place, as the JAX engine's ``_profile_table`` does
+(karmada_tpu/scheduler/core.py:2263-2293); ``model_overlay_ref`` is its
+plain version, over ``estimate_by_models``.
 """
 
 from __future__ import annotations
@@ -88,8 +88,8 @@ def estimate_by_models(
     covered: torch.Tensor,  # bool[C, R]
     requests: torch.Tensor,  # int64[B, R]
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (replicas int32[B, C], applicable bool[B, C]); the plain
-    version of K7's plain form.
+    """Returns (replicas int32[B, C], applicable bool[B, C]); the model
+    answer of K7's plain version, ``model_overlay_ref``.
 
     applicable=False means the model path cannot answer for that
     (binding, cluster) — requested resource not covered — and the caller
@@ -186,33 +186,6 @@ def _check_pack(name, min_bounds, counts, covered, requests) -> tuple[int, int, 
 _MAX_ROWS = 65535  # grid.y limit: one block row per profile
 
 
-def model_estimate(
-    min_bounds: torch.Tensor,
-    counts: torch.Tensor,
-    covered: torch.Tensor,
-    requests: torch.Tensor,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """K7, plain form: ``estimate_by_models`` as one kernel launch.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise. ``model_estimate.launches`` counts kernel launches."""
-    args = (min_bounds, counts, covered, requests)
-    if native.on_cpu(args):
-        return estimate_by_models(*args)
-    c, g, r, u = _check_pack("model_estimate", *args)
-    dev = min_bounds.device
-    total = torch.empty((u, c), dtype=torch.int32, device=dev)
-    applicable = torch.empty((u, c), dtype=torch.bool, device=dev)
-    if u and c:
-        native.launch(model_estimate, "model_estimate", "model_estimate_launch",
-                      dev, min_bounds, counts, covered, c, g, r, requests, u,
-                      total, applicable)
-    return total, applicable
-
-
-model_estimate.launches = 0
-
-
 def model_overlay_ref(
     table: torch.Tensor,  # int32[U, C] general estimate, -1 without summary
     min_bounds: torch.Tensor,  # int64[C, G, R]
@@ -257,8 +230,8 @@ def model_overlay(
     available_cap: torch.Tensor,
     pods_dim: int,
 ) -> torch.Tensor:
-    """K7, overlay form: ``model_overlay_ref`` as one kernel launch, in
-    place on ``table``.
+    """K7: ``model_overlay_ref`` as one kernel launch, in place on
+    ``table``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise. ``model_overlay.launches`` counts kernel launches."""

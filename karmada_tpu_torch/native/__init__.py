@@ -42,6 +42,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 KERNELS = (
     "estimate_merge", "divide_replicas", "fleet_masks", "fleet_diff",
     "fleet_wire", "scatter_rows", "model_estimate", "node_sum",
+    "quota_admit", "quota_caps",
 )
 
 NVCC_FLAGS = (
@@ -76,11 +77,13 @@ SIGNATURES = {
         "scatter_rows_launch": "pppipii",
         "gather_meta_launch": "pipip",
     },
-    "model_estimate": {
-        "model_estimate_launch": "pppiiipipp",
-        "model_overlay_launch": "pppiiipi" "ppp" "i" "p",
-    },
+    "model_estimate": {"model_overlay_launch": "pppiiipi" "ppp" "i" "p"},
     "node_sum": {"node_sum_launch": "piippip"},
+    "quota_admit": {"quota_admit_launch": "pppiiipp"},
+    "quota_caps": {
+        "quota_caps_launch": "piiippip",
+        "quota_fold_launch": "piiippip",
+    },
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong}
 

@@ -12,7 +12,12 @@ version on CPU tensors and launch the kernel on CUDA tensors:
   profile that the fleet path gathers by row on the device;
 - ``estimate_merge_table`` (K1's merge form): the row gather of a profile
   table and the min-merge with extra estimates, when the resource-model
-  estimator or extra estimators answer.
+  estimator, static-assignment quota caps or extra estimators answer;
+- ``quota_admit`` (K12, ``csrc/quota_admit.cu``): FIFO quota admission of
+  one wave per namespace;
+- ``quota_cluster_caps`` and ``quota_caps_fold`` (K13, ``csrc/quota_caps.cu``):
+  the static-assignment quota ceiling per row, and folded into the fleet's
+  profile table.
 
 The fleet path's own kernels (K3-K6) live in ``scheduler/fleet_kernels.py``.
 
@@ -47,5 +52,17 @@ from .estimate import (  # noqa: F401
     merge_estimates,
     profile_table,
     profile_table_ref,
+)
+from .quota import (  # noqa: F401
+    DEMAND_CLAMP,
+    MAX_ADMIT_ROWS,
+    UNLIMITED,
+    cluster_caps_np,
+    cluster_caps_ref,
+    quota_admit,
+    quota_admit_ref,
+    quota_caps_fold,
+    quota_caps_fold_ref,
+    quota_cluster_caps,
 )
 from . import masks  # noqa: F401

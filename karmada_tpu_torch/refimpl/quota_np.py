@@ -1,0 +1,151 @@
+"""Numpy quota oracle: sequential per-binding admission.
+
+The port's copy of ``karmada_tpu/refimpl/quota_np.py``, a referent for the
+tests and ``chip_smoke.py``; nothing on the engine's path calls it. The
+engine's batched path (``ops.quota.quota_admit``: K12, one block per
+namespace segment) claims the FIFO cumulative-admission rule:
+inside a wave, bindings are admitted in arrival order per namespace, and a
+binding fits iff its inclusive running demand fits the namespace's
+remaining quota on every dimension (a denied binding's demand still holds
+its place in line). This module IS that rule as the reference would write
+it: a plain Python loop over bindings in arrival order, accumulating a
+per-namespace running total and comparing dimension by dimension. No
+shared admission code with the kernel — a drift in the kernel's sort/scan
+algebra shows up as an oracle mismatch, not a shared bug.
+
+``cluster_caps_seq`` is the same treatment for the static-assignment cap
+tensor: a per-binding, per-cluster, per-dimension Python loop computing
+``min over requested dims of floor(cap / request)`` — the divide kernel's
+availability ceiling, derived with none of the kernel's vectorization.
+
+``admit_and_place`` composes admission with the per-binding numpy divider
+(refimpl.divider_np) so a whole quota-capped scheduling wave can be
+verified end to end: admitted bindings divide against cap-folded
+availability; denied bindings keep their previous placement untouched.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional, Sequence
+
+import numpy as np
+
+from .divider_np import assign_batch_np
+
+MAX_INT32 = 2**31 - 1
+UNLIMITED_NP = 2**62
+
+
+def admit_wave_np(
+    ns_ids: Sequence[int],  # per-binding namespace id, -1 = not quota'd
+    demand: np.ndarray,  # int64[B, R] delta demand (>= 0)
+    remaining: np.ndarray,  # int64[N, R]; UNLIMITED_NP = no cap
+) -> tuple[list[bool], np.ndarray]:
+    """Sequential FIFO admission: one binding at a time, arrival order.
+    Returns (admitted flags, admitted demand per namespace [N, R])."""
+    remaining = np.asarray(remaining)
+    n, r = remaining.shape
+    running = np.zeros((n, r), np.int64)  # inclusive demand seen so far
+    used = np.zeros((n, r), np.int64)  # admitted demand only
+    admitted: list[bool] = []
+    for i, ns in enumerate(ns_ids):
+        if ns < 0:
+            admitted.append(True)
+            continue
+        ok = True
+        for d in range(r):
+            running_d = running[ns, d] + int(demand[i, d])
+            if running_d > remaining[ns, d]:
+                ok = False
+        # the demand holds its place in line whether or not it fit
+        for d in range(r):
+            running[ns, d] += int(demand[i, d])
+        if ok:
+            for d in range(r):
+                used[ns, d] += int(demand[i, d])
+        admitted.append(ok)
+    return admitted, used
+
+
+def cluster_caps_seq(
+    caps: np.ndarray,  # int64[N, C, R] static-assignment hard caps
+    ns_row: int,  # cap-table row, -1 = uncapped
+    request: np.ndarray,  # int64[R] per-replica request
+) -> np.ndarray:
+    """int32[C]: per-cluster replica ceiling for ONE binding, derived the
+    reference way (a loop per cluster per dimension)."""
+    c = caps.shape[1]
+    out = np.full(c, MAX_INT32, np.int64)
+    if ns_row < 0:
+        return out.astype(np.int32)
+    for j in range(c):
+        best = None
+        for d in range(request.shape[0]):
+            req = int(request[d])
+            if req <= 0:
+                continue
+            cap = int(caps[ns_row, j, d])
+            if cap >= UNLIMITED_NP:
+                continue
+            fit = cap // req
+            best = fit if best is None else min(best, fit)
+        if best is not None:
+            out[j] = min(best, MAX_INT32)
+    return out.astype(np.int32)
+
+
+def admit_and_place(
+    keys: Sequence[str],
+    ns_ids: Sequence[int],
+    demand: np.ndarray,  # int64[B, R] delta demand
+    remaining: np.ndarray,  # int64[N, R]
+    *,
+    names: Sequence[str],  # cluster column order
+    placements: Mapping[str, Mapping[str, int]],  # key -> previous clusters
+    candidates: Mapping[str, np.ndarray],  # key -> bool[C] post-filter
+    strategies: Mapping[str, int],
+    replicas: Mapping[str, int],
+    static_w: Mapping[str, np.ndarray],
+    avail: Mapping[str, np.ndarray],  # key -> int32[C] merged availability
+    cap_rows: Optional[Mapping[str, np.ndarray]] = None,  # key -> int32[C]
+    fresh: Optional[Mapping[str, bool]] = None,
+) -> tuple[dict[str, bool], dict[str, dict[str, int]]]:
+    """The whole quota wave, per binding: sequential admission then a
+    one-row numpy divide for each admitted binding against availability
+    min-folded with its static-assignment cap row. Denied bindings keep
+    their previous placement. Returns (admitted by key, placements by
+    key)."""
+    flags, _used = admit_wave_np(ns_ids, demand, remaining)
+    col = {nm: i for i, nm in enumerate(names)}
+    out: dict[str, dict[str, int]] = {}
+    admitted_by_key: dict[str, bool] = {}
+    for i, key in enumerate(keys):
+        admitted_by_key[key] = flags[i]
+        placed = placements.get(key, {})
+        if not flags[i]:
+            out[key] = dict(placed)
+            continue
+        prev_row = np.zeros(len(names), np.int32)
+        for nm, rep in placed.items():
+            if nm in col:
+                prev_row[col[nm]] = rep
+        a = np.asarray(avail[key], np.int64)
+        if cap_rows is not None and key in cap_rows:
+            a = np.minimum(a, np.asarray(cap_rows[key], np.int64))
+        assignment, unsched = assign_batch_np(
+            np.asarray([strategies[key]], np.int32),
+            np.asarray([replicas[key]], np.int32),
+            np.asarray(candidates[key], bool)[None, :],
+            np.asarray(static_w[key], np.int32)[None, :],
+            np.minimum(a, MAX_INT32).astype(np.int32)[None, :],
+            prev_row[None, :],
+            np.asarray([bool(fresh[key]) if fresh else False]),
+        )
+        if bool(unsched[0]):
+            out[key] = dict(placed)  # unschedulable: placement unchanged
+            continue
+        out[key] = {
+            names[j]: int(assignment[0, j])
+            for j in np.flatnonzero(assignment[0] > 0)
+        }
+    return admitted_by_key, out

@@ -1,5 +1,5 @@
-"""Batched scheduler (ref: pkg/scheduler): the fleet path and the host
-general path."""
+"""Batched scheduler (ref: pkg/scheduler): the fleet path, the host
+general path, the ranked multi-term path and the quota plane."""
 
 from .core import (  # noqa: F401
     INSUFFICIENT_ERROR,
@@ -8,6 +8,14 @@ from .core import (  # noqa: F401
     TensorScheduler,
     host_profile_table,
     kernel_variant,
+)
+from .quota import (  # noqa: F401
+    QUOTA_EXCEEDED_ERROR,
+    QUOTA_EXCEEDED_REASON,
+    QuotaSnapshot,
+    build_quota_snapshot,
+    per_replica_vector,
+    usage_from_bindings,
 )
 from .snapshot import (  # noqa: F401
     ClusterSnapshot,

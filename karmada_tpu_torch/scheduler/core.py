@@ -23,14 +23,33 @@ routes, chosen per row exactly as the JAX engine chooses:
   (``ops.divide_replicas``, K2). A chunk with ``padded * C <= 2**16`` is
   answered on the host by the numpy divider, the JAX engine's own rule.
 
+Multi-term ClusterAffinities rows without spread constraints take the
+ranked path (``_schedule_ranked``): every term's candidate set packed as a
+[B, T, C] tensor, each row's first fitting group picked on the host by
+``ops.masks.first_fit_group`` (numpy, as the JAX engine runs it), and one
+solve per chunk. Multi-term rows with spread constraints take the per-round
+loop.
+
+The quota plane (``set_quota`` with a ``scheduler.quota.QuotaSnapshot``)
+admits each wave before the solve: one launch of K12 (``ops.quota_admit``)
+partitions the wave, denied rows answer ``QUOTA_EXCEEDED_ERROR`` unsolved,
+and the admitted demand is debited from the working remaining after the
+solve returns. Static-assignment caps reach every route: K13's fold form
+(``ops.quota_caps_fold``) over the fleet's profile table, K13's per-row
+form (``ops.quota_cluster_caps``) beside the summary estimate in K1's merge
+form on the general route, and ``ops.cluster_caps_np`` on the tiny-batch
+host path.
+
 What is not ported yet, and where the port raises ``NotImplementedError``
-instead of answering differently from the JAX engine: the quota plane
-(``set_quota``), provenance capture (``set_explain``), the preemption plane
-(``set_preemption``), more than ``ops.MAX_EXTRAS`` out-of-tree estimators, a
-device mesh, ranked multi-term ClusterAffinities (``_schedule_ranked``),
-and fleet tables over the dense resident budget (the JAX ``_fleet_solve``).
-``dirty_keys`` is accepted; the JAX delta pass it feeds is result-identical
-to a full pass, and the port runs the full pass.
+instead of answering differently from the JAX engine: provenance capture
+(``set_explain``), the preemption plane (``set_preemption``), more than
+``ops.MAX_EXTRAS`` out-of-tree estimators (static-assignment caps take one
+of those slots on the general route), a device mesh, and fleet tables over
+the dense resident budget (the JAX ``_fleet_solve``). ``dirty_keys`` is
+accepted; the JAX delta pass it feeds is result-identical to a full pass,
+and the port runs the full pass. The JAX delta admission
+(``_quota_admission_delta``) is not result-identical to a full admission
+(a full admission charges the unchanged rows again), so the port keeps it.
 """
 
 from __future__ import annotations
@@ -43,7 +62,7 @@ import numpy as np
 import torch
 
 from ..api.policy import Placement
-from ..ops.divide import AGGREGATED, DUPLICATED, divide_replicas
+from ..ops.divide import AGGREGATED, DUPLICATED, DYNAMIC_WEIGHT, divide_replicas
 from ..models.modeling import estimate_by_models_np, model_overlay
 from ..ops.estimate import (
     MAX_EXTRAS,
@@ -52,7 +71,15 @@ from ..ops.estimate import (
     estimate_merge_table,
     profile_table,
 )
+from ..ops.quota import (
+    UNLIMITED,
+    cluster_caps_np,
+    quota_admit,
+    quota_caps_fold,
+    quota_cluster_caps,
+)
 from ..utils.features import CUSTOMIZED_CLUSTER_RESOURCE_MODELING, feature_gate
+from .quota import QUOTA_EXCEEDED_ERROR
 from .snapshot import ClusterSnapshot, CompiledPlacement, compile_placement
 
 
@@ -141,8 +168,8 @@ def host_profile_table(
 class BindingProblem:
     """Engine-level scheduling unit (decoupled from the API object; the
     scheduler process builds these from ResourceBindings). The JAX engine's
-    quota and preemption fields (namespace, priority, preempt_clusters)
-    belong to planes not ported yet."""
+    preemption fields (priority, preempt_clusters) belong to a plane not
+    ported yet."""
 
     key: str
     placement: Optional[Placement] = None
@@ -152,6 +179,7 @@ class BindingProblem:
     prev: dict[str, int] = dc_field(default_factory=dict)  # spec.clusters
     evict_clusters: tuple[str, ...] = ()  # graceful-eviction tasks
     fresh: bool = False  # reschedule triggered
+    namespace: str = ""  # quota-admission namespace ("" = not quota'd)
 
 
 @dataclass
@@ -251,6 +279,20 @@ class TensorScheduler:
         self._sel_profile_gen = -1
         # batched solves dispatched (host chunks + fleet passes)
         self.solve_batches = 0
+        # quota plane (scheduler.quota.QuotaSnapshot | None): admission runs
+        # as one K12 launch before the solve; static-assignment caps fold
+        # into availability as one more estimator. Disarmed = one `is None`
+        # check per schedule() call
+        self.quota = None
+        # (problem ids, quota generation, admitted sub-list | None, denied
+        # results, denied positions, pinned problems) of the last admitted
+        # wave: replays the partition of an unchanged wave and keeps the
+        # admitted sub-list identity-stable, so the batch-identity fast
+        # paths still fire under enforcement
+        self._quota_cache: Optional[tuple] = None
+        # device copy of the static-assignment cap tensor, per cap_token
+        self._caps_dev: Optional[torch.Tensor] = None
+        self._caps_dev_token = None
         # host-clock seconds of the last pass's phases (prologue + fleet)
         self.last_breakdown: dict[str, float] = {}
 
@@ -302,12 +344,34 @@ class TensorScheduler:
         self._snapshot_gen += 1
         return True
 
+    def set_quota(self, quota) -> None:
+        """Swap in a (re)built QuotaSnapshot (None = enforcement off).
+
+        A changed ``cap_token`` (static-assignment content or cluster
+        columns moved) drops the fleet table: cap rows are baked into its
+        interned profile slots. A generation-only bump (remaining moved: a
+        usage recompute, a quota raise) keeps every packed row; only the
+        admission partition recomputes."""
+        old = self.quota
+        self.quota = quota
+        # a quota with no static assignments bakes nothing into the fleet's
+        # profile slots: its cap token counts as absent
+        new_tok = quota.cap_token if quota is not None and quota.cap_index else None
+        old_tok = old.cap_token if old is not None and old.cap_index else None
+        if new_tok != old_tok:
+            self._fleet = None
+            self._batch_ids = None
+            self._batch_cache = None
+            self._est_batch = None
+            self._quota_cache = None
+            self._caps_dev = None
+            self._caps_dev_token = None
+            # derived spread selections rank groups on cap-folded
+            # availability
+            self._derived_rows.clear()
+
     # the planes below are not ported: arming one raises, disarming (None,
     # the JAX engine's default state) is accepted
-
-    def set_quota(self, quota) -> None:
-        if quota is not None:
-            raise _not_ported("the quota plane (set_quota)")
 
     def set_explain(self, store) -> None:
         if store is not None:
@@ -329,9 +393,259 @@ class TensorScheduler:
         full pass."""
         self._dirty_keys = set(dirty_keys) if dirty_keys else None
         try:
-            return self._schedule_inner(problems)
+            return self._schedule_quota(problems)
         finally:
             self._dirty_keys = None
+
+    # -- quota plane -------------------------------------------------------
+
+    def _schedule_quota(
+        self, problems: Sequence[BindingProblem]
+    ) -> list[ScheduleResult]:
+        """Quota admission around the solve: when a QuotaSnapshot is set and
+        the wave touches quota'd namespaces, one K12 launch partitions the
+        wave; denied bindings answer QuotaExceeded unsolved, admitted ones
+        ride the unchanged paths. The wave's debit commits only after the
+        solve returned, and a failed solve drops the partition cache, so a
+        retry re-admits against the uncharged remaining."""
+        q = self.quota
+        if q is None or not q.active:
+            return self._schedule_inner(problems)
+        part, debit = self._quota_admission(problems)
+        try:
+            sub_res = self._schedule_inner(problems if part is None else part[0])
+        except BaseException:
+            self._quota_cache = None
+            raise
+        self._apply_quota_debit(debit)
+        if part is None:
+            return sub_res
+        results: list = [None] * len(problems)
+        for i, res in part[1]:
+            results[i] = res
+        it = iter(sub_res)
+        for i in range(len(problems)):
+            if results[i] is None:
+                results[i] = next(it)
+        return results
+
+    def _apply_quota_debit(self, debit) -> None:
+        """Commit one admitted wave's demand against the working remaining
+        (debited within a generation, rebuilt from recomputed usage at the
+        next). None = nothing to commit (a replay, or no quota'd row)."""
+        if debit is None:
+            return
+        q = self.quota
+        limited = q.remaining < UNLIMITED
+        q.remaining = np.where(limited, np.maximum(q.remaining - debit, 0), q.remaining)
+
+    def _quota_admission(self, problems):
+        """One admission pass over the wave: ``(partition, pending_debit)``.
+        ``partition`` is None when no binding is quota'd or every row is
+        admitted, else (admitted sub-list, denied (index, ScheduleResult)
+        pairs), identity-stable across unchanged passes through
+        ``_quota_cache``. ``pending_debit`` is the wave's admitted demand
+        per namespace, committed by the caller after the solve (None on a
+        replay: already committed)."""
+        q = self.quota
+        ns_index = q.ns_index
+        b = len(problems)
+        ns_ids = np.fromiter(
+            (ns_index.get(p.namespace, -1) for p in problems), np.int32, b
+        )
+        if not (ns_ids >= 0).any():
+            return None, None
+        cache = self._quota_cache
+        ids = np.fromiter(map(id, problems), np.int64, b)
+        if (
+            cache is not None
+            and cache[1] == q.generation
+            and len(cache[0]) == b
+            and np.array_equal(cache[0], ids)
+        ):
+            if cache[2] is None:  # cached all-admitted wave
+                return None, None
+            return (cache[2], cache[3]), None
+        out = self._quota_admission_delta(problems, ids, ns_ids, cache)
+        if out is not None:
+            return out
+        admitted, debit = self._admit(ns_ids, self._wave_demand(problems, ns_ids))
+        denied_idx = np.flatnonzero(~admitted)
+        # an unchanged partition of the same wave reuses the previous
+        # admitted sub-list object, so the inner fast paths see the same list
+        same = (
+            cache is not None
+            and cache[2] is not None
+            and np.array_equal(cache[4], denied_idx)
+            and np.array_equal(cache[0], ids)
+        )
+        return self._partition(problems, ids, denied_idx, cache[2] if same else None), debit
+
+    def _partition(self, problems, ids, denied_idx, sub):
+        """Cache a wave's admission partition and return it as (admitted
+        sub-list, denied (index, ScheduleResult) pairs), or None when every
+        row is admitted. ``sub`` is the admitted sub-list when the caller
+        keeps one, else it is built. The problems list is pinned in the
+        cache so a recycled id() cannot alias a stale partition."""
+        q = self.quota
+        if denied_idx.size == 0:
+            self._quota_cache = (ids, q.generation, None, None, denied_idx, list(problems))
+            return None
+        denied = [
+            (int(i), ScheduleResult(key=problems[i].key, error=QUOTA_EXCEEDED_ERROR))
+            for i in denied_idx
+        ]
+        if sub is None:
+            admitted = np.ones(len(problems), bool)
+            admitted[denied_idx] = False
+            sub = [problems[i] for i in np.flatnonzero(admitted)]
+        self._quota_cache = (ids, q.generation, sub, denied, denied_idx, list(problems))
+        return sub, denied
+
+    def _wave_demand(self, problems, ns_ids) -> np.ndarray:
+        """int64[B, R] admission demand: each quota'd row's replica delta
+        over its previous placement times its per-replica request, scaled
+        in Python ints (``QuotaSnapshot.demand_row``)."""
+        q = self.quota
+        demand = np.zeros((len(problems), len(q.dims)), np.int64)
+        for i in np.flatnonzero(ns_ids >= 0):
+            p = problems[i]
+            delta = p.replicas - sum(p.prev.values())
+            if delta > 0:
+                demand[i] = q.demand_row(p.requests, delta)
+        return demand
+
+    def _admit(self, ns_ids, demand) -> tuple[np.ndarray, Optional[np.ndarray]]:
+        """One K12 launch against the working remaining: (admitted
+        bool[B], the admitted demand per namespace or None when it is
+        zero). Rows and namespaces are padded to powers of two as in the
+        JAX engine (pad rows unquota'd and demand-free, pad namespaces
+        unlimited)."""
+        q = self.quota
+        b = len(ns_ids)
+        b_pad = 1 << max(0, (b - 1).bit_length())
+        if b_pad > b:
+            ns_ids = np.pad(ns_ids, (0, b_pad - b), constant_values=-1)
+            demand = np.pad(demand, ((0, b_pad - b), (0, 0)))
+        n_pad = 1 << max(2, (q.remaining.shape[0] - 1).bit_length())
+        remaining = q.remaining
+        if n_pad > remaining.shape[0]:
+            remaining = np.pad(
+                remaining, ((0, n_pad - remaining.shape[0]), (0, 0)),
+                constant_values=UNLIMITED,
+            )
+        dev = self.device
+        admitted, wave_used = quota_admit(
+            *(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in (ns_ids, demand, remaining))
+        )
+        wu = wave_used.cpu().numpy()[: q.remaining.shape[0]]
+        return admitted.cpu().numpy()[:b], (wu if wu.any() else None)
+
+    def _quota_admission_delta(self, problems, ids, ns_ids, cache):
+        """Delta admission, the JAX engine's rule
+        (karmada_tpu/scheduler/core.py:760-882): a wave whose problem
+        objects moved in a minority of positions within the same quota
+        generation admits only the changed rows, through a complete K12
+        launch over their own sub-batch against the working remaining,
+        which already carries every earlier admitted row's debit. Unchanged
+        rows replay their cached outcome and are not charged again. Returns
+        (partition, debit), or None when the wave does not qualify (the
+        caller runs the full admission). ``KARMADA_TPU_DELTA_SOLVE=0``
+        turns it off, as in the JAX engine."""
+        import os
+
+        q = self.quota
+        b = len(problems)
+        if (
+            cache is None
+            or cache[1] != q.generation
+            or len(cache[0]) != b
+            or os.environ.get("KARMADA_TPU_DELTA_SOLVE", "1") == "0"
+        ):
+            return None
+        ch = np.flatnonzero(ids != cache[0])
+        if ch.size == 0 or ch.size * 2 > b:
+            return None
+        old_denied = cache[4]
+        ns_ch = ns_ids[ch]
+        demand = self._wave_demand([problems[int(i)] for i in ch], ns_ch)
+        if demand.any():
+            adm_ch, debit = self._admit(ns_ch, demand)
+        else:
+            # no changed row carries demand: all admit, nothing is charged
+            adm_ch, debit = np.ones(ch.size, bool), None
+        new_denied = np.union1d(
+            np.setdiff1d(old_denied, ch), ch[~adm_ch]
+        ).astype(np.int64)
+        sub = None
+        if new_denied.size and cache[2] is not None and np.array_equal(old_denied, new_denied):
+            # the partition's shape is unchanged: the changed admitted rows
+            # take their places in the previous sub-list
+            sub = list(cache[2])
+            ch_adm = ch[adm_ch]
+            for s_i, i in zip(ch_adm - np.searchsorted(new_denied, ch_adm), ch_adm):
+                sub[int(s_i)] = problems[int(i)]
+        return self._partition(problems, ids, new_denied, sub), debit
+
+    def _quota_cap_rows(self, problems) -> Optional[np.ndarray]:
+        """int32[B] row into the cap tensor per binding (-1 = uncapped), or
+        None when no binding is in a capped namespace."""
+        q = self.quota
+        if q is None or not q.has_caps:
+            return None
+        cap_index = q.cap_index
+        rows = np.fromiter(
+            (cap_index.get(p.namespace, -1) for p in problems), np.int32,
+            len(problems),
+        )
+        return rows if (rows >= 0).any() else None
+
+    def _quota_caps_np(self, cap_rows, requests) -> np.ndarray:
+        """Host mirror of the cap estimate (``ops.cluster_caps_np``)."""
+        return cluster_caps_np(self.quota.cluster_caps, cap_rows, requests)
+
+    def _caps_device(self) -> torch.Tensor:
+        """Device copy of the static-assignment cap tensor, uploaded again
+        only when the quota snapshot's cap content changes."""
+        q = self.quota
+        if self._caps_dev is None or self._caps_dev_token != q.cap_token:
+            self._caps_dev = torch.from_numpy(
+                np.ascontiguousarray(q.cluster_caps, np.int64)
+            ).to(self.device, copy=True)
+            self._caps_dev_token = q.cap_token
+        return self._caps_dev
+
+    def _quota_caps_dev(self, cap_rows, requests) -> torch.Tensor:
+        """K13's per-row form: int32[B, C] cap answers on ``device``."""
+        dev = self.device
+        return quota_cluster_caps(
+            self._caps_device(),
+            torch.from_numpy(np.ascontiguousarray(cap_rows, np.int32)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(requests, np.int64)).to(dev),
+        )
+
+    def _profile_table_quota(
+        self, profiles_np: np.ndarray, prof_ns: np.ndarray
+    ) -> torch.Tensor:
+        """``_profile_table`` with the static-assignment ceiling folded per
+        (profile, cap namespace) slot by K13's fold form: the fleet's
+        interned profiles carry a cap-namespace id beside the request
+        vector, so the fleet divides against cap-bounded availability with
+        no change to its kernels. A capped cell becomes min(the table's
+        answer, or MAX_INT32 for no summary, and the cap); an uncapped cell
+        keeps its answer, -1 included."""
+        table = self._profile_table(profiles_np)
+        q = self.quota
+        prof_ns = np.asarray(prof_ns, np.int32)
+        if q is None or not q.has_caps or not (prof_ns >= 0).any():
+            return table
+        dev = self.device
+        return quota_caps_fold(
+            table, self._caps_device(),
+            torch.from_numpy(np.ascontiguousarray(prof_ns)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(profiles_np, np.int64)).to(dev),
+        )
 
     def _schedule_inner(
         self, problems: Sequence[BindingProblem]
@@ -539,6 +853,13 @@ class TensorScheduler:
                 self._pack_chunk(sub_p, sub_c, 0)
             )
             avail = self._selection_availability(requests, replicas, gen)
+            # static-assignment caps bound the selection's availability too:
+            # groups rank on the numbers the divide will see
+            cap_rows = self._quota_cap_rows(sub_p)
+            if cap_rows is not None:
+                avail = np.minimum(
+                    avail, self._quota_caps_np(cap_rows, requests)
+                ).astype(np.int32)
             candidates = select_clusters_batch(
                 snap, sub_p, sub_c, 0, feasible, avail, prev
             )
@@ -637,18 +958,42 @@ class TensorScheduler:
         compiled: list[CompiledPlacement],
     ) -> list[ScheduleResult]:
         """Ordered ClusterAffinities dispatch (JAX: _schedule_host_rounds).
-        Multi-term rows with spread constraints take the per-round loop;
-        every other row of a multi-term batch would take the ranked
-        first-fit path, which is not ported."""
+        A multi-term batch takes the ranked path: each row's first fitting
+        group is selected in one vectorized pass (``first_fit_group``) and
+        the chunk solves once. Multi-term rows that also carry spread
+        constraints keep the per-round loop; a single-term batch takes the
+        one-round path."""
         max_terms = max((len(cp.terms) for cp in compiled), default=1)
-        if max_terms > 1 and any(
-            not (len(cp.terms) > 1 and cp.spread_constraints) for cp in compiled
-        ):
-            raise _not_ported(
-                "ranked multi-term ClusterAffinities (_schedule_ranked, "
-                "ops/masks.py first_fit_group)"
-            )
-        return self._schedule_round_loop(problems, compiled)
+        if max_terms <= 1:
+            return self._schedule_round_loop(problems, compiled)
+        legacy_idx = [
+            i for i, cp in enumerate(compiled)
+            if len(cp.terms) > 1 and cp.spread_constraints
+        ]
+        if not legacy_idx:
+            return self._schedule_ranked(problems, compiled)
+        legacy = set(legacy_idx)
+        ranked_idx = [i for i in range(len(problems)) if i not in legacy]
+        results: list = [None] * len(problems)
+        for idx, solve in ((ranked_idx, self._schedule_ranked),
+                           (legacy_idx, self._schedule_round_loop)):
+            out = solve([problems[i] for i in idx], [compiled[i] for i in idx])
+            for i, res in zip(idx, out):
+                results[i] = res
+        return results
+
+    def _schedule_ranked(
+        self,
+        problems: Sequence[BindingProblem],
+        compiled: list[CompiledPlacement],
+    ) -> list[ScheduleResult]:
+        out: list[ScheduleResult] = []
+        for start in range(0, len(problems), self.chunk_size):
+            out.extend(self._schedule_chunk_ranked(
+                list(problems[start : start + self.chunk_size]),
+                compiled[start : start + self.chunk_size],
+            ))
+        return out
 
     def _schedule_round_loop(
         self,
@@ -713,10 +1058,12 @@ class TensorScheduler:
         problems: list[BindingProblem],
         compiled: list[CompiledPlacement],
         term_round: int,
+        with_affinity: bool = True,
     ):
         """Vectorized packing: per-binding work is O(sparse entries); the
         O(B x C) mask algebra happens once per *unique* placement/GVK and is
-        gathered by row."""
+        gathered by row. ``with_affinity=False`` leaves the affinity term out
+        of the mask (the ranked path composes every term itself)."""
         snap = self.snapshot
         b, c, r = len(problems), snap.num_clusters, len(snap.dims)
         dim_index = {d: j for j, d in enumerate(snap.dims)}
@@ -792,7 +1139,7 @@ class TensorScheduler:
         # --- mask composition (api_enablement.go / taint_toleration.go
         # leniency for already-placed clusters) -----------------------------
         feasible = np.ones((b, c), bool)
-        if "ClusterAffinity" not in disabled:
+        if with_affinity and "ClusterAffinity" not in disabled:
             feasible &= aff_pl[cp_idx]
         if "SpreadConstraint" not in disabled:
             feasible &= spread_pl[cp_idx]
@@ -821,20 +1168,24 @@ class TensorScheduler:
         self,
         requests: np.ndarray,
         replicas: np.ndarray,
+        cap_rows: Optional[np.ndarray] = None,
         extras: Sequence[np.ndarray] = (),
     ) -> np.ndarray:
         """Host mirror of ``_availability`` for the tiny-batch path: the
-        shared ``host_profile_table``, min-merged with each of ``extras``
-        (int32[B, C], -1 = no answer), plus merge_estimates' exact sentinel
-        semantics (no-summary -> no answer -> clamp to spec.Replicas;
-        zero-replica short-circuit). The engine passes no extras (it never
-        takes this path with estimators); a host check of the general route
-        passes their answers."""
+        shared ``host_profile_table``, min-merged with the static-assignment
+        caps of ``cap_rows`` (``ops.cluster_caps_np``) and with each of
+        ``extras`` (int32[B, C], -1 = no answer), plus merge_estimates'
+        exact sentinel semantics (no-summary -> no answer -> clamp to
+        spec.Replicas; zero-replica short-circuit). The engine passes no
+        extras (it never takes this path with estimators); a host check of
+        the general route passes their answers."""
         mi = MAX_INT32
         uniq, inv = np.unique(requests, axis=0, return_inverse=True)
         dense = host_profile_table(
             self.snapshot, uniq, models_active=self._models_active()
         )[inv.reshape(-1)]
+        if cap_rows is not None:
+            dense = np.minimum(dense, self._quota_caps_np(cap_rows, requests))
         for e in extras:
             e = np.asarray(e).astype(np.int64)
             dense = np.where(e == -1, dense, np.minimum(dense, e))
@@ -873,21 +1224,31 @@ class TensorScheduler:
         return st[1:]
 
     def _availability(
-        self, requests: np.ndarray, replicas: np.ndarray
+        self,
+        requests: np.ndarray,
+        replicas: np.ndarray,
+        cap_rows: Optional[np.ndarray] = None,
     ) -> torch.Tensor:
         """calAvailableReplicas (core/util.go:54-104) on the device: request
         rows are interned host-side (np.unique). With the general estimator
         alone, K1 computes the estimate per unique profile, masks
         no-summary clusters, gathers the rows and merges — one launch. With
-        the resource-model estimator or extra estimators, the profile table
-        (``_profile_table``: K1's table form and K7's overlay) is gathered
-        and min-merged with every extra estimate by K1's merge form.
-        Returns int32[B, C] on ``device``."""
+        the resource-model estimator, static-assignment caps (``cap_rows``)
+        or extra estimators, the profile table (``_profile_table``: K1's
+        table form and K7's overlay) is gathered and min-merged with K13's
+        cap answer and every extra estimate by K1's merge form. Returns
+        int32[B, C] on ``device``."""
+        n_extras = len(self.extra_estimators) + (cap_rows is not None)
+        if n_extras > MAX_EXTRAS:
+            raise _not_ported(
+                f"static-assignment caps beside {len(self.extra_estimators)} "
+                f"extra_estimators (K1's merge form takes {MAX_EXTRAS})"
+            )
         profiles, prof_inv = np.unique(requests, axis=0, return_inverse=True)
         dev = self.device
         inv = torch.from_numpy(prof_inv.reshape(-1).astype(np.int32)).to(dev)
         reps = torch.from_numpy(np.ascontiguousarray(replicas, np.int32)).to(dev)
-        if not (self.extra_estimators or self._models_active()):
+        if not (n_extras or self._models_active()):
             cap, has_summary = self._device_state()
             return estimate_merge(
                 cap,
@@ -896,6 +1257,8 @@ class TensorScheduler:
             )
         table = self._profile_table(profiles)
         extras = []
+        if cap_rows is not None:
+            extras.append(self._quota_caps_dev(cap_rows, requests))
         if self.extra_estimators:
             # out-of-tree estimators see the full per-binding requests
             req = torch.from_numpy(np.ascontiguousarray(requests, np.int64)).to(dev)
@@ -912,76 +1275,137 @@ class TensorScheduler:
         compiled: list[CompiledPlacement],
         term_round: int,
     ) -> list[ScheduleResult]:
-        snap = self.snapshot
-        feasible, strategy, replicas, static_w, requests, prev, fresh = (
-            self._pack_chunk(problems, compiled, term_round)
+        padded, (feasible, strategy, replicas, static_w, requests, prev, fresh) = (
+            self._pad_chunk(self._pack_chunk(problems, compiled, term_round))
         )
-        # pad the binding axis to the next power of two (capped at the
-        # chunk size); pad rows are no-candidate zero-replica bindings
-        b = len(problems)
-        padded = 1
-        while padded < b:
-            padded *= 2
-        padded = min(padded, self.chunk_size)
-        if padded > b:
-            pad = padded - b
-            feasible = np.pad(feasible, ((0, pad), (0, 0)))
-            strategy = np.pad(strategy, (0, pad))
-            replicas = np.pad(replicas, (0, pad))
-            static_w = np.pad(static_w, ((0, pad), (0, 0)))
-            requests = np.pad(requests, ((0, pad), (0, 0)))
-            prev = np.pad(prev, ((0, pad), (0, 0)))
-            fresh = np.pad(fresh, (0, pad))
-        # tiny-batch host path: the JAX engine's own rule, placement-
-        # identical (the numpy divider is the oracle-verified referent)
-        # (the resource-model estimator has its exact numpy mirror in
-        # host_profile_table; only out-of-tree estimators force the device)
-        host_small = (
-            padded * snap.num_clusters <= 1 << 16 and not self.extra_estimators
-        )
-        avail = (
-            self._availability_np(requests, replicas)
-            if host_small
-            else self._availability(requests, replicas)
-        )
+        host_small, avail = self._chunk_availability(problems, requests, replicas, padded)
 
         from .spread import select_clusters_batch  # local import (cycle-free)
 
         # avail stays on the device unless a row carries spread constraints
         candidates = select_clusters_batch(
-            snap, problems, compiled, term_round, feasible, avail, prev,
+            self.snapshot, problems, compiled, term_round, feasible, avail, prev,
         )
+        assignment, unschedulable = self._solve_chunk(
+            host_small, strategy, replicas, candidates, static_w, avail, prev, fresh)
+        return self._unpack(problems, compiled, term_round, candidates,
+                            assignment, unschedulable)
 
+    def _pad_chunk(self, packed: tuple) -> tuple[int, list]:
+        """Pad ``_pack_chunk``'s arrays along the binding axis to the next
+        power of two (capped at the chunk size); pad rows are no-candidate
+        zero-replica bindings. Returns (padded rows, arrays)."""
+        b = len(packed[0])
+        padded = 1
+        while padded < b:
+            padded *= 2
+        padded = min(padded, self.chunk_size)
+        if padded == b:
+            return padded, list(packed)
+        return padded, [
+            np.pad(a, ((0, padded - b),) + ((0, 0),) * (a.ndim - 1)) for a in packed
+        ]
+
+    def _chunk_availability(self, problems, requests, replicas, padded):
+        """(host_small, avail) of one padded chunk. Tiny batches (``padded *
+        C <= 2**16`` with no out-of-tree estimator: the JAX engine's own
+        rule) take the numpy mirror, whose placements are identical; the
+        others the device. Static-assignment caps of the chunk's rows fold
+        in on both."""
+        host_small = (
+            padded * self.snapshot.num_clusters <= 1 << 16
+            and not self.extra_estimators
+        )
+        cap_rows = self._quota_cap_rows(problems)
+        if cap_rows is not None and padded > len(problems):
+            cap_rows = np.pad(cap_rows, (0, padded - len(problems)), constant_values=-1)
         if host_small:
-            # the numpy dispense packs (weight, last, index) into ONE int64
-            # key; inputs beyond that bound take the device kernels
-            avail_np = np.asarray(avail)
-            wmax = int(
-                max(
-                    int(avail_np.max(initial=0)) + int(prev.max(initial=0)),
-                    int(static_w.max(initial=0)),
-                    0,
-                )
-            )
+            return True, self._availability_np(requests, replicas, cap_rows)
+        return False, self._availability(requests, replicas, cap_rows)
+
+    def _solve_chunk(self, host_small, strategy, replicas, candidates, static_w,
+                     avail, prev, fresh) -> tuple[np.ndarray, np.ndarray]:
+        """(assignment, unschedulable) of one padded chunk: the numpy divider
+        for a tiny batch whose (weight, last, index) key fits one int64,
+        else K2 on the device (uploading a host ``avail`` first)."""
+        if host_small:
+            wmax = int(max(int(avail.max(initial=0)) + int(prev.max(initial=0)),
+                           int(static_w.max(initial=0)), 0))
             lmax = int(prev.max(initial=0)) + 1
-            host_small = (wmax + 1) * lmax * snap.num_clusters < 2**63
+            host_small = (wmax + 1) * lmax * self.snapshot.num_clusters < 2**63
             if not host_small:
-                avail = torch.from_numpy(avail_np).to(self.device)
+                avail = torch.from_numpy(avail).to(self.device)
         self.solve_batches += 1
         if host_small:
             from ..refimpl.divider_np import assign_batch_np
 
-            assignment, unschedulable = assign_batch_np(
-                strategy, replicas, candidates, static_w, avail_np, prev, fresh,
-            )
-        else:
-            res = self._assign(
-                strategy, replicas, candidates, static_w, avail, prev, fresh,
-            )
-            # the chunk's one device->host copy of the result
-            assignment = res.assignment.cpu().numpy()
-            unschedulable = res.unschedulable.cpu().numpy()
-        return self._unpack(problems, compiled, term_round, candidates,
+            return assign_batch_np(
+                strategy, replicas, candidates, static_w, avail, prev, fresh)
+        res = self._assign(strategy, replicas, candidates, static_w, avail, prev, fresh)
+        # the chunk's one device->host copy of the result
+        return res.assignment.cpu().numpy(), res.unschedulable.cpu().numpy()
+
+    def _schedule_chunk_ranked(
+        self,
+        problems: list[BindingProblem],
+        compiled: list[CompiledPlacement],
+    ) -> list[ScheduleResult]:
+        """One chunk of the ordered-failover path: every term's mask packed
+        as a [B, T, C] candidate tensor, each row's first fitting affinity
+        group picked in one vectorized selection (``ops.masks.
+        first_fit_group``, the divider's exact schedulability predicate, on
+        the host as the JAX engine runs it), then one solve of the whole
+        chunk against the selected masks."""
+        from ..ops import masks as mops
+
+        padded, (base, strategy, replicas, static_w, requests, prev, fresh) = (
+            self._pad_chunk(self._pack_chunk(problems, compiled, 0, with_affinity=False))
+        )
+        # stacked per-placement term masks bool[U, Tmax, C] and live-term
+        # counts; pad rows take slot 0 with no candidates
+        cp_slot: dict[int, int] = {}
+        unique_cps: list[CompiledPlacement] = []
+        cp_idx = np.zeros(padded, np.int32)
+        for i, cp in enumerate(compiled):
+            slot = cp_slot.get(id(cp))
+            if slot is None:
+                slot = len(unique_cps)
+                cp_slot[id(cp)] = slot
+                unique_cps.append(cp)
+            cp_idx[i] = slot
+        tmax = max(len(cp.terms) for cp in unique_cps)
+        term_stack = np.zeros((len(unique_cps), tmax, self.snapshot.num_clusters), bool)
+        term_len_u = np.ones(len(unique_cps), np.int32)
+        for u, cp in enumerate(unique_cps):
+            term_len_u[u] = len(cp.terms)
+            for t, (_name, mask) in enumerate(cp.terms):
+                term_stack[u, t] = mask
+        if "ClusterAffinity" in self.disabled_plugins:
+            term_stack[:] = True
+
+        host_small, avail = self._chunk_availability(problems, requests, replicas, padded)
+        avail_np = avail if host_small else avail.cpu().numpy()
+        cand_tc = base[:, None, :] & term_stack[cp_idx]
+        rank, _fit = mops.first_fit_group(
+            cand_tc,
+            term_len_u[cp_idx],
+            avail_np.astype(np.int64),
+            replicas.astype(np.int64),
+            prev.astype(np.int64),
+            (strategy == DYNAMIC_WEIGHT) | (strategy == AGGREGATED),
+            fresh.astype(bool),
+        )
+        feasible = np.take_along_axis(
+            cand_tc, rank[:, None, None].astype(np.intp), axis=1
+        )[:, 0, :]
+        from .spread import select_clusters_batch  # local import (cycle-free)
+
+        # spread selection still narrows single-term spread rows
+        candidates = select_clusters_batch(
+            self.snapshot, problems, compiled, 0, feasible, avail, prev)
+        assignment, unschedulable = self._solve_chunk(
+            host_small, strategy, replicas, candidates, static_w, avail, prev, fresh)
+        return self._unpack(problems, compiled, rank, candidates,
                             assignment, unschedulable)
 
     def _assign(self, strategy, replicas, candidates, static_w, avail, prev, fresh):
@@ -1018,7 +1442,10 @@ class TensorScheduler:
     ) -> list[ScheduleResult]:
         """Vectorized result building: one np.nonzero over the whole chunk
         replaces per-binding scans; the feasible-cluster tuple is only
-        materialized for zero-replica (non-workload) bindings."""
+        materialized for zero-replica (non-workload) bindings.
+        ``term_round`` is the round's term index, or an int array of each
+        row's selected term (the ranked path), which names the row's
+        ``affinity_name``."""
         snap = self.snapshot
         names = snap.names
         b = len(problems)
@@ -1027,8 +1454,10 @@ class TensorScheduler:
         boundaries = np.searchsorted(rows, np.arange(1, b))
         per_row = np.split(cols, boundaries)
         out = []
+        per_row_term = isinstance(term_round, np.ndarray)
         for i, p in enumerate(problems):
-            term_idx = min(term_round, len(compiled[i].terms) - 1)
+            tr = int(term_round[i]) if per_row_term else term_round
+            term_idx = min(tr, len(compiled[i].terms) - 1)
             term_name = compiled[i].terms[term_idx][0]
             if not has_candidates[i]:
                 out.append(

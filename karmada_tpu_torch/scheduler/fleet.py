@@ -339,6 +339,10 @@ class FleetTable:
         self._gvk_list: list[str] = []
         self._prof_slot: dict[bytes, int] = {}
         self._profiles: list[np.ndarray] = []
+        # cap-namespace row per interned profile (-1 = uncapped): rows of a
+        # namespace with static-assignment quotas intern their own profile
+        # slot, whose table row carries the cap fold
+        self._prof_ns: list[int] = []
         # requests-tuple -> profile slot memo, keyed per snapshot object
         self._req_slot: dict[tuple, int] = {}
         self._req_slot_snap = None
@@ -514,11 +518,18 @@ class FleetTable:
             self._tables_dirty = True
         st["gvk_idx"][row] = gslot
         # request profile slot (pods-dim adjustment before interning: each
-        # replica occupies a pod); the memo is pinned to the snapshot object
+        # replica occupies a pod) keyed with the cap-namespace row; the memo
+        # is pinned to the snapshot object
         if self._req_slot_snap is not snap:
             self._req_slot = {}
             self._req_slot_snap = snap
-        rkey = (tuple(problem.requests.items()), problem.replicas > 0)
+        quota = self.engine.quota
+        qns = (
+            quota.cap_index.get(problem.namespace, -1)
+            if quota is not None and quota.cap_index
+            else -1
+        )
+        rkey = (tuple(problem.requests.items()), problem.replicas > 0, qns)
         pslot = self._req_slot.get(rkey)
         if pslot is None:
             vec = np.zeros(len(snap.dims), np.int64)
@@ -529,12 +540,13 @@ class FleetTable:
             pods = snap.dim_index("pods")
             if pods is not None and problem.replicas > 0:
                 vec[pods] = max(vec[pods], 1)
-            pkey = vec.tobytes()
+            pkey = vec.tobytes() + qns.to_bytes(4, "little", signed=True)
             pslot = self._prof_slot.get(pkey)
             if pslot is None:
                 pslot = len(self._profiles)
                 self._prof_slot[pkey] = pslot
                 self._profiles.append(vec)
+                self._prof_ns.append(qns)
                 self._tables_dirty = True
             self._req_slot[rkey] = pslot
         st["prof_idx"][row] = pslot
@@ -719,12 +731,20 @@ class FleetTable:
         # and are never gathered)
         pad_p = _pow2(max(len(profs), 4))
         profs_dev = profs
+        prof_ns = np.asarray(self._prof_ns, np.int32)
         if pad_p > len(profs):
             profs_dev = np.zeros((pad_p, profs.shape[1]), profs.dtype)
             profs_dev[: len(profs)] = profs
-        prof_table = self.engine._profile_table(profs_dev)
+            prof_ns = np.concatenate(
+                [prof_ns, np.full(pad_p - len(profs), -1, np.int32)]
+            )
+        # quota-aware table: cap-namespace profile slots get the static-
+        # assignment ceiling folded into their row (K13's fold form)
+        prof_table = self.engine._profile_table_quota(profs_dev, prof_ns)
         # the estimator max for kernel_variant, read from the table just
-        # built (resource models included): one reduction and one sync
+        # built (resource models and quota caps included; the JAX fleet
+        # reads it from a host mirror without the caps): one reduction and
+        # one sync
         self._avail_max = _table_max(prof_table[: len(profs)])
         self._dev_tables = (cp_bits_dev, cp_static_dev, gvk_dev, prof_table, inc_dev)
         self._mask_token = token

@@ -84,11 +84,16 @@ def test_estimate_by_models_equals_jax(seed):
     # the fuzz reaches every branch: no answer, wrapped, clamped, inapplicable
     assert (want_t == 0).any() and (want_t < 0).any() and (want_t == HI).any()
     assert (~want_a).any() and want_a.any()
-    # K7's plain form on CPU tensors is its plain version
-    k_t, k_a = TM.model_estimate(*map(torch.from_numpy, (mb, counts, covered, req)))
-    np.testing.assert_array_equal(k_t.numpy(), want_t)
-    np.testing.assert_array_equal(k_a.numpy(), want_a)
-    assert TM.model_estimate.launches == 0
+    # K7 on CPU tensors is its plain version: over a table of summarised,
+    # modelled clusters with no pods column, the model answer lands where
+    # it applies and the table's answer stands elsewhere
+    u, c = want_t.shape
+    table = torch.full((u, c), -7, dtype=torch.int32)
+    ones = torch.ones(c, dtype=torch.bool)
+    TM.model_overlay(table, *map(torch.from_numpy, (mb, counts, covered, req)),
+                     ones, ones, torch.zeros((c, req.shape[1]), dtype=torch.int64), -1)
+    np.testing.assert_array_equal(table.numpy(), np.where(want_a, want_t, -7))
+    assert TM.model_overlay.launches == 0
 
 
 @pytest.mark.parametrize("seed", [3, 4])
@@ -248,10 +253,14 @@ def test_new_wrappers_raise_off_cpu():
                              torch.empty((2, 3), dtype=torch.bool, **meta),
                              torch.empty((2, 4), dtype=torch.int64, **meta))
     with pytest.raises(ValueError):
-        TM.model_estimate(torch.empty((3, 2, 4), dtype=torch.int64, **meta),
-                          torch.empty((3, 2), dtype=torch.int32, **meta),
-                          torch.empty((3, 4), dtype=torch.bool, **meta),
-                          torch.empty((2, 4), dtype=torch.int64))
+        TM.model_overlay(torch.empty((2, 3), dtype=torch.int32, **meta),
+                         torch.empty((3, 2, 4), dtype=torch.int64, **meta),
+                         torch.empty((3, 2), dtype=torch.int32, **meta),
+                         torch.empty((3, 4), dtype=torch.bool, **meta),
+                         torch.empty((2, 4), dtype=torch.int64),
+                         torch.empty((3,), dtype=torch.bool, **meta),
+                         torch.empty((3,), dtype=torch.bool, **meta),
+                         torch.empty((3, 4), dtype=torch.int64, **meta), -1)
     with pytest.raises(ValueError):
         TO.estimate_merge_table(torch.empty((2, 3), dtype=torch.int32, **meta),
                                 torch.empty((4,), dtype=torch.int32, **meta), (),

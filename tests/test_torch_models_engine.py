@@ -240,7 +240,7 @@ def test_host_availability_mirror_with_extras_equals_jax(extras):
                             device="cpu")
     assert te._models_active()
     want = np.asarray(je._availability(reqs, reps))
-    got = te._availability_np(reqs, reps, ex)
+    got = te._availability_np(reqs, reps, extras=ex)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(te._availability(reqs, reps).numpy(), want)
 
@@ -257,7 +257,7 @@ def test_chip_smoke_estimator_phases_rehearse_on_cpu(capsys):
     assert not any(chip_smoke.run_config(3, cpu, "cpu", passes=1)["launches"].values())
     storm = chip_smoke.run_fleet_storm(cpu, "cpu", bindings=1200, clusters=150,
                                        steady=1, churn=2, models=True)
-    assert set(storm["stats"]) == {"model_estimate", "model_overlay"}
+    assert set(storm["stats"]) == {"model_overlay"}
     chip_smoke.run_general_models(cpu, "cpu", bindings=1500, clusters=150)
     est = chip_smoke.run_estimator(cpu, "cpu", clusters=4, nodes=2100, bindings=600)
     assert set(est["walls"]) == {"cold", "steady", "hard refresh", "pod events"}

@@ -134,8 +134,8 @@ def _engine():
     return snap, TS.TensorScheduler(snap, device="cpu")
 
 
-@pytest.mark.parametrize("branch", ["mesh", "quota", "explain", "preemption",
-                                    "ranked_affinities", "remote_estimator"])
+@pytest.mark.parametrize("branch", ["mesh", "explain", "preemption",
+                                    "remote_estimator"])
 def test_unported_branches_raise(branch):
     """Where the JAX engine would take a branch this slice does not port,
     the port raises instead of answering differently."""
@@ -145,18 +145,10 @@ def test_unported_branches_raise(branch):
     with pytest.raises(NotImplementedError):
         if branch == "mesh":
             TS.TensorScheduler(snap, mesh=object(), device="cpu")
-        elif branch == "quota":
-            eng.set_quota(object())
         elif branch == "explain":
             eng.set_explain(object())
         elif branch == "preemption":
             eng.set_preemption(lambda keys: [])
-        elif branch == "ranked_affinities":
-            pl = Placement(cluster_affinities=[
-                ClusterAffinityTerm(affinity_name="a", cluster_names=["m0"]),
-                ClusterAffinityTerm(affinity_name="b", cluster_names=["m1"]),
-            ])
-            eng.schedule([TS.BindingProblem(key="r", placement=pl, replicas=1)])
         else:
             # an estimator behind the gRPC transport (RemoteAccurateEstimator)
             est = TA.AccurateEstimator("m0", TA.NodeSnapshot([], snap.dims), device="cpu")
