@@ -12,9 +12,11 @@
    ``profile_table`` at U = 8 x 5000, K1's merge form
    ``estimate_merge_table`` at 4096 x 5000 with 0, 1 and 2 extra estimates,
    K8 ``node_sum_estimate`` at 4096 profile rows x 5000 nodes, K12
-   ``quota_admit`` at 131072 rows x 32 namespaces and K13's per-row form
-   ``quota_cluster_caps`` at 4096 x 5000; equality is exact (integer
-   outputs, tolerance 0). Prints each kernel's median
+   ``quota_admit`` at 131072 rows x 32 namespaces, K13's per-row form
+   ``quota_cluster_caps`` at 4096 x 5000, K14 ``explain_pass`` at 4096 x
+   5000 (a batch full of key ties) and at C = 5, and K15 ``preempt_select``
+   at 131072 rows (R = 4, C = 5000, 16 priority classes, ~30% victims, ~5%
+   demanders); equality is exact (integer outputs, tolerance 0). Prints each kernel's median
    time beside the plain version's and its bound;
 3. end-to-end phase, every row checked against the port's numpy divider on
    the same packed inputs (``oracle_check``):
@@ -35,7 +37,8 @@
    - config 5 on the general path (the first slice's route: K1 + K2), its
      first 40k rows in one pass, every row equal to the fleet's cold pass;
    - config 5 again under Karmada's nine default resource-model grades:
-     the storm as above (K7 in every table rebuild, held to its plain
+     the storm as above with two steady and two churn passes (K7 in every
+     table rebuild, held to its plain
      version on the table's inputs and on a seeded U = 64 batch), then one
      20k-row pass on the general path
      (K1 table form, K7 overlay, K1 merge form, K2);
@@ -57,7 +60,20 @@
    - the ranked multi-term path: 10k rows with three ClusterAffinities
      groups over the config-5 fleet, half in namespaces capping 600
      clusters; every row equal to the ordered-failover referent, some on a
-     fallback group.
+     fallback group;
+   - provenance: the config-5 storm engine takes one steady pass disarmed
+     and one with an ExplainStore armed (one K14 launch per chunk: 25), and
+     the quota cell's surge wave is replayed armed (every denied row
+     carries the QuotaExceeded bit); each capture's first chunk equals
+     K14's plain version on the composed inputs and a 64-row sample of
+     every capture equals the numpy referent ``explain_batch_np``;
+   - preemption (bench.py ``run_preemption``'s scene at the engine): 100k
+     priority-0 residents on config 5's 5000 clusters in 64 label groups,
+     cpu then saturated exactly, and a surge of 1000 priority-100 rows: one
+     K15 launch over 101,000 rows (padded to 2^17), victims and
+     placements equal to ``preempt_and_place_np``, K15 equal to its plain
+     version on the pass's own inputs; then the residents' steady pass with
+     the plane armed and disarmed.
    Each path sets the launch counters to 0 just before it and reads them
    just after; every kernel of the path must have launched.
 4. prints one JSON line of per-kernel numbers, the card line again, and last
@@ -765,6 +781,10 @@ KERNELS = {
                            "karmada_tpu/ops/quota.py:150"),
     "quota_caps_fold": ("cuda", "karmada_tpu_torch/csrc/quota_caps.cu",
                         "karmada_tpu/scheduler/core.py:2295"),
+    "explain_pass": ("cuda", "karmada_tpu_torch/csrc/explain_pass.cu",
+                     "karmada_tpu/ops/explain.py:68"),
+    "preempt_select": ("cuda", "karmada_tpu_torch/csrc/preempt_select.cu",
+                       "karmada_tpu/ops/preempt.py:72"),
 }
 #: the kernels each driven path must launch
 PATH_KERNELS = {
@@ -787,6 +807,9 @@ PATH_KERNELS = {
                       "estimate_merge_table", "divide_replicas"),
     "ranked": ("quota_admit", "quota_cluster_caps", "profile_table",
                "estimate_merge_table", "divide_replicas"),
+    "explain fleet": ("explain_pass", "divide_replicas"),
+    "explain quota": ("explain_pass",),
+    "preemption": ("preempt_select", "divide_replicas", "fleet_masks"),
 }
 
 
@@ -1467,7 +1490,7 @@ def run_fleet_storm(device, card: str, bindings=None, clusters=None,
         raise AssertionError(f"{tag} last churn pass: {bad} rows differ")
     return {"launches": launches, "stats": stats, "cold_out": cold_out,
             "cold_s": cold_s, "steady_s": steady_s, "churn_s": churn_s, "p50": p50,
-            "profiles": profiles}
+            "profiles": profiles, "engine": engine, "problems": problems}
 
 
 def mixed_problems(pkg, clusters, n: int, seed: int) -> list:
@@ -1997,6 +2020,29 @@ def run_quota(device, card: str, bindings=None, clusters=None, general_rows: int
     print(f"# quota surge pass: numpy-divider check over cap-folded availability "
           f"{rows} ok / 0 bad ({secs:.1f} s)", flush=True)
     surge_out = outcomes(surge_res)
+    # the surge wave again with provenance armed (a replay of its partition:
+    # no K12 launch, no debit); every denied row carries the QuotaExceeded
+    # bit on every cluster, and no admitted row carries it
+    from karmada_tpu_torch.ops.explain import BIT_QUOTA_ADMIT
+    from karmada_tpu_torch.scheduler.quota import QUOTA_EXCEEDED_ERROR
+
+    ex = explain_capture("explain quota", engine, surge, device, card)
+    if outcomes(ex["results"]) != surge_out:
+        raise AssertionError("explain quota: the armed replay placed differently")
+    denied = 0
+    for cap in ex["store"].captures():
+        bit = (cap.uniq_masks[cap.mask_inv] >> BIT_QUOTA_ADMIT) & 1
+        is_denied = np.array([e == QUOTA_EXCEEDED_ERROR for e in cap.errors])
+        if not ((bit.all(axis=1) == is_denied).all() and (bit.any(axis=1) == is_denied).all()):
+            raise AssertionError("explain quota: a QuotaExceeded bit disagrees with a verdict")
+        denied += int(is_denied.sum())
+    if not denied:
+        raise AssertionError("explain quota: the surge denied nothing")
+    print(f"# explain quota: the surge wave armed {ex['wall']:.4f} s (disarmed "
+          f"{out['walls']['surge']:.4f} s); {denied} denied rows carry QuotaExceeded on every "
+          f"cluster; card {card}", flush=True)
+    out["explain"] = {"wall": ex["wall"], "launches": ex["launches"], "denied": denied,
+                      "captures": ex["captures"]}
 
     # the raise: placed surge rows hold their placement; one namespace's
     # limit is lifted
@@ -2012,8 +2058,6 @@ def run_quota(device, card: str, bindings=None, clusters=None, general_rows: int
     engine.set_quota(build_quota_snapshot(quota_frqs(pkg, snap, limits, used), snap, 3))
     raised_res = one_pass("raise", raise_wave)
     in_ns = [i for i, p in enumerate(raise_wave) if p.namespace == raised]
-    from karmada_tpu_torch.scheduler.quota import QUOTA_EXCEEDED_ERROR
-
     was = sum(surge_res[i].error == QUOTA_EXCEEDED_ERROR for i in in_ns)
     now = sum(raised_res[i].error == QUOTA_EXCEEDED_ERROR for i in in_ns)
     if not (was > 0 and now == 0):
@@ -2247,6 +2291,379 @@ def run_ranked(device, card: str, bindings: int = 10_000, clusters=None) -> dict
             "stages": stages, "fallback": fallback}
 
 
+# --------------------------------------------------------------------------
+# provenance (K14) and preemption (K15)
+# --------------------------------------------------------------------------
+
+
+def explain_batch(rng, b: int, c: int) -> dict:
+    """K14 inputs full of key ties: availability in [-1, 4) (-1 = no
+    summary), 5% of the cells assigned, caps and every stage mask mixed."""
+    return {
+        "aff_ok": rng.random((b, c)) < 0.8,
+        "taint_ok": rng.random((b, c)) < 0.9,
+        "api_ok": rng.random((b, c)) < 0.95,
+        "spread_ok": rng.random((b, c)) < 0.85,
+        "avail": rng.integers(-1, 4, (b, c), dtype=np.int32),
+        "caps": np.where(rng.random((b, c)) < 0.2, rng.integers(-1, 4, (b, c), dtype=np.int32),
+                         np.int32(2**31 - 1)).astype(np.int32),
+        "admitted": rng.random(b) < 0.9,
+        "dynamic": rng.random(b) < 0.8,
+        "replicas": rng.integers(0, 12, b, dtype=np.int32),
+        "assignment": np.where(rng.random((b, c)) < 0.05,
+                               rng.integers(1, 4, (b, c), dtype=np.int32), 0).astype(np.int32),
+        "prev": rng.integers(0, 3, (b, c), dtype=np.int32),
+        "preempted": rng.random((b, c)) < 0.01,
+    }
+
+
+def check_explain_kernel(rng, device, card: str) -> dict:
+    """K14 against its plain version on the card, exact, at the main path's
+    chunk (4096 x 5000, k = 8) and at C = 5 (k = 5); timed at the first."""
+    import torch
+    from karmada_tpu_torch import ops
+
+    stats = None
+    for b, c in ((4096, 5000), (64, 5)):
+        arrays = explain_batch(rng, b, c)
+        t = list(to_device(arrays, device).values())
+        k = ops.topk_width(c)
+        kern = lambda: ops.explain_pass(*t, k=k)  # noqa: E731
+        plain = lambda: ops.explain_pass_ref(*t, k=k)  # noqa: E731
+        compare(f"explain_pass {b}x{c}", kern(), plain())
+        torch.cuda.synchronize()
+        if stats is None:
+            # each input read once (``prev`` only at the k winners of a row:
+            # the gather is its one read), the mask and the top-k written
+            # once; 12 integer operations a cell (8 stage bits, the key's
+            # multiply-add, two compares)
+            nbytes = (sum(a.nbytes for n, a in arrays.items() if n != "prev") + b * k * 4
+                      + b * c + b * k * 5 * 4)
+            stats = timed("explain_pass", kern, plain, nbytes, 12 * b * c, card)
+    print(f"# kernel explain_pass at C = 5: exact; card {card}", flush=True)
+    return stats
+
+
+def preempt_batch(rng, device, b: int = 131_072, c: int = 5000, r: int = 4,
+                  classes: int = 16) -> dict:
+    """K15 inputs at the row bound: 16 priority classes, ~30% victims bound
+    to 1-3 clusters with 1-4 replicas each, ~5% demanders (priority > 0)
+    short of 1-8 replicas, per-replica requests over 4 dims. The dense
+    ``assigned`` is built on the card from the seeded (row, cluster)
+    entries."""
+    import torch
+
+    prio = rng.integers(0, classes, b).astype(np.int32)
+    role = rng.random(b)
+    victim = role < 0.30
+    dem = (role >= 0.30) & (role < 0.35) & (prio > 0)
+    requests = rng.integers(1, 4000, (b, r)).astype(np.int64)
+    rows = np.repeat(np.flatnonzero(victim), 3)
+    cols = rng.integers(0, c, rows.size)
+    reps = rng.integers(0, 5, rows.size).astype(np.int32)
+    keep = reps > 0
+    rows, cols, reps = rows[keep], cols[keep], reps[keep]
+    weight = np.bincount(rows, weights=reps, minlength=b).astype(np.int32)
+    victim_ok = weight > 0
+    freed = np.where(victim_ok[:, None], weight[:, None].astype(np.int64) * requests, 0)
+    demand = np.where(dem[:, None], rng.integers(1, 9, b)[:, None] * requests, 0)
+    out = to_device({"prio": prio, "demand": demand, "freed": freed,
+                     "victim_ok": victim_ok, "weight": weight}, device)
+    assigned = torch.zeros((b, c), dtype=torch.int32, device=device)
+    assigned.index_put_((torch.from_numpy(rows).to(device), torch.from_numpy(cols).to(device)),
+                        torch.from_numpy(reps).to(device), accumulate=True)
+    out["assigned"] = assigned
+    out["requests"] = torch.from_numpy(requests).to(device)
+    return out
+
+
+def preempt_bound(t: dict, victims) -> tuple[int, int]:
+    """(bytes, operations) K15 must move and do: every row's selection
+    inputs read and its flag written once; the freed-capacity product is
+    sparse, so only the selected rows' assignments and requests count, each
+    read once; freed_caps written once; a multiply-add per selected (row,
+    cluster, dim)."""
+    b, c = t["assigned"].shape
+    r = t["requests"].shape[1]
+    sel = int(victims.sum().item())
+    nbytes = (_nbytes(t["prio"], t["demand"], t["freed"], t["victim_ok"], t["weight"]) + b
+              + sel * (c * 4 + r * 8) + c * r * 8)
+    return nbytes, 2 * sel * c * r
+
+
+def check_preempt_kernel(t: dict, card: str, label: str, b_key: int | None = None) -> dict:
+    """K15 against its plain version on the card on the tensors ``t``
+    (sort keys built for ``b_key`` rows); exact; timed."""
+    import torch
+    from karmada_tpu_torch import ops
+
+    args = [t[k] for k in ("prio", "demand", "freed", "victim_ok", "weight", "assigned",
+                           "requests")]
+    kern = lambda: ops.preempt_select(*args, b_key=b_key)  # noqa: E731
+    plain = lambda: ops.preempt_select_ref(*args, b_key=b_key)  # noqa: E731
+    got, want = kern(), plain()
+    compare(f"preempt_select {label}", got, want)
+    torch.cuda.synchronize()
+    sel = int(got[0].sum().item())
+    print(f"# kernel preempt_select {label}: {len(args[0])} rows, {sel} victims selected",
+          flush=True)
+    nbytes, ops_n = preempt_bound(t, got[0])
+    return timed("preempt_select", kern, plain, nbytes, ops_n, card)
+
+
+def explain_capture(tag: str, engine, problems, device, card: str, sample: int = 64,
+                    seed: int = SEED + 21) -> dict:
+    """One pass of ``problems`` with a fresh ExplainStore armed, then the
+    store disarmed. The launch counters are zeroed just before the pass
+    and read just after (and restored afterwards, so the caller's path
+    counts stay its own). Checks: one capture per chunk (on the card, one
+    K14 launch per chunk); the first chunk's capture equal to K14's plain
+    version on the composed inputs (``_explain_inputs``); a ``sample``-row
+    sample of every capture equal to the numpy referent
+    ``explain_batch_np`` on those rows' composed inputs."""
+    import torch
+    from karmada_tpu_torch import ops
+    from karmada_tpu_torch.refimpl.explain_np import explain_batch_np
+    from karmada_tpu_torch.utils.explainstore import ExplainStore
+
+    saved = read_counts()
+    reset_counts()
+    store = ExplainStore(cap=4)
+    engine.set_explain(store)
+    try:
+        t0 = time.perf_counter()
+        res = engine.schedule(problems)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        engine.set_explain(None)
+        for name, fn in wrappers().items():
+            fn.launches = saved[name]
+    caps = store.captures()
+    chunks = -(-len(problems) // engine.chunk_size)
+    if len(caps) != chunks:
+        raise AssertionError(f"{tag}: {len(caps)} captures for {chunks} chunks")
+    if device.type == "cuda" and launches["explain_pass"] != chunks:
+        raise AssertionError(f"{tag}: {launches['explain_pass']} K14 launches for "
+                             f"{chunks} chunks")
+    t0 = time.perf_counter()
+    first = caps[0]
+    n0 = len(first.keys)
+    inputs, _rank = engine._explain_inputs(problems[:n0], res[:n0])
+    k = first.topk.shape[1]
+    with uncounted():
+        want = ops.explain_pass_ref(*to_device(inputs, device).values(), k=k)
+    compare(f"{tag} first chunk", (torch.from_numpy(first.uniq_masks[first.mask_inv]).to(device),
+                                   torch.from_numpy(first.topk).to(device)), want)
+    rng = np.random.default_rng(seed)
+    sampled = 0
+    for ci, cap in enumerate(caps):
+        start = ci * engine.chunk_size
+        rows = np.sort(rng.choice(len(cap.keys), min(sample, len(cap.keys)), replace=False))
+        inputs, rank = engine._explain_inputs([problems[start + int(i)] for i in rows],
+                                              [res[start + int(i)] for i in rows])
+        masks, topk = explain_batch_np(*inputs.values(), k=k)
+        if not (np.array_equal(masks, cap.uniq_masks[cap.mask_inv[rows]])
+                and np.array_equal(topk, cap.topk[rows])
+                and np.array_equal(rank, cap.group_rank[rows])):
+            raise AssertionError(f"{tag}: capture {ci} differs from explain_batch_np")
+        sampled += len(rows)
+    check_s = time.perf_counter() - t0
+    print(f"# {tag}: armed pass {wall:.4f} s, {len(caps)} captures, K14 launches "
+          f"{launches['explain_pass']}; first chunk equal to K14's plain version, "
+          f"{sampled} sampled rows equal to explain_batch_np ({check_s:.1f} s); card {card}",
+          flush=True)
+    return {"wall": wall, "launches": launches, "captures": len(caps), "chunks": chunks,
+            "results": res, "store": store, "sampled": sampled}
+
+
+def run_explain_fleet(device, card: str, engine=None, problems=None, bindings=None,
+                      clusters=None, chunk: int = 4096) -> dict:
+    """The config-5 storm engine with provenance: one steady pass disarmed,
+    one armed (``explain_capture``), the same placements. Without
+    ``engine`` it builds config 5 (at ``bindings`` x ``clusters``) and
+    takes a cold pass first."""
+    import karmada_tpu_torch
+    from karmada_tpu_torch.scheduler import TensorScheduler
+
+    if engine is None:
+        snap, problems = build_workload(karmada_tpu_torch, 5, bindings, clusters)
+        engine = TensorScheduler(snap, chunk_size=chunk, device=device)
+        engine.schedule(problems)
+    t0 = time.perf_counter()
+    base = engine.schedule(problems)
+    sync(device)
+    off_s = time.perf_counter() - t0
+    base = outcomes(base)  # decoded before the next pass rewrites the table
+    out = explain_capture("explain fleet", engine, problems, device, card)
+    if outcomes(out["results"]) != base:
+        raise AssertionError("explain fleet: the armed pass placed differently")
+    summary = out["store"].wave_summary()
+    print(f"# explain fleet: {len(problems)} bindings x {engine.snapshot.num_clusters} "
+          f"clusters; steady pass disarmed {off_s:.4f} s, armed {out['wall']:.4f} s; "
+          f"verdicts {summary['verdicts']}; card {card}", flush=True)
+    out.update(off_s=off_s, summary=summary)
+    return out
+
+
+def run_preemption(device, card: str, residents: int = 100_000, clusters: int = 5000,
+                   surge: int = 1000) -> dict:
+    """bench.py ``run_preemption``'s scene (bench.py:2809-3190) at the
+    engine: ``clusters`` clusters of 200 cpu / 4000Gi / 10^6 pods in
+    min(64, C // 8) label groups; ``residents`` priority-0 rows of 2
+    replicas x (500m cpu, 512Mi), each pinned to one group, placed by a
+    cold pass; then a snapshot whose cpu is saturated exactly (allocatable
+    = allocated = the residents' usage); then a surge of ``surge``
+    priority-100 rows of the same shape over every cluster, with the
+    victim source answering the residents. The surge pass must launch K15
+    once, and its victims and the demanders' placements must equal
+    ``preempt_and_place_np``. K15 is held to its plain version on the
+    pass's own inputs. Then the residents' wave as a steady pass, the
+    plane armed and disarmed."""
+    from karmada_tpu_torch.api.policy import ClusterAffinity, LabelSelector
+    from karmada_tpu_torch.refimpl import DYNAMIC_WEIGHT
+    from karmada_tpu_torch.refimpl.preempt_np import preempt_and_place_np
+    from karmada_tpu_torch.scheduler import BindingProblem, ClusterSnapshot, TensorScheduler
+    from karmada_tpu_torch.utils.builders import dynamic_weight_placement, new_cluster
+    from karmada_tpu_torch.utils.quantity import parse_resource_list
+
+    t0 = time.perf_counter()
+    n_groups = max(1, min(64, clusters // 8))
+    names = [f"p{i:04d}" for i in range(clusters)]
+    labels = [{"group": f"g{i % n_groups}"} for i in range(clusters)]
+    snap = ClusterSnapshot([new_cluster(nm, cpu="200", memory="4000Gi", pods=1_000_000,
+                                        labels=lb) for nm, lb in zip(names, labels)])
+    group_pl = [dynamic_weight_placement(cluster_affinity=ClusterAffinity(
+        label_selector=LabelSelector(match_labels={"group": f"g{k}"})))
+        for k in range(n_groups)]
+    req = parse_resource_list({"cpu": "500m", "memory": "512Mi"})
+    low = [BindingProblem(key=f"default/w{i}", placement=group_pl[i % n_groups], replicas=2,
+                          requests=req, gvk="apps/v1/Deployment") for i in range(residents)]
+    engine = TensorScheduler(snap, chunk_size=4096, device=device)
+    t1 = time.perf_counter()
+    cold = engine.schedule(low)
+    sync(device)
+    cold_s = time.perf_counter() - t1
+    if not all(r.success for r in cold):
+        raise AssertionError("preemption: a resident did not place")
+
+    # saturate cpu exactly: allocatable = allocated = the residents' usage
+    col = {nm: j for j, nm in enumerate(names)}
+    used = np.zeros((clusters, 3), np.int64)  # cpu milli, memory bytes, pods
+    for r in cold:
+        for nm, reps in r.clusters.items():
+            used[col[nm]] += (reps * req["cpu"], reps * req["memory"], reps)
+    sat = ClusterSnapshot([
+        new_cluster(nm, cpu=f"{u[0]}m", memory="4000Gi", pods=1_000_000, labels=lb,
+                    allocated={"cpu": f"{u[0]}m", "memory": int(u[1]), "pods": int(u[2])})
+        for nm, lb, u in zip(names, labels, used)])
+    if not engine.update_snapshot(sat):
+        raise AssertionError("preemption: the saturated snapshot was refused")
+    dims = list(sat.dims)
+    base_caps = np.asarray(sat.available_cap).copy()
+    if int(np.maximum(base_caps[:, dims.index("cpu")], 0).sum()) != 0:
+        raise AssertionError("preemption: free cpu remains after saturation")
+    pool = [BindingProblem(key=p.key, placement=p.placement, replicas=2, requests=req,
+                           gvk=p.gvk, prev=dict(r.clusters)) for p, r in zip(low, cold)]
+    hi_pl = dynamic_weight_placement()
+    hi = [BindingProblem(key=f"default/hi{i}", placement=hi_pl, replicas=2, requests=req,
+                         gvk="apps/v1/Deployment", priority=100) for i in range(surge)]
+    build_s = time.perf_counter() - t0 - cold_s
+    engine.set_preemption(lambda exclude: [v for v in pool if v.key not in exclude])
+
+    reset_counts()
+    t1 = time.perf_counter()
+    res = engine.schedule(hi)
+    sync(device)
+    surge_s = time.perf_counter() - t1
+    launches = read_counts()
+    out = engine.last_preemption
+    if out is None or not out.victims:
+        raise AssertionError(f"preemption: no outcome or no victims ({out})")
+    if device.type == "cuda" and launches["preempt_select"] != 1:
+        raise AssertionError(f"preemption: {launches['preempt_select']} K15 launches")
+    keys = set(out.placed) | set(out.still_unschedulable)
+    demanders = [p for p in hi if p.key in keys]
+    rows = len(demanders) + len(pool)
+
+    # K15 against its plain version on the pass's own inputs
+    with uncounted():
+        inputs, padded = engine._preempt_inputs(demanders, pool)
+        t = to_device(inputs, device)
+        stats = (check_preempt_kernel(t, card, "on the preemption pass's inputs", b_key=padded)
+                 if device.type == "cuda" else no_times())
+        del t, inputs
+
+    # the referent: sequential selection and a one-row numpy divide per
+    # demander over the boosted capacity; request vectors computed here
+    def vec(requests):
+        return np.array([max(requests.get(d, 0), 1) if d == "pods" else requests.get(d, 0)
+                         for d in dims], np.int64)
+
+    t1 = time.perf_counter()
+    prios, dem_rows, freed_rows, ok, weights = [], [], [], [], []
+    for p in demanders:
+        prios.append(p.priority)
+        dem_rows.append(vec(p.requests) * max(p.replicas - sum(p.prev.values()), 0))
+        freed_rows.append(np.zeros(len(dims), np.int64))
+        ok.append(False)
+        weights.append(0)
+    for v in pool:
+        total = sum(v.prev.values())
+        prios.append(v.priority)
+        dem_rows.append(np.zeros(len(dims), np.int64))
+        freed_rows.append(vec(v.requests) * total)
+        ok.append(total > 0)
+        weights.append(total)
+    want_victims, want_placed = preempt_and_place_np(
+        [p.key for p in demanders + pool], prios, np.stack(dem_rows), np.stack(freed_rows),
+        ok, weights, names=names, assigned={v.key: v.prev for v in pool},
+        requests={p.key: vec(p.requests) for p in demanders + pool}, base_caps=base_caps,
+        demanders=[p.key for p in demanders],
+        # no cluster carries a taint and every one enables the workload's API
+        candidates={p.key: np.ones(clusters, bool) for p in demanders},
+        strategies={p.key: DYNAMIC_WEIGHT for p in demanders},
+        replicas={p.key: p.replicas for p in demanders},
+        prev={p.key: p.prev for p in demanders})
+    by_key = {r.key: r for r in res}
+    got_victims = [v[0] for v in out.victims]
+    bad_victims = len(set(want_victims) ^ set(got_victims))
+    bad_placed = sum(want_placed[p.key] != (by_key[p.key].clusters if by_key[p.key].success
+                                            else {}) for p in demanders)
+    check_s = time.perf_counter() - t1
+    print(f"# preemption surge: {len(demanders)} demanders over {len(pool)} residents "
+          f"({rows} rows, sort keys for {padded}); pass {surge_s:.4f} s; K15 launches "
+          f"{launches['preempt_select']}; {len(got_victims)} victims, {len(out.placed)} "
+          f"placed, {len(out.still_unschedulable)} still unschedulable; referent "
+          f"preempt_and_place_np: victims {len(want_victims)} ({bad_victims} differ), "
+          f"placements {len(demanders) - bad_placed} ok / {bad_placed} bad ({check_s:.1f} s); "
+          f"card {card}", flush=True)
+    if bad_victims or bad_placed:
+        raise AssertionError(f"preemption: {bad_victims} victims and {bad_placed} "
+                             "placements differ from preempt_and_place_np")
+    if not out.placed:
+        raise AssertionError("preemption: no demander placed")
+
+    # the residents' wave: one pass to intern it, then steady passes armed
+    # and disarmed (priority 0 rows: the armed pass scans for demanders)
+    engine.schedule(pool)
+    walls = {}
+    for kind, source in (("armed", engine.preempt_source), ("disarmed", None)):
+        engine.set_preemption(source)
+        t1 = time.perf_counter()
+        engine.schedule(pool)
+        sync(device)
+        walls[kind] = time.perf_counter() - t1
+    print(f"# preemption phase: {residents} residents x {clusters} clusters in {n_groups} "
+          f"groups; build {build_s:.1f} s, residents' cold pass {cold_s:.4f} s; residents' "
+          f"steady pass armed {walls['armed']:.4f} s, disarmed {walls['disarmed']:.4f} s; "
+          f"launches { {k: v for k, v in launches.items() if v} }; card {card}", flush=True)
+    return {"launches": launches, "stats": stats, "surge_s": surge_s, "cold_s": cold_s,
+            "walls": walls, "victims": len(got_victims), "placed": len(out.placed),
+            "still": len(out.still_unschedulable), "rows": rows, "padded": padded}
+
+
 def main() -> int:
     import torch
 
@@ -2296,6 +2713,10 @@ def main() -> int:
         stats["node_sum_estimate"] = check_node_sum(node_batch(rng, 4096, 5000), device,
                                                     card, "4096x5000")
         stats.update(check_quota_kernels(rng, device, card))
+        stats["explain_pass"] = check_explain_kernel(rng, device, card)
+        t = preempt_batch(rng, device)
+        stats["preempt_select"] = check_preempt_kernel(t, card, "131072 x 5000 seeded")
+        del t
 
     def configs():
         for cfg in (1, 2, 3, 4):
@@ -2309,6 +2730,12 @@ def main() -> int:
         require_launched("config 5 fleet", out["launches"])
         paths["storm"] = out
 
+    def explain_fleet():
+        storm = paths["storm"]
+        out = run_explain_fleet(device, card, storm.pop("engine"), storm.pop("problems"))
+        require_launched("explain fleet", out["launches"])
+        paths["explain fleet"] = {k: out[k] for k in ("launches", "wall", "off_s")}
+
     def mixed():
         out = run_mixed(device, card)
         require_launched("mixed fleet", out["launches"])
@@ -2320,7 +2747,9 @@ def main() -> int:
         paths["general"] = out
 
     def models():
-        out = run_fleet_storm(device, card, models=True)
+        # two steady and two churn passes (three on the plain storm): depth cut
+        # to keep the whole smoke near half its time limit
+        out = run_fleet_storm(device, card, steady=2, churn=2, models=True)
         stats.update(out["stats"])
         require_launched("config 5 models fleet", out["launches"])
         paths["models"] = out
@@ -2338,17 +2767,25 @@ def main() -> int:
         require_launched("quota fleet", out["launches"])
         require_launched("quota general", out["general_launches"])
         stats["quota_caps_fold"] = out["fold_stats"]
+        require_launched("explain quota", out["explain"]["launches"])
         paths["quota"] = out
         paths["quota general"] = {"launches": out["general_launches"]}
+        paths["explain quota"] = out["explain"]
 
     def ranked():
         out = run_ranked(device, card)
         require_launched("ranked", out["launches"])
         paths["ranked"] = out
 
+    def preemption():
+        out = run_preemption(device, card)
+        require_launched("preemption", out["launches"])
+        paths["preemption"] = out
+
     for name, fn in (("kernels", kernels), ("configs", configs), ("storm", storm),
-                     ("mixed", mixed), ("general", general), ("models", models),
-                     ("estimator", estimator), ("quota", quota), ("ranked", ranked)):
+                     ("explain fleet", explain_fleet), ("mixed", mixed),
+                     ("general", general), ("models", models), ("estimator", estimator),
+                     ("quota", quota), ("ranked", ranked), ("preemption", preemption)):
         phase(name, fn)
 
     # launches: each kernel's count on the path that drives it
@@ -2364,9 +2801,15 @@ def main() -> int:
                                  "surge, raise, delta)"),
         "quota_caps_fold": ("quota", "quota phase, fleet passes (table rebuilds)"),
         "quota_cluster_caps": ("quota general", "quota phase, general-route pass"),
+        "explain_pass": ("explain fleet", "explain fleet phase, the armed steady pass"),
+        "preempt_select": ("preemption", "preemption phase, the surge pass"),
     }
     print(f"# estimator K8 launches by pass: {paths['estimator']['k8']}", flush=True)
     print(f"# quota K12 launches by pass: {paths['quota']['k12']}", flush=True)
+    print(f"# K14 launches: explain fleet {paths['explain fleet']['launches']['explain_pass']}"
+          f", explain quota {paths['explain quota']['launches']['explain_pass']}; K15 "
+          f"launches: preemption surge {paths['preemption']['launches']['preempt_select']}",
+          flush=True)
     entries = []
     for name in KERNELS:
         key, on = where.get(name, ("storm", "config 5 fleet passes"))

@@ -42,7 +42,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 KERNELS = (
     "estimate_merge", "divide_replicas", "fleet_masks", "fleet_diff",
     "fleet_wire", "scatter_rows", "model_estimate", "node_sum",
-    "quota_admit", "quota_caps",
+    "quota_admit", "quota_caps", "explain_pass", "preempt_select",
 )
 
 NVCC_FLAGS = (
@@ -84,6 +84,8 @@ SIGNATURES = {
         "quota_caps_launch": "piiippip",
         "quota_fold_launch": "piiippip",
     },
+    "explain_pass": {"explain_pass_launch": "pppppppppppp" "iii" "pp"},
+    "preempt_select": {"preempt_select_launch": "ppppppp" "iiiii" "pppppp"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong}
 

@@ -17,7 +17,12 @@ version on CPU tensors and launch the kernel on CUDA tensors:
   one wave per namespace;
 - ``quota_cluster_caps`` and ``quota_caps_fold`` (K13, ``csrc/quota_caps.cu``):
   the static-assignment quota ceiling per row, and folded into the fleet's
-  profile table.
+  profile table;
+- ``explain_pass`` (K14, ``csrc/explain_pass.cu``): the armed-only
+  provenance pass, the per-cell stage exclusion bitmask and the per-row
+  top-k candidate summary;
+- ``preempt_select`` (K15, ``csrc/preempt_select.cu``): plane-wide victim
+  selection of a preemption pass and the capacity it frees per cluster.
 
 The fleet path's own kernels (K3-K6) live in ``scheduler/fleet_kernels.py``.
 
@@ -52,6 +57,18 @@ from .estimate import (  # noqa: F401
     merge_estimates,
     profile_table,
     profile_table_ref,
+)
+from .explain import (  # noqa: F401
+    TOPK_COLS,
+    explain_pass,
+    explain_pass_ref,
+    topk_width,
+)
+from .preempt import (  # noqa: F401
+    MAX_PRIORITY,
+    MAX_WEIGHT,
+    preempt_select,
+    preempt_select_ref,
 )
 from .quota import (  # noqa: F401
     DEMAND_CLAMP,

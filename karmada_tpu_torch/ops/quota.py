@@ -155,13 +155,19 @@ def _cluster_caps_body(xp, caps, ns_rows, requests, floor_div):
 
 
 def cluster_caps_np(caps, ns_rows, requests) -> np.ndarray:
-    """numpy mirror of ``quota_cluster_caps`` for the tiny-batch host path:
-    int32[B, C]."""
-    out = _cluster_caps_body(
-        np, np.asarray(caps, np.int64), np.asarray(ns_rows, np.int32),
-        np.asarray(requests, np.int64), np.floor_divide,
-    )
-    return out.astype(np.int32)
+    """numpy mirror of ``quota_cluster_caps`` for the host paths:
+    int32[B, C]. Rows are independent and an uncapped row answers MAX_INT32
+    everywhere, so only the capped rows go through the [rows, C, R] body."""
+    caps = np.asarray(caps, np.int64)
+    ns_rows = np.asarray(ns_rows, np.int32)
+    out = np.full((len(ns_rows), caps.shape[1]), MAX_INT32, np.int32)
+    capped = np.flatnonzero(ns_rows >= 0)
+    if capped.size:
+        out[capped] = _cluster_caps_body(
+            np, caps, ns_rows[capped], np.asarray(requests, np.int64)[capped],
+            np.floor_divide,
+        )
+    return out
 
 
 def cluster_caps_ref(

@@ -1,9 +1,11 @@
 """Batched scheduler (ref: pkg/scheduler): the fleet path, the host
-general path, the ranked multi-term path and the quota plane."""
+general path, the ranked multi-term path, the quota plane, and the
+armed-only preemption and provenance planes."""
 
 from .core import (  # noqa: F401
     INSUFFICIENT_ERROR,
     BindingProblem,
+    PreemptionOutcome,
     ScheduleResult,
     TensorScheduler,
     host_profile_table,

@@ -40,9 +40,26 @@ form (``ops.quota_cluster_caps``) beside the summary estimate in K1's merge
 form on the general route, and ``ops.cluster_caps_np`` on the tiny-batch
 host path.
 
+The two armed-only planes wrap the solve in ``schedule()``, in the JAX
+engine's order: the solve, then the preemption pass, then the provenance
+capture, each in a log-and-continue ``try`` (losing either must never lose
+the wave's results). The preemption plane (``set_preemption`` with a
+victim source) turns the wave's priority > 0 rows that answered
+``INSUFFICIENT_ERROR`` into demanders: one launch of K15
+(``ops.preempt_select``) selects victims over the demanders and the
+resident pool, and the demanders re-solve in the same pass against the
+capacity the victims free (``_resolve_boosted``); the verdict lands in
+``last_preemption``. Provenance (``set_explain`` with an
+``utils.explainstore.ExplainStore``, or ``KARMADA_TPU_EXPLAIN=1`` when the
+engine is built) composes each stage's mask on the host per chunk and
+launches K14 (``ops.explain_pass``) once per chunk; the captures land in
+the store under the tracer's current wave. ``schedule()`` opens a wave
+when none is open and closes it after (in the JAX package the control
+plane's worker and detector open the waves; the port has neither yet), so
+the store's ring, whose cap counts waves, evicts.
+
 What is not ported yet, and where the port raises ``NotImplementedError``
-instead of answering differently from the JAX engine: provenance capture
-(``set_explain``), the preemption plane (``set_preemption``), more than
+instead of answering differently from the JAX engine: more than
 ``ops.MAX_EXTRAS`` out-of-tree estimators (static-assignment caps take one
 of those slots on the general route), a device mesh, and fleet tables over
 the dense resident budget (the JAX ``_fleet_solve``). ``dirty_keys`` is
@@ -54,6 +71,8 @@ and the port runs the full pass. The JAX delta admission
 
 from __future__ import annotations
 
+import logging
+import time
 from collections import OrderedDict
 from dataclasses import dataclass, field as dc_field
 from typing import Optional, Sequence
@@ -167,9 +186,7 @@ def host_profile_table(
 @dataclass
 class BindingProblem:
     """Engine-level scheduling unit (decoupled from the API object; the
-    scheduler process builds these from ResourceBindings). The JAX engine's
-    preemption fields (priority, preempt_clusters) belong to a plane not
-    ported yet."""
+    scheduler process builds these from ResourceBindings)."""
 
     key: str
     placement: Optional[Placement] = None
@@ -180,6 +197,11 @@ class BindingProblem:
     evict_clusters: tuple[str, ...] = ()  # graceful-eviction tasks
     fresh: bool = False  # reschedule triggered
     namespace: str = ""  # quota-admission namespace ("" = not quota'd)
+    # preemption plane: the binding's priority class (0 = never preempts,
+    # preemptible by any class above it) and the subset of evict_clusters
+    # whose eviction task is a preemption (the explain capture's bit 7)
+    priority: int = 0
+    preempt_clusters: tuple[str, ...] = ()
 
 
 @dataclass
@@ -195,8 +217,41 @@ class ScheduleResult:
         return not self.error
 
 
-#: the divider's insufficient-capacity verdict (wire/compat surface)
+#: the divider's insufficient-capacity verdict (wire/compat surface); the
+#: preemption plane's demander predicate
 INSUFFICIENT_ERROR = "clusters available replicas are not enough"
+
+
+@dataclass
+class PreemptionOutcome:
+    """One pass's preemption verdict, left on the engine as
+    ``last_preemption`` for the controller to act on (victim evictions are
+    store writes; the engine never touches API objects)."""
+
+    #: (key, resident placement dict, priority) per selected victim
+    victims: list = dc_field(default_factory=list)
+    #: demander keys that re-solved successfully against the freed capacity
+    #: (their results were replaced)
+    placed: list = dc_field(default_factory=list)
+    #: demander keys still unschedulable with every victim freed
+    still_unschedulable: list = dc_field(default_factory=list)
+    #: int64[C, R] capacity the victims free, per cluster column
+    freed_caps: Optional[np.ndarray] = None
+
+
+class _BoostedSnapshot:
+    """Capacity-shifted view of a ClusterSnapshot for the preemption
+    re-solve: ``available_cap`` reads as ``base + freed_caps``; every other
+    attribute delegates. Never cached: the per-profile and selection caches
+    key on the real snapshot only."""
+
+    def __init__(self, base, freed_caps):
+        self._base = base
+        cap = np.asarray(base.available_cap)
+        self.available_cap = cap + np.asarray(freed_caps, dtype=cap.dtype)
+
+    def __getattr__(self, name):
+        return getattr(self._base, name)
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -204,6 +259,62 @@ def _not_ported(what: str) -> NotImplementedError:
         f"{what} is not ported to karmada_tpu_torch yet; the JAX engine "
         "(karmada_tpu.scheduler.TensorScheduler) serves it"
     )
+
+
+def unique_placements(compiled, rows: int) -> tuple[np.ndarray, list]:
+    """(slot int32[rows], unique compiled placements) of ``compiled``: the
+    O(B x C) mask algebra runs once per unique placement and is gathered
+    by row. Rows past ``len(compiled)`` (padding) take slot 0."""
+    slot_of: dict[int, int] = {}
+    unique: list[CompiledPlacement] = []
+    idx = np.zeros(rows, np.int32)
+    for i, cp in enumerate(compiled):
+        slot = slot_of.get(id(cp))
+        if slot is None:
+            slot = len(unique)
+            slot_of[id(cp)] = slot
+            unique.append(cp)
+        idx[i] = slot
+    return idx, unique
+
+
+def term_stack(unique_cps, c: int) -> tuple[np.ndarray, np.ndarray]:
+    """(bool[U, Tmax, C] ClusterAffinities term masks, int32[U] live-term
+    counts) of the unique placements; a placement's missing terms are
+    empty."""
+    tmax = max(len(cp.terms) for cp in unique_cps)
+    stack = np.zeros((len(unique_cps), tmax, c), bool)
+    live = np.ones(len(unique_cps), np.int32)
+    for u, cp in enumerate(unique_cps):
+        live[u] = len(cp.terms)
+        for t, (_name, mask) in enumerate(cp.terms):
+            stack[u, t] = mask
+    return stack, live
+
+
+def gvk_masks(snap, problems) -> tuple[np.ndarray, np.ndarray]:
+    """(bool[G, C] API-enablement mask per unique GVK, int32[B] slot per
+    row): an unknown GVK is enabled nowhere, an empty one everywhere (and
+    any GVK when the snapshot knows none)."""
+    slot_of: dict[str, int] = {}
+    masks: list[np.ndarray] = []
+    idx = np.empty(len(problems), np.int32)
+    c = snap.num_clusters
+    for i, p in enumerate(problems):
+        slot = slot_of.get(p.gvk)
+        if slot is None:
+            slot = len(masks)
+            slot_of[p.gvk] = slot
+            gid = snap.gvk_vocab.get(p.gvk) if p.gvk else None
+            if gid is None:
+                m = (np.zeros(c, bool) if p.gvk and len(snap.gvk_vocab) > 0
+                     else np.ones(c, bool))
+            else:
+                word, bit = gid // 32, gid % 32
+                m = (snap.gvk_bits[:, word] >> np.uint32(bit)) & 1 != 0
+            masks.append(m)
+        idx[i] = slot
+    return np.stack(masks), idx
 
 
 class TensorScheduler:
@@ -295,6 +406,19 @@ class TensorScheduler:
         self._caps_dev_token = None
         # host-clock seconds of the last pass's phases (prologue + fleet)
         self.last_breakdown: dict[str, float] = {}
+        # placement provenance: when armed, every schedule() pass composes
+        # the per-stage masks per chunk and launches K14 once per chunk,
+        # depositing the captures in the process-wide ExplainStore;
+        # ``KARMADA_TPU_EXPLAIN=1`` arms it here, as in the JAX engine.
+        # Disarmed (None) costs one `is None` check per pass
+        from ..utils.explainstore import explain_armed, store as _estore
+
+        self.explain = _estore() if explain_armed() else None
+        # preemption plane: ``preempt_source(exclude_keys)`` answers the
+        # resident victim pool as BindingProblems (the controller arms it
+        # per pass); None is the disarmed state
+        self.preempt_source = None
+        self.last_preemption: Optional[PreemptionOutcome] = None
 
     # -- compilation -------------------------------------------------------
 
@@ -370,32 +494,64 @@ class TensorScheduler:
             # availability
             self._derived_rows.clear()
 
-    # the planes below are not ported: arming one raises, disarming (None,
-    # the JAX engine's default state) is accepted
-
     def set_explain(self, store) -> None:
-        if store is not None:
-            raise _not_ported("placement provenance (set_explain)")
+        """Arm (an ExplainStore) or disarm (None) provenance capture."""
+        self.explain = store
 
     def set_preemption(self, source) -> None:
-        if source is not None:
-            raise _not_ported("the preemption plane (set_preemption)")
+        """Arm (``source(exclude_keys)`` answering the resident victim pool)
+        or disarm (None) the preemption plane."""
+        self.preempt_source = source
 
     def schedule(
         self,
         problems: Sequence[BindingProblem],
         dirty_keys: Optional[set] = None,
     ) -> list[ScheduleResult]:
-        """Schedule one wave. ``dirty_keys`` (binding keys whose problems
-        changed since the last wave) turns the batch-identity fast path off
-        for this pass, as in the JAX engine; where the JAX engine then runs
-        its delta pass (result-identical to a full pass), the port runs the
-        full pass."""
+        """Schedule one wave: the solve, then (armed) the preemption pass,
+        then (armed) the provenance capture, so a re-solved demander's
+        capture shows its final placement. Either plane that fails logs and
+        leaves the solve's results as they were (a failed preemption pass
+        also clears ``last_preemption``: no victims without placed
+        demanders). ``dirty_keys`` (binding keys whose problems changed
+        since the last wave) turns the batch-identity fast path off for this
+        pass, as in the JAX engine; where the JAX engine then runs its delta
+        pass (result-identical to a full pass), the port runs the full
+        pass. A wave that the caller left open is kept; otherwise the pass
+        is a wave of its own."""
+        from ..utils.tracing import tracer
+
+        if tracer.open_wave() is not None:
+            return self._schedule_wave(problems, dirty_keys)
+        tracer.ensure_wave("schedule")
+        try:
+            return self._schedule_wave(problems, dirty_keys)
+        finally:
+            tracer.end_wave()
+
+    def _schedule_wave(self, problems, dirty_keys) -> list[ScheduleResult]:
+        self.last_preemption = None
         self._dirty_keys = set(dirty_keys) if dirty_keys else None
         try:
-            return self._schedule_quota(problems)
+            results = self._schedule_quota(problems)
         finally:
             self._dirty_keys = None
+        if self.preempt_source is not None and problems:
+            try:
+                results = self._preempt_pass(list(problems), results)
+            except Exception as exc:  # noqa: BLE001 — the remedy is optional
+                self.last_preemption = None
+                logging.getLogger("karmada_tpu_torch").warning(
+                    "preemption pass failed (%s: %s)", type(exc).__name__, exc)
+        # a store whose ring is disabled (KARMADA_TPU_EXPLAIN_CAP=0) skips
+        # the capture and its launches
+        if self.explain is not None and self.explain.enabled and problems:
+            try:
+                self._capture_explain(list(problems), results)
+            except Exception as exc:  # noqa: BLE001 — provenance is telemetry
+                logging.getLogger("karmada_tpu_torch").warning(
+                    "explain capture failed (%s: %s)", type(exc).__name__, exc)
+        return results
 
     # -- quota plane -------------------------------------------------------
 
@@ -646,6 +802,375 @@ class TensorScheduler:
             torch.from_numpy(np.ascontiguousarray(prof_ns)).to(dev),
             torch.from_numpy(np.ascontiguousarray(profiles_np, np.int64)).to(dev),
         )
+
+    # -- preemption plane ---------------------------------------------------
+
+    _PREEMPT_PAD = 256  # pow2 floor of the padded row count, as in JAX
+
+    def _preempt_pass(self, problems, results) -> list:
+        """One armed-only preemption round: demanders are the wave's
+        priority > 0 rows whose solve answered INSUFFICIENT_ERROR (a
+        quota-denied row never gets here: it answered QUOTA_EXCEEDED);
+        victims come from the armed resident pool. One K15 launch selects
+        the victims over the demanders and the pool; the freed per-cluster
+        capacity re-enters the divide in the same pass (``_resolve_boosted``)
+        and the outcome lands in ``last_preemption``.
+
+        Returns the results, as a plain list when a demander's row was
+        replaced (the fleet route's lazy result list takes no item
+        assignment), else the caller's object."""
+        from ..ops.preempt import preempt_select
+        from ..utils.tracing import tracer
+
+        # the priority test first: a fleet pass's lazy results are built
+        # only for the rows it cannot rule out
+        demand_idx = [
+            i for i, p in enumerate(problems)
+            if p.priority > 0 and results[i].error == INSUFFICIENT_ERROR
+        ]
+        if not demand_idx:
+            return results
+        t0 = time.perf_counter()
+        wave_keys = {p.key for p in problems}
+        victims_pool = [
+            v for v in (self.preempt_source(wave_keys) or ())
+            if v.prev and sum(v.prev.values()) > 0
+        ]
+        outcome = PreemptionOutcome()
+        self.last_preemption = outcome
+        demanders = [problems[i] for i in demand_idx]
+        if not victims_pool:
+            outcome.still_unschedulable = [p.key for p in demanders]
+            return results
+        rows = demanders + victims_pool
+        inputs, b_key = self._preempt_inputs(demanders, victims_pool)
+        if not inputs["demand"].any() or not inputs["victim_ok"].any():
+            outcome.still_unschedulable = [p.key for p in demanders]
+            return results
+
+        dev = self.device
+        victims_dev, freed_caps_dev = preempt_select(
+            *(torch.from_numpy(a).to(dev) for a in inputs.values()), b_key=b_key)
+        victim_mask = victims_dev.cpu().numpy()
+        freed_caps = freed_caps_dev.cpu().numpy()
+        if not victim_mask.any():
+            outcome.still_unschedulable = [p.key for p in demanders]
+            tracer.record("scheduler.preempt", time.perf_counter() - t0,
+                          demanders=len(demanders), victims=0)
+            return results
+        for i in np.flatnonzero(victim_mask):
+            p = rows[int(i)]
+            outcome.victims.append((p.key, dict(p.prev), int(p.priority)))
+        outcome.freed_caps = freed_caps
+
+        # one more batched solve over the demanders alone, against
+        # availability on the boosted capacity
+        compiled = [self._compiled(p.placement) for p in demanders]
+        self.solve_batches += 1
+        re_res = self._resolve_boosted(demanders, compiled, freed_caps)
+        results = list(results)  # materialises a lazy fleet result list
+        for i, res in zip(demand_idx, re_res):
+            if res.success:
+                results[i] = res
+                outcome.placed.append(res.key)
+            else:
+                outcome.still_unschedulable.append(res.key)
+        tracer.record("scheduler.preempt", time.perf_counter() - t0,
+                      demanders=len(demanders), victims=len(outcome.victims))
+        return results
+
+    def _preempt_inputs(self, demanders, victims_pool) -> tuple[dict, int]:
+        """K15's inputs (numpy, in its argument order) over ``demanders +
+        victims_pool``, one row each, and the row count its packed sort
+        keys are built with: JAX's padded row count, a power of two of at
+        least ``_PREEMPT_PAD`` (JAX pads the rows themselves with
+        priority-0 rows that demand and free nothing; the port passes the
+        count alone). A demander's demand is its shortfall (a fresh row
+        re-places everything, a scale-up demands only the delta) times its
+        per-replica request; a victim frees its whole assignment."""
+        from ..ops.quota import DEMAND_CLAMP
+        from .quota import per_replica_vector
+
+        snap = self.snapshot
+        dims = list(snap.dims)
+        r, c = len(dims), snap.num_clusters
+        rows = list(demanders) + list(victims_pool)
+        b = len(rows)
+        b_key = max(1 << max(0, (b - 1).bit_length()), self._PREEMPT_PAD)
+        prio = np.zeros(b, np.int32)
+        demand = np.zeros((b, r), np.int64)
+        freed = np.zeros((b, r), np.int64)
+        victim_ok = np.zeros(b, bool)
+        weight = np.zeros(b, np.int32)
+        assigned = np.zeros((b, c), np.int32)
+        requests = np.zeros((b, r), np.int64)
+
+        def scaled(req_row, count: int) -> np.ndarray:
+            # scale in Python ints (the quota demand rule): an absurd request
+            # times a large count clamps instead of wrapping
+            return np.fromiter((min(int(v) * count, DEMAND_CLAMP) for v in req_row),
+                               np.int64, len(req_row))
+
+        n_dem = len(demanders)
+        for i, p in enumerate(rows):
+            prio[i] = p.priority
+            requests[i] = np.minimum(per_replica_vector(p.requests, dims), DEMAND_CLAMP)
+            if i < n_dem:
+                short = p.replicas - (0 if p.fresh else sum(p.prev.values()))
+                if short > 0:
+                    demand[i] = scaled(requests[i], int(short))
+                continue
+            total = 0
+            for name, reps in p.prev.items():
+                j = snap.index.get(name)
+                if j is not None and reps > 0:
+                    assigned[i, j] = reps
+                    total += int(reps)
+            if total > 0:
+                weight[i] = min(total, 2**20 - 1)
+                victim_ok[i] = True
+                freed[i] = scaled(requests[i], total)
+        return {"prio": prio, "demand": demand, "freed": freed, "victim_ok": victim_ok,
+                "weight": weight, "assigned": assigned, "requests": requests}, b_key
+
+    def _resolve_boosted(self, problems, compiled, freed_caps) -> list[ScheduleResult]:
+        """Re-solve a demander batch against capacity boosted by the
+        victims' freed resources: the host estimate mirror
+        (``host_profile_table``) over ``available_cap + freed_caps``
+        (out-of-tree estimators are not consulted: they read live member
+        state, which cannot see a victim not yet evicted), static quota
+        caps still folded (preemption never lifts a cap), the ordered
+        affinity selection (``first_fit_group``), spread selection, and the
+        numpy divider while its key fits int64, else K2."""
+        from ..ops import masks as mops
+        from .spread import select_clusters_batch
+
+        snap = self.snapshot
+        boosted = _BoostedSnapshot(snap, freed_caps)
+        mi = MAX_INT32
+        out: list[ScheduleResult] = []
+        for start in range(0, len(problems), self.chunk_size):
+            chunk = problems[start : start + self.chunk_size]
+            cchunk = compiled[start : start + self.chunk_size]
+            base, strategy, replicas, static_w, requests, prev, fresh = (
+                self._pack_chunk(chunk, cchunk, 0, with_affinity=False)
+            )
+            b = len(chunk)
+            uniq, inv = np.unique(requests, axis=0, return_inverse=True)
+            dense = host_profile_table(
+                boosted, uniq, models_active=self._models_active()
+            )[inv.reshape(-1)]
+            cap_rows = self._quota_cap_rows(chunk)
+            if cap_rows is not None:
+                dense = np.minimum(dense, self._quota_caps_np(cap_rows, requests))
+            reps_col = replicas.astype(np.int64)[:, None]
+            avail = np.where(reps_col == 0, mi, dense)
+            avail = np.where(avail == mi, reps_col, avail)
+            avail = np.minimum(avail, mi).astype(np.int32)
+
+            cp_idx, unique_cps = unique_placements(cchunk, b)
+            terms, term_len_u = term_stack(unique_cps, snap.num_clusters)
+            if "ClusterAffinity" in self.disabled_plugins:
+                terms[:] = True
+            cand_tc = base[:, None, :] & terms[cp_idx]
+            rank, _fit = mops.first_fit_group(
+                cand_tc,
+                term_len_u[cp_idx],
+                avail.astype(np.int64),
+                replicas.astype(np.int64),
+                prev.astype(np.int64),
+                (strategy == DYNAMIC_WEIGHT) | (strategy == AGGREGATED),
+                fresh.astype(bool),
+            )
+            feasible = np.take_along_axis(
+                cand_tc, rank[:, None, None].astype(np.intp), axis=1
+            )[:, 0, :]
+            candidates = select_clusters_batch(
+                snap, chunk, cchunk, 0, feasible, avail, prev)
+            wmax = int(max(int(avail.max(initial=0)) + int(prev.max(initial=0)),
+                           int(static_w.max(initial=0)), 0))
+            lmax = int(prev.max(initial=0)) + 1
+            if (wmax + 1) * lmax * snap.num_clusters < 2**63:
+                from ..refimpl.divider_np import assign_batch_np
+
+                assignment, unschedulable = assign_batch_np(
+                    strategy, replicas, candidates, static_w, avail, prev, fresh)
+            else:
+                res = self._assign(strategy, replicas, candidates, static_w,
+                                   torch.from_numpy(avail).to(self.device), prev, fresh)
+                assignment = res.assignment.cpu().numpy()
+                unschedulable = res.unschedulable.cpu().numpy()
+            out.extend(self._unpack(chunk, cchunk, rank, candidates,
+                                    assignment, unschedulable))
+        return out
+
+    # -- placement provenance -----------------------------------------------
+
+    def _capture_explain(self, problems, results) -> None:
+        """One K14 launch per chunk over the host-composed stage masks; the
+        captures go to the ExplainStore under the tracer's current wave."""
+        from ..utils.tracing import tracer
+
+        t0 = time.perf_counter()
+        wave = tracer.current_context().wave
+        for start in range(0, len(problems), self.chunk_size):
+            chunk = problems[start : start + self.chunk_size]
+            res = results[start : start + self.chunk_size]
+            self.explain.add(self._explain_chunk(chunk, res, wave))
+        tracer.record("scheduler.explain", time.perf_counter() - t0, rows=len(problems))
+
+    def _explain_chunk(self, problems, results, wave: int):
+        """One chunk's ExplainCapture: ``_explain_inputs``, then K14."""
+        from ..ops.explain import explain_pass, topk_width
+        from ..utils.explainstore import ExplainCapture
+
+        inputs, group_rank = self._explain_inputs(problems, results)
+        dev = self.device
+        mask, topk = explain_pass(
+            *(torch.from_numpy(a).to(dev) for a in inputs.values()),
+            k=topk_width(self.snapshot.num_clusters),
+        )
+        return ExplainCapture(
+            wave=wave,
+            names=self.snapshot.names,
+            keys=[p.key for p in problems],
+            masks=mask.cpu().numpy(),
+            topk=topk.cpu().numpy(),
+            group_rank=group_rank,
+            errors=[res.error for res in results],
+            assignment=inputs["assignment"],
+        )
+
+    def _explain_inputs(self, problems, results) -> tuple[dict, np.ndarray]:
+        """K14's composed inputs for one chunk (numpy, in its argument
+        order) and the selected affinity-group rank per row. The stage masks
+        carry the solve's own rules, kept per stage instead of AND-folded:
+        already-placed taint/API leniency, evictions folded into the taint
+        stage, the spread selection where a derived row exists, pre-cap
+        availability (the host mirror, or the device merge when out-of-tree
+        estimators answer), the cap stage, the admission stage, and the
+        group that ``first_fit_group`` selects on cap-folded availability.
+        Out-of-tree custom filters have no stage and are not attributed.
+        Every row is composed on its own, so a sub-list of a chunk composes
+        to that sub-list's rows."""
+        from ..ops import masks as mops
+
+        snap = self.snapshot
+        disabled = self.disabled_plugins
+        compiled = [self._compiled(p.placement) for p in problems]
+        b, c = len(problems), snap.num_clusters
+
+        cp_idx, unique_cps = unique_placements(compiled, b)
+        spread_pl = np.stack([cp.spread_field_ok for cp in unique_cps])
+        taint_pl = np.stack([cp.taint_ok for cp in unique_cps])
+        api_gvk, gvk_idx = gvk_masks(snap, problems)
+
+        replicas = np.fromiter((p.replicas for p in problems), np.int32, b)
+        fresh = np.fromiter((p.fresh for p in problems), bool, b)
+        strategy = np.fromiter((cp.strategy for cp in compiled), np.int32, b)
+        r = len(snap.dims)
+        prev = np.zeros((b, c), np.int32)
+        evict = np.zeros((b, c), bool)
+        preempted = np.zeros((b, c), bool)
+        requests = np.zeros((b, r), np.int64)
+        dim_index = {d: j for j, d in enumerate(snap.dims)}
+        pods_dim = dim_index.get("pods")
+        for i, p in enumerate(problems):
+            for name, reps in p.prev.items():
+                j = snap.index.get(name)
+                if j is not None:
+                    prev[i, j] = reps
+            for name in p.evict_clusters:
+                j = snap.index.get(name)
+                if j is not None:
+                    evict[i, j] = True
+            for name in p.preempt_clusters:
+                j = snap.index.get(name)
+                if j is not None:
+                    preempted[i, j] = True
+            for d, q in p.requests.items():
+                j = dim_index.get(d)
+                if j is not None:
+                    requests[i, j] = q
+            if pods_dim is not None and p.replicas > 0:
+                requests[i, pods_dim] = max(requests[i, pods_dim], 1)
+        prev_mask = prev > 0
+
+        taint_tol = taint_pl[cp_idx] | prev_mask
+        if "TaintToleration" in disabled:
+            taint_tol = np.ones((b, c), bool)
+        if "ClusterEviction" in disabled:
+            evict = np.zeros((b, c), bool)
+        taint_ok = taint_tol & ~evict
+        api_ok = api_gvk[gvk_idx] | (prev_mask & ~snap.complete_enablements[None, :])
+        if "APIEnablement" in disabled:
+            api_ok = np.ones((b, c), bool)
+        spread_ok = spread_pl[cp_idx]
+        if "SpreadConstraint" in disabled:
+            spread_ok = np.ones((b, c), bool)
+        else:
+            # spread rows with a derived selection: the Select stage's
+            # surviving set is the selection mask
+            for i, (p, cp) in enumerate(zip(problems, compiled)):
+                if len(cp.terms) == 1 and not cp.fleet_single_term:
+                    hit = self._derived_rows.get(p.key)
+                    if hit is not None and hit[1] is p.placement and hit[2] is not None:
+                        spread_ok[i] = spread_ok[i] & hit[2].terms[0][1]
+
+        def merged(cap_rows):
+            if self.extra_estimators:
+                return self._availability(requests, replicas, cap_rows).cpu().numpy()
+            return self._availability_np(requests, replicas, cap_rows)
+
+        # pre-cap merged availability: the cap is its own stage
+        avail = merged(None)
+        cap_rows = self._quota_cap_rows(problems)
+        caps = (self._quota_caps_np(cap_rows, requests).astype(np.int32)
+                if cap_rows is not None else np.full((b, c), MAX_INT32, np.int32))
+
+        dynamic = (strategy == DYNAMIC_WEIGHT) | (strategy == AGGREGATED)
+        admitted = np.fromiter((res.error != QUOTA_EXCEEDED_ERROR for res in results), bool, b)
+        assignment = np.zeros((b, c), np.int32)
+        for i, res in enumerate(results):
+            for name, n_assigned in res.clusters.items():
+                j = snap.index.get(name)
+                if j is not None:
+                    assignment[i, j] = n_assigned
+
+        # the selected affinity group, by the ranked path's own predicate
+        # on the cap-folded availability the ranked solve ranks on
+        tmax = max(len(cp.terms) for cp in unique_cps)
+        if tmax > 1 and "ClusterAffinity" not in disabled:
+            avail_rank = avail if cap_rows is None else merged(cap_rows)
+            terms, term_len_u = term_stack(unique_cps, c)
+            base = taint_ok & api_ok & spread_ok
+            cand_tc = base[:, None, :] & terms[cp_idx]
+            rank, _fit = mops.first_fit_group(
+                cand_tc,
+                term_len_u[cp_idx],
+                avail_rank.astype(np.int64),
+                replicas.astype(np.int64),
+                prev.astype(np.int64),
+                dynamic.astype(bool),
+                fresh.astype(bool),
+            )
+            group_rank = rank.astype(np.int32)
+            aff_ok = np.take_along_axis(
+                terms[cp_idx], rank[:, None, None].astype(np.intp), axis=1
+            )[:, 0, :]
+        else:
+            group_rank = np.zeros(b, np.int32)
+            aff_ok = np.stack([cp.terms[0][1] for cp in unique_cps])[cp_idx]
+            if "ClusterAffinity" in disabled:
+                aff_ok = np.ones((b, c), bool)
+
+        inputs = {
+            "aff_ok": aff_ok, "taint_ok": taint_ok, "api_ok": api_ok,
+            "spread_ok": spread_ok, "avail": avail.astype(np.int32), "caps": caps,
+            "admitted": admitted, "dynamic": dynamic, "replicas": replicas,
+            "assignment": assignment, "prev": prev, "preempted": preempted,
+        }
+        return {k: np.ascontiguousarray(v) for k, v in inputs.items()}, group_rank
 
     def _schedule_inner(
         self, problems: Sequence[BindingProblem]
@@ -1070,16 +1595,7 @@ class TensorScheduler:
         disabled = self.disabled_plugins
 
         # --- unique placements -> stacked per-placement masks -------------
-        cp_slot: dict[int, int] = {}
-        unique_cps: list[CompiledPlacement] = []
-        cp_idx = np.empty(b, np.int32)
-        for i, cp in enumerate(compiled):
-            slot = cp_slot.get(id(cp))
-            if slot is None:
-                slot = len(unique_cps)
-                cp_slot[id(cp)] = slot
-                unique_cps.append(cp)
-            cp_idx[i] = slot
+        cp_idx, unique_cps = unique_placements(compiled, b)
         aff_pl = np.stack(
             [cp.terms[min(term_round, len(cp.terms) - 1)][1] for cp in unique_cps]
         )
@@ -1089,27 +1605,7 @@ class TensorScheduler:
         strategy = np.array([cp.strategy for cp in unique_cps], np.int32)[cp_idx]
 
         # --- unique GVKs -> per-GVK enablement masks ----------------------
-        gvk_slot: dict[str, int] = {}
-        gvk_masks: list[np.ndarray] = []
-        gvk_idx = np.empty(b, np.int32)
-        for i, p in enumerate(problems):
-            slot = gvk_slot.get(p.gvk)
-            if slot is None:
-                slot = len(gvk_masks)
-                gvk_slot[p.gvk] = slot
-                gid = snap.gvk_vocab.get(p.gvk) if p.gvk else None
-                if gid is None:
-                    mask = (
-                        np.zeros(c, bool)
-                        if p.gvk and len(snap.gvk_vocab) > 0
-                        else np.ones(c, bool)
-                    )
-                else:
-                    word, bit = gid // 32, gid % 32
-                    mask = (snap.gvk_bits[:, word] >> np.uint32(bit)) & 1 != 0
-                gvk_masks.append(mask)
-            gvk_idx[i] = slot
-        api_gvk = np.stack(gvk_masks)
+        api_gvk, gvk_idx = gvk_masks(snap, problems)
 
         # --- sparse per-binding state -------------------------------------
         replicas = np.fromiter((p.replicas for p in problems), np.int32, b)
@@ -1363,29 +1859,14 @@ class TensorScheduler:
         )
         # stacked per-placement term masks bool[U, Tmax, C] and live-term
         # counts; pad rows take slot 0 with no candidates
-        cp_slot: dict[int, int] = {}
-        unique_cps: list[CompiledPlacement] = []
-        cp_idx = np.zeros(padded, np.int32)
-        for i, cp in enumerate(compiled):
-            slot = cp_slot.get(id(cp))
-            if slot is None:
-                slot = len(unique_cps)
-                cp_slot[id(cp)] = slot
-                unique_cps.append(cp)
-            cp_idx[i] = slot
-        tmax = max(len(cp.terms) for cp in unique_cps)
-        term_stack = np.zeros((len(unique_cps), tmax, self.snapshot.num_clusters), bool)
-        term_len_u = np.ones(len(unique_cps), np.int32)
-        for u, cp in enumerate(unique_cps):
-            term_len_u[u] = len(cp.terms)
-            for t, (_name, mask) in enumerate(cp.terms):
-                term_stack[u, t] = mask
+        cp_idx, unique_cps = unique_placements(compiled, padded)
+        terms, term_len_u = term_stack(unique_cps, self.snapshot.num_clusters)
         if "ClusterAffinity" in self.disabled_plugins:
-            term_stack[:] = True
+            terms[:] = True
 
         host_small, avail = self._chunk_availability(problems, requests, replicas, padded)
         avail_np = avail if host_small else avail.cpu().numpy()
-        cand_tc = base[:, None, :] & term_stack[cp_idx]
+        cand_tc = base[:, None, :] & terms[cp_idx]
         rank, _fit = mops.first_fit_group(
             cand_tc,
             term_len_u[cp_idx],

@@ -1,4 +1,6 @@
-"""Shared utilities: quantities, the feature gate, object builders."""
+"""Shared utilities: quantities, the feature gate, object builders, reason
+codes, the wave tracer (``tracing``) and the provenance store
+(``explainstore``)."""
 
 from .quantity import (  # noqa: F401
     CPU,

@@ -363,13 +363,16 @@ def test_quota_phase_rehearses_on_cpu_and_equals_jax(capsys):
     """chip_smoke's quota phase end to end on the CPU at a small size (cold,
     steady replay, surge, raise, delta, the general-route pass; every
     partition against admit_wave_np, admitted rows against the numpy
-    divider), and the
+    divider; the surge wave replayed with provenance armed, every denied row
+    carrying the QuotaExceeded bit), and the
     JAX engine driven through the same cold and surge passes answers the
     same."""
     cpu = torch.device("cpu")
     out = chip_smoke.run_quota(cpu, "cpu", bindings=1500, clusters=200, general_rows=500)
     assert out["denied"]["cold"] == 0 and out["denied"]["surge"] > 0
     assert out["admitted"]["surge"] > 0
+    assert out["explain"]["denied"] == out["denied"]["surge"]
+    assert out["explain"]["captures"] == 1
     printed = capsys.readouterr().out
     assert printed.count(" 0 bad") == 3 and "its denials" in printed
     assert "rebuilt rows admitted again" in printed

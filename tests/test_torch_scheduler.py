@@ -134,21 +134,18 @@ def _engine():
     return snap, TS.TensorScheduler(snap, device="cpu")
 
 
-@pytest.mark.parametrize("branch", ["mesh", "explain", "preemption",
-                                    "remote_estimator"])
+@pytest.mark.parametrize("branch", ["mesh", "remote_estimator"])
 def test_unported_branches_raise(branch):
     """Where the JAX engine would take a branch this slice does not port,
-    the port raises instead of answering differently."""
+    the port raises instead of answering differently. (The provenance and
+    preemption planes are served: tests/test_torch_explain.py and
+    tests/test_torch_preempt.py.)"""
     snap, eng = _engine()
     prob = TS.BindingProblem(key="b", placement=TB.dynamic_weight_placement(),
                              replicas=3, requests={"cpu": 100})
     with pytest.raises(NotImplementedError):
         if branch == "mesh":
             TS.TensorScheduler(snap, mesh=object(), device="cpu")
-        elif branch == "explain":
-            eng.set_explain(object())
-        elif branch == "preemption":
-            eng.set_preemption(lambda keys: [])
         else:
             # an estimator behind the gRPC transport (RemoteAccurateEstimator)
             est = TA.AccurateEstimator("m0", TA.NodeSnapshot([], snap.dims), device="cpu")
@@ -172,6 +169,10 @@ def test_port_imports_without_jax_or_karmada_tpu():
     """Every module of the port imports with jax blocked and a finder that
     refuses karmada_tpu and karmada_tpu.*."""
     mods = _modules(ROOT / "karmada_tpu_torch")
+    assert {"karmada_tpu_torch.ops.explain", "karmada_tpu_torch.ops.preempt",
+            "karmada_tpu_torch.utils.explainstore", "karmada_tpu_torch.utils.tracing",
+            "karmada_tpu_torch.refimpl.explain_np",
+            "karmada_tpu_torch.refimpl.preempt_np"} <= set(mods)
     code = f"""
 import importlib, importlib.abc, sys
 sys.modules["jax"] = None
