@@ -17,7 +17,10 @@
    5000 (a batch full of key ties) and at C = 5, and K15 ``preempt_select``
    at 131072 rows (R = 4, C = 5000, 16 priority classes, ~30% victims, ~5%
    demanders); equality is exact (integer outputs, tolerance 0). Prints each kernel's median
-   time beside the plain version's and its bound;
+   time beside the plain version's and its bound. Then the shape limits one
+   past each: K1 at 65535 x 128 + 1 rows in its three forms against the
+   plain versions (served), and a CUDA engine refusing 16385 clusters (K2)
+   and a 17-dim quota (K12) with its state unchanged;
 3. end-to-end phase, every row checked against the port's numpy divider on
    the same packed inputs (``oracle_check``):
    - BASELINE configs 1 and 2 (host-small numpy path), 3 (resource models
@@ -30,10 +33,18 @@
      first churn pass it holds K3 (both forms), K4 (both stages), K5 (both
      wires) and K6 (both entry points) against their plain versions on the
      table's own inputs at config-5 shapes (exact), and times them;
+   - the same storm on the entry-resident route (``KARMADA_TPU_DENSE_BUDGET=0``
+     around the table's construction; 2 steady and 2 churn passes): every
+     pass equal to the dense storm's row for row, the oracle after the cold
+     and the last churn pass, an overflow rerun on the first churn pass,
+     K16 against its plain version in both forms and the whole pass against
+     ``fleet_solve_ref`` byte for byte before the first churn pass;
    - a mixed-strategy fleet phase (10k x 1000: the four strategies,
      zero-replica, fresh and previous-site rows), whose second pass makes a
      few hundred rows dirty: every row equal to the port's general path on
-     the card (a second engine with ``fleet_threshold`` raised);
+     the card (a second engine with ``fleet_threshold`` raised); then the
+     same phase on the entry-resident route with a permuted third pass (the
+     gathered form), every row equal to the dense phase's;
    - config 5 on the general path (the first slice's route: K1 + K2), its
      first 40k rows in one pass, every row equal to the fleet's cold pass;
    - config 5 again under Karmada's nine default resource-model grades:
@@ -46,7 +57,7 @@
      behind an ``EstimatorRegistry``, 10k bindings through
      ``extra_estimators``; cold, steady, hard-refresh and pod-event passes
      must launch K8 128, 0, 128 and 4 times and leave no registered
-     cluster unanswered; the cold and pod-event passes are checked against
+     cluster unanswered or unmemoized; the cold and pod-event passes are checked against
      the numpy divider over merge(general, the node-sum numpy mirror);
    - the quota plane (bench.py ``run_quota``'s recipe at the engine):
      config 5 in 32 namespaces, one FederatedResourceQuota each, four of
@@ -85,8 +96,10 @@ phase fails. Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -785,6 +798,8 @@ KERNELS = {
                      "karmada_tpu/ops/explain.py:68"),
     "preempt_select": ("cuda", "karmada_tpu_torch/csrc/preempt_select.cu",
                        "karmada_tpu/ops/preempt.py:72"),
+    "entry_diff": ("cuda", "karmada_tpu_torch/csrc/entry_diff.cu",
+                   "karmada_tpu/scheduler/fleet.py:232"),
 }
 #: the kernels each driven path must launch
 PATH_KERNELS = {
@@ -810,6 +825,10 @@ PATH_KERNELS = {
     "explain fleet": ("explain_pass", "divide_replicas"),
     "explain quota": ("explain_pass",),
     "preemption": ("preempt_select", "divide_replicas", "fleet_masks"),
+    "config 5 legacy": ("profile_table", "divide_replicas", "fleet_masks",
+                        "entry_diff", "scatter_rows", "entry_wire"),
+    "mixed fleet legacy": ("profile_table", "divide_replicas", "fleet_masks",
+                           "fleet_bits", "entry_diff", "scatter_rows", "entry_wire"),
 }
 
 
@@ -1305,6 +1324,125 @@ def check_merge_table(rng, device, card: str, b: int = 4096, c: int = 5000,
 # --------------------------------------------------------------------------
 
 
+def outcome_digest(results) -> np.ndarray:
+    """int64[B]: a hash of each result's outcome (key, placements, error,
+    affinity name, feasible set), so two storms compare pass for pass, row
+    by row, without holding 100k outcome tuples per pass."""
+    return np.fromiter(
+        (hash((r.key, tuple(sorted(r.clusters.items())), r.error, r.affinity_name,
+               tuple(r.feasible))) for r in results),
+        np.int64, len(results))
+
+
+@contextlib.contextmanager
+def dense_budget(nbytes):
+    """Set ``KARMADA_TPU_DENSE_BUDGET`` (bytes) inside the block, where a
+    fleet table built reads it; None leaves the environment as it is."""
+    saved = os.environ.get("KARMADA_TPU_DENSE_BUDGET")
+    if nbytes is not None:
+        os.environ["KARMADA_TPU_DENSE_BUDGET"] = str(nbytes)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("KARMADA_TPU_DENSE_BUDGET", None)
+        else:
+            os.environ["KARMADA_TPU_DENSE_BUDGET"] = saved
+
+
+def check_legacy_kernels(table, problems, card: str) -> dict:
+    """K16 against its plain version on a legacy table's live inputs, after
+    a snapshot drift has rebuilt the tables but before the pass: K3 -> K2
+    on the first chunk, then K16 and ``entry_diff_ref`` in the all-rows
+    form against the table's resident widened past k_out (some rows
+    changed by the drift, most not), and in the gathered form on a
+    permuted subset padded with -1 that names one row twice; the meta
+    words, the entry rows, the commit rows and the resident each version's
+    commit writes (K6, or its plain version) must be equal. Then the whole
+    single-dispatch pass, ``fleet_solve`` against ``fleet_solve_ref``, on
+    clones of the table's resident: the wire byte for byte and the
+    resident. Exact equality; K16 is timed on the first chunk."""
+    import torch
+    from karmada_tpu_torch.ops import divide_replicas
+    from karmada_tpu_torch.scheduler import fleet_kernels as fk
+    from karmada_tpu_torch.scheduler.core import kernel_variant
+    from karmada_tpu_torch.scheduler.fleet import _cap_round, _pow2
+
+    tables, state = table._dev_tables, table._dev_state
+    n = table.n_rows
+    chunk = min(table.chunk, _pow2(max(n, 256)))  # the table's adaptive chunk
+    n_pad = -(-n // chunk) * chunk
+    rows_all = table._all_rows_dev
+    if rows_all is None or rows_all.shape[0] != n_pad or len(problems) != n:
+        raise AssertionError("the legacy table has no all-rows index of this pass's size")
+    c = tables[1].shape[1]
+    reps = table._st["replicas"][:n]
+    strat = table._st["strategy"][:n]
+    max_n = int(reps.max())
+    k_out = min(c, _pow2(max(max_n, 1)))
+    has_agg = bool((strat == 3).any())
+    wide, fast = kernel_variant(max(table._avail_max, max_n), table._static_max,
+                                int(table._st["prev_counts"][:n].max()), max_n, c)
+    resident = table._resident_entries
+    res_w = torch.cat([resident, resident.new_zeros((resident.shape[0], 8))], 1)
+    k_res = res_w.shape[1]
+    stats = {}
+    rng = np.random.default_rng(SEED + 16)
+    sub = rng.permutation(n)[: chunk - chunk // 5].astype(np.int32)
+    sub[1] = sub[0]  # one row named twice
+    rows_p = torch.full((chunk,), -1, dtype=torch.int32, device=rows_all.device)
+    rows_p[: sub.size] = torch.from_numpy(sub).to(rows_all.device)
+    for form, rows_c in (("all-rows", rows_all[:chunk]), ("gathered", rows_p)):
+        m = fk.fleet_masks(*tables, rows_c, *state)
+        a, u = divide_replicas(m.strategy, m.replicas, m.feasible, m.static_w,
+                               m.avail, m.prev, m.fresh, has_agg, wide, fast)
+        args = (a, u, m.feasible, m.strategy, rows_c, res_w)
+        kw = dict(k_out=k_out, all_rows=form == "all-rows", offset=0)
+        got, want = fk.entry_diff(*args, **kw), fk.entry_diff_ref(*args, **kw)
+        err = compare(f"entry_diff ({form})", tuple(got), tuple(want))
+        r_k, r_r = res_w.clone(), res_w.clone()
+        fk.scatter_rows((r_k,), got.commit, (got.entries,))
+        fk.scatter_rows_ref((r_r,), want.commit, (want.entries,))
+        compare(f"entry_diff ({form}) committed resident", r_k, r_r)
+        changed = int(((got.meta >> 10) & 1).sum().item())
+        print(f"# entry_diff {form} chunk: {chunk} rows x {c} clusters, k_out {k_out}, "
+              f"k_res {k_res}: {changed} changed rows, exact", flush=True)
+        if form == "all-rows":
+            if not 0 < changed < chunk:
+                raise AssertionError(f"entry_diff: {changed} changed rows of {chunk}; "
+                                     "the check needs both kinds")
+            # read: the assignment once, the feasible bytes, the row
+            # scalars and the resident rows; written: the entry rows, meta
+            # and commit rows, and (by the commit) the changed resident rows
+            nbytes = (_nbytes(a, m.feasible, u, m.strategy, rows_c)
+                      + chunk * k_res * 4 + _nbytes(*got) + changed * k_res * 4)
+            stats["entry_diff"] = dict(timed(
+                "entry_diff (K16, per 4096-row chunk)",
+                lambda: fk.entry_diff(*args, **kw), lambda: fk.entry_diff_ref(*args, **kw),
+                nbytes, chunk * c * 4 + chunk * k_res, card,
+            ), max_abs_err=err)
+        del got, want, r_k, r_r, m, a
+
+    # the whole pass on clones of the resident
+    safe = int(np.minimum(np.where(strat == 0, 0, reps), k_out).sum())
+    skw = dict(chunk=chunk, n_chunks=n_pad // chunk, k_out=k_out, k_res=resident.shape[1],
+               e_cap=_cap_round(safe), wide=wide, fast=fast, has_aggregated=has_agg,
+               all_rows=True, pack21=c <= 1 << 13)
+    res_k, res_r = resident.clone(), resident.clone()
+    flat_k, _ = fk.fleet_solve(*tables, rows_all, *state, res_k, **skw)
+    flat_r, _ = fk.fleet_solve_ref(*tables, rows_all, *state, res_r, **skw)
+    compare("fleet_solve wire", flat_k, flat_r)
+    compare("fleet_solve resident", res_k, res_r)
+    total = int(flat_k[:4].cpu().numpy().view("<i4")[0])
+    print(f"# fleet_solve (K3 -> K2 -> K16 x {n_pad // chunk}, K6, K5) against "
+          f"fleet_solve_ref on the pass's inputs: {flat_k.numel()} wire bytes equal, "
+          f"{total} changed entries, resident equal", flush=True)
+    del res_k, res_r, res_w
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return stats
+
+
 def drift_snapshots(pkg, snap, count: int, seed: int = 99) -> list:
     """bench.py's churn recipe (bench.py:942-980): every cluster's
     allocation drifts by a few 1/200ths of its allocatable per pass."""
@@ -1328,7 +1466,7 @@ def drift_snapshots(pkg, snap, count: int, seed: int = 99) -> list:
 
 def breakdown_line(engine) -> str:
     keys = ("compile", "upsert", "sync", "prep", "dispatch", "device", "fetch",
-            "post", "changed_rows", "fetch_mb")
+            "post", "changed_rows", "fetch_mb", "upload_mb")
     bd = engine.last_breakdown
     return ", ".join(
         f"{k} {bd[k]:.4f}" if k not in ("changed_rows",) else f"{k} {int(bd[k])}"
@@ -1372,29 +1510,59 @@ def model_share(engine) -> tuple[float, int]:
 
 
 def run_fleet_storm(device, card: str, bindings=None, clusters=None,
-                    steady: int = 3, churn: int = 3, models: bool = False) -> dict:
+                    steady: int = 3, churn: int = 3, models: bool = False,
+                    legacy: bool = False, reference: dict | None = None) -> dict:
     """Config 5 through the fleet table: cold, steady and churn passes, the
     oracle after the cold and the last churn pass, and (on the card) the
     fleet kernels' checks before the first churn pass. With ``models``,
     every cluster carries the nine default grades (K7's overlay form runs
     in each table rebuild) and K7 is checked on the table's inputs
-    instead."""
+    instead. With ``legacy``, the table is built with a dense budget of 0
+    (``KARMADA_TPU_DENSE_BUDGET``), so every pass takes the entry-resident
+    route, and K16 and the whole single-dispatch pass are checked instead;
+    the first churn pass, after the steady passes shrank the entry cap,
+    must overflow and rerun. With ``reference`` (the digests another storm
+    on the same problems returned), every pass must give that storm's
+    outcomes. Returns the per-pass outcome digests."""
     import karmada_tpu_torch
     from karmada_tpu_torch.scheduler import TensorScheduler
 
-    tag = "config 5 fleet" + (" (default models)" if models else "")
+    tag = ("config 5 legacy" if legacy else "config 5 fleet") + (
+        " (default models)" if models else "")
     table_kernels = ("profile_table", "model_overlay") if models else ("profile_table",)
     snap, problems = build_workload(karmada_tpu_torch, 5, bindings, clusters, models)
     traced = device.type == "cuda"  # torch.profiler traces the card only
     drift = drift_snapshots(karmada_tpu_torch, snap, churn + traced)
     engine = TensorScheduler(snap, chunk_size=4096, device=device)
+    digests = {"steady": [], "churn": []}
+
+    def same_as_reference(kind: str, i: int, res) -> None:
+        d = outcome_digest(res)
+        if kind == "cold":
+            digests["cold"] = d
+        else:
+            digests[kind].append(d)
+        if reference is None:
+            return
+        want = reference["cold"] if kind in ("cold", "steady") else reference["churn"][i]
+        bad = int((d != want).sum())
+        if bad:
+            raise AssertionError(f"{tag} {kind} pass {i}: {bad} rows differ from the "
+                                 f"reference storm's")
+
     reset_counts()
     t0 = time.perf_counter()
-    cold = engine.schedule(problems)
+    with dense_budget(0 if legacy else None):
+        cold = engine.schedule(problems)
     sync(device)
     cold_s = time.perf_counter() - t0
     if engine._fleet is None:
         raise AssertionError(f"{tag} did not ride the fleet table")
+    on_legacy = engine._fleet._resident_entries is not None
+    if on_legacy != legacy or (legacy and engine._fleet._res_dense is not None):
+        raise AssertionError(f"{tag}: the table took the wrong route "
+                             f"(dense budget {engine._fleet.dense_budget})")
+    same_as_reference("cold", 0, cold)
     on_card = device.type == "cuda"
     if on_card and any(read_counts()[k] < 1 for k in table_kernels):
         raise AssertionError(f"{tag}: the cold pass did not launch {table_kernels}")
@@ -1416,20 +1584,30 @@ def run_fleet_storm(device, card: str, bindings=None, clusters=None,
     if bad:
         raise AssertionError(f"{tag} cold pass: {bad} rows differ")
     steady_s = []
-    for _ in range(steady):
+    for i in range(steady):
+        # the checks built the last pass's result objects: free them before
+        # the timer starts, not when the next pass's results replace them
+        res = None
         t0 = time.perf_counter()
         res = engine.schedule(problems)
         sync(device)
         steady_s.append(time.perf_counter() - t0)
         print(f"# {tag} steady pass {steady_s[-1]:.4f} s "
               f"[{breakdown_line(engine)}]", flush=True)
+        same_as_reference("steady", i, res)
     if outcomes(res) != cold_out:
         raise AssertionError(f"{tag}: steady pass disagrees with the cold pass")
     profiles = {}
     if device.type == "cuda":  # one more steady pass, traced
-        profiles["steady"] = device_profile(lambda: engine.schedule(problems), device)
+        out = []
+        profiles["steady"] = device_profile(
+            lambda: out.append(engine.schedule(problems)), device)
+        same_as_reference("steady", steady, out[0])
     churn_s, stats = [], {}
+    reruns = []  # overflow reruns of each churn pass (legacy route)
     for i, snap_i in enumerate(drift[:churn]):
+        res = None  # freed before the timer, as in the steady passes
+        reruns_before = engine._fleet.overflow_reruns
         k1_before = {k: read_counts()[k] for k in table_kernels}
         t0 = time.perf_counter()
         if not engine.update_snapshot(snap_i):
@@ -1442,16 +1620,26 @@ def run_fleet_storm(device, card: str, bindings=None, clusters=None,
             sync(device)
             before = time.perf_counter() - t0
             with uncounted():
-                stats = (check_model_kernels(engine, card, np.random.default_rng(SEED + 7))
-                         if models else check_fleet_kernels(engine._fleet, card))
+                if models:
+                    stats = check_model_kernels(engine, card, np.random.default_rng(SEED + 7))
+                elif legacy:
+                    stats = check_legacy_kernels(engine._fleet, problems, card)
+                else:
+                    stats = check_fleet_kernels(engine._fleet, card)
             t0 = time.perf_counter()
         res = engine.schedule(problems)
         sync(device)
         churn_s.append(before + time.perf_counter() - t0)
+        reruns.append(engine._fleet.overflow_reruns - reruns_before)
         if on_card and any(read_counts()[k] <= k1_before[k] for k in table_kernels):
             raise AssertionError(f"{tag}: churn pass {i} did not launch {table_kernels}")
         print(f"# {tag} churn pass {churn_s[-1]:.4f} s "
-              f"[{breakdown_line(engine)}]", flush=True)
+              f"[{breakdown_line(engine)}]"
+              + (f"; overflow reruns {reruns[-1]}" if legacy else ""), flush=True)
+        same_as_reference("churn", i, res)
+    if legacy and not reruns[0]:
+        raise AssertionError(f"{tag}: the first churn pass did not overflow its entry "
+                             f"cap (e_cap {engine._fleet._e_cap_cur})")
     if traced:  # one more churn pass, traced: the last churn pass checked
         def traced_churn():
             if not engine.update_snapshot(drift[-1]):
@@ -1461,6 +1649,7 @@ def run_fleet_storm(device, card: str, bindings=None, clusters=None,
         out = []
         profiles["churn"] = device_profile(lambda: out.append(traced_churn()), device)
         res = out[0]
+        same_as_reference("churn", churn, res)
     for kind, prof in profiles.items():
         print(f"# {tag} traced {kind} pass: wall {prof['wall_s']:.4f} s under "
               f"the profiler; device busy {prof['busy_s']:.4f} s; largest: "
@@ -1490,7 +1679,12 @@ def run_fleet_storm(device, card: str, bindings=None, clusters=None,
         raise AssertionError(f"{tag} last churn pass: {bad} rows differ")
     return {"launches": launches, "stats": stats, "cold_out": cold_out,
             "cold_s": cold_s, "steady_s": steady_s, "churn_s": churn_s, "p50": p50,
-            "profiles": profiles, "engine": engine, "problems": problems}
+            "profiles": profiles, "engine": engine, "problems": problems,
+            "digests": digests, "reruns": reruns,
+            "reruns_total": engine._fleet.overflow_reruns,
+            "passes": 1 + steady + churn + 2 * traced,
+            "chunks": -(-n // engine._fleet.chunk),
+            "breakdown": dict(engine.last_breakdown)}
 
 
 def mixed_problems(pkg, clusters, n: int, seed: int) -> list:
@@ -1523,10 +1717,15 @@ def mixed_problems(pkg, clusters, n: int, seed: int) -> list:
 
 
 def run_mixed(device, card: str, bindings: int = 10_000, clusters: int = 1000,
-              changed: int = 300) -> dict:
+              changed: int = 300, legacy: bool = False,
+              reference: list | None = None) -> dict:
     """Mixed strategies through the fleet, two passes (the second replaces
     ``changed`` problems: dirty rows for K6), every row equal to the port's
-    general path on the same device."""
+    general path on the same device. With ``legacy`` the table is built at
+    a dense budget of 0 (the entry-resident route, where the second pass
+    is a gathered batch); with ``reference`` (the digests of another mixed
+    phase) every row must equal that phase's instead of the general
+    path's. Returns the passes' outcome digests."""
     import karmada_tpu_torch
     from karmada_tpu_torch.scheduler import BindingProblem, ClusterSnapshot, TensorScheduler
     import karmada_tpu_torch.utils.builders as tb
@@ -1542,30 +1741,50 @@ def run_mixed(device, card: str, bindings: int = 10_000, clusters: int = 1000,
             key=p.key, placement=p.placement, replicas=(p.replicas + 3) % 40,
             requests=p.requests, gvk=p.gvk, prev=p.prev, fresh=not p.fresh,
         )
+    # the legacy route's all-rows form serves both passes (the same keys in
+    # the same order); a third pass, a permuted half of the second batch,
+    # runs its gathered form, each row equal to its row of the second pass
+    sub = np.random.default_rng(13).permutation(bindings)[: bindings // 2]
+    passes = [(problems, None), (second, None)]
+    if legacy:
+        passes.append(([second[i] for i in sub], sub))
     engine = TensorScheduler(snap, chunk_size=4096, device=device)
     general = TensorScheduler(snap, chunk_size=4096, device=device)
     general.fleet_threshold = bindings + 1
+    tag = "mixed fleet legacy phase" if legacy else "mixed fleet phase"
     reset_counts()
-    walls, bad = [], 0
-    for batch in (problems, second):
+    walls, bad, digests = [], 0, []
+    for k, (batch, idx) in enumerate(passes):
         t0 = time.perf_counter()
-        res = engine.schedule(batch)
+        with dense_budget(0 if legacy else None):
+            res = engine.schedule(batch)
         sync(device)
         walls.append(time.perf_counter() - t0)
+        digests.append(outcome_digest(res))
+        if reference is not None:
+            want = reference[1][idx] if idx is not None else reference[k]
+            bad += int((digests[-1] != want).sum())
+            continue
         got = outcomes(res)
         with uncounted():
             want = outcomes(general.schedule(batch))
         bad += sum(g != w for g, w in zip(got, want))
     launches = read_counts()
     if engine._fleet is None:
-        raise AssertionError("the mixed phase did not ride the fleet table")
-    print(f"# mixed fleet phase: {bindings} bindings x {clusters} clusters, 2 passes "
-          f"(second: {changed} replaced problems) {[round(w, 4) for w in walls]} s; "
-          f"launches { {k: v for k, v in launches.items() if v} }; equal to the "
-          f"general path: {2 * bindings - bad} ok / {bad} bad; card {card}", flush=True)
+        raise AssertionError(f"the {tag} did not ride the fleet table")
+    if (engine._fleet._resident_entries is not None) != legacy:
+        raise AssertionError(f"the {tag} took the wrong route")
+    against = "the dense mixed phase" if reference is not None else "the general path"
+    n_rows = sum(len(b) for b, _ in passes)
+    print(f"# {tag}: {bindings} bindings x {clusters} clusters, {len(passes)} passes "
+          f"(second: {changed} replaced problems"
+          + (f"; third: {sub.size} of them permuted, the gathered form" if legacy else "")
+          + f") {[round(w, 4) for w in walls]} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; equal to "
+          f"{against}: {n_rows - bad} ok / {bad} bad; card {card}", flush=True)
     if bad:
-        raise AssertionError(f"mixed phase: {bad} rows differ from the general path")
-    return {"launches": launches, "walls": walls}
+        raise AssertionError(f"{tag}: {bad} rows differ from {against}")
+    return {"launches": launches, "walls": walls, "digests": digests}
 
 
 def run_general(device, card: str, reference: list, bindings=None, clusters=None,
@@ -1674,7 +1893,8 @@ def run_estimator(device, card: str, clusters: int = 128, nodes: int = 4000,
     one per cluster) and pod events on 4 clusters then ``invalidate()``
     (4). Every row after the cold pass and after the pod events equals the
     numpy divider over merge(general, node-sum numpy mirror); no
-    registered cluster may go unanswered."""
+    registered cluster may go unanswered or unmemoized (a fetch that
+    raises answers -1 for its cluster, as in the JAX registry)."""
     import karmada_tpu_torch
     from karmada_tpu_torch.estimator import AccurateEstimator, EstimatorRegistry, NodeCache
     from karmada_tpu_torch.scheduler import TensorScheduler
@@ -1712,9 +1932,14 @@ def run_estimator(device, card: str, clusters: int = 128, nodes: int = 4000,
         if kind == "cold":
             out["launches"] = counts
             first = outcomes(res)
-        if batch.unanswered:
+        # a fetch that raises (a kernel that fails to build or launch)
+        # answers -1 for its cluster, unmemoized: every cluster must have
+        # answered and be memoized
+        memoized = {name for name, _ in registry._memo}
+        if batch.unanswered or memoized != set(snap.names):
             raise AssertionError(f"estimator {kind} pass: unanswered clusters "
-                                 f"{sorted(batch.unanswered)[:5]}")
+                                 f"{sorted(batch.unanswered)[:5]}, memoized "
+                                 f"{len(memoized)} of {len(snap.names)}")
         if on_card and out["k8"][kind] != want_k8[kind]:
             raise AssertionError(f"estimator {kind} pass: {out['k8'][kind]} K8 launches, "
                                  f"expected {want_k8[kind]}")
@@ -2664,6 +2889,77 @@ def run_preemption(device, card: str, residents: int = 100_000, clusters: int = 
             "still": len(out.still_unschedulable), "rows": rows, "padded": padded}
 
 
+def check_shape_limits(device, card: str) -> None:
+    """The kernels' shape limits one past each: K1 beyond one grid (65535
+    blocks of 128 rows) is served, and each of its three forms at 65535 x
+    128 + 1 rows equals its plain version; a CUDA engine refuses a snapshot
+    of ``ops.divide.MAX_CLUSTERS`` + 1 clusters (K2's shared-memory sort)
+    when it is built, and a quota over ``ops.quota.MAX_ADMIT_DIMS`` + 1
+    resource dims (K12) in ``set_quota``, leaving its quota as it was."""
+    import torch
+    import karmada_tpu_torch.utils.builders as tb
+    from karmada_tpu_torch import ops
+    from karmada_tpu_torch.ops.divide import MAX_CLUSTERS, max_clusters
+    from karmada_tpu_torch.ops.quota import MAX_ADMIT_DIMS
+    from karmada_tpu_torch.scheduler import ClusterSnapshot, QuotaSnapshot, TensorScheduler
+
+    rng = np.random.default_rng(SEED + 17)
+    rows, c = 65535 * 128 + 1, 8
+    with uncounted():
+        t = to_device(estimate_batch(rng, rows, c), device)
+        args = [t[k] for k in ("available_cap", "profiles", "prof_idx", "has_summary",
+                               "replicas")]
+        compare("estimate_merge past one grid", ops.estimate_merge(*args),
+                ops.estimate_merge_ref(*args))
+        profs = torch.from_numpy(rng.integers(0, 1 << 12, (rows, 4), dtype=np.int64)).to(device)
+        targs = (t["available_cap"], profs, t["has_summary"])
+        compare("profile_table past one grid", ops.profile_table(*targs),
+                ops.profile_table_ref(*targs))
+        del profs, targs
+        table = ops.profile_table_ref(t["available_cap"], t["profiles"], t["has_summary"])
+        extra = torch.from_numpy(rng.integers(-1, 300, (rows, c)).astype(np.int32)).to(device)
+        margs = (table, t["prof_idx"], (extra,), t["replicas"])
+        compare("estimate_merge_table past one grid", ops.estimate_merge_table(*margs),
+                ops.estimate_merge_table_ref(*margs))
+        del t, args, table, extra, margs
+    torch.cuda.empty_cache()
+    print(f"# K1 at {rows} rows (65535 x 128 + 1) x {c} clusters: estimate_merge, "
+          f"profile_table and estimate_merge_table served, each equal to its plain "
+          f"version; card {card}", flush=True)
+    if max_clusters() != MAX_CLUSTERS:
+        raise AssertionError(f"K2 takes {max_clusters()} clusters, the engine checks "
+                             f"{MAX_CLUSTERS}")
+    wide = ClusterSnapshot([tb.new_cluster(f"m{i}") for i in range(MAX_CLUSTERS + 1)])
+    try:
+        TensorScheduler(wide, device=device)
+    except NotImplementedError as exc:
+        print(f"# K2 at {MAX_CLUSTERS + 1} clusters: refused when the engine is built "
+              f"({exc})", flush=True)
+    else:
+        raise AssertionError(f"a CUDA engine took {MAX_CLUSTERS + 1} clusters")
+
+    def quota(dims: int, generation: int):
+        return QuotaSnapshot(
+            dims=[f"example.com/r{k}" for k in range(dims)], ns_index={"a": 0},
+            remaining=np.full((1, dims), 1 << 40, np.int64), cap_index={},
+            cluster_caps=np.zeros((0, 4, dims), np.int64), generation=generation,
+            cap_token=0)
+
+    engine = TensorScheduler(ClusterSnapshot([tb.new_cluster(f"m{i}") for i in range(4)]),
+                             device=device)
+    ok = quota(MAX_ADMIT_DIMS, 1)
+    engine.set_quota(ok)
+    try:
+        engine.set_quota(quota(MAX_ADMIT_DIMS + 1, 2))
+    except NotImplementedError as exc:
+        if engine.quota is not ok or engine._quota_cache is not None:
+            raise AssertionError("the refused quota changed the engine's state")
+        print(f"# K12 at {MAX_ADMIT_DIMS + 1} dims: refused by set_quota, the engine's "
+              f"quota unchanged ({exc})", flush=True)
+    else:
+        raise AssertionError(f"a CUDA engine took a quota over {MAX_ADMIT_DIMS + 1} dims")
+
+
 def main() -> int:
     import torch
 
@@ -2736,10 +3032,33 @@ def main() -> int:
         require_launched("explain fleet", out["launches"])
         paths["explain fleet"] = {k: out[k] for k in ("launches", "wall", "off_s")}
 
+    def legacy():
+        # the dense storm's problems and drift sequence at a dense budget of
+        # 0; two steady and two churn passes (three on the dense storm):
+        # depth cut to keep the whole smoke near half its time limit
+        out = run_fleet_storm(device, card, steady=2, churn=2, legacy=True,
+                              reference=paths["storm"]["digests"])
+        stats.update(out["stats"])
+        require_launched("config 5 legacy", out["launches"])
+        want = out["chunks"] * (out["passes"] + out["reruns_total"])
+        if out["launches"]["entry_diff"] != want:
+            raise AssertionError(f"config 5 legacy: {out['launches']['entry_diff']} K16 "
+                                 f"launches, expected {want}")
+        print(f"# config 5 legacy: overflow reruns by churn pass {out['reruns']} "
+              f"({out['reruns_total']} in all); K16 launches {want} "
+              f"({out['chunks']} a pass); last breakdown {out['breakdown']}", flush=True)
+        out.pop("engine"), out.pop("problems")
+        paths["legacy"] = out
+
     def mixed():
         out = run_mixed(device, card)
         require_launched("mixed fleet", out["launches"])
         paths["mixed"] = out
+
+    def mixed_legacy():
+        out = run_mixed(device, card, legacy=True, reference=paths["mixed"]["digests"])
+        require_launched("mixed fleet legacy", out["launches"])
+        paths["mixed legacy"] = out
 
     def general():
         out = run_general(device, card, paths["storm"]["cold_out"], rows=40_000)
@@ -2782,9 +3101,11 @@ def main() -> int:
         require_launched("preemption", out["launches"])
         paths["preemption"] = out
 
-    for name, fn in (("kernels", kernels), ("configs", configs), ("storm", storm),
-                     ("explain fleet", explain_fleet), ("mixed", mixed),
-                     ("general", general), ("models", models), ("estimator", estimator),
+    for name, fn in (("kernels", kernels), ("limits", lambda: check_shape_limits(device, card)),
+                     ("configs", configs), ("storm", storm),
+                     ("explain fleet", explain_fleet), ("legacy", legacy), ("mixed", mixed),
+                     ("mixed legacy", mixed_legacy), ("general", general),
+                     ("models", models), ("estimator", estimator),
                      ("quota", quota), ("ranked", ranked), ("preemption", preemption)):
         phase(name, fn)
 
@@ -2803,6 +3124,7 @@ def main() -> int:
         "quota_cluster_caps": ("quota general", "quota phase, general-route pass"),
         "explain_pass": ("explain fleet", "explain fleet phase, the armed steady pass"),
         "preempt_select": ("preemption", "preemption phase, the surge pass"),
+        "entry_diff": ("legacy", "config 5 legacy passes"),
     }
     print(f"# estimator K8 launches by pass: {paths['estimator']['k8']}", flush=True)
     print(f"# quota K12 launches by pass: {paths['quota']['k12']}", flush=True)

@@ -39,6 +39,10 @@
 // The same kernel with table_form set: row b IS profile b (no prof_idx
 // gather) and the output is the estimate itself, -1 where the cluster has
 // no summary (no merge). Its bound is the U x C int32 write.
+//
+// Rows beyond one grid: grid.y holds at most 65535 blocks of ROWS rows, so
+// every entry point launches its grid once per run of 65535 * ROWS rows
+// (row0 is the run's first row); today's chunks need one launch.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -50,6 +54,8 @@ constexpr int ROWS = 128;     // binding rows per block
 constexpr int U_SHARED = 64;  // profiles held in the shared-memory table
 constexpr long long MAX_I32 = 2147483647LL;
 constexpr int MAX_EXTRAS = 4;  // extra estimates the merge form takes
+constexpr int MAX_GRID_Y = 65535;  // the grid's y extent
+constexpr long long RUN_ROWS = (long long)MAX_GRID_Y * ROWS;  // rows a launch covers
 
 __device__ __forceinline__ int32_t profile_estimate(
     const int64_t* __restrict__ cap_row, const int64_t* __restrict__ req,
@@ -73,7 +79,7 @@ __global__ void estimate_merge_kernel(
     const int32_t* __restrict__ prof_idx,
     const uint8_t* __restrict__ has_summary,
     const int32_t* __restrict__ replicas, int b_n,
-    int32_t* __restrict__ out, int table_form) {
+    int32_t* __restrict__ out, int table_form, int row0) {
   extern __shared__ int32_t table[];  // [min(U, U_SHARED)][TILE_C]
   const int tx = threadIdx.x;
   const int c = blockIdx.x * TILE_C + tx;
@@ -87,7 +93,7 @@ __global__ void estimate_merge_kernel(
       table[u * TILE_C + tx] =
           profile_estimate(cap_row, profiles + (size_t)u * r_dims, r_dims);
   }
-  const int b0 = blockIdx.y * ROWS;
+  const int b0 = row0 + blockIdx.y * ROWS;
   const int b1 = min(b0 + ROWS, b_n);
   for (int b = b0; b < b1; ++b) {
     if (table_form) {  // one row per profile, no gather and no merge
@@ -118,11 +124,11 @@ __global__ void estimate_merge_table_kernel(
     const int32_t* __restrict__ e1, const int32_t* __restrict__ e2,
     const int32_t* __restrict__ e3, int e_n,
     const int32_t* __restrict__ replicas, int b_n,
-    int32_t* __restrict__ out) {
+    int32_t* __restrict__ out, int row0) {
   const int c = blockIdx.x * TILE_C + threadIdx.x;
   if (c >= c_n) return;
   const int32_t* extras[MAX_EXTRAS] = {e0, e1, e2, e3};
-  const int b0 = blockIdx.y * ROWS;
+  const int b0 = row0 + blockIdx.y * ROWS;
   const int b1 = min(b0 + ROWS, b_n);
   for (int b = b0; b < b1; ++b) {
     int p = prof_inv[b];
@@ -146,6 +152,12 @@ __global__ void estimate_merge_table_kernel(
   }
 }
 
+// the grid of rows [row0, min(row0 + RUN_ROWS, b_n))
+dim3 run_grid(int c_n, int b_n, long long row0) {
+  const long long rows = b_n - row0 < RUN_ROWS ? b_n - row0 : RUN_ROWS;
+  return dim3((c_n + TILE_C - 1) / TILE_C, (unsigned)((rows + ROWS - 1) / ROWS));
+}
+
 }  // namespace
 
 extern "C" int estimate_merge_launch(
@@ -153,13 +165,16 @@ extern "C" int estimate_merge_launch(
     const int32_t* prof_idx, const uint8_t* has_summary,
     const int32_t* replicas, int b_n, int32_t* out, cudaStream_t stream) {
   if (b_n == 0 || c_n == 0) return 0;
-  const dim3 grid((c_n + TILE_C - 1) / TILE_C, (b_n + ROWS - 1) / ROWS);
   const size_t smem =
       u_n <= U_SHARED ? (size_t)u_n * TILE_C * sizeof(int32_t) : 0;
-  estimate_merge_kernel<<<grid, TILE_C, smem, stream>>>(
-      cap, c_n, r_dims, profiles, u_n, prof_idx, has_summary, replicas, b_n,
-      out, 0);
-  return (int)cudaGetLastError();
+  for (long long row0 = 0; row0 < b_n; row0 += RUN_ROWS) {
+    estimate_merge_kernel<<<run_grid(c_n, b_n, row0), TILE_C, smem, stream>>>(
+        cap, c_n, r_dims, profiles, u_n, prof_idx, has_summary, replicas, b_n,
+        out, 0, (int)row0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 // out int32[U, C] = has_summary ? general_estimate(profiles[u], c) : -1
@@ -167,11 +182,14 @@ extern "C" int profile_table_launch(
     const int64_t* cap, int c_n, int r_dims, const int64_t* profiles, int u_n,
     const uint8_t* has_summary, int32_t* out, cudaStream_t stream) {
   if (u_n == 0 || c_n == 0) return 0;
-  const dim3 grid((c_n + TILE_C - 1) / TILE_C, (u_n + ROWS - 1) / ROWS);
-  estimate_merge_kernel<<<grid, TILE_C, 0, stream>>>(
-      cap, c_n, r_dims, profiles, u_n, nullptr, has_summary, nullptr, u_n,
-      out, 1);
-  return (int)cudaGetLastError();
+  for (long long row0 = 0; row0 < u_n; row0 += RUN_ROWS) {
+    estimate_merge_kernel<<<run_grid(c_n, u_n, row0), TILE_C, 0, stream>>>(
+        cap, c_n, r_dims, profiles, u_n, nullptr, has_summary, nullptr, u_n,
+        out, 1, (int)row0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 // out int32[B, C] = merge_estimates(replicas, (table[prof_inv], e0..e{E-1}))
@@ -184,8 +202,12 @@ extern "C" int estimate_merge_table_launch(
   if (e_n < 0 || e_n > MAX_EXTRAS || (b_n > 0 && u_n <= 0))
     return (int)cudaErrorInvalidValue;
   if (b_n == 0 || c_n == 0) return 0;
-  const dim3 grid((c_n + TILE_C - 1) / TILE_C, (b_n + ROWS - 1) / ROWS);
-  estimate_merge_table_kernel<<<grid, TILE_C, 0, stream>>>(
-      table, u_n, c_n, prof_inv, e0, e1, e2, e3, e_n, replicas, b_n, out);
-  return (int)cudaGetLastError();
+  for (long long row0 = 0; row0 < b_n; row0 += RUN_ROWS) {
+    estimate_merge_table_kernel<<<run_grid(c_n, b_n, row0), TILE_C, 0, stream>>>(
+        table, u_n, c_n, prof_inv, e0, e1, e2, e3, e_n, replicas, b_n, out,
+        (int)row0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }

@@ -18,16 +18,18 @@ plugs it into ``TensorScheduler(extra_estimators=...)``.
 
 Not ported yet: the gRPC transport (``estimator/service.py``,
 ``grpc_transport.py``, ``RemoteAccurateEstimator``). A registered estimator
-that carries a ``conn`` raises ``NotImplementedError``. Unlike the JAX
-registry, which turns any exception of a fetch into "no answer this pass"
-(it was written for wire failures), the local route lets errors through: a
-kernel that fails to build or launch must not read as a quietly
-general-only pass.
+that carries a ``conn`` raises ``NotImplementedError``. As in the JAX
+registry, an exception raised by one estimator's fetch makes that cluster
+answer -1 (no answer) for this pass, unmemoized, so the next pass asks it
+again; the batch estimator's ``unanswered`` set names such clusters, and a
+caller that must know every cluster answered (a kernel that failed to build
+or launch reads as "no answer") checks it.
 """
 
 from __future__ import annotations
 
 import itertools
+import logging
 from dataclasses import dataclass, field
 from typing import Mapping, Optional, Sequence
 
@@ -600,7 +602,8 @@ class EstimatorRegistry:
         """One task per cluster to fetch, over the profile columns some
         fetched cluster is missing. Results merge on the calling thread: a
         cluster that answered memoizes regardless of any other (per-column
-        completeness). An error raised by a fetch propagates."""
+        completeness). A fetch that raises answers -1 this pass and is not
+        memoized, as in the JAX registry."""
         from concurrent.futures import wait as _fwait
 
         pool = self._ensure_pool(max_workers)
@@ -633,7 +636,13 @@ class EstimatorRegistry:
             # a straggler answers -1 this pass only (it stays unmemoized)
             f.cancel()
         for f in done:
-            vals, gen = f.result()
+            try:
+                vals, gen = f.result()
+            except Exception:  # noqa: BLE001 — a failed fetch = -1 this pass
+                logging.getLogger("karmada_tpu_torch").warning(
+                    "estimator fetch for cluster %s failed; it answers -1 this "
+                    "pass", futs[f], exc_info=True)
+                continue
             if vals.min(initial=0) < 0:
                 # a negative (wrapped) answer is never memoized, as in the
                 # JAX registry

@@ -43,6 +43,7 @@ KERNELS = (
     "estimate_merge", "divide_replicas", "fleet_masks", "fleet_diff",
     "fleet_wire", "scatter_rows", "model_estimate", "node_sum",
     "quota_admit", "quota_caps", "explain_pass", "preempt_select",
+    "entry_diff",
 )
 
 NVCC_FLAGS = (
@@ -86,6 +87,7 @@ SIGNATURES = {
     },
     "explain_pass": {"explain_pass_launch": "pppppppppppp" "iii" "pp"},
     "preempt_select": {"preempt_select_launch": "ppppppp" "iiiii" "pppppp"},
+    "entry_diff": {"entry_diff_launch": "pppppii" "p" "iiiii" "ppp"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong}
 

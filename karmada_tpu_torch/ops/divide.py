@@ -165,8 +165,15 @@ _DTYPES = (
 )
 
 
+#: the widest cluster axis K2 takes on the card: its bitonic sorts keep 10
+#: bytes an element in shared memory (csrc/divide_replicas.cu,
+#: ``divide_replicas_max_clusters``). The engine refuses a wider snapshot
+#: on CUDA when it is built.
+MAX_CLUSTERS = 16384
+
+
 def max_clusters() -> int:
-    """The widest cluster axis K2 takes (its shared-memory sort buffer)."""
+    """The widest cluster axis K2 takes, as the built kernel reports it."""
     return int(native.load("divide_replicas").divide_replicas_max_clusters())
 
 

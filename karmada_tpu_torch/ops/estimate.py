@@ -95,9 +95,6 @@ def estimate_merge_ref(
     return merge_estimates(replicas, (table[_clip_rows(prof_idx, table.shape[0])],))
 
 
-_MAX_ROWS = 65535 * 128  # grid.y limit times the kernel's rows per block
-
-
 def estimate_merge(
     available_cap: torch.Tensor,
     profiles: torch.Tensor,
@@ -122,8 +119,8 @@ def estimate_merge(
     b = prof_idx.shape[0]
     if profiles.shape[1] != r or has_summary.shape != (c,) or replicas.shape != (b,):
         raise ValueError("estimate_merge: inconsistent shapes")
-    if b > _MAX_ROWS or (b and not u):
-        raise ValueError(f"estimate_merge: {b} rows over {u} profiles not supported")
+    if b and not u:
+        raise ValueError(f"estimate_merge: {b} rows over no profiles")
     out = torch.empty((b, c), dtype=torch.int32, device=dev)
     if b and c:
         native.launch(estimate_merge, "estimate_merge", "estimate_merge_launch",
@@ -169,8 +166,6 @@ def profile_table(
     u = profiles.shape[0]
     if profiles.shape[1] != r or has_summary.shape != (c,):
         raise ValueError("profile_table: inconsistent shapes")
-    if u > _MAX_ROWS:
-        raise ValueError(f"profile_table: {u} profiles not supported")
     out = torch.empty((u, c), dtype=torch.int32, device=dev)
     if u and c:
         native.launch(profile_table, "estimate_merge", "profile_table_launch",
@@ -224,8 +219,8 @@ def estimate_merge_table(
     if len(extras) > MAX_EXTRAS:
         raise ValueError(f"estimate_merge_table: {len(extras)} extra estimates, "
                          f"at most {MAX_EXTRAS}")
-    if b > _MAX_ROWS or (b and not u):
-        raise ValueError(f"estimate_merge_table: {b} rows over {u} profiles not supported")
+    if b and not u:
+        raise ValueError(f"estimate_merge_table: {b} rows over no profiles")
     out = torch.empty((b, c), dtype=torch.int32, device=table.device)
     if b and c:
         ptrs = list(extras) + [None] * (MAX_EXTRAS - len(extras))

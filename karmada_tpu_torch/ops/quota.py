@@ -43,8 +43,9 @@ MAX_ADMIT_ROWS = 1 << 17
 
 MAX_INT32 = 2**31 - 1
 
-#: dims K12 carries in shared memory (the wrapper refuses more)
-_MAX_ADMIT_DIMS = 16
+#: dims K12 carries in shared memory (the wrapper refuses more; the engine
+#: refuses a wider quota on CUDA in set_quota)
+MAX_ADMIT_DIMS = 16
 
 
 def _check_admit(ns_ids, demand, remaining) -> tuple[int, int, int]:
@@ -117,8 +118,8 @@ def quota_admit(
     native.check("quota_admit", ns_ids=(ns_ids, torch.int32),
                  demand=(demand, torch.int64), remaining=(remaining, torch.int64))
     b, n, r = _check_admit(*args)
-    if r > _MAX_ADMIT_DIMS:
-        raise ValueError(f"quota_admit: {r} dims, at most {_MAX_ADMIT_DIMS}")
+    if r > MAX_ADMIT_DIMS:
+        raise ValueError(f"quota_admit: {r} dims, at most {MAX_ADMIT_DIMS}")
     dev = demand.device
     admitted = torch.empty(b, dtype=torch.bool, device=dev)
     wave_used = torch.empty((n, r), dtype=torch.int64, device=dev)

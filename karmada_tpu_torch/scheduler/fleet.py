@@ -9,6 +9,12 @@ card between passes, and each pass is
     dirty-row upload  ->  phase A (K3 -> K2 -> K4 per chunk, K5 wire)
                       ->  fetch of a compact wire  ->  phase B when needed.
 
+Tables whose dense resident (cap x C bytes) exceeds the dense budget take
+the single-dispatch entry-resident pass instead (``_solve_legacy``, the
+JAX ``_fleet_solve`` route): per chunk K3 -> K2 -> K16 against an int32
+[cap, k_res] resident of entry words, K6 writes the changed rows, and K5
+serialises the total, every row's meta word and the changed rows' entries.
+
 - masks are interned per placement (bitpacked affinity/taint planes and an
   int32 static-weight row per slot) and per GVK, and gathered per row on
   the device by K3;
@@ -24,11 +30,9 @@ card between passes, and each pass is
 What the port leaves out of the JAX table, and why: the trace ledger,
 manifest and prewarm (torch compiles nothing per shape); the mesh (none in
 the port); metrics, spans and the device-byte gauge (tracing is a later
-slice; ``last_breakdown`` stays a plain dict); the legacy single-dispatch
-``_fleet_solve`` for tables over the dense budget (raises
-``NotImplementedError``); and the delta pass (``_schedule_delta``: the
-engine runs the full pass, which the JAX package's own tests hold
-result-identical to it).
+slice; ``last_breakdown`` stays a plain dict); and the delta pass
+(``_schedule_delta``: the engine runs the full pass, which the JAX
+package's own tests hold result-identical to it).
 
 Eligibility is the engine's (``core._schedule_inner``): a single affinity
 term, no effective spread constraint (derived selections count as plain),
@@ -38,6 +42,8 @@ strategies, at most MAX_REPLICAS_FAST replicas.
 
 from __future__ import annotations
 
+import os
+import sys
 import time
 from typing import Optional, Sequence
 
@@ -57,11 +63,12 @@ E_ROUND = 1 << 18  # entry-buffer quantum
 M_ROUND = 1 << 15  # changed-meta buffer quantum
 D_ROUND = 1 << 16  # cell-delta buffer quantum
 D_FLOOR = 8192  # cell-delta floor: 24 KB of wire on every steady pass
-#: passes a smaller (m_cap, d_cap) pair must stay wanted before the table
-#: shrinks to it. The JAX table waits 2 passes for a pair it has compiled
-#: and SHRINK_SUSTAIN (5) for a new one; torch compiles nothing per shape,
-#: so every pair is the "already compiled" case here. Placements do not
-#: depend on this choice; the wire sizes do.
+#: passes a smaller buffer cap (the dense route's (m_cap, d_cap) pair, the
+#: entry-resident route's e_cap) must stay wanted before the table shrinks
+#: to it. The JAX table waits 2 passes for a cap it has compiled and
+#: SHRINK_SUSTAIN (5) for a new one; torch compiles nothing per shape, so
+#: every cap is the "already compiled" case here. Placements do not depend
+#: on this choice; the wire sizes do.
 SHRINK_SUSTAIN = 2
 
 #: the JAX defaults of the two device budgets (sized for a 16 GB part),
@@ -75,11 +82,25 @@ CP_TABLE_FRACTION = 3 / 32
 
 
 def _budgets(device: torch.device) -> tuple[int, int]:
-    """(dense resident budget, cp-table budget) in bytes for ``device``."""
+    """(dense resident budget, cp-table budget) in bytes for ``device``.
+    ``KARMADA_TPU_DENSE_BUDGET`` (bytes) overrides the dense budget, as the
+    JAX table reads it (fleet.py:451-473); a value that is not an integer
+    prints one line to stderr and leaves the default."""
     if device.type != "cuda":
-        return DENSE_RESIDENT_MAX_BYTES, CP_TABLE_MAX_BYTES
-    total = torch.cuda.get_device_properties(device).total_memory
-    return int(total * DENSE_FRACTION), int(total * CP_TABLE_FRACTION)
+        dense, cp = DENSE_RESIDENT_MAX_BYTES, CP_TABLE_MAX_BYTES
+    else:
+        total = torch.cuda.get_device_properties(device).total_memory
+        dense, cp = int(total * DENSE_FRACTION), int(total * CP_TABLE_FRACTION)
+    raw = os.environ.get("KARMADA_TPU_DENSE_BUDGET", "")
+    try:
+        return (int(raw) if raw else dense), cp
+    except ValueError:
+        print(
+            f"# KARMADA_TPU_DENSE_BUDGET={raw!r} is not an integer byte "
+            f"count; using the {dense / 2**30:g} GiB default",
+            file=sys.stderr,
+        )
+        return dense, cp
 
 
 def _pow2(n: int) -> int:
@@ -370,6 +391,13 @@ class FleetTable:
         self._host_meta: Optional[np.ndarray] = None
         self._host_entries: Optional[np.ndarray] = None
         self._k_res = 1  # running max entry width (grow-only)
+        # legacy route (tables over the dense budget): the int32[cap, k_res]
+        # resident of entry words, the entry-cap tuning and the count of
+        # overflow reruns (chip_smoke reads it)
+        self._resident_entries: Optional[torch.Tensor] = None
+        self._e_cap_cur: Optional[int] = None
+        self._e_shrink_desire: tuple = (None, 0)
+        self.overflow_reruns = 0
         # buffer tuning (see _solve_dense)
         self._last_total: Optional[int] = None
         self._m_cap_cur: Optional[int] = None
@@ -423,7 +451,8 @@ class FleetTable:
         self._dirty.clear()
         self._dev_state = None  # full re-upload with the compacted layout
         self._all_rows_n = -1
-        self._reset_dense()  # row ids were remapped
+        self._resident_entries = None  # row ids were remapped
+        self._reset_dense()
         self._reuse = None
         self._result_gen += 1
         return True
@@ -871,20 +900,19 @@ class FleetTable:
                                      chunk=eff_chunk, n_chunks=n_chunks)
 
         tmr["upload_mb"] = self._last_upload_bytes / 1e6
-        if self.cap * c > self.dense_budget:
-            raise NotImplementedError(
-                f"a {self.cap} x {c} fleet table exceeds the dense resident "
-                f"budget ({self.dense_budget} bytes); the JAX package's "
-                "single-dispatch _fleet_solve (karmada_tpu/scheduler/"
-                "fleet.py:232) serves such tables and is not ported yet"
-            )
-        return self._solve_dense(
+        shared = dict(
             problems=problems, rows_np=rows_np, rows_dev=rows_dev, tmr=tmr,
             n=n, n_pad=n_pad, eff_chunk=eff_chunk, n_chunks=n_chunks,
             is_all=is_all, c=c, k_out=k_out, wide=wide, fast=fast,
             has_agg=has_agg, bits_src=bits_src, is_dup=is_dup,
             byte_wire=c <= 0xFFFF, pack21=c <= (1 << 13), t0=t0,
         )
+        if self.cap * c <= self.dense_budget:
+            return self._solve_dense(**shared)
+        # the entry-cap bound no pass can overflow: every Divided row ships
+        # at most min(replicas, k_out) entries
+        safe = int(np.minimum(np.where(is_dup, 0, reps_sel), k_out).sum())
+        return self._solve_legacy(safe=safe, **shared)
 
     def _fetch_fold_exact(self, rows, counts, *, eff_chunk, k_out, byte_wire,
                           pack21, tmr) -> int:
@@ -1119,6 +1147,125 @@ class FleetTable:
         n_placed = (meta_sel & 0xFF).astype(np.int64)
         unsched = (meta_sel >> 8) & 1
         has_cand = (meta_sel >> 9) & 1
+        self._result_gen += 1
+        names = self.engine.snapshot.names
+        batches = [
+            _FleetBatch(names, self._host_entries, rows_np, bits_src, self,
+                        self._result_gen)
+        ]
+        terms = [self._terms[r] for r in rows_np]
+        tmr["post"] = time.perf_counter() - t0
+        self.last_breakdown = tmr
+        return _FleetResultList(
+            problems, terms, batches, n_pad, n_placed, unsched, has_cand, is_dup,
+        )
+
+    def _solve_legacy(
+        self, *, problems, rows_np, rows_dev, tmr, n, n_pad, eff_chunk,
+        n_chunks, is_all, c, k_out, wide, fast, has_agg, bits_src, is_dup,
+        safe, byte_wire, pack21, t0,
+    ) -> _FleetResultList:
+        """Single-dispatch entry-resident solve (the JAX ``_solve_legacy``,
+        karmada_tpu/scheduler/fleet.py:2430-2634), for tables whose dense
+        resident would exceed the dense budget: every pass ships the total,
+        every row's meta word and the changed rows' entries, in a buffer
+        tuned to the last pass's changed-entry total."""
+        # delta base: the device resident of entry words and its host
+        # mirror, k_res wide (the grow-only running max of k_out). Table
+        # growth, a compaction or a k_res increase resets both, so the next
+        # pass reports every placed row changed and refills them.
+        k_res = max(self._k_res, k_out)
+        if (self._resident_entries is None
+                or self._resident_entries.shape != (self.cap, k_res)):
+            self._resident_entries = torch.zeros(
+                (self.cap, k_res), dtype=torch.int32, device=self.device)
+            self._host_entries = np.zeros((self.cap, k_res), np.int32)
+        if self._host_meta is None or self._host_meta.shape[0] != self.cap:
+            self._host_meta = np.zeros(self.cap, np.int32)
+        self._k_res = k_res
+
+        # entry cap: ~1.25x the last changed-entry total, never above the
+        # safe bound; grow at once, shrink after SHRINK_SUSTAIN passes that
+        # want the same smaller cap (an overflow reruns at the safe bound)
+        prev_e = self._e_cap_cur
+        needed = _cap_round(safe)
+        if self._last_total is not None and self._last_total * 5 // 4 < safe:
+            needed = min(needed, _cap_round(self._last_total * 5 // 4))
+        if prev_e is None or needed >= prev_e:
+            e_cap = needed
+            self._e_shrink_desire = (None, 0)
+        else:
+            e_cap = prev_e
+            tgt, cnt = self._e_shrink_desire
+            cnt = cnt + 1 if tgt == needed else 1
+            self._e_shrink_desire = (needed, cnt)
+            if cnt >= SHRINK_SUSTAIN:
+                e_cap = needed
+                self._e_shrink_desire = (None, 0)
+        self._e_cap_cur = e_cap
+
+        kw = dict(chunk=eff_chunk, n_chunks=n_chunks, k_out=k_out, k_res=k_res,
+                  wide=wide, fast=fast, has_aggregated=has_agg, all_rows=is_all,
+                  pack21=pack21 and byte_wire)
+
+        def decode(raw, cap):
+            """(total, meta int32[n_pad], stream int32[*])"""
+            if byte_wire:
+                total = native.le32(raw)
+                meta = native.decode2(raw[4 : 4 + 2 * n_pad])
+                tail = raw[4 + 2 * n_pad :]
+                stream = native.decode21(tail, cap) if pack21 else native.decode3(tail)
+                return total, meta, stream
+            return int(raw[0]), raw[1 : 1 + n_pad], raw[1 + n_pad :]
+
+        tmr["prep"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        flat, _ = fk.fleet_solve(*self._dev_tables, rows_dev, *self._dev_state,
+                                 self._resident_entries, e_cap=e_cap, **kw)
+        tmr["dispatch"] = time.perf_counter() - t0
+        # device fence: splits the dispatch's execution from the fetch
+        t0 = time.perf_counter()
+        if flat.is_cuda:
+            torch.cuda.current_stream(flat.device).synchronize()
+        tmr["device"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        raw = flat.cpu().numpy()
+        fetched_bytes = raw.nbytes
+        total, meta, stream = decode(raw, e_cap)
+        if total > e_cap:
+            # overflow: rerun at the safe bound. The first dispatch has
+            # already written this pass's entries into the resident, so the
+            # rerun diffs against a re-upload of the host mirror, which holds
+            # the pre-pass entries (the fold below has not run yet), as the
+            # JAX table re-uploads its mirror after donating the resident
+            self.overflow_reruns += 1
+            self._resident_entries = self._upload(self._host_entries)
+            tmr["upload_mb"] += self._host_entries.nbytes / 1e6
+            e_safe = _cap_round(safe)
+            flat, _ = fk.fleet_solve(*self._dev_tables, rows_dev, *self._dev_state,
+                                     self._resident_entries, e_cap=e_safe, **kw)
+            raw = flat.cpu().numpy()
+            fetched_bytes += raw.nbytes
+            total, meta, stream = decode(raw, e_safe)
+        if total > len(stream):
+            raise RuntimeError(f"legacy wire: {total} entries past the safe cap")
+        tmr["fetch"] = time.perf_counter() - t0
+        tmr["fetch_mb"] = fetched_bytes / 1e6
+        t0 = time.perf_counter()
+        self._last_total = total
+        meta = np.asarray(meta, np.int32)
+        n_placed = (meta & 0xFF).astype(np.int64)
+        unsched = (meta >> 8) & 1
+        has_cand = (meta >> 9) & 1
+        changed = ((meta >> 10) & 1).astype(bool)
+        # the meta mirror holds row state only (the changed bit is a wire
+        # artifact of this pass)
+        self._host_meta[rows_np] = meta[:n] & 0x3FF
+        ch_pos = np.flatnonzero(changed[:n])
+        if len(ch_pos):
+            native.fold_entries(self._host_entries, rows_np[ch_pos],
+                                n_placed[ch_pos], np.asarray(stream, np.int32))
+        tmr["changed_rows"] = float(len(ch_pos))
         self._result_gen += 1
         names = self.engine.snapshot.names
         batches = [

@@ -22,12 +22,19 @@ wrapper              replaces                                        kernel
                      747-769)
 ``scatter_rows``     ``_scatter_rows`` (fleet.py:1120)                K6
 ``gather_meta``      ``_gather_meta`` (fleet.py:828)                  K6 gather
+``entry_diff``       ``_fleet_solve``'s per-chunk tail (fleet.py:314-  K16
+                     337, 353-376): Duplicated zeroing, the site-
+                     ordered entry words, n_placed / unsched /
+                     has_cand, the diff against the entry resident
 ===================  ==============================================  =========
 
 ``fleet_pass`` and ``fleet_entries`` chain the kernels exactly as
-``_fleet_pass`` and ``_fleet_entries`` compose their stages, with the JAX
-signatures minus ``mesh``/``shard_c``; K2 (``ops.divide_replicas``) divides
-between K3 and K4.
+``_fleet_pass`` and ``_fleet_entries`` compose their stages, and
+``fleet_solve`` as ``_fleet_solve`` does (K3 -> K2 -> K16 per chunk, K6
+writing the resident, K5's entry wire), with the JAX signatures minus
+``mesh``/``shard_c``; K2 (``ops.divide_replicas``) divides between K3 and
+K4 or K16. ``fleet_solve_ref`` is ``_fleet_solve`` line by line in plain
+torch.
 
 Every wrapper takes its plain version (``*_ref``) on CPU tensors and, on
 CUDA tensors, launches its kernel or raises: dtypes, shapes and contiguity
@@ -50,7 +57,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import native
-from ..ops.divide import DUPLICATED, divide_replicas
+from ..ops.divide import DUPLICATED, divide_replicas, divide_replicas_ref
 from ..ops.estimate import MAX_INT32, merge_estimates
 
 I32, I64, U8, BOOL = torch.int32, torch.int64, torch.uint8, torch.bool
@@ -669,3 +676,204 @@ def fleet_entries(res_dense, rows, *, chunk: int, n_chunks: int, k_out: int,
     takes them all), then K5's entry wire."""
     ents = fleet_entry_rows(res_dense, _scan_rows(rows, chunk, n_chunks), k_out)
     return entry_wire(ents, e_cap=e_cap, byte_wire=byte_wire, pack21=pack21)
+
+
+# --------------------------------------------------------------------------
+# K16: the entry-resident diff, and the single-dispatch solve
+# --------------------------------------------------------------------------
+
+
+class EntryDiff(NamedTuple):
+    meta: torch.Tensor  # int32[chunk]: n_placed | unsched<<8 | has_cand<<9 | changed<<10
+    entries: torch.Tensor  # int32[chunk, k_res]: the new entry row if changed, else 0
+    commit: torch.Tensor  # int64[chunk]: the resident row to write, -1 for none
+
+
+def _entry_rows_ref(assignment, strategy, k_out: int):
+    """``_fleet_solve``'s entry stage (fleet.py:314-334): Duplicated rows
+    zeroed, then each row's placed (site<<8 | count) words sorted, the
+    first ``k_out`` kept. Returns (entries int32[chunk, k_out], n_placed)."""
+    c = assignment.shape[1]
+    assignment = torch.where((strategy == DUPLICATED)[:, None], 0, assignment)
+    selected = assignment > 0
+    n_placed = selected.sum(dim=1).to(I32)
+    idxs = torch.arange(c, dtype=I32, device=assignment.device)[None, :]
+    packed_full = torch.where(selected, (idxs << 8) | assignment, MAX_INT32)
+    srt = torch.sort(packed_full, dim=1).values[:, :k_out]
+    return torch.where(srt == MAX_INT32, 0, srt), n_placed
+
+
+def _pad_cols(entries: torch.Tensor, k_res: int) -> torch.Tensor:
+    k_out = entries.shape[1]
+    if k_res <= k_out:
+        return entries
+    return torch.cat([entries, entries.new_zeros((entries.shape[0], k_res - k_out))], 1)
+
+
+def entry_diff_ref(assignment, unsched, feasible, strategy, rows, resident, *,
+                   k_out: int, all_rows: bool, offset: int) -> EntryDiff:
+    """Plain version of K16 over one chunk: the chunk's entry rows (zero-
+    padded to the resident's width) diffed against the resident as it
+    stood before the pass, which is read and not written. all_rows chunks
+    own the contiguous rows [offset, offset + chunk) and commit their
+    padding rows too (the JAX slice update writes them); partial batches
+    read padding rows at row 0 and commit only changed valid rows. A
+    changed row's meta word carries bit 10 and its entries ride
+    ``entries``; unchanged rows give zeros there."""
+    chunk = assignment.shape[0]
+    k_res = resident.shape[1]
+    valid = rows >= 0
+    entries, n_placed = _entry_rows_ref(assignment, strategy, k_out)
+    entries = _pad_cols(entries, k_res)
+    has_cand = feasible.any(dim=1)
+    if all_rows:
+        target = torch.arange(offset, offset + chunk, dtype=I64, device=rows.device)
+    else:
+        target = rows.clamp_min(0).to(I64)
+    changed = (entries != resident[target]).any(dim=1) & valid
+    meta = (n_placed | (unsched.to(I32) << 8) | (has_cand.to(I32) << 9)
+            | (changed.to(I32) << 10))
+    write = (changed | ~valid) if all_rows else changed
+    return EntryDiff(meta, torch.where(changed[:, None], entries, 0),
+                     torch.where(write, target, -1))
+
+
+def entry_diff(assignment, unsched, feasible, strategy, rows, resident, *,
+               k_out: int, all_rows: bool, offset: int) -> EntryDiff:
+    """K16: one block per row zeroes a Duplicated row, compacts the row's
+    placed cells in site order into its first ``k_out`` entry words (an
+    ordered compaction in place of the JAX sort), counts the placed sites
+    and the feasible ones, and diffs the words against the resident row,
+    which it only reads; ``fleet_solve`` writes the resident after the
+    last chunk (K6 over ``commit``), so a row named twice in one batch is
+    diffed against the pre-pass resident both times, as in JAX."""
+    args = (assignment, unsched, feasible, strategy, rows, resident)
+    kw = dict(k_out=k_out, all_rows=all_rows, offset=offset)
+    if native.on_cpu(args):
+        return entry_diff_ref(*args, **kw)
+    native.check("entry_diff", assignment=(assignment, I32),
+                 unsched=(unsched, BOOL), feasible=(feasible, BOOL),
+                 strategy=(strategy, I32), rows=(rows, I32),
+                 resident=(resident, I32))
+    b, c = assignment.shape
+    cap, k_res = resident.shape
+    if (feasible.shape != (b, c)
+            or any(t.shape != (b,) for t in (unsched, strategy, rows))
+            or not 0 < k_out <= min(k_res, max(c, 1))
+            or (all_rows and not 0 <= offset <= cap - b)):
+        raise ValueError("entry_diff: inconsistent shapes")
+    dev = rows.device
+    out = EntryDiff(
+        torch.empty((b,), dtype=I32, device=dev),
+        torch.empty((b, k_res), dtype=I32, device=dev),
+        torch.empty((b,), dtype=I64, device=dev),
+    )
+    if b:
+        native.launch(entry_diff, "entry_diff", "entry_diff_launch", dev,
+                      assignment, unsched, feasible, strategy, rows, b, c,
+                      resident, cap, k_res, k_out, int(all_rows), offset, *out)
+    return out
+
+
+entry_diff.launches = 0
+
+
+def _solve_wire(total_u8_or_i32, meta, body, byte_wire: bool) -> torch.Tensor:
+    """``_fleet_solve``'s wire (fleet.py:400-420): total | meta | entries,
+    the meta words as 2 little-endian bytes on the byte wire."""
+    if byte_wire:
+        m = meta.to(I64)
+        meta_u8 = torch.stack([m & 0xFF, (m >> 8) & 0xFF], dim=-1).to(U8).reshape(-1)
+        return torch.cat([total_u8_or_i32, meta_u8, body])
+    return torch.cat([total_u8_or_i32, meta, body])
+
+
+def fleet_solve_ref(cp_bits, cp_static, gvk_bits, prof_table, incomplete_en,
+                    rows, cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh,
+                    prev_sites, prev_counts, prev_entries, *, chunk: int,
+                    n_chunks: int, k_out: int, k_res: int, e_cap: int,
+                    wide: bool, fast: Optional[tuple], has_aggregated: bool,
+                    all_rows: bool, pack21: bool = False):
+    """``_fleet_solve`` (karmada_tpu/scheduler/fleet.py:277-420) line by
+    line: per chunk the masks, the profile-row merge and the division,
+    then the Duplicated zeroing, the sorted entry prefix, n_placed, unsched
+    and has_cand; the entry rows padded to ``k_res`` and diffed against
+    ``prev_entries`` (a contiguous slice for the all-rows storm, a row
+    gather otherwise), which takes the new rows IN PLACE (the port of the
+    donation; padding rows of a partial batch are dropped as
+    ``mode="drop"`` drops them); one cumsum compaction of the changed
+    rows' entries into ``e_cap``; the meta words; and the wire (4 B total,
+    2 B metas, 3-byte or 21-bit entries; int32 when C > 0xFFFF). Returns
+    (flat, prev_entries)."""
+    tables = (cp_bits, cp_static, gvk_bits, prof_table, incomplete_en)
+    state = (cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh,
+             prev_sites, prev_counts)
+    valid = rows >= 0
+    r = rows.clamp_min(0).to(I64)
+    ents, placed, unsched, cand = [], [], [], []
+    for i in range(n_chunks):
+        m = fleet_masks_ref(*tables, rows[i * chunk : (i + 1) * chunk], *state)
+        assignment, u = divide_replicas_ref(
+            m.strategy, m.replicas, m.feasible, m.static_w, m.avail, m.prev,
+            m.fresh, has_aggregated, wide, fast,
+        )
+        e, n_placed = _entry_rows_ref(assignment, m.strategy, k_out)
+        ents.append(e)
+        placed.append(n_placed)
+        unsched.append(u)
+        cand.append(m.feasible.any(dim=1))
+    entries = _pad_cols(torch.cat(ents), k_res)
+    n_placed, unsched, has_cand = torch.cat(placed), torch.cat(unsched), torch.cat(cand)
+    n = entries.shape[0]
+    if all_rows:
+        changed = (entries != prev_entries[:n]).any(dim=1) & valid
+        prev_entries[:n] = entries
+    else:
+        changed = (entries != prev_entries[r]).any(dim=1) & valid
+        prev_entries[r[valid]] = entries[valid]
+    valid_e = ((entries > 0) & changed[:, None]).reshape(-1)
+    stream, total = compact_ref(entries.reshape(-1), valid_e, e_cap)
+    meta = (n_placed | (unsched.to(I32) << 8) | (has_cand.to(I32) << 9)
+            | (changed.to(I32) << 10))
+    if cp_static.shape[1] <= 0xFFFF:
+        flat = _solve_wire(_le32(total), meta, entry_bytes_ref(stream, e_cap, pack21), True)
+    else:
+        flat = _solve_wire(total.reshape(1), meta, stream, False)
+    return flat, prev_entries
+
+
+def fleet_solve(cp_bits, cp_static, gvk_bits, prof_table, incomplete_en, rows,
+                cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh,
+                prev_sites, prev_counts, prev_entries, *, chunk: int,
+                n_chunks: int, k_out: int, k_res: int, e_cap: int, wide: bool,
+                fast: Optional[tuple], has_aggregated: bool, all_rows: bool,
+                pack21: bool = False):
+    """The single-dispatch pass (``_fleet_solve``): per chunk K3 -> K2 ->
+    K16, then K6 writes the changed entry rows into ``prev_entries`` in
+    place and K5's entry wire compacts and serialises them; the meta
+    bytes go between the total and the entries. Returns (flat,
+    prev_entries)."""
+    if prev_entries.shape[1] != k_res:
+        raise ValueError("fleet_solve: the resident is not k_res wide")
+    tables = (cp_bits, cp_static, gvk_bits, prof_table, incomplete_en)
+    state = (cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh,
+             prev_sites, prev_counts)
+    parts = []
+    for i in range(n_chunks):
+        rows_c = rows[i * chunk : (i + 1) * chunk]
+        m = fleet_masks(*tables, rows_c, *state)
+        assignment, unsched = divide_replicas(
+            m.strategy, m.replicas, m.feasible, m.static_w, m.avail, m.prev,
+            m.fresh, has_aggregated, wide, fast,
+        )
+        parts.append(entry_diff(
+            assignment, unsched, m.feasible, m.strategy, rows_c, prev_entries,
+            k_out=k_out, all_rows=all_rows, offset=i * chunk,
+        ))
+    meta = torch.cat([p.meta for p in parts])
+    entries = torch.cat([p.entries for p in parts])
+    scatter_rows((prev_entries,), torch.cat([p.commit for p in parts]), (entries,))
+    byte_wire = cp_static.shape[1] <= 0xFFFF
+    wire = entry_wire(entries, e_cap=e_cap, byte_wire=byte_wire, pack21=pack21)
+    head = 4 if byte_wire else 1
+    return _solve_wire(wire[:head], meta, wire[head:], byte_wire), prev_entries

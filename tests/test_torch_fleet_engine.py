@@ -228,10 +228,23 @@ def test_mixed_batch_splits_between_fleet_and_host_path():
 
 
 def test_dense_budget_overrun_raises(monkeypatch):
-    monkeypatch.setattr(tfleet, "DENSE_RESIDENT_MAX_BYTES", 1024)
+    """A table over the dense budget no longer raises: at the same budget
+    (1 KiB) both engines take the entry-resident route (the JAX
+    ``_fleet_solve``) and answer alike, with equal host mirrors and
+    resident entries; the port allocates no dense resident."""
+    for mod in (jfleet, tfleet):
+        monkeypatch.setattr(mod, "DENSE_RESIDENT_MAX_BYTES", 1024)
     pair = Pair()
-    with pytest.raises(NotImplementedError, match="_fleet_solve"):
-        pair.engines[1].schedule(pair.problems(list(range(300)), 12)[1])
+    batches = pair.problems(list(range(300)), 12)
+    for label in ("cold", "again"):
+        got = [outcome(e.schedule(b)) for e, b in zip(pair.engines, batches)]
+        assert got[0] == got[1], label
+        jt, tt = (e._fleet for e in pair.engines)
+        assert tt._res_dense is None and tt._resident_entries is not None
+        np.testing.assert_array_equal(tt._host_entries, np.asarray(jt._host_entries))
+        np.testing.assert_array_equal(tt._host_meta, jt._host_meta)
+        np.testing.assert_array_equal(tt._resident_entries.numpy(),
+                                      np.asarray(jt._resident_entries))
 
 
 def test_budgets_scale_with_the_device():

@@ -263,3 +263,60 @@ def test_chip_smoke_estimator_phases_rehearse_on_cpu(capsys):
     assert set(est["walls"]) == {"cold", "steady", "hard refresh", "pod events"}
     # each phase raises on any row that differs from its referent
     assert capsys.readouterr().out.count("ok / 0 bad") >= 6
+
+
+class Failing:
+    """Makes an estimator's fetch raise until ``heal()``."""
+
+    def __init__(self, est):
+        self.broken = True
+        inner = est.max_available_replicas
+
+        def fetch(*a):
+            if self.broken:
+                raise RuntimeError("estimator fetch failed")
+            return inner(*a)
+
+        est.max_available_replicas = fetch
+
+    def heal(self):
+        self.broken = False
+
+
+def test_estimator_fetch_error_answers_no_answer_in_both_engines():
+    """An in-process estimator whose fetch raises answers -1 (no answer)
+    for that pass in both registries, unmemoized: the engines place the
+    batch alike, without that cluster's node sums. Healed, the next pass
+    fetches it again, memoizes it and places alike again."""
+    runs = {}
+    for key, pkg, kw in (("j", karmada_tpu, {}), ("t", karmada_tpu_torch, {"device": "cpu"})):
+        acc = JA if key == "j" else TA
+        sched = JS if key == "j" else TS
+        snap, nodes, problems = chip_smoke.estimator_workload(pkg, 6, 2100, 300)
+        reg = acc.EstimatorRegistry()
+        failing = None
+        for name in snap.names:
+            est = acc.AccurateEstimator(name, acc.NodeCache(snap.dims, nodes[name]), **kw)
+            if name == snap.names[3]:
+                failing = Failing(est)
+            reg.register(est)
+        batch = reg.make_batch_estimator(snap.names)
+        runs[key] = (reg, batch, sched.TensorScheduler(snap, extra_estimators=[batch], **kw),
+                     problems, snap, failing)
+    bad = runs["t"][4].names[3]
+
+    def run():
+        return tuple(outcome(runs[k][2].schedule(runs[k][3])) for k in ("j", "t"))
+
+    want, got = run()
+    assert got == want
+    assert runs["t"][1].unanswered == {bad}
+    assert not any(name == bad for name, _ in runs["t"][0]._memo)
+    assert runs["t"][0]._memo == runs["j"][0]._memo
+    for key in ("j", "t"):
+        runs[key][5].heal()
+    want2, got2 = run()
+    assert got2 == want2 and got2 != got  # the healed node sums bind
+    assert not runs["t"][1].unanswered
+    assert any(name == bad for name, _ in runs["t"][0]._memo)
+    assert runs["t"][0]._memo == runs["j"][0]._memo

@@ -401,3 +401,46 @@ def test_quota_phase_rehearses_on_cpu_and_equals_jax(capsys):
     assert res[1][0] == res[0][0] and res[1][1] == res[0][1]
     np.testing.assert_array_equal(res[1][2], res[0][2])
     assert any(r[2] == TS.QUOTA_EXCEEDED_ERROR for r in res[1][1])
+
+
+def test_cap_blind_bound_at_config5_width():
+    """The cap-blind avail-max bound at config 5's width: 5000 clusters,
+    two of them without a summary and capped at 10^6 replicas (10^6 + 7 on
+    the second), and 40 dynamic-weight rows of 61-178 replicas whose
+    division leaves a remainder on the capped pair. At this width the
+    cluster index takes 13 bits of the JAX fleet's packed dispense key,
+    leaving 14 weight bits, and the capped weights times the replicas pass
+    ``div_f32``'s 2^24 product bound; the JAX fleet picks that variant from
+    a bound that does not see the caps. The port (K2's wide form only)
+    equals the numpy divider on every row; the JAX engine does not: it
+    hands the remainder to another cluster (a fault of the reference,
+    recorded in ROADMAP.md, section C)."""
+    outs, bounds = [], []
+    for pkg in PKGS:
+        b = mod(pkg, "utils.builders")
+        clusters = [b.new_cluster(f"m{i}", cpu="2", memory="64Gi", pods=1000)
+                    for i in range(5000)]
+        for cl in (clusters[1234], clusters[4321]):  # no ResourceSummary
+            cl.status.resource_summary.allocatable = {}
+        snap = mod(pkg, "scheduler").ClusterSnapshot(clusters)
+        eng = (JS.TensorScheduler(snap) if pkg is karmada_tpu
+               else TS.TensorScheduler(snap, device="cpu"))
+        eng.fleet_threshold = 16  # the rows ride the fleet table
+        eng.set_quota(mod(pkg, "scheduler").build_quota_snapshot(
+            [frq(pkg, "c", {"cpu": 10**12},
+                 static=[("m1234", {"cpu": 10**9}), ("m4321", {"cpu": 10**9 + 7000})])],
+            snap, 1))
+        probs = [problem(pkg, f"c/{i}", "c", 61 + 3 * i) for i in range(40)]
+        outs.append(outcome(eng.schedule(probs)))
+        assert eng._fleet is not None
+        bounds.append(eng._fleet._avail_max)
+        if pkg is karmada_tpu_torch:
+            port, port_probs = eng, probs
+    assert bounds == [2, 10**6 + 7]
+    port_res = port.schedule(port_probs)
+    assert outcome(port_res) == outs[1]
+    assert chip_smoke.oracle_check(port, port_probs, port_res) == 0
+    assert all(sum(o[1].values()) == 61 + 3 * i for i, o in enumerate(outs[1]))
+    # the reference fault: rows where the JAX engine differs from the divider
+    differ = [i for i, (j, t) in enumerate(zip(outs[0], outs[1])) if j != t]
+    assert differ and all(sum(outs[0][i][1].values()) == 61 + 3 * i for i in differ)

@@ -158,6 +158,45 @@ def test_unported_branches_raise(branch):
     assert eng.schedule([prob])[0].success
 
 
+def _quota(dims: int, generation: int):
+    return TS.QuotaSnapshot(
+        dims=[f"example.com/r{k}" for k in range(dims)], ns_index={"a": 0},
+        remaining=np.full((1, dims), 1 << 40, np.int64), cap_index={},
+        cluster_caps=np.zeros((0, 4, dims), np.int64), generation=generation,
+        cap_token=0)
+
+
+@pytest.mark.parametrize("limit", ["clusters", "quota_dims"])
+def test_kernel_shape_limits_raise_before_any_state_changes(limit):
+    """Two kernel shape limits the JAX engine does not have, on CUDA only:
+    K2 sorts at most MAX_CLUSTERS clusters in shared memory and K12 holds
+    at most MAX_ADMIT_DIMS resource dims. A CUDA engine refuses a wider
+    snapshot when it is built and a wider quota in ``set_quota``, before
+    it touches the card or changes any state; the CPU (the plain
+    versions) serves both. No card is needed: the checks run first."""
+    from karmada_tpu_torch.ops.divide import MAX_CLUSTERS
+    from karmada_tpu_torch.ops.quota import MAX_ADMIT_DIMS
+
+    if limit == "clusters":
+        snap = TS.ClusterSnapshot([TB.new_cluster(f"m{i}") for i in range(MAX_CLUSTERS + 1)])
+        with pytest.raises(NotImplementedError, match="K2"):
+            TS.TensorScheduler(snap, device="cuda")
+        assert TS.TensorScheduler(snap, device="cpu").snapshot is snap
+        narrow = TS.ClusterSnapshot(snap.clusters[:MAX_CLUSTERS])
+        assert TS.TensorScheduler(narrow, device="cuda").snapshot is narrow
+        return
+    snap, _ = _engine()
+    eng = TS.TensorScheduler(snap, device="cuda")
+    ok = _quota(MAX_ADMIT_DIMS, 1)
+    eng.set_quota(ok)
+    with pytest.raises(NotImplementedError, match="K12"):
+        eng.set_quota(_quota(MAX_ADMIT_DIMS + 1, 2))
+    assert eng.quota is ok and eng._quota_cache is None
+    cpu = TS.TensorScheduler(snap, device="cpu")
+    cpu.set_quota(_quota(MAX_ADMIT_DIMS + 1, 2))
+    assert len(cpu.quota.dims) == MAX_ADMIT_DIMS + 1
+
+
 def _modules(pkg_dir: pathlib.Path) -> list[str]:
     return sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
