@@ -6,21 +6,31 @@
 1. prints the card (name and power limit), the torch and CUDA versions, and
    builds the port's kernels from ``karmada_tpu_torch/csrc`` (one nvcc per
    CUDA source, all at once, and g++ for the host wire runtime ``fold.c``);
-2. kernel phase: holds K1 ``estimate_merge`` and K2 ``divide_replicas``
-   against their plain PyTorch versions on the card on seeded batches at the
-   north-star chunk (4096 x 5000) and at C = 10,000, K1's table form
+2. kernel phase: holds K1 ``estimate_merge`` against its plain PyTorch
+   version on the card on seeded batches at the north-star chunk (4096 x
+   5000) and at C = 10,000; K2 ``divide_replicas`` at 4096 x 5000, 4096 x
+   10,000, 1024 x 16,385 and 256 x 40,000 (seeded) and on its selection's
+   edge cases (``divide_edge_batch``: ties, INT32_MIN, a remainder one
+   less than the positive weights, Aggregated cuts inside equal-weight
+   groups and wrapped negative weights) at 512 x 5000, 64 x 16,385, 16 x
+   40,000 and 64 x 1 and 2, and prints its phase split (clock64 per block
+   and pass, ``k2_phase_split``) at 4096 x 5000; K1's table form
    ``profile_table`` at U = 8 x 5000, K1's merge form
    ``estimate_merge_table`` at 4096 x 5000 with 0, 1 and 2 extra estimates,
    K8 ``node_sum_estimate`` at 4096 profile rows x 5000 nodes, K12
-   ``quota_admit`` at 131072 rows x 32 namespaces, K13's per-row form
-   ``quota_cluster_caps`` at 4096 x 5000, K14 ``explain_pass`` at 4096 x
-   5000 (a batch full of key ties) and at C = 5, and K15 ``preempt_select``
-   at 131072 rows (R = 4, C = 5000, 16 priority classes, ~30% victims, ~5%
-   demanders); equality is exact (integer outputs, tolerance 0). Prints each kernel's median
-   time beside the plain version's and its bound. Then the shape limits one
-   past each: K1 at 65535 x 128 + 1 rows in its three forms against the
-   plain versions (served), and a CUDA engine refusing 16385 clusters (K2)
-   and a 17-dim quota (K12) with its state unchanged;
+   ``quota_admit`` at 131072 rows x 32 namespaces with 4, 17 and 40 dims,
+   K13's per-row form ``quota_cluster_caps`` at 4096 x 5000, K14
+   ``explain_pass`` at 4096 x 5000 (a batch full of key ties) and at C = 5,
+   and K15 ``preempt_select`` at 131072 rows (R = 4, C = 5000, 16 priority
+   classes, ~30% victims, ~5% demanders); equality is exact (integer
+   outputs, tolerance 0). Prints each kernel's median time beside the
+   plain version's and its bound. Then the shapes past the kernels' old
+   limits, served: K1 at 65535 x 128 + 1 rows in its three forms against
+   the plain versions, an engine at 16,385 clusters scheduling 2000
+   config-5 bindings through the fleet (every row against the numpy
+   divider), and a 17-dim quota wave (``wide_quota_scene``) whose
+   partition equals ``admit_wave_np`` and whose admitted rows equal the
+   numpy divider;
 3. end-to-end phase, every row checked against the port's numpy divider on
    the same packed inputs (``oracle_check``):
    - BASELINE configs 1 and 2 (host-small numpy path), 3 (resource models
@@ -30,9 +40,10 @@
      table: one cold pass, 3 steady passes (the batch-identity route) and 3
      churn passes (every cluster's allocation drifts, bench.py's recipe);
      every row checked after the cold and the last churn pass. Before the
-     first churn pass it holds K3 (both forms), K4 (both stages), K5 (both
-     wires) and K6 (both entry points) against their plain versions on the
-     table's own inputs at config-5 shapes (exact), and times them;
+     first churn pass it holds K3 (both forms), K2 (on the first chunk's
+     inputs, with its phase split), K4 (both stages), K5 (both wires) and
+     K6 (both entry points) against their plain versions on the table's
+     own inputs at config-5 shapes (exact), and times them;
    - the same storm on the entry-resident route (``KARMADA_TPU_DENSE_BUDGET=0``
      around the table's construction; 2 steady and 2 churn passes): every
      pass equal to the dense storm's row for row, the oracle after the cold
@@ -379,6 +390,42 @@ def wave_demand(snap, problems, ns_index: dict) -> tuple[list, np.ndarray]:
     return ns_ids, demand
 
 
+def wide_quota_scene(pkg, bindings: int = 2000, clusters: int | None = 500,
+                     extra_dims: int = 13, seed: int = 31):
+    """A quota over 4 + ``extra_dims`` resource dims (17 by default):
+    config 5's rows and fleet (``build_workload``) where every cluster also
+    carries 10,000 of each extended resource ``example.com/rNN`` and every
+    row asks 1-3 of each, in four namespaces. Each namespace's limits are
+    twice its wave's demand on every dim but one, where they are half of
+    it: the last dim (past the first 16) for even namespaces, the first
+    extended one for odd. Returns (snapshot, problems, QuotaSnapshot)."""
+    s = importlib.import_module(f"{pkg.__name__}.scheduler")
+    snap, problems = build_workload(pkg, 5, bindings, clusters)
+    ext = [f"example.com/r{k:02d}" for k in range(extra_dims)]
+    for cl in snap.clusters:
+        for d in ext:
+            cl.status.resource_summary.allocatable[d] = 10_000
+    snap = s.ClusterSnapshot(snap.clusters)
+    namespaces = tuple(f"wq{k}" for k in range(4))
+    rng = np.random.default_rng(seed)
+    for i, p in enumerate(problems):
+        p.namespace = namespaces[i % len(namespaces)]
+        p.requests = {**p.requests, **{d: int(rng.integers(1, 4)) for d in ext}}
+    ns_index = {ns: k for k, ns in enumerate(namespaces)}
+    ns_ids, demand = wave_demand(snap, problems, ns_index)
+    ns_ids = np.asarray(ns_ids)
+    dims = list(snap.dims)
+    limits = {}
+    for k, ns in enumerate(namespaces):
+        tot = demand[ns_ids == k].sum(axis=0)
+        lim = {d: int(v) * 2 + 1 for d, v in zip(dims, tot)}
+        bind = dims[-1] if k % 2 == 0 else dims[len(dims) - extra_dims]
+        lim[bind] = int(tot[dims.index(bind)]) // 2
+        limits[ns] = lim
+    quota = s.build_quota_snapshot(quota_frqs(pkg, snap, limits, caps={}), snap, 1)
+    return snap, problems, quota
+
+
 #: the ranked cell's three ClusterAffinities groups, by the config-5 fleet's
 #: ``tier`` label (t0..t15): a small primary group and two fallbacks
 RANKED_GROUPS = (("t0",), tuple(f"t{k}" for k in range(1, 8)),
@@ -501,6 +548,69 @@ def divide_batch(rng, b: int, c: int) -> dict:
     }
 
 
+def divide_edge_batch(rng, b: int, c: int, kinds: tuple = tuple(range(8))) -> dict:
+    """K2 inputs on which its selections must be exact, eight row kinds in
+    turn: all-equal weights; equal (weight, last) at many indices (scale-up
+    rows with tied previous counts); INT32_MIN weights and lasts; static
+    rows whose remainder is one less than their positive weights (weight 1
+    on n candidates, n - 1 replicas); Aggregated rows whose cut falls inside
+    a group of equal weights (fresh and scale-up); Aggregated fresh rows
+    whose avail + prev wraps negative (the literal count); scale-down rows
+    of tied previous counts; and rows of random small weights. ``kinds``
+    picks which, row i taking ``kinds[i % len(kinds)]``."""
+    i32min, i32max = -(2**31), 2**31 - 1
+    kind = np.asarray(kinds)[np.arange(b) % len(kinds)]
+    strategy = np.full(b, 2, np.int32)
+    replicas = rng.integers(1, 200, b).astype(np.int32)
+    cand = rng.random((b, c)) < 0.9
+    static_w = np.zeros((b, c), np.int32)
+    avail = np.full((b, c), 7, np.int32)
+    prev = np.zeros((b, c), np.int32)
+    fresh = np.zeros(b, bool)
+    tied = rng.random((b, c)) < min(1.0, 40.0 / max(c, 1))
+    for i in range(b):
+        k = kind[i]
+        if k == 0:  # all-equal weights, fresh
+            fresh[i] = True
+            strategy[i] = 2 + (i // 8) % 2
+        elif k == 1:  # scale-up with tied previous counts
+            prev[i, tied[i]] = 3
+            replicas[i] = 3 * int((tied[i] & cand[i]).sum()) + int(rng.integers(1, 50))
+        elif k == 2:  # INT32_MIN weights and lasts, static then dynamic
+            strategy[i] = 1 + (i // 8) % 2
+            static_w[i] = np.where(rng.random(c) < 0.3, i32min, rng.integers(0, 5, c))
+            avail[i] = np.where(rng.random(c) < 0.3, i32min, rng.integers(0, 5, c))
+            prev[i, tied[i]] = i32min
+            replicas[i] = int(rng.integers(1, 60))
+        elif k == 3:  # static, remain = #positive weights - 1
+            strategy[i] = 1
+            static_w[i] = cand[i]
+            replicas[i] = max(1, int(cand[i].sum()) - 1)
+        elif k == 4:  # Aggregated, the cut inside an equal-weight group
+            strategy[i] = 3
+            fresh[i] = (i // 8) % 2 == 0
+            avail[i] = np.where(rng.random(c) < 0.5, 7, 3)
+            prev[i, tied[i]] = 2
+            replicas[i] = int(rng.integers(1, 7 * max(1, c // 4)))
+        elif k == 5:  # Aggregated fresh, avail + prev wraps negative
+            strategy[i] = 3
+            fresh[i] = True
+            avail[i] = rng.integers(i32max - 50, i32max, c)
+            prev[i, tied[i]] = 100
+            replicas[i] = int(rng.integers(1, 99))
+        elif k == 6:  # scale-down over tied previous counts
+            prev[i, tied[i]] = 5
+            replicas[i] = max(1, int(tied[i].sum()) - 2)
+        else:  # random small weights
+            strategy[i] = int(rng.integers(0, 4))
+            avail[i] = rng.integers(0, 4, c)
+            static_w[i] = rng.integers(0, 4, c)
+            fresh[i] = bool(rng.random() < 0.3)
+    return {"strategy": strategy, "replicas": replicas, "candidates": cand,
+            "static_w": static_w, "avail": avail.astype(np.int32), "prev": prev,
+            "fresh": fresh}
+
+
 def to_device(arrays: dict, device) -> dict:
     import torch
 
@@ -578,6 +688,64 @@ def check_kernel(name: str, arrays: dict, device, reps: int = 10) -> dict:
     bound_ms, bound_by = kernel_bounds(name, arrays)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+K2_ARGS = ("strategy", "replicas", "candidates", "static_w", "avail", "prev", "fresh")
+#: the five phases K2's phases entry point times, clock64 per block
+K2_PHASES = ("cohort sums", "Aggregated cut", "weights/total/floors", "bonus selection",
+             "dispense")
+
+
+def k2_chunk_args(table) -> tuple[list, bool]:
+    """K2's inputs on a fleet table's first chunk, as a pass makes them (K3
+    over the chunk's rows), and whether the table holds Aggregated rows."""
+    from karmada_tpu_torch.scheduler import fleet_kernels as fk
+    from karmada_tpu_torch.scheduler.fleet import _pow2
+
+    n = table.n_rows
+    chunk = min(table.chunk, _pow2(max(n, 256)))
+    m = fk.fleet_masks(*table._dev_tables, table._all_rows_dev[:chunk], *table._dev_state)
+    args = [m.strategy, m.replicas, m.feasible, m.static_w, m.avail, m.prev, m.fresh]
+    return args, bool((table._st["strategy"][:n] == 3).any())
+
+
+def k2_phase_split(args, has_agg: bool, label: str, card: str, reps: int = 3) -> dict:
+    """K2's phase split on ``args`` (its seven inputs on the card): the
+    phases entry point of ``csrc/divide_replicas.cu`` (the same kernel
+    body, a barrier and a clock64 read by thread 0 at each phase's end)
+    writes each block's cycles per phase; summed over the blocks of
+    ``reps`` launches. Its output must equal the plain version's. Prints
+    each phase's share of the block cycles and its mean kilocycles a row."""
+    import types
+
+    import torch
+    from karmada_tpu_torch import native, ops
+
+    from karmada_tpu_torch.ops.divide import launch_buffers
+
+    b, c = args[2].shape
+    dev = args[2].device
+    bufs = launch_buffers(b, c, dev)
+    out, unsched = bufs[:2]
+    cycles = torch.zeros((b, len(K2_PHASES)), dtype=torch.int64, device=dev)
+    counter = types.SimpleNamespace(launches=0)  # not a path's launch
+    total = np.zeros(len(K2_PHASES))
+    for _ in range(reps):
+        native.launch(counter, "divide_replicas", "divide_replicas_phases_launch", dev,
+                      *args, b, c, int(has_agg), *bufs, cycles)
+        torch.cuda.synchronize()
+        total += cycles.sum(dim=0).cpu().numpy()
+    want = ops.divide_replicas_ref(*args, has_agg)
+    compare(f"divide_replicas phases {label}", (out, unsched),
+            (want.assignment, want.unschedulable))
+    share = total / max(total.sum(), 1)
+    per_row = total / reps / b / 1e3
+    print(f"# K2 phase split {label}: "
+          + ", ".join(f"{n} {s:.1%} ({r:.2f} kcycles a row)"
+                      for n, s, r in zip(K2_PHASES, share, per_row))
+          + f"; card {card}", flush=True)
+    return {n: {"share": float(s), "kcycles_per_row": float(r)}
+            for n, s, r in zip(K2_PHASES, share, per_row)}
 
 
 # --------------------------------------------------------------------------
@@ -829,6 +997,9 @@ PATH_KERNELS = {
                         "entry_diff", "scatter_rows", "entry_wire"),
     "mixed fleet legacy": ("profile_table", "divide_replicas", "fleet_masks",
                            "fleet_bits", "entry_diff", "scatter_rows", "entry_wire"),
+    "wide fleet": ("profile_table", "divide_replicas", "fleet_masks", "fleet_diff",
+                   "fleet_wire"),
+    "wide quota": ("quota_admit", "profile_table", "divide_replicas"),
 }
 
 
@@ -953,7 +1124,7 @@ def check_fleet_kernels(table, card: str) -> dict:
     launch wrote, so the time is that of a real pass's diff, changes
     included."""
     import torch
-    from karmada_tpu_torch.ops import divide_replicas
+    from karmada_tpu_torch.ops import divide_replicas, divide_replicas_ref
     from karmada_tpu_torch.scheduler import fleet_kernels as fk
     from karmada_tpu_torch.scheduler.fleet import _cap_round, _pow2
 
@@ -992,9 +1163,24 @@ def check_fleet_kernels(table, card: str) -> dict:
     ), max_abs_err=compare("fleet_bits", got_b, want_b))
     del want_b
 
-    # K2 -> K4 phase A over every chunk, against two clones of the residents
+    # K2 on chunk 0's own inputs (K3's output), and its phase split
     on_card = torch.cuda.is_available()
-    has_agg = bool((table._st["strategy"][:n] == 3).any())
+    k2_args, has_agg = k2_chunk_args(table)
+    got2 = divide_replicas(*k2_args, has_agg)
+    want2 = divide_replicas_ref(*k2_args, has_agg)
+    err = compare("divide_replicas config-5 chunk", (got2.assignment, got2.unschedulable),
+                  (want2.assignment, want2.unschedulable))
+    del got2, want2
+    timed(f"divide_replicas on config-5 chunk 0 ({chunk}x{c}, max abs err {err})",
+          lambda: divide_replicas(*k2_args, has_agg),
+          lambda: divide_replicas_ref(*k2_args, has_agg),
+          _nbytes(*k2_args) + chunk * c * 4 + chunk,
+          chunk * c * OPS_PER_ELEM["divide_replicas"], card)
+    if on_card:
+        k2_phase_split(k2_args, has_agg, "config-5 chunk 0", card)
+    del k2_args
+
+    # K2 -> K4 phase A over every chunk, against two clones of the residents
 
     def phase_a(rows_b, all_rows: bool, times=None):
         """K3 -> K2 -> K4 and K4's plain version over the chunks of
@@ -2014,8 +2200,8 @@ def caps_batch(rng, b: int = 4096, c: int = 5000, n: int = 8, r: int = 4) -> dic
 
 
 def check_quota_kernels(rng, device, card: str) -> dict:
-    """K12 at B = 131072, N = 32 and K13's per-row form at 4096 x 5000
-    against their plain versions on the card; exact."""
+    """K12 at B = 131072, N = 32 (R = 4, 17 and 40) and K13's per-row form
+    at 4096 x 5000 against their plain versions on the card; exact."""
     from karmada_tpu_torch import ops
 
     stats = {}
@@ -2034,6 +2220,16 @@ def check_quota_kernels(rng, device, card: str) -> dict:
         b * r * 3, card,
     ), max_abs_err=err)
     print(f"# K12 check: {denied} of {b} rows denied", flush=True)
+    # past the 16 dims one tile of K12's shared memory holds
+    for r_wide in (17, 40):
+        t = to_device(admit_batch(rng, r=r_wide), device)
+        args = (t["ns_ids"], t["demand"], t["remaining"])
+        got = ops.quota_admit(*args)
+        compare(f"quota_admit {r_wide} dims", got, ops.quota_admit_ref(*args))
+        denied = int((~got[0]).sum().item())
+        timed(f"quota_admit (K12) B={b} N={n} R={r_wide}", lambda: ops.quota_admit(*args),
+              lambda: ops.quota_admit_ref(*args), _nbytes(*args, *got), b * r_wide * 3, card)
+        print(f"# K12 at {r_wide} dims: exact, {denied} of {b} rows denied", flush=True)
     t = to_device(caps_batch(rng), device)
     args = (t["caps"], t["ns_rows"], t["requests"])
     got = ops.quota_cluster_caps(*args)
@@ -2889,19 +3085,17 @@ def run_preemption(device, card: str, residents: int = 100_000, clusters: int = 
             "still": len(out.still_unschedulable), "rows": rows, "padded": padded}
 
 
-def check_shape_limits(device, card: str) -> None:
-    """The kernels' shape limits one past each: K1 beyond one grid (65535
-    blocks of 128 rows) is served, and each of its three forms at 65535 x
-    128 + 1 rows equals its plain version; a CUDA engine refuses a snapshot
-    of ``ops.divide.MAX_CLUSTERS`` + 1 clusters (K2's shared-memory sort)
-    when it is built, and a quota over ``ops.quota.MAX_ADMIT_DIMS`` + 1
-    resource dims (K12) in ``set_quota``, leaving its quota as it was."""
+def check_shape_limits(device, card: str) -> dict:
+    """The shapes past the kernels' old limits, served: K1 beyond one grid
+    (65535 blocks of 128 rows), each of its three forms at 65535 x 128 + 1
+    rows equal to its plain version; an engine at 16,385 clusters (one past
+    K2's old shared-memory sort) scheduling 2000 config-5 bindings through
+    the fleet, every row against the numpy divider; and a 17-dim quota
+    wave (one past K12's old 16) on the fleet, its partition against
+    ``admit_wave_np`` and its admitted rows against the numpy divider.
+    Returns each engine path's launches."""
     import torch
-    import karmada_tpu_torch.utils.builders as tb
     from karmada_tpu_torch import ops
-    from karmada_tpu_torch.ops.divide import MAX_CLUSTERS, max_clusters
-    from karmada_tpu_torch.ops.quota import MAX_ADMIT_DIMS
-    from karmada_tpu_torch.scheduler import ClusterSnapshot, QuotaSnapshot, TensorScheduler
 
     rng = np.random.default_rng(SEED + 17)
     rows, c = 65535 * 128 + 1, 8
@@ -2926,38 +3120,59 @@ def check_shape_limits(device, card: str) -> None:
     print(f"# K1 at {rows} rows (65535 x 128 + 1) x {c} clusters: estimate_merge, "
           f"profile_table and estimate_merge_table served, each equal to its plain "
           f"version; card {card}", flush=True)
-    if max_clusters() != MAX_CLUSTERS:
-        raise AssertionError(f"K2 takes {max_clusters()} clusters, the engine checks "
-                             f"{MAX_CLUSTERS}")
-    wide = ClusterSnapshot([tb.new_cluster(f"m{i}") for i in range(MAX_CLUSTERS + 1)])
-    try:
-        TensorScheduler(wide, device=device)
-    except NotImplementedError as exc:
-        print(f"# K2 at {MAX_CLUSTERS + 1} clusters: refused when the engine is built "
-              f"({exc})", flush=True)
-    else:
-        raise AssertionError(f"a CUDA engine took {MAX_CLUSTERS + 1} clusters")
+    return check_wide_engines(device, card)
 
-    def quota(dims: int, generation: int):
-        return QuotaSnapshot(
-            dims=[f"example.com/r{k}" for k in range(dims)], ns_index={"a": 0},
-            remaining=np.full((1, dims), 1 << 40, np.int64), cap_index={},
-            cluster_caps=np.zeros((0, 4, dims), np.int64), generation=generation,
-            cap_token=0)
 
-    engine = TensorScheduler(ClusterSnapshot([tb.new_cluster(f"m{i}") for i in range(4)]),
-                             device=device)
-    ok = quota(MAX_ADMIT_DIMS, 1)
-    engine.set_quota(ok)
-    try:
-        engine.set_quota(quota(MAX_ADMIT_DIMS + 1, 2))
-    except NotImplementedError as exc:
-        if engine.quota is not ok or engine._quota_cache is not None:
-            raise AssertionError("the refused quota changed the engine's state")
-        print(f"# K12 at {MAX_ADMIT_DIMS + 1} dims: refused by set_quota, the engine's "
-              f"quota unchanged ({exc})", flush=True)
-    else:
-        raise AssertionError(f"a CUDA engine took a quota over {MAX_ADMIT_DIMS + 1} dims")
+def check_wide_engines(device, card: str, clusters: int = 16_385, bindings: int = 2000,
+                       quota_bindings: int = 2000) -> dict:
+    """The engine past K2's and K12's old limits (``check_shape_limits``);
+    smaller sizes rehearse it on the CPU."""
+    import karmada_tpu_torch
+    from karmada_tpu_torch.scheduler import TensorScheduler
+
+    out = {}
+    on_card = device.type == "cuda"
+    snap, problems = build_workload(karmada_tpu_torch, 5, bindings, clusters)
+    engine = TensorScheduler(snap, chunk_size=4096, device=device)
+    reset_counts()
+    t0 = time.perf_counter()
+    results = engine.schedule(problems)
+    sync(device)
+    wall = time.perf_counter() - t0
+    out["wide fleet"] = {"launches": read_counts()}
+    if engine._fleet is None:
+        raise AssertionError(f"the {clusters}-cluster pass did not ride the fleet table")
+    bad = oracle_check(engine, problems, results)
+    print(f"# K2 at {snap.num_clusters} clusters: {len(problems)} bindings through the "
+          f"fleet in {wall:.4f} s, {sum(r.success for r in results)} scheduled; "
+          f"numpy-divider check {len(problems) - bad} ok / {bad} bad; launches "
+          f"{ {k: v for k, v in out['wide fleet']['launches'].items() if v} }; card {card}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"{clusters} clusters: {bad} rows differ from the numpy divider")
+    del engine, results
+    snap, problems, quota = wide_quota_scene(karmada_tpu_torch, quota_bindings)
+    engine = TensorScheduler(snap, chunk_size=4096, device=device)
+    engine.set_quota(quota)
+    rem0 = quota.remaining.copy()
+    reset_counts()
+    results = engine.schedule(problems)
+    sync(device)
+    out["wide quota"] = {"launches": read_counts()}
+    admitted, denied, _ = check_partition(f"{len(quota.dims)}-dim quota", snap, problems,
+                                          results, quota, rem0)
+    checked, _ = check_admitted(f"{len(quota.dims)}-dim quota", engine, problems, results)
+    if not admitted or not denied:
+        raise AssertionError(f"{len(quota.dims)}-dim quota: {admitted} admitted, "
+                             f"{denied} denied")
+    if on_card and out["wide quota"]["launches"]["quota_admit"] != 1:
+        raise AssertionError(f"{len(quota.dims)}-dim quota: K12 launched "
+                             f"{out['wide quota']['launches']['quota_admit']} times")
+    print(f"# K12 at {len(quota.dims)} dims: a {len(problems)}-row wave on the "
+          f"{'fleet' if engine._fleet is not None else 'general'} route, {admitted} admitted, "
+          f"{denied} denied, equal to admit_wave_np; {checked} admitted rows equal to the "
+          f"numpy divider; card {card}", flush=True)
+    return out
 
 
 def main() -> int:
@@ -2992,16 +3207,29 @@ def main() -> int:
     def kernels():
         # the main path's chunk (U = 9 profiles: the shared-table branch of
         # K1), then the 10k-cluster tier with U = 300 (K1's direct branch)
+        def one(name, arrays, label):
+            st = check_kernel(name, arrays, device)
+            print(f"# kernel {name} {label}: exact; {st['ms']:.4f} ms (plain "
+                  f"{st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms by "
+                  f"{st['bound_by']}); card {card}", flush=True)
+            return dict(st, library_ms=None)
+
         for b, c, u in ((4096, 5000, 9), (4096, 10_000, 300)):
-            batches = (("estimate_merge", estimate_batch(rng, b, c, u=u)),
-                       ("divide_replicas", divide_batch(rng, b, c)))
-            for name, arrays in batches:
-                st = check_kernel(name, arrays, device)
-                print(f"# kernel {name} {b}x{c}: exact; {st['ms']:.4f} ms (plain "
-                      f"{st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms by "
-                      f"{st['bound_by']}); card {card}", flush=True)
-                if (b, c) == (4096, 5000):
-                    stats[name] = dict(st, library_ms=None)
+            st = one("estimate_merge", estimate_batch(rng, b, c, u=u), f"{b}x{c}")
+            if (b, c) == (4096, 5000):
+                stats["estimate_merge"] = st
+        # K2: the main path's chunk, the 10k tier, one past the old sort's
+        # 16384 and a 40k-cluster row; then the selection's edge cases
+        for b, c in ((4096, 5000), (4096, 10_000), (1024, 16_385), (256, 40_000)):
+            arrays = divide_batch(rng, b, c)
+            st = one("divide_replicas", arrays, f"{b}x{c}")
+            if (b, c) == (4096, 5000):
+                stats["divide_replicas"] = st
+                t = to_device(arrays, device)
+                k2_phase_split([t[k] for k in K2_ARGS], True, f"{b}x{c} seeded", card)
+                del t
+        for b, c in ((512, 5000), (64, 16_385), (16, 40_000), (64, 1), (64, 2)):
+            one("divide_replicas", divide_edge_batch(rng, b, c), f"{b}x{c} edge cases")
         stats["profile_table"] = check_profile_table(device, card, rng)
         stats["estimate_merge_table"] = check_merge_table(rng, device, card)
         # an estimator server's batch: 4096 profile rows x 5000 nodes (the
@@ -3101,7 +3329,13 @@ def main() -> int:
         require_launched("preemption", out["launches"])
         paths["preemption"] = out
 
-    for name, fn in (("kernels", kernels), ("limits", lambda: check_shape_limits(device, card)),
+    def limits():
+        out = check_shape_limits(device, card)
+        require_launched("wide fleet", out["wide fleet"]["launches"])
+        require_launched("wide quota", out["wide quota"]["launches"])
+        paths.update(out)
+
+    for name, fn in (("kernels", kernels), ("limits", limits),
                      ("configs", configs), ("storm", storm),
                      ("explain fleet", explain_fleet), ("legacy", legacy), ("mixed", mixed),
                      ("mixed legacy", mixed_legacy), ("general", general),

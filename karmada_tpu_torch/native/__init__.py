@@ -61,7 +61,10 @@ SIGNATURES = {
         "profile_table_launch": "piipipp",
         "estimate_merge_table_launch": "piip" "pppp" "i" "pip",
     },
-    "divide_replicas": {"divide_replicas_launch": "pppppppiiipp"},
+    "divide_replicas": {
+        "divide_replicas_launch": "pppppppiii" "ppppi",
+        "divide_replicas_phases_launch": "pppppppiii" "ppppi" "p",
+    },
     "fleet_masks": {
         "fleet_masks_launch": "pppppiipi" "pppppppp" "i" "ppppppp",
         "fleet_bits_launch": "pppppiipi" "pppppppp" "i" "p",

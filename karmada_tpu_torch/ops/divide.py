@@ -165,16 +165,26 @@ _DTYPES = (
 )
 
 
-#: the widest cluster axis K2 takes on the card: its bitonic sorts keep 10
-#: bytes an element in shared memory (csrc/divide_replicas.cu,
-#: ``divide_replicas_max_clusters``). The engine refuses a wider snapshot
-#: on CUDA when it is built.
-MAX_CLUSTERS = 16384
+#: blocks of K2's second kernel, which takes the Aggregated rows with a
+#: negative dynamic weight (csrc/divide_replicas.cu); each sorts in its own
+#: slice of global scratch
+LITERAL_BLOCKS = 16
 
 
-def max_clusters() -> int:
-    """The widest cluster axis K2 takes, as the built kernel reports it."""
-    return int(native.load("divide_replicas").divide_replicas_max_clusters())
+def launch_buffers(b: int, c: int, device) -> tuple:
+    """What one K2 launch writes: the assignment, the unschedulable flags,
+    the hand-over list of the second kernel (int32[B + 1]) and its sort
+    scratch (one next-power-of-two slice of C keys a block), and that
+    kernel's block count."""
+    lit_blocks = max(1, min(LITERAL_BLOCKS, b))
+    n_pow2 = 1 << max(0, c - 1).bit_length()
+    return (
+        torch.empty((b, c), dtype=torch.int32, device=device),
+        torch.empty((b,), dtype=torch.bool, device=device),
+        torch.empty((b + 1,), dtype=torch.int32, device=device),
+        torch.empty((lit_blocks * n_pow2,), dtype=torch.int64, device=device),
+        lit_blocks,
+    )
 
 
 def divide_replicas(
@@ -192,8 +202,8 @@ def divide_replicas(
     """K2: batched AssignReplicas over a binding chunk.
 
     CPU tensors take ``divide_replicas_ref``; CUDA tensors launch the kernel
-    (one thread block per row) or raise — above ``max_clusters()`` columns
-    too. ``divide_replicas.launches`` counts kernel launches."""
+    (one thread block per row, at any cluster count) or raise.
+    ``divide_replicas.launches`` counts kernel launches."""
     args = (strategy, replicas, candidates, static_w, avail, prev, fresh)
     if native.on_cpu(args):
         return divide_replicas_ref(*args, has_aggregated, wide, fast)
@@ -205,17 +215,12 @@ def divide_replicas(
         t.shape != (b, c) for t in (static_w, avail, prev)
     ):
         raise ValueError("divide_replicas: inconsistent shapes")
-    if c > max_clusters():
-        raise ValueError(
-            f"divide_replicas: {c} clusters exceed the kernel's {max_clusters()}"
-        )
-    out = torch.empty((b, c), dtype=torch.int32, device=dev)
-    unsched = torch.empty((b,), dtype=torch.bool, device=dev)
+    bufs = launch_buffers(b, c, dev)
     if b:
         native.launch(divide_replicas, "divide_replicas",
                       "divide_replicas_launch", dev, *args, b, c,
-                      int(bool(has_aggregated)), out, unsched)
-    return DivideResult(assignment=out, unschedulable=unsched)
+                      int(bool(has_aggregated)), *bufs)
+    return DivideResult(assignment=bufs[0], unschedulable=bufs[1])
 
 
 divide_replicas.launches = 0

@@ -43,10 +43,6 @@ MAX_ADMIT_ROWS = 1 << 17
 
 MAX_INT32 = 2**31 - 1
 
-#: dims K12 carries in shared memory (the wrapper refuses more; the engine
-#: refuses a wider quota on CUDA in set_quota)
-MAX_ADMIT_DIMS = 16
-
 
 def _check_admit(ns_ids, demand, remaining) -> tuple[int, int, int]:
     b = ns_ids.shape[0]
@@ -106,7 +102,8 @@ def quota_admit(
     remaining: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K12: ``quota_admit_ref`` as one kernel launch of N + 1 blocks, one
-    per namespace segment (see ``csrc/quota_admit.cu``). Demand must keep
+    per namespace segment, at any number of dims (see
+    ``csrc/quota_admit.cu``). Demand must keep
     the packing contract (0 <= demand <= DEMAND_CLAMP); under it every row
     whose id lies outside [0, N) is admitted, as in the plain version.
 
@@ -118,8 +115,6 @@ def quota_admit(
     native.check("quota_admit", ns_ids=(ns_ids, torch.int32),
                  demand=(demand, torch.int64), remaining=(remaining, torch.int64))
     b, n, r = _check_admit(*args)
-    if r > MAX_ADMIT_DIMS:
-        raise ValueError(f"quota_admit: {r} dims, at most {MAX_ADMIT_DIMS}")
     dev = demand.device
     admitted = torch.empty(b, dtype=torch.bool, device=dev)
     wave_used = torch.empty((n, r), dtype=torch.int64, device=dev)

@@ -61,11 +61,8 @@ the store's ring, whose cap counts waves, evicts.
 What is not ported yet, and where the port raises ``NotImplementedError``
 instead of answering differently from the JAX engine: more than
 ``ops.MAX_EXTRAS`` out-of-tree estimators (static-assignment caps take one
-of those slots on the general route), a device mesh, and on CUDA two
-kernel shape limits, checked before any engine state changes: a snapshot
-of more than ``ops.divide.MAX_CLUSTERS`` clusters (in ``__init__``; a
-snapshot swap keeps the cluster set) and a quota over more than
-``ops.quota.MAX_ADMIT_DIMS`` resource dims (in ``set_quota``). ``dirty_keys`` is
+of those slots on the general route) and a device mesh. The kernels take
+any cluster count and any number of quota dims. ``dirty_keys`` is
 accepted; the JAX delta pass it feeds is result-identical to a full pass,
 and the port runs the full pass. The JAX delta admission
 (``_quota_admission_delta``) is not result-identical to a full admission
@@ -85,7 +82,7 @@ import torch
 
 from ..api.policy import Placement
 from ..ops.divide import (
-    AGGREGATED, DUPLICATED, DYNAMIC_WEIGHT, MAX_CLUSTERS, divide_replicas,
+    AGGREGATED, DUPLICATED, DYNAMIC_WEIGHT, divide_replicas,
 )
 from ..models.modeling import estimate_by_models_np, model_overlay
 from ..ops.estimate import (
@@ -96,7 +93,6 @@ from ..ops.estimate import (
     profile_table,
 )
 from ..ops.quota import (
-    MAX_ADMIT_DIMS,
     UNLIMITED,
     cluster_caps_np,
     quota_admit,
@@ -348,12 +344,6 @@ class TensorScheduler:
         if mesh is not None:
             raise _not_ported("a device mesh (multi-GPU scheduling)")
         self.device = torch.device(device)
-        if self.device.type == "cuda" and snapshot.num_clusters > MAX_CLUSTERS:
-            raise _not_ported(
-                f"a snapshot of {snapshot.num_clusters} clusters on CUDA (the "
-                f"division kernel K2 sorts at most {MAX_CLUSTERS} in shared "
-                "memory)"
-            )
         self.snapshot = snapshot
         self.chunk_size = chunk_size
         # callables (requests[B,R] int64, replicas[B] int32), given tensors
@@ -488,12 +478,6 @@ class TensorScheduler:
         interned profile slots. A generation-only bump (remaining moved: a
         usage recompute, a quota raise) keeps every packed row; only the
         admission partition recomputes."""
-        if (quota is not None and self.device.type == "cuda"
-                and len(quota.dims) > MAX_ADMIT_DIMS):
-            raise _not_ported(
-                f"a quota over {len(quota.dims)} resource dims on CUDA (the "
-                f"admission kernel K12 holds at most {MAX_ADMIT_DIMS})"
-            )
         old = self.quota
         self.quota = quota
         # a quota with no static assignments bakes nothing into the fleet's

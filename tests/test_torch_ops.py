@@ -22,6 +22,8 @@ from karmada_tpu_torch import ops as T
 from karmada_tpu_torch.refimpl import assign_batch_np
 from karmada_tpu_torch.scheduler.core import kernel_variant
 
+import chip_smoke
+
 HI = 2**31 - 1
 
 
@@ -144,6 +146,55 @@ def test_divide_ref_equals_jax_wrapping_int32(seed):
     got = torch_divide(args)
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[0], want[0])
+
+
+EDGE_KINDS = {
+    "all_equal_weights": 0,
+    "tied_weight_and_last": 1,
+    "int32_min_weights_and_lasts": 2,
+    "remain_is_positive_weights_less_one": 3,
+    "aggregated_cut_inside_equal_group": 4,
+    "aggregated_fresh_wraps_negative": 5,
+    "scale_down_tied": 6,
+    "random_small": 7,
+}
+
+
+def _edge_equal(rng, b, c, kinds=tuple(range(8))):
+    a = chip_smoke.divide_edge_batch(rng, b, c, kinds)
+    args = tuple(a[k] for k in chip_smoke.K2_ARGS)
+    for has_aggregated in (True, False):
+        want = jax_divide(args, has_aggregated=has_aggregated)
+        got = torch_divide(args, has_aggregated=has_aggregated)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])
+    return args, got
+
+
+@pytest.mark.parametrize("kind", sorted(EDGE_KINDS))
+def test_divide_ref_equals_jax_selection_edges(kind):
+    """The inputs K2's radix selections must get exactly right (chip_smoke's
+    ``divide_edge_batch``, one kind of row at a time): ties in weight and
+    last at many indices, INT32_MIN weights and lasts, a remainder one less
+    than the positive weights, Aggregated cuts inside a group of equal
+    weights, fresh Aggregated rows whose avail + prev wraps negative."""
+    rng = np.random.default_rng(EDGE_KINDS[kind])
+    args, got = _edge_equal(rng, 24, 300, (EDGE_KINDS[kind],))
+    if kind == "remain_is_positive_weights_less_one":
+        # n - 1 replicas over n unit weights: every candidate but the last
+        # takes one
+        cand = args[2]
+        assert (got[0].sum(axis=1) == np.maximum(cand.sum(axis=1) - 1, 1)).all()
+    if kind == "aggregated_fresh_wraps_negative":
+        avail, prev = args[4].astype(np.int64), args[5].astype(np.int64)
+        assert ((avail + prev)[args[2]] > HI).any()
+
+
+@pytest.mark.parametrize("c", [1, 2, 16_385, 20_000])
+def test_divide_ref_equals_jax_widths(c):
+    """Every edge kind at 1 and 2 clusters and past the 16384 clusters the
+    card's old sort held (a few rows each)."""
+    _edge_equal(np.random.default_rng(c), 16, c)
 
 
 @pytest.mark.parametrize("wide", [True, False])

@@ -111,6 +111,32 @@ def test_quota_admit_fuzz_equals_jax_and_oracle(seed):
             JR.admit_wave_np(ins.tolist(), demand, remaining)[0]
 
 
+@pytest.mark.parametrize("r", [17, 40])
+def test_quota_admit_past_16_dims_equals_jax_and_oracle(r):
+    """More dims than one tile of K12's shared memory (16): admission is
+    the AND over every dim, so a row denied on dim 16 alone, or on dim 39
+    alone, is denied; the plain version equals JAX and the sequential
+    oracle. Each namespace binds on one dim of the last tile, or of the
+    first."""
+    rng = np.random.default_rng(r)
+    b, n = 600, 5
+    ns = rng.integers(-1, n + 1, b).astype(np.int32)
+    demand = rng.integers(0, 30, (b, r)).astype(np.int64)
+    demand[rng.random((b, r)) < 0.05] = 0
+    remaining = np.full((n, r), 10**9, np.int64)
+    remaining[rng.random((n, r)) < 0.3] = UNL
+    for k in range(n):
+        dim = r - 1 - k if k % 2 == 0 else k
+        remaining[k, dim] = int(demand[ns == k, dim].sum()) // 2
+    admitted, used = assert_admit_equal(ns, demand, remaining)
+    ins = np.where(ns >= n, -1, ns)
+    flags, u_np = TR.admit_wave_np(ins.tolist(), demand, remaining)
+    np.testing.assert_array_equal(admitted, flags)
+    np.testing.assert_array_equal(used, u_np)
+    inq = (ns >= 0) & (ns < n)
+    assert admitted[inq].any() and not admitted[inq].all()
+
+
 def test_demand_clamp_headroom():
     """A wave of clamp-sized demands at the row bound cannot overflow."""
     b = TQ.MAX_ADMIT_ROWS

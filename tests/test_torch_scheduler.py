@@ -17,6 +17,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import karmada_tpu
 import karmada_tpu.scheduler as JS
@@ -158,43 +159,67 @@ def test_unported_branches_raise(branch):
     assert eng.schedule([prob])[0].success
 
 
-def _quota(dims: int, generation: int):
-    return TS.QuotaSnapshot(
-        dims=[f"example.com/r{k}" for k in range(dims)], ns_index={"a": 0},
-        remaining=np.full((1, dims), 1 << 40, np.int64), cap_index={},
-        cluster_caps=np.zeros((0, 4, dims), np.int64), generation=generation,
-        cap_token=0)
+@pytest.mark.parametrize("route", ["fleet", "general"])
+def test_wide_snapshot_schedules_equal_to_jax(route):
+    """16,385 clusters, one past the 16384 the card's division kernel once
+    sorted in shared memory: 300 config-5 bindings through the fleet table
+    (and through the general path), every result equal to the JAX
+    engine's."""
+    (sj, pj), (st, pt) = both(5, 300, 16_385)
+    assert st.num_clusters == 16_385
+    jax_eng = JS.TensorScheduler(sj)
+    eng = TS.TensorScheduler(st, device="cpu")
+    if route == "general":
+        jax_eng.fleet_threshold = eng.fleet_threshold = len(pt) + 1
+    want = jax_eng.schedule(pj)
+    got = eng.schedule(pt)
+    assert (eng._fleet is not None) == (route == "fleet")
+    assert outcome(got) == outcome(want)
+    assert sum(r.success for r in got) > len(pt) // 2
 
 
-@pytest.mark.parametrize("limit", ["clusters", "quota_dims"])
-def test_kernel_shape_limits_raise_before_any_state_changes(limit):
-    """Two kernel shape limits the JAX engine does not have, on CUDA only:
-    K2 sorts at most MAX_CLUSTERS clusters in shared memory and K12 holds
-    at most MAX_ADMIT_DIMS resource dims. A CUDA engine refuses a wider
-    snapshot when it is built and a wider quota in ``set_quota``, before
-    it touches the card or changes any state; the CPU (the plain
-    versions) serves both. No card is needed: the checks run first."""
-    from karmada_tpu_torch.ops.divide import MAX_CLUSTERS
-    from karmada_tpu_torch.ops.quota import MAX_ADMIT_DIMS
+@pytest.mark.parametrize("route", ["fleet", "general"])
+def test_wide_quota_wave_equals_jax(route):
+    """A FederatedResourceQuota wave over 17 resource dims (one past the 16
+    K12 holds in one tile): chip_smoke's ``wide_quota_scene`` in both
+    packages, half the namespaces bound on the 17th dim. The admitted and
+    denied rows, the placements and the debited ``remaining`` equal the
+    JAX engine's, and the partition equals ``admit_wave_np``."""
+    from karmada_tpu_torch.refimpl.quota_np import admit_wave_np
+    from karmada_tpu_torch.scheduler.quota import QUOTA_EXCEEDED_ERROR
 
-    if limit == "clusters":
-        snap = TS.ClusterSnapshot([TB.new_cluster(f"m{i}") for i in range(MAX_CLUSTERS + 1)])
-        with pytest.raises(NotImplementedError, match="K2"):
-            TS.TensorScheduler(snap, device="cuda")
-        assert TS.TensorScheduler(snap, device="cpu").snapshot is snap
-        narrow = TS.ClusterSnapshot(snap.clusters[:MAX_CLUSTERS])
-        assert TS.TensorScheduler(narrow, device="cuda").snapshot is narrow
-        return
-    snap, _ = _engine()
-    eng = TS.TensorScheduler(snap, device="cuda")
-    ok = _quota(MAX_ADMIT_DIMS, 1)
-    eng.set_quota(ok)
-    with pytest.raises(NotImplementedError, match="K12"):
-        eng.set_quota(_quota(MAX_ADMIT_DIMS + 1, 2))
-    assert eng.quota is ok and eng._quota_cache is None
-    cpu = TS.TensorScheduler(snap, device="cpu")
-    cpu.set_quota(_quota(MAX_ADMIT_DIMS + 1, 2))
-    assert len(cpu.quota.dims) == MAX_ADMIT_DIMS + 1
+    sj, pj, qj = chip_smoke.wide_quota_scene(karmada_tpu, 800, 300)
+    st, pt, qt = chip_smoke.wide_quota_scene(karmada_tpu_torch, 800, 300)
+    assert len(qt.dims) == 17 and qt.dims == qj.dims
+    np.testing.assert_array_equal(qt.remaining, qj.remaining)
+    jax_eng = JS.TensorScheduler(sj)
+    eng = TS.TensorScheduler(st, device="cpu")
+    if route == "general":
+        jax_eng.fleet_threshold = eng.fleet_threshold = len(pt) + 1
+    jax_eng.set_quota(qj)
+    eng.set_quota(qt)
+    rem0 = qt.remaining.copy()
+    want = jax_eng.schedule(pj)
+    got = eng.schedule(pt)
+    assert (eng._fleet is not None) == (route == "fleet")
+    assert outcome(got) == outcome(want)
+    np.testing.assert_array_equal(eng.quota.remaining, jax_eng.quota.remaining)
+    denied = np.array([r.error == QUOTA_EXCEEDED_ERROR for r in got])
+    ns_ids, demand = chip_smoke.wave_demand(st, pt, qt.ns_index)
+    flags, _ = admit_wave_np(ns_ids, demand, rem0)
+    np.testing.assert_array_equal(~denied, np.asarray(flags, bool))
+    assert denied.any() and not denied.all()
+
+
+def test_chip_smoke_wide_engines_rehearse_on_cpu(capsys):
+    """chip_smoke's served-limits phase at a small size on the CPU: the
+    fleet engine's rows against the numpy divider and the 17-dim quota
+    wave against ``admit_wave_np``; each raises on any difference."""
+    out = chip_smoke.check_wide_engines(torch.device("cpu"), "cpu", clusters=1200,
+                                        bindings=400, quota_bindings=600)
+    assert set(out) == {"wide fleet", "wide quota"}
+    printed = capsys.readouterr().out
+    assert "400 ok / 0 bad" in printed and "at 17 dims" in printed
 
 
 def _modules(pkg_dir: pathlib.Path) -> list[str]:
