@@ -22,10 +22,15 @@
    K13's per-row form ``quota_cluster_caps`` at 4096 x 5000, K14
    ``explain_pass`` at 4096 x 5000 (a batch full of key ties) and at C = 5,
    and K15 ``preempt_select`` at 131072 rows (R = 4, C = 5000, 16 priority
-   classes, ~30% victims, ~5% demanders); equality is exact (integer
-   outputs, tolerance 0). Prints each kernel's median time beside the
-   plain version's and its bound. Then the shapes past the kernels' old
-   limits, served: K1 at 65535 x 128 + 1 rows in its three forms against
+   classes, ~30% victims, ~5% demanders); K3 (both forms) and K4 phase A on
+   the fleet edge batches (``fleet_edge_tables``: duplicate, wrapping and
+   negative previous counts, padding rows, sites outside [0, C), k_prev 1,
+   32 and 128, C from 1 to 5000; cold, steady and churn residents, all-rows
+   and partial batches) and K3 on a seeded 4096 x 5000 batch; equality is
+   exact (integer outputs, tolerance 0). Prints each kernel's median time
+   beside the plain version's and its bound (CUDA events behind a device
+   spin, so the wrappers' host work is not timed). Then the shapes past
+   the kernels' old limits, served: K1 at 65535 x 128 + 1 rows in its three forms against
    the plain versions, an engine at 16,385 clusters scheduling 2000
    config-5 bindings through the fleet (every row against the numpy
    divider), and a 17-dim quota wave (``wide_quota_scene``) whose
@@ -40,10 +45,11 @@
      table: one cold pass, 3 steady passes (the batch-identity route) and 3
      churn passes (every cluster's allocation drifts, bench.py's recipe);
      every row checked after the cold and the last churn pass. Before the
-     first churn pass it holds K3 (both forms), K2 (on the first chunk's
-     inputs, with its phase split), K4 (both stages), K5 (both wires) and
-     K6 (both entry points) against their plain versions on the table's
-     own inputs at config-5 shapes (exact), and times them;
+     first churn pass it holds K3 (both forms; the masks form also at
+     k_prev = 128 and in one launch over all 102,400 rows), K2 (on the
+     first chunk's inputs, with its phase split), K4 (both stages), K5
+     (both wires) and K6 (both entry points) against their plain versions
+     on the table's own inputs at config-5 shapes (exact), and times them;
    - the same storm on the entry-resident route (``KARMADA_TPU_DENSE_BUDGET=0``
      around the table's construction; 2 steady and 2 churn passes): every
      pass equal to the dense storm's row for row, the oracle after the cold
@@ -617,17 +623,25 @@ def to_device(arrays: dict, device) -> dict:
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in arrays.items()}
 
 
+#: device clock cycles of the spin queued before each timed batch (about 2
+#: ms on an H100): the host enqueues the batch's calls while the device
+#: spins, so a kernel shorter than its wrapper's host work is timed alone
+SPIN_CYCLES = 4_000_000
+
+
 def cuda_ms(fn, reps: int = 10, batches: int = 5) -> float:
     """Device milliseconds per call of ``fn()``: CUDA events around
-    ``reps`` back-to-back calls (so host-side launch work overlaps the
-    device), divided by ``reps``; the median over ``batches`` such runs,
-    after one warm call."""
+    ``reps`` back-to-back calls, queued behind a device spin
+    (``SPIN_CYCLES``) so that the host's launch work is hidden, divided
+    by ``reps``; the median over ``batches`` such runs, after one warm
+    call."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     per_call = []
     for _ in range(batches):
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1112,8 +1126,9 @@ def timed(name, kern, plain, nbytes, ops, card, reps=10, library=None) -> dict:
 def check_fleet_kernels(table, card: str) -> dict:
     """K3-K6 against their plain versions on the table's live inputs, after
     a snapshot drift has rebuilt the tables but before the pass: K3 on the
-    first chunk and (bits form) on every row, K2 -> K4 phase A on every
-    chunk against cloned residents, K5's phase-A wire with the caps the
+    first chunk (also with the pairs widened to k_prev = 128), over every
+    row in one launch, and (bits form) on every row, K2 -> K4 phase A on
+    every chunk against cloned residents, K5's phase-A wire with the caps the
     table picks for this pass, K4 phase A again on a partial batch (a
     permuted subset padded with -1, as the engine runs one), K4 phase B and
     K5's entry wire over the changed rows, K6 on a dirty-row set padded as
@@ -1150,6 +1165,25 @@ def check_fleet_kernels(table, card: str) -> dict:
         + _nbytes(*[t for t in got]) + _nbytes(tables[4]),
         chunk * c * 10 + chunk * k_prev, card,
     ), max_abs_err=compare("fleet_masks", tuple(got), tuple(want)))
+    # K3 at k_prev = 128 on chunk 0 (the table's pairs, each row's first
+    # again, random ones), and over every row in one launch (past 65535)
+    state128 = widen_prev(state, 128, c, SEED + 128)
+    compare("fleet_masks k_prev=128", tuple(fk.fleet_masks(*tables, rows0, *state128)),
+            tuple(fk.fleet_masks_ref(*tables, rows0, *state128)))
+    timed("fleet_masks at k_prev=128 (config-5 chunk 0)",
+          lambda: fk.fleet_masks(*tables, rows0, *state128),
+          lambda: fk.fleet_masks_ref(*tables, rows0, *state128),
+          _nbytes(rows0) + chunk * (5 * 4 + 1 + 2 * 4 * 128) + _nbytes(*got)
+          + _nbytes(tables[4]), chunk * c * 10 + chunk * 128, card, reps=5)
+    del state128
+    whole = fk.fleet_masks(*tables, rows_all, *state)
+    for i in range(n_pad // chunk):
+        rc = rows_all[i * chunk:(i + 1) * chunk]
+        compare("fleet_masks over every row", tuple(x[i * chunk:(i + 1) * chunk] for x in whole),
+                tuple(fk.fleet_masks_ref(*tables, rc, *state)))
+    print(f"# fleet_masks: k_prev=128 on chunk 0 exact; one launch over all {n_pad} rows "
+          f"exact; card {card}", flush=True)
+    del whole
     # K3 bits form over every row
     got_b = fk.fleet_bits(*tables, rows_all, *state)
     want_b = fk.fleet_bits_ref(*tables, rows_all, *state)
@@ -1198,6 +1232,7 @@ def check_fleet_kernels(table, card: str) -> dict:
             args = (a, u, m.feasible, m.strategy, rows_c)
             if on_card:
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                torch.cuda._sleep(SPIN_CYCLES // 10)  # hides the wrapper's host work
                 ev[0].record()
             g = fk.fleet_diff(*args, *st_k, **kw)
             if on_card:
@@ -1336,6 +1371,231 @@ def check_fleet_kernels(table, card: str) -> dict:
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
     return stats
+
+
+#: the edge batches' cluster counts (words, 16-B vectors and tiles ending
+#: part-way) and previous-site widths
+FLEET_EDGE_C = (1, 31, 33, 255, 257, 1000, 5000)
+FLEET_EDGE_K_PREV = (1, 32, 128)
+
+
+def fleet_edge_tables(rng, c: int, k_prev: int, n: int = 512, cap: int = 640,
+                      out_of_range: bool = False) -> dict:
+    """K3/K4 inputs on which the kernels must stay exact. Table row r takes
+    the previous-site kind r % 8: distinct sites; duplicate sites whose
+    counts add; a site whose int32 sum wraps negative; sums that wrap to
+    exactly 0 (and counts that cancel); negative counts; every one of the
+    k_prev pairs real; a real pair at site 0 after padding pairs (0, 0); no
+    pair at all. The slot planes carry set bits past C in their last byte
+    (never a cluster). ``rows`` (n entries) names table rows in permuted
+    order, every 7th entry and the last eighth -1 (padding). With
+    ``out_of_range``, kind-0 rows also name sites outside [0, C), which the
+    kernels drop as the plain version does (the JAX scatter wraps negative
+    ones, so the CPU tests leave them out). Returns numpy ``tables``
+    (cp_bits, cp_static, gvk_bits, prof_table, incomplete_en), ``state``
+    (cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh, prev_sites,
+    prev_counts) and ``rows``."""
+    i32min, i32max = -(2**31), 2**31 - 1
+    u, g, p = 5, 3, 4
+
+    def pack(m):
+        b = np.packbits(m, axis=1, bitorder="little")
+        if c % 8:
+            b[::2, -1] |= np.uint8((0xFF << (c % 8)) & 0xFF)
+        return b
+
+    cp_bits = np.concatenate([pack(rng.random((u, c)) < 0.75),
+                              pack(rng.random((u, c)) < 0.8)], axis=1)
+    cp_static = rng.integers(-3, 50, (u, c)).astype(np.int32)
+    gvk_bits = pack(rng.random((g, c)) < 0.7)
+    prof = rng.integers(-1, 300, (p, c)).astype(np.int32)
+    prof[0] = i32max  # a profile requesting nothing
+    prof[1, rng.random(c) < 0.3] = -1
+    incomplete = rng.random(c) < 0.5
+    replicas = rng.integers(0, 100, cap).astype(np.int32)
+    replicas[rng.random(cap) < 0.1] = 0
+    sites = np.zeros((cap, k_prev), np.int32)
+    counts = np.zeros((cap, k_prev), np.int32)
+    k = k_prev
+    for r in range(cap):
+        kind = r % 8
+        s0, s1 = (int(x) for x in rng.integers(0, c, 2))
+        if kind == 0:  # distinct sites
+            m = min(k, c, int(rng.integers(1, 9)))
+            sites[r, :m] = rng.choice(c, m, replace=False)
+            counts[r, :m] = rng.integers(1, 30, m)
+            if out_of_range and r % 16 == 0:
+                sites[r, 0] = c + int(rng.integers(0, 5)) if r % 32 else -1 - int(rng.integers(0, 5))
+        elif kind == 1:  # duplicate sites: their counts add
+            m = min(k, 6)
+            sites[r, :m] = np.array([s0, s1])[rng.integers(0, 2, m)]
+            counts[r, :m] = rng.integers(1, 30, m)
+        elif kind == 2:  # the int32 sum wraps negative
+            sites[r, :2] = s0
+            counts[r, :2] = [i32max, int(rng.integers(1, 100))][:k]
+            if k == 1:
+                counts[r, 0] = i32min
+        elif kind == 3:  # sums wrapping to exactly 0, counts cancelling
+            if k >= 4:
+                sites[r, :4] = s0
+                counts[r, :4] = 2**30
+            else:
+                sites[r, :2] = s0
+                counts[r, :2] = i32min if k >= 2 else 0
+            if k >= 6:
+                sites[r, 4:6] = s1
+                counts[r, 4:6] = [7, -7]
+        elif kind == 4:  # negative counts; one site back above 0
+            m = min(k, c, 3)
+            sites[r, :m] = rng.choice(c, m, replace=False)
+            counts[r, :m] = rng.integers(-50, 0, m)
+            if k >= 5:
+                sites[r, 3:5] = s1
+                counts[r, 3:5] = [-3, 5]
+        elif kind == 5:  # every pair real
+            sites[r] = rng.integers(0, c, k)
+            counts[r] = rng.integers(-5, 20, k)
+        elif kind == 6:  # a real pair at site 0 behind the padding pairs
+            sites[r, -1] = 0
+            counts[r, -1] = int(rng.integers(1, 9))
+    state = (
+        rng.integers(0, u, cap).astype(np.int32),
+        rng.integers(0, g, cap).astype(np.int32),
+        rng.integers(0, p, cap).astype(np.int32),
+        replicas,
+        rng.integers(0, 4, cap).astype(np.int32),
+        rng.random(cap) < 0.2,
+        sites,
+        counts,
+    )
+    rows = rng.permutation(cap)[:n].astype(np.int32)
+    rows[::7] = -1
+    rows[n - n // 8:] = -1
+    return {"tables": (cp_bits, cp_static, gvk_bits, prof, incomplete),
+            "state": state, "rows": rows}
+
+
+def perturb_residents(rng, res_dense: np.ndarray, res_meta: np.ndarray,
+                      rows: np.ndarray) -> tuple:
+    """A churn against the residents a pass wrote (copies): a few cells of
+    some of ``rows``' rows, every cell of one row (more changed cells than
+    the 64 delta slots when C > 64) and one row's meta word only."""
+    rd, rm = res_dense.copy(), res_meta.copy()
+    live = np.unique(rows[rows >= 0])
+    c = rd.shape[1]
+    for r in rng.choice(live[2:], min(40, live.size - 2), replace=False):
+        cells = rng.choice(c, min(3, c), replace=False)
+        rd[r, cells] = rng.integers(0, 9, cells.size)
+    rd[live[0]] = rd[live[0]] + 77  # uint8 wrap-around: every cell differs
+    rm[live[1]] ^= 1 << 8  # meta-only change
+    return rd, rm
+
+
+def check_fleet_edges(device, card: str) -> None:
+    """K3 (both forms) and K4 phase A against their plain versions on every
+    edge batch (``fleet_edge_tables``, sites outside [0, C) included): for
+    each C and k_prev, K3 masks chunk by chunk (256 rows), K3 bits over
+    every row, and K3 -> K2 -> K4 phase A on all-rows and partial batches
+    three times: from zero residents, again with no change (steady: no
+    row may change), and against ``perturb_residents`` (churn: a row past
+    the delta slots, a meta-only change). Exact. Then K3 masks on a
+    seeded 4096 x 5000 batch, timed."""
+    import torch
+    from karmada_tpu_torch.ops import divide_replicas
+    from karmada_tpu_torch.scheduler import fleet_kernels as fk
+
+    rng = np.random.default_rng(SEED + 8)
+    chunk = 256
+    with uncounted():
+        for c in FLEET_EDGE_C:
+            for k_prev in FLEET_EDGE_K_PREV:
+                t = fleet_edge_tables(rng, c, k_prev, out_of_range=True)
+                tables = tuple(torch.from_numpy(a).to(device) for a in t["tables"])
+                state = tuple(torch.from_numpy(a).to(device) for a in t["state"])
+                rows = torch.from_numpy(t["rows"]).to(device)
+                tag = f"C={c} k_prev={k_prev}"
+                for i in range(rows.shape[0] // chunk):
+                    rc = rows[i * chunk:(i + 1) * chunk]
+                    compare(f"fleet_masks edges {tag}", tuple(fk.fleet_masks(*tables, rc, *state)),
+                            tuple(fk.fleet_masks_ref(*tables, rc, *state)))
+                compare(f"fleet_bits edges {tag}", fk.fleet_bits(*tables, rows, *state),
+                        fk.fleet_bits_ref(*tables, rows, *state))
+                cap = state[0].shape[0]
+                d_slots = min(64, c)
+                for all_rows in (True, False):
+                    rows_b = rows if not all_rows else torch.where(
+                        rows >= 0, torch.arange(rows.shape[0], dtype=torch.int32,
+                                                device=device), -1)
+                    res_k = (torch.zeros((cap, c), dtype=torch.uint8, device=device),
+                             torch.zeros((cap,), dtype=torch.int32, device=device))
+                    res_r = tuple(x.clone() for x in res_k)
+                    for step in ("cold", "steady", "churn"):
+                        if step == "churn":
+                            rd, rm = perturb_residents(rng, res_k[0].cpu().numpy(),
+                                                       res_k[1].cpu().numpy(),
+                                                       rows_b.cpu().numpy())
+                            for res in (res_k, res_r):
+                                res[0].copy_(torch.from_numpy(rd))
+                                res[1].copy_(torch.from_numpy(rm))
+                        parts = []
+                        for i in range(rows_b.shape[0] // chunk):
+                            rc = rows_b[i * chunk:(i + 1) * chunk]
+                            m = fk.fleet_masks(*tables, rc, *state)
+                            a, u = divide_replicas(m.strategy, m.replicas, m.feasible,
+                                                   m.static_w, m.avail, m.prev, m.fresh,
+                                                   True)
+                            kw = dict(all_rows=all_rows, offset=i * chunk, d_slots=d_slots)
+                            args = (a, u, m.feasible, m.strategy, rc)
+                            g = fk.fleet_diff(*args, *res_k, **kw)
+                            compare(f"fleet_diff edges {tag} {step} all_rows={all_rows}",
+                                    tuple(g), tuple(fk.fleet_diff_ref(*args, *res_r, **kw)))
+                            parts.append(g)
+                        compare(f"fleet_diff edges residents {tag} {step}", res_k, res_r)
+                        changed = torch.cat([q.changed for q in parts])
+                        dcount = torch.cat([q.dcount for q in parts])
+                        if step == "steady" and bool(changed.any()):
+                            raise AssertionError(f"fleet_diff edges {tag}: a steady pass "
+                                                 f"changed rows")
+                        if step == "churn" and not (
+                                bool((changed & (dcount == 0)).any())
+                                and (c <= 64 or int(dcount.max()) > d_slots)):
+                            raise AssertionError(f"fleet_diff edges {tag}: the churn lacks "
+                                                 f"a meta-only change or a row past the "
+                                                 f"delta slots")
+        print(f"# K3 (both forms) and K4 phase A on the edge batches (C in "
+              f"{FLEET_EDGE_C}, k_prev in {FLEET_EDGE_K_PREV}; cold, steady and churn, "
+              f"all-rows and partial): exact; card {card}", flush=True)
+        t = fleet_edge_tables(rng, 5000, 32, n=4096, cap=4096)
+        tables = tuple(torch.from_numpy(a).to(device) for a in t["tables"])
+        state = tuple(torch.from_numpy(a).to(device) for a in t["state"])
+        rows = torch.from_numpy(t["rows"]).to(device)
+        got = fk.fleet_masks(*tables, rows, *state)
+        err = compare("fleet_masks seeded", tuple(got),
+                      tuple(fk.fleet_masks_ref(*tables, rows, *state)))
+        timed(f"fleet_masks seeded 4096x5000 edge batch (max abs err {err})",
+              lambda: fk.fleet_masks(*tables, rows, *state),
+              lambda: fk.fleet_masks_ref(*tables, rows, *state),
+              _nbytes(rows) + 4096 * (5 * 4 + 1 + 2 * 4 * 32) + _nbytes(*got)
+              + _nbytes(tables[4]), 4096 * 5000 * 10 + 4096 * 32, card)
+    torch.cuda.empty_cache()
+
+
+def widen_prev(state: tuple, k_prev: int, c: int, seed: int) -> tuple:
+    """The table state with prev_sites / prev_counts widened to ``k_prev``
+    pairs: the table's own pairs, then each row's first real pair again
+    (a duplicate site), then random sites with small counts."""
+    import torch
+
+    sites, counts = state[6], state[7]
+    n, k0 = sites.shape
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    extra_s = torch.randint(0, c, (n, k_prev - k0 - 1), generator=g,
+                            dtype=torch.int32).to(sites.device)
+    extra_c = torch.randint(-2, 6, (n, k_prev - k0 - 1), generator=g,
+                            dtype=torch.int32).to(sites.device)
+    wide_s = torch.cat([sites, sites[:, :1], extra_s], dim=1).contiguous()
+    wide_c = torch.cat([counts, counts[:, :1], extra_c], dim=1).contiguous()
+    return (*state[:6], wide_s, wide_c)
 
 
 def check_profile_table(device, card: str, rng) -> dict:
@@ -3241,6 +3501,7 @@ def main() -> int:
         t = preempt_batch(rng, device)
         stats["preempt_select"] = check_preempt_kernel(t, card, "131072 x 5000 seeded")
         del t
+        check_fleet_edges(device, card)
 
     def configs():
         for cfg in (1, 2, 3, 4):

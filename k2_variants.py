@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Time build variants and truncated copies of K2 (``divide_replicas``) on
-one NVIDIA GPU, beside the built kernel's phase split.
+one NVIDIA GPU, beside the built kernel's phase split; with ``--fleet``,
+truncated copies of K3 (``fleet_masks``, both forms) and K4 phase A
+(``fleet_diff``) instead.
 
     python3 k2_variants.py [E/THREADS/MIN_BLOCKS/CUT,...]
+    python3 k2_variants.py --fleet [CSRC_DIR ...]
 
 Each variant is a copy of ``karmada_tpu_torch/csrc/divide_replicas.cu``
 compiled on its own (``nvcc``, as the port builds it) with E elements a
@@ -20,12 +23,28 @@ each variant's registers and spills, and its ms per launch (CUDA events,
 and chunk 0 of the config-5 fleet table; then the built kernel's phase
 split (``chip_smoke.k2_phase_split``) on the first and the last. Imports
 nothing of JAX.
+
+``--fleet`` compiles, for each kernel source directory named (default: the
+port's own ``csrc``; another checkout's, such as a parent commit's, can be
+named beside it), ``fleet_masks.cu`` three times: whole, cut before the
+previous-site pass and cut after it, and ``fleet_diff.cu`` whole. A source
+that defines ``FLEET_CUT`` is cut with ``-DFLEET_CUT=1`` / ``2``; an older
+one by the text replacements of ``FLEET_TEXT_CUTS``. Each copy is timed
+(CUDA events, ``chip_smoke.cuda_ms``), not checked, on chunk 0 of the
+config-5 fleet table (K3 masks form, 4096 x 5000) and on every row of it
+(K3 bits form, 102,400 x 5000); the whole copies are also held to the
+plain versions. K4 phase A is timed with d_slots 64 and 0 (no delta
+compaction) on chunk 0 of a steady pass (the resident already holds the
+chunk's result) and of a churn pass (the first drifted snapshot of
+``chip_smoke.drift_snapshots``, against the cold pass's resident, restored
+before each launch outside the timed events).
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -62,7 +81,226 @@ def variant_source(src: str, e: int, threads: int, min_blocks: int, cut: int) ->
     return src
 
 
+#: cuts of kernel sources that predate ``FLEET_CUT``: cut -> ((text,
+#: replacement), ...), applied to ``fleet_masks.cu``. Cut 1 returns before
+#: the previous-site pass (row loads, the pairs in shared memory, the row
+#: scalars); cut 2 runs that pass and stores ``prev`` (masks) or its
+#: positive bits (bits) and returns.
+FLEET_TEXT_CUTS = {
+    1: (("  const size_t o = (size_t)j * c_n + c;\n  int32_t pv;",
+         "  return;\n  const size_t o = (size_t)j * c_n + c;\n  int32_t pv;"),
+        ("  int32_t pv;\n  const bool f = c < c_n && cell(",
+         "  if (c >= 0) return;\n  int32_t pv;\n  const bool f = c < c_n && cell(")),
+    2: (("  const size_t o = (size_t)j * c_n + c;\n  int32_t pv;",
+         "  const size_t o = (size_t)j * c_n + c;\n  {\n    uint32_t p2 = 0;\n"
+         "    for (int k = 0; k < k_prev; ++k)\n"
+         "      if (s_site[k] == c) p2 += (uint32_t)s_cnt[k];\n"
+         "    prev[o] = (int32_t)p2;\n    return;\n  }\n  int32_t pv;"),
+        ("  int32_t pv;\n  const bool f = c < c_n && cell(",
+         "  uint32_t p2 = 0;\n  for (int k = 0; k < k_prev; ++k)\n"
+         "    if (s_site[k] == c) p2 += (uint32_t)s_cnt[k];\n"
+         "  const bool f2 = c < c_n && (int32_t)p2 > 0;\n"
+         "  const unsigned word2 = __ballot_sync(0xffffffffu, f2);\n"
+         "  if ((threadIdx.x & 31) == 0 && (c >> 5) < ((c_n + 31) >> 5))\n"
+         "    words[(size_t)j * ((c_n + 31) >> 5) + (c >> 5)] = (int32_t)word2;\n"
+         "  return;\n  int32_t pv;\n  const bool f = c < c_n && cell(")),
+}
+FLEET_CUT_NAMES = {0: "whole", 1: "cut before prev", 2: "cut after prev"}
+
+
+def _fleet_builds(csrc: str, tmp: str, tag: str) -> dict:
+    """Start nvcc on the K3 copies (cuts 0-2) and the whole K4 of ``csrc``;
+    (kernel, cut) -> (process, library path)."""
+    from karmada_tpu_torch import native
+
+    procs = {}
+    for name, cuts in (("fleet_masks", (0, 1, 2)), ("fleet_diff", (0,))):
+        src = open(os.path.join(csrc, f"{name}.cu")).read()
+        for cut in cuts:
+            flags = []
+            if cut and "FLEET_CUT" in src:
+                flags = [f"-DFLEET_CUT={cut}"]
+                text = src
+            else:
+                text = src
+                for old, new in FLEET_TEXT_CUTS.get(cut, ()):
+                    if old not in text:
+                        raise SystemExit(f"k2_variants: {csrc}/{name}.cu holds neither "
+                                         f"FLEET_CUT nor {old!r}")
+                    text = text.replace(old, new, 1)
+            path = os.path.join(tmp, f"{tag}_{name}_{cut}")
+            with open(path + ".cu", "w") as f:
+                f.write(text)
+            procs[(name, cut)] = (subprocess.Popen(
+                [native.nvcc(), *native.NVCC_FLAGS, *flags, "-Xptxas", "-v", "-o",
+                 path + ".so", path + ".cu"],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), path + ".so")
+    return procs
+
+
+def _fleet_lib(proc, so: str, label: str):
+    from karmada_tpu_torch import native
+
+    log, _ = proc.communicate()
+    if proc.returncode:
+        raise SystemExit(f"k2_variants: {label} does not build:\n{log}")
+    usage = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"# {label}: " + "; ".join(usage), flush=True)
+    lib = ctypes.CDLL(so)
+    for lib_name in ("fleet_masks", "fleet_diff"):
+        for fn_name, sig in native.SIGNATURES[lib_name].items():
+            if hasattr(lib, fn_name):
+                fn = getattr(lib, fn_name)
+                fn.argtypes = [native._CTYPES[k] for k in sig] + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+    return lib
+
+
+def fleet_main(dirs: list) -> int:
+    import torch
+    import karmada_tpu_torch
+    from karmada_tpu_torch import native
+    from karmada_tpu_torch.ops import divide_replicas
+    from karmada_tpu_torch.scheduler import TensorScheduler
+    from karmada_tpu_torch.scheduler import fleet_kernels as fk
+
+    if not torch.cuda.is_available():
+        print("k2_variants: no CUDA device", file=sys.stderr)
+        return 1
+    card = cs.card_line()
+    print(f"# card: {card}", flush=True)
+    dirs = dirs or [native.CSRC]
+    tmp = tempfile.mkdtemp(prefix="fleet_variants_")
+    procs = {}
+    for i, d in enumerate(dirs):
+        procs.update({(i, *k): v for k, v in _fleet_builds(d, tmp, f"d{i}").items()})
+    native.build()
+    t0 = time.perf_counter()
+    snap, problems = cs.build_workload(karmada_tpu_torch, 5)
+    drift = cs.drift_snapshots(karmada_tpu_torch, snap, 1)
+    dev = torch.device("cuda", 0)
+    engine = TensorScheduler(snap, chunk_size=4096, device=dev)
+    engine.schedule(problems)
+    torch.cuda.synchronize()
+    table = engine._fleet
+    print(f"# config-5 table built and scheduled in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    libs = {k: _fleet_lib(p, so, f"{dirs[k[0]]} {k[1]} {FLEET_CUT_NAMES[k[2]]}")
+            for k, (p, so) in procs.items()}
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
+    chunk = table.chunk
+    rows_all = table._all_rows_dev
+
+    def masks_run(lib, tables, state, rows):
+        b, c = rows.shape[0], tables[1].shape[1]
+        out = fk.ChunkMasks(*(torch.empty((b, c), dtype=d, device=dev)
+                              for d in (torch.bool, torch.int32, torch.int32, torch.int32)),
+                            *(torch.empty((b,), dtype=d, device=dev)
+                              for d in (torch.int32, torch.int32, torch.bool)))
+        err = lib.fleet_masks_launch(*[t.data_ptr() for t in tables], c,
+                                     tables[2].shape[1], rows.data_ptr(), b,
+                                     *[t.data_ptr() for t in state], state[6].shape[1],
+                                     *[t.data_ptr() for t in out], stream())
+        native.check_launch("fleet_masks_launch", err)
+        return out
+
+    def bits_run(lib, tables, state, rows):
+        b, c = rows.shape[0], tables[1].shape[1]
+        out = torch.empty((b, (c + 31) // 32), dtype=torch.int32, device=dev)
+        err = lib.fleet_bits_launch(*[t.data_ptr() for t in tables], c,
+                                    tables[2].shape[1], rows.data_ptr(), b,
+                                    *[t.data_ptr() for t in state], state[6].shape[1],
+                                    out.data_ptr(), stream())
+        native.check_launch("fleet_bits_launch", err)
+        return out
+
+    def diff_run(lib, args, res, d_slots):
+        a, u, f, st, rows = args
+        b, c = a.shape
+        outs = (torch.empty((b,), dtype=torch.bool, device=dev),
+                torch.empty((b,), dtype=torch.int32, device=dev),
+                torch.empty((b,), dtype=torch.int32, device=dev),
+                torch.empty((b, d_slots), dtype=torch.int32, device=dev))
+        err = lib.fleet_diff_launch(*[t.data_ptr() for t in args], b, c,
+                                    res[0].data_ptr(), res[1].data_ptr(), res[0].shape[0],
+                                    1, 0, d_slots, *[t.data_ptr() for t in outs], stream())
+        native.check_launch("fleet_diff_launch", err)
+        return outs
+
+    def event_ms(fn, restore, reps=20):
+        """Median device ms of ``fn`` alone, ``restore()`` run before each
+        launch outside the events, which are queued behind a device spin
+        (the host's launch work is hidden)."""
+        fn()
+        per = []
+        for _ in range(reps):
+            restore()
+            torch.cuda._sleep(cs.SPIN_CYCLES // 10)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            fn()
+            e1.record()
+            e1.synchronize()
+            per.append(e0.elapsed_time(e1))
+        return statistics.median(per)
+
+    tables, state = table._dev_tables, table._dev_state
+    rows0 = rows_all[:chunk]
+    cold_res = (table._res_dense[:chunk].clone(), table._res_meta[:chunk].clone())
+    for i, d in enumerate(dirs):
+        line = []
+        for cut in (0, 1, 2):
+            lib = libs[(i, "fleet_masks", cut)]
+            if cut == 0:
+                cs.compare("K3 masks", tuple(masks_run(lib, tables, state, rows0)),
+                           tuple(fk.fleet_masks_ref(*tables, rows0, *state)))
+                cs.compare("K3 bits", bits_run(lib, tables, state, rows_all),
+                           fk.fleet_bits_ref(*tables, rows_all, *state))
+            ms_m = cs.cuda_ms(lambda: masks_run(lib, tables, state, rows0))
+            ms_b = cs.cuda_ms(lambda: bits_run(lib, tables, state, rows_all), reps=5)
+            line.append(f"{FLEET_CUT_NAMES[cut]} masks {ms_m:.4f} bits {ms_b:.4f}")
+        print(f"# K3 split {d} (config-5 chunk 0 {chunk}x{tables[1].shape[1]}; bits "
+              f"{rows_all.shape[0]} rows; ms): " + "; ".join(line) + f"; card {card}",
+              flush=True)
+    # K4 phase A on chunk 0: steady (the cold tables) and churn (drifted)
+    k4 = {}
+    for kind in ("steady", "churn"):
+        if kind == "churn":
+            if not engine.update_snapshot(drift[0]):
+                raise SystemExit("k2_variants: drifted snapshot refused")
+            table._sync_device()
+            tables, state = table._dev_tables, table._dev_state
+        m = fk.fleet_masks(*tables, rows0, *state)
+        has_agg = bool((table._st["strategy"][: table.n_rows] == 3).any())
+        a, u = divide_replicas(m.strategy, m.replicas, m.feasible, m.static_w, m.avail,
+                               m.prev, m.fresh, has_agg)
+        args = (a, u, m.feasible, m.strategy, rows0)
+        for i, d in enumerate(dirs):
+            lib = libs[(i, "fleet_diff", 0)]
+            res = (cold_res[0].clone(), cold_res[1].clone())
+            want_res = (cold_res[0].clone(), cold_res[1].clone())
+            got = diff_run(lib, args, res, 64)
+            want = fk.fleet_diff_ref(*args, *want_res, all_rows=True, offset=0, d_slots=64)
+            cs.compare(f"K4 {kind}", tuple(got) + res, tuple(want) + want_res)
+
+            def restore():
+                res[0].copy_(cold_res[0])
+                res[1].copy_(cold_res[1])
+
+            k4[(kind, i)] = (int(got[0].sum().item()), int(got[2].sum().item()), [
+                event_ms(lambda: diff_run(lib, args, res, ds), restore) for ds in (64, 0)])
+    for i, d in enumerate(dirs):
+        print(f"# K4 split {d} (config-5 chunk 0, ms a launch, d_slots 64 / 0): "
+              + "; ".join(f"{kind} ({k4[(kind, i)][0]} changed rows, {k4[(kind, i)][1]} "
+                          f"changed cells) {k4[(kind, i)][2][0]:.4f} / {k4[(kind, i)][2][1]:.4f}"
+                          for kind in ("steady", "churn")) + f"; card {card}", flush=True)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--fleet"]:
+        return fleet_main(sys.argv[2:])
     import torch
     import karmada_tpu_torch
     from karmada_tpu_torch import native, ops

@@ -23,12 +23,22 @@
 // What bounds it on an H100: bytes. Phase A reads the int32 assignment,
 // the feasible byte and the old uint8 row and writes the uint8 row: 7 B a
 // cell, 143 MB for a 4096 x 5000 chunk, about 0.043 ms at 3.35 TB/s. Phase B
-// reads one uint8 row per changed row and writes k_out words. The design:
-// one block per row walks the row in tiles of 256 columns; each thread
-// owns one column of the tile, reads and writes its resident byte itself
-// (the read precedes the write in the same thread, so the in-place update
-// needs no barrier), and a block-wide exclusive scan of the tile's flags
-// gives each changed cell its rank in site order.
+// reads one uint8 row per changed row and writes k_out words.
+//
+// Phase A's design: one block of 8 warps per row. Each warp owns a
+// contiguous span of the row (up to MAX_STEPS steps of 128 columns) and
+// each lane 4 consecutive columns a step, read with one 16-B load of the
+// assignment and 4-B loads of the feasible and resident bytes (scalar
+// loads where C % 4 != 0), all steps' loads in flight at once. A lane
+// reads its resident bytes and writes them back itself (only the words
+// that changed), so the in-place update needs no barrier. The lane keeps
+// its steps' new bytes and changed flags in registers; one block-wide
+// exchange of the warps' changed counts, n_placed and has_cand (one
+// barrier a row for C <= 8 x MAX_STEPS x 128) gives each warp its first
+// delta slot, and a warp ranks its own changed cells in site order by
+// four ballots a step. A row with no changed cell skips the compaction,
+// as the JAX program's lax.cond skips a steady chunk's. Phase B: one
+// block per row walks it in tiles of 256 columns with a block-wide scan.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -66,20 +76,18 @@ __device__ __forceinline__ int block_scan(int v, int* s_warp, int* total) {
   return out;
 }
 
-__device__ __forceinline__ int block_sum(int v, int* s_warp) {
-  int total;
-  block_scan(v, s_warp, &total);
-  return total;
-}
+constexpr int MAX_STEPS = 8;  // 128-column steps a warp holds per span
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void fleet_diff_kernel(
+__global__ void __launch_bounds__(THREADS) fleet_diff_kernel(
     const int32_t* __restrict__ assignment, const uint8_t* __restrict__ unsched,
     const uint8_t* __restrict__ feasible, const int32_t* __restrict__ strategy,
     const int32_t* __restrict__ rows, int c_n, uint8_t* res_dense,
     int32_t* res_meta, int all_rows, int offset, int d_slots,
     uint8_t* __restrict__ changed_out, int32_t* __restrict__ meta_out,
-    int32_t* __restrict__ dcount_out, int32_t* __restrict__ deltas) {
-  __shared__ int s_warp[WARPS + 1];
+    int32_t* __restrict__ dcount_out, int32_t* __restrict__ deltas, int steps,
+    int vec) {
+  __shared__ int s_x[2][3][WARPS];  // per warp: changed, n_placed, has_cand
   const int j = blockIdx.x;
   const int row = rows[j];
   const bool valid = row >= 0;
@@ -92,42 +100,124 @@ __global__ void fleet_diff_kernel(
   const uint8_t* f = feasible + (size_t)j * c_n;
   uint8_t* rd = res_dense + (size_t)t * c_n;
   int32_t* dl = deltas + (size_t)j * d_slots;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned lt = (1u << lane) - 1u;
+  const int span = steps * 128;
 
-  int n_placed = 0, cand = 0, n_changed = 0;
-  int seen = 0;  // changed cells ranked so far (block-uniform)
-  for (int base = 0; base < c_n; base += THREADS) {
-    const int c = base + threadIdx.x;
-    const bool in = c < c_n;
-    const int32_t av = (in && !dup) ? a[c] : 0;
-    const uint8_t d8 = (uint8_t)(av & 0xFF);  // counts <= MAX_REPLICAS_FAST
-    n_placed += av > 0;
-    cand |= (in && f[c]) ? 1 : 0;
-    bool cc = false;
-    if (in) {
-      cc = valid && rd[c] != d8;  // read the old byte, then overwrite it
-      if (writes) rd[c] = d8;
+  int n_placed = 0, cand = 0;  // this thread's, running
+  int placed = 0, has_cand = 0, seen = 0;  // the block's (uniform)
+  int p = 0;
+  for (int base = 0; base < c_n; base += span * WARPS, p ^= 1) {
+    const int wbase = base + warp * span;
+    uint32_t d8w[MAX_STEPS], chg[MAX_STEPS];
+    int mine = 0;
+#pragma unroll
+    for (int s = 0; s < MAX_STEPS; ++s) {
+      d8w[s] = 0;
+      chg[s] = 0;
+      const int c = wbase + s * 128 + lane * 4;
+      if (s < steps && c < c_n) {
+        uint32_t nw = 0, ow = 0, fw = 0;
+        int np = 0;
+        if (vec) {  // the 4 columns lie inside the row, 16-B aligned
+          const int4 av = *reinterpret_cast<const int4*>(a + c);
+          const int32_t v[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int32_t x = dup ? 0 : v[e];
+            np += x > 0;
+            nw |= (uint32_t)(x & 0xFF) << (8 * e);  // counts <= MAX_REPLICAS_FAST
+          }
+          fw = *reinterpret_cast<const uint32_t*>(f + c);
+          ow = *reinterpret_cast<const uint32_t*>(rd + c);
+          if (writes && nw != ow) *reinterpret_cast<uint32_t*>(rd + c) = nw;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (c + e < c_n) {
+              const int32_t x = dup ? 0 : a[c + e];
+              np += x > 0;
+              nw |= (uint32_t)(x & 0xFF) << (8 * e);
+              fw |= (uint32_t)(f[c + e] != 0) << (8 * e);
+              ow |= (uint32_t)rd[c + e] << (8 * e);
+            }
+          }
+          if (writes)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (c + e < c_n && ((nw ^ ow) >> (8 * e) & 0xFF))
+                rd[c + e] = (uint8_t)(nw >> (8 * e));
+        }
+        n_placed += np;
+        cand |= fw != 0;
+        uint32_t fl = 0;
+        if (valid)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            fl |= (uint32_t)(((nw ^ ow) >> (8 * e) & 0xFF) != 0) << e;
+        d8w[s] = nw;
+        chg[s] = fl;
+        mine += __popc(fl);
+      }
     }
-    n_changed += cc;
-    if (seen < d_slots) {  // ordered compaction of the changed cells
-      int tile;
-      const int pos = seen + block_scan(cc ? 1 : 0, s_warp, &tile);
-      if (cc && pos < d_slots) dl[pos] = (c << 9) | ((int32_t)d8 + 1);
-      seen += tile;
+    // one exchange a span: the warps' changed cells, n_placed, has_cand
+    const int w_changed = __reduce_add_sync(FULL, mine);
+    const int w_placed = __reduce_add_sync(FULL, n_placed);
+    const unsigned w_cand = __reduce_or_sync(FULL, (unsigned)cand);
+    if (lane == 0) {
+      s_x[p][0][warp] = w_changed;
+      s_x[p][1][warp] = w_placed;
+      s_x[p][2][warp] = (int)w_cand;
     }
+    __syncthreads();
+    int before = seen, total = 0;
+    placed = 0;
+    has_cand = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const int v = s_x[p][0][w];
+      before += w < warp ? v : 0;
+      total += v;
+      placed += s_x[p][1][w];
+      has_cand |= s_x[p][2][w];
+    }
+    if (total && before < d_slots) {  // ordered compaction of the changed cells
+      int pos = before;
+#pragma unroll
+      for (int s = 0; s < MAX_STEPS; ++s) {
+        if (s < steps && pos < d_slots) {
+          const uint32_t fl = chg[s];
+          const unsigned m0 = __ballot_sync(FULL, fl & 1u);
+          const unsigned m1 = __ballot_sync(FULL, fl & 2u);
+          const unsigned m2 = __ballot_sync(FULL, fl & 4u);
+          const unsigned m3 = __ballot_sync(FULL, fl & 8u);
+          int r = pos + __popc(m0 & lt) + __popc(m1 & lt) + __popc(m2 & lt) +
+                  __popc(m3 & lt);
+          const int c = wbase + s * 128 + lane * 4;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (fl >> e & 1u) {
+              if (r < d_slots)
+                dl[r] = ((c + e) << 9) | (int32_t)((d8w[s] >> (8 * e) & 0xFFu) + 1);
+              ++r;
+            }
+          }
+          pos += __popc(m0) + __popc(m1) + __popc(m2) + __popc(m3);
+        }
+      }
+    }
+    seen += total;
   }
   const int filled = seen < d_slots ? seen : d_slots;
   for (int k = filled + threadIdx.x; k < d_slots; k += THREADS) dl[k] = 0;
-  n_placed = block_sum(n_placed, s_warp);
-  cand = block_sum(cand, s_warp);
-  n_changed = block_sum(n_changed, s_warp);
   if (threadIdx.x == 0) {
-    const int32_t meta =
-        n_placed | ((int32_t)(unsched[j] != 0) << 8) | ((int32_t)(cand > 0) << 9);
+    const int32_t meta = placed | ((int32_t)(unsched[j] != 0) << 8) |
+                         ((int32_t)(has_cand != 0) << 9);
     const int32_t old_m = res_meta[t];
     if (writes) res_meta[t] = meta;
-    changed_out[j] = (valid && (n_changed > 0 || meta != old_m)) ? 1 : 0;
+    changed_out[j] = (valid && (seen > 0 || meta != old_m)) ? 1 : 0;
     meta_out[j] = meta;
-    dcount_out[j] = n_changed;
+    dcount_out[j] = seen;
   }
 }
 
@@ -165,9 +255,19 @@ extern "C" int fleet_diff_launch(
     int32_t* deltas, cudaStream_t stream) {
   (void)cap;  // the wrapper checks the all_rows window against it
   if (b_n == 0) return 0;
+  // steps of 128 columns a warp: the row split evenly over the 8 warps,
+  // at most MAX_STEPS a span (wider rows take several spans)
+  const int groups = (c_n + 127) / 128;
+  const int per_warp = (groups + WARPS - 1) / WARPS;
+  const int steps = per_warp < 1 ? 1 : (per_warp > MAX_STEPS ? MAX_STEPS : per_warp);
+  const auto al = [](const void* p, uintptr_t n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
+  const int vec = c_n % 4 == 0 && al(assignment, 16) && al(feasible, 4) &&
+                  al(res_dense, 4);
   fleet_diff_kernel<<<b_n, THREADS, 0, stream>>>(
       assignment, unsched, feasible, strategy, rows, c_n, res_dense, res_meta,
-      all_rows, offset, d_slots, changed, meta, dcount, deltas);
+      all_rows, offset, d_slots, changed, meta, dcount, deltas, steps, vec);
   return (int)cudaGetLastError();
 }
 

@@ -61,8 +61,6 @@ from ..ops.divide import DUPLICATED, divide_replicas, divide_replicas_ref
 from ..ops.estimate import MAX_INT32, merge_estimates
 
 I32, I64, U8, BOOL = torch.int32, torch.int64, torch.uint8, torch.bool
-#: the widest previous-assignment list K3 takes per row (fleet.K_PREV = 32)
-MAX_PREV = 64
 
 
 # --------------------------------------------------------------------------
@@ -210,17 +208,18 @@ def _check_masks_inputs(name, tables, rows, state) -> None:
     k_prev = state[6].shape[1]
     if (cp_bits.shape[1] != 2 * w8 or gvk_bits.shape[1] != w8
             or prof_table.shape[1] != c or inc.shape != (c,)
-            or state[7].shape != state[6].shape or not 0 < k_prev <= MAX_PREV):
+            or state[7].shape != state[6].shape or k_prev < 1):
         raise ValueError(f"{name}: inconsistent table or state shapes")
 
 
 def fleet_masks(cp_bits, cp_static, gvk_bits, prof_table, incomplete_en, rows,
                 cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh,
                 prev_sites, prev_counts) -> ChunkMasks:
-    """K3: for each row of the chunk, resolve its slots, scatter-add its
-    previous sites, unpack the gathered affinity/taint/GVK bit planes and
-    write feasible, static weights, prev and the merged availability that
-    K2 takes, plus the row's replicas, strategy and fresh flag."""
+    """K3: for each row of the chunk (any number of rows, any k_prev),
+    resolve its slots, scatter-add its previous sites, unpack the gathered
+    affinity/taint/GVK bit planes and write feasible, static weights, prev
+    and the merged availability that K2 takes, plus the row's replicas,
+    strategy and fresh flag."""
     tables = (cp_bits, cp_static, gvk_bits, prof_table, incomplete_en)
     state = (cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh,
              prev_sites, prev_counts)
@@ -253,7 +252,7 @@ def fleet_bits(cp_bits, cp_static, gvk_bits, prof_table, incomplete_en, rows,
                prev_sites, prev_counts, *, chunk: int = 0,
                n_chunks: int = 0) -> torch.Tensor:
     """K3 bits form: the same feasibility as ``fleet_masks``, packed into
-    int32[n, ceil(C/32)] words (one warp ballot per word)."""
+    int32[n, ceil(C/32)] words (one thread per word, one warp per row)."""
     rows = _scan_rows(rows, chunk, n_chunks)
     tables = (cp_bits, cp_static, gvk_bits, prof_table, incomplete_en)
     state = (cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh,
@@ -264,7 +263,7 @@ def fleet_bits(cp_bits, cp_static, gvk_bits, prof_table, incomplete_en, rows,
     _check_masks_inputs("fleet_bits", tables, rows, state)
     dev = rows.device
     b, c = rows.shape[0], cp_static.shape[1]
-    out = torch.zeros((b, (c + 31) // 32), dtype=I32, device=dev)
+    out = torch.empty((b, (c + 31) // 32), dtype=I32, device=dev)
     if b and c:
         native.launch(fleet_bits, "fleet_masks", "fleet_bits_launch", dev,
                       *tables, c, gvk_bits.shape[1], rows, b, *state,
@@ -336,7 +335,8 @@ def fleet_diff(assignment, unsched, feasible, strategy, rows, res_dense,
     """K4 phase A: one block per row zeroes Duplicated rows, writes dense8
     and the meta word over the resident IN PLACE, and emits the changed
     flag, the changed-cell count and the first ``d_slots`` cell deltas in
-    site order (an ordered compaction in place of the JAX sort)."""
+    site order (an ordered compaction in place of the JAX sort, skipped on
+    a row with no changed cell)."""
     args = (assignment, unsched, feasible, strategy, rows, res_dense, res_meta)
     if native.on_cpu(args):
         return fleet_diff_ref(*args, all_rows=all_rows, offset=offset,

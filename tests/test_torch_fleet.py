@@ -10,10 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import karmada_tpu.scheduler.core as jcore
 import karmada_tpu.scheduler.fleet as jf
+from karmada_tpu.ops.estimate import merge_estimates as j_merge_estimates
+
+import chip_smoke
 
 from karmada_tpu_torch import native
 from karmada_tpu_torch.scheduler import fleet_kernels as fk
@@ -133,6 +137,111 @@ def test_fleet_bits_equal_jax(c, kind):
                         n_chunks=3)
     assert got.dtype == torch.int32 and got.shape == want.shape
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+# --------------------------------------------------------------------------
+# K3 and K4 on the edge batches (chip_smoke.fleet_edge_tables): duplicate,
+# wrapping and negative previous counts, padding rows, k_prev 1 / 32 / 128,
+# C ending part-way through words, vectors and tiles
+# --------------------------------------------------------------------------
+
+
+def edge_tables(c: int, k_prev: int) -> dict:
+    return chip_smoke.fleet_edge_tables(np.random.default_rng(1000 * c + k_prev), c,
+                                        k_prev)
+
+
+@jax.jit
+def _jax_chunk_masks(cp_bits, cp_static, gvk_bits, prof_table, inc, rows, cp_idx,
+                     gvk_idx, prof_idx, replicas, strategy, fresh, prev_sites,
+                     prev_counts):
+    """``_fleet_pass``'s per-chunk gather, ``_row_masks`` and the one-
+    estimator ``merge_estimates`` (fleet.py:538-569) for one chunk."""
+    valid = rows >= 0
+    r = jnp.maximum(rows, 0)
+    reps = jnp.where(valid, replicas[r], 0)
+    pcc = jnp.where(valid[:, None], prev_counts[r], 0)
+    prev, static_w, feasible = jf._row_masks(
+        cp_bits, cp_static, gvk_bits, inc, cp_idx[r], gvk_idx[r], prev_sites[r], pcc,
+        valid, rows.shape[0], cp_static.shape[1])
+    avail = j_merge_estimates(reps, (prof_table[prof_idx[r]],))
+    return feasible, static_w, prev, avail, reps, strategy[r], fresh[r] & valid
+
+
+@pytest.mark.parametrize("k_prev", chip_smoke.FLEET_EDGE_K_PREV)
+@pytest.mark.parametrize("c", chip_smoke.FLEET_EDGE_C)
+def test_fleet_masks_and_bits_edge_tables_equal_jax(c, k_prev):
+    t = edge_tables(c, k_prev)
+    tables, state, rows = t["tables"], t["state"], t["rows"]
+    for i in range(rows.size // CHUNK):
+        rc = rows[i * CHUNK:(i + 1) * CHUNK]
+        got = fk.fleet_masks(*map(T, tables), T(rc), *map(T, state))
+        want = _jax_chunk_masks(*map(J, tables), J(rc), *map(J, state))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    want_b = np.asarray(jf._fleet_bits(*map(J, tables), J(rows), *map(J, state),
+                                       chunk=CHUNK, n_chunks=rows.size // CHUNK))
+    got_b = fk.fleet_bits(*map(T, tables), T(rows), *map(T, state), chunk=CHUNK,
+                          n_chunks=rows.size // CHUNK)
+    np.testing.assert_array_equal(got_b.numpy().view(np.uint32), want_b)
+    # the edges are there: a wrapped or negative prev, a duplicate sum
+    prev = fk.fleet_masks(*map(T, tables), T(rows[:CHUNK]), *map(T, state)).prev
+    assert (prev < 0).any() and (prev > 29).any() or k_prev == 1 or c == 1
+
+
+@pytest.mark.parametrize("c,k_prev,kind", [
+    (1, 1, "part"), (31, 128, "all"), (33, 32, "part"), (257, 32, "all"),
+    (1000, 128, "part"), (5000, 32, "all"), (5000, 1, "part"),
+])
+def test_fleet_pass_edge_tables_equal_jax(c, k_prev, kind):
+    """``_fleet_pass`` byte for byte on an edge batch, three passes over the
+    same rows: from zero residents, steady (no row changes), and against
+    ``chip_smoke.perturb_residents`` (a row past the 64 delta slots, a
+    meta-only change)."""
+    t = edge_tables(c, k_prev)
+    tables, state, rows = t["tables"], t["state"], t["rows"]
+    if kind == "all":
+        rows = np.where(rows >= 0, np.arange(rows.size, dtype=np.int32), -1)
+    cap = state[0].size
+    n_chunks = rows.size // CHUNK
+    kw = dict(chunk=CHUNK, n_chunks=n_chunks, wide=True, fast=None,
+              has_aggregated=True, all_rows=kind == "all", m_cap=rows.size,
+              d_cap=8192)
+    rd, rm = np.zeros((cap, c), np.uint8), np.zeros(cap, np.int32)
+    for step in ("cold", "steady", "churn"):
+        if step == "churn":
+            rd, rm = chip_smoke.perturb_residents(np.random.default_rng(c), rd, rm, rows)
+        w_flat, w_rowbuf, w_rd, w_rm = jf._fleet_pass(
+            *map(J, tables), J(rows), *map(J, state), J(rd.copy()), J(rm.copy()), **kw)
+        t_rd, t_rm = T(rd.copy()), T(rm.copy())
+        g_flat, g_rowbuf, _, _ = fk.fleet_pass(
+            *map(T, tables), T(rows), *map(T, state), t_rd, t_rm, **kw)
+        np.testing.assert_array_equal(g_flat.numpy(), np.asarray(w_flat))
+        np.testing.assert_array_equal(g_rowbuf.numpy(), np.asarray(w_rowbuf))
+        np.testing.assert_array_equal(t_rd.numpy(), np.asarray(w_rd))
+        np.testing.assert_array_equal(t_rm.numpy(), np.asarray(w_rm))
+        total = int(g_flat.numpy()[:4].view("<i4")[0])
+        assert (total == 0) == (step == "steady"), (step, total)
+        rd, rm = t_rd.numpy(), t_rm.numpy()
+
+
+def test_masks_input_check_takes_any_k_prev():
+    """The card path's shape check (``_check_masks_inputs``) takes any
+    k_prev > 0 (no MAX_PREV), and still refuses k_prev = 0 and counts
+    shaped unlike the sites."""
+    for k_prev in (1, 128, 300):
+        t = edge_tables(33, 1)
+        state = list(map(T, t["state"]))
+        state[6] = torch.zeros((state[6].shape[0], k_prev), dtype=torch.int32)
+        state[7] = torch.zeros_like(state[6])
+        fk._check_masks_inputs("fleet_masks", tuple(map(T, t["tables"])),
+                               T(t["rows"]), tuple(state))
+    for bad in ((0, 0), (4, 5)):
+        state[6] = torch.zeros((state[6].shape[0], bad[0]), dtype=torch.int32)
+        state[7] = torch.zeros((state[6].shape[0], bad[1]), dtype=torch.int32)
+        with pytest.raises(ValueError):
+            fk._check_masks_inputs("fleet_masks", tuple(map(T, t["tables"])),
+                                   T(t["rows"]), tuple(state))
 
 
 # --------------------------------------------------------------------------
