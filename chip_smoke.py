@@ -22,11 +22,14 @@
    K13's per-row form ``quota_cluster_caps`` at 4096 x 5000, K14
    ``explain_pass`` at 4096 x 5000 (a batch full of key ties) and at C = 5,
    and K15 ``preempt_select`` at 131072 rows (R = 4, C = 5000, 16 priority
-   classes, ~30% victims, ~5% demanders); K3 (both forms) and K4 phase A on
-   the fleet edge batches (``fleet_edge_tables``: duplicate, wrapping and
-   negative previous counts, padding rows, sites outside [0, C), k_prev 1,
-   32 and 128, C from 1 to 5000; cold, steady and churn residents, all-rows
-   and partial batches) and K3 on a seeded 4096 x 5000 batch; equality is
+   classes, ~30% victims, ~5% demanders); K3 (both forms), K4 (phase A and
+   the entry rows) and K16 (both forms) on the fleet edge batches
+   (``fleet_edge_tables``: duplicate, wrapping and negative previous
+   counts, padding rows, sites outside [0, C), k_prev 1, 32 and 128, C from
+   1 to 5000; cold, steady and churn residents, all-rows and partial
+   batches; ``check_entry_edges``: K16 at k_out 1 and 128 with a row named
+   twice, the entry rows over odd and even rows with counts up to 255) and
+   K3 on a seeded 4096 x 5000 batch; equality is
    exact (integer outputs, tolerance 0). Prints each kernel's median time
    beside the plain version's and its bound (CUDA events behind a device
    spin, so the wrappers' host work is not timed). Then the shapes past
@@ -44,7 +47,9 @@
    - config 5, the 100k bindings x 5k clusters storm, through the fleet
      table: one cold pass, 3 steady passes (the batch-identity route) and 3
      churn passes (every cluster's allocation drifts, bench.py's recipe);
-     every row checked after the cold and the last churn pass. Before the
+     every row checked after the cold and the last churn pass; a traced
+     steady, churn and cold pass (the cold one on a new engine, equal to the
+     last churn pass) give the device time by kernel. Before the
      first churn pass it holds K3 (both forms; the masks form also at
      k_prev = 128 and in one launch over all 102,400 rows), K2 (on the
      first chunk's inputs, with its phase split), K4 (both stages), K5
@@ -1098,7 +1103,7 @@ def report(name, ms, plain_ms, nbytes, ops, card, lib_ms=None) -> dict:
     """Print a kernel's times beside its bound; the stats of its JSON entry."""
     bound_ms, bound_by = _bound(nbytes, ops)
     print(f"# kernel {name}: exact; {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms by {bound_by}"
+          f"{bound_ms:.6f} ms by {bound_by}"
           + (f", library {lib_ms:.4f} ms" if lib_ms is not None else "")
           + f"); card {card}", flush=True)
     return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1562,9 +1567,12 @@ def check_fleet_edges(device, card: str) -> None:
                             raise AssertionError(f"fleet_diff edges {tag}: the churn lacks "
                                                  f"a meta-only change or a row past the "
                                                  f"delta slots")
-        print(f"# K3 (both forms) and K4 phase A on the edge batches (C in "
-              f"{FLEET_EDGE_C}, k_prev in {FLEET_EDGE_K_PREV}; cold, steady and churn, "
-              f"all-rows and partial): exact; card {card}", flush=True)
+                check_entry_edges(tables, state, rows, res_k[0], tag, chunk)
+        print(f"# K3 (both forms), K4 phase A, K16 (both forms) and K4's entry rows on "
+              f"the edge batches (C in {FLEET_EDGE_C}, k_prev in {FLEET_EDGE_K_PREV}; "
+              f"cold, steady and churn, all-rows and partial; K16 at k_out "
+              f"{ENTRY_EDGE_K_OUT} with k_res = k_out + 8, entry rows at k_out "
+              f"{ENTRY_EDGE_K_OUT} and C): exact; card {card}", flush=True)
         t = fleet_edge_tables(rng, 5000, 32, n=4096, cap=4096)
         tables = tuple(torch.from_numpy(a).to(device) for a in t["tables"])
         state = tuple(torch.from_numpy(a).to(device) for a in t["state"])
@@ -1578,6 +1586,96 @@ def check_fleet_edges(device, card: str) -> None:
               _nbytes(rows) + 4096 * (5 * 4 + 1 + 2 * 4 * 32) + _nbytes(*got)
               + _nbytes(tables[4]), 4096 * 5000 * 10 + 4096 * 32, card)
     torch.cuda.empty_cache()
+
+
+#: the edge checks' k_out values (each capped at C): one word (every row
+#: with two placed cells truncates) and the fleet's widest
+ENTRY_EDGE_K_OUT = (1, 128)
+
+
+def entry_edge_dense(rng, res_dense: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """Entry-row input from a churned dense resident (a copy): one row of
+    the batch with counts 1-255 in every cell, one with 255 in every other
+    cell (more nonzero cells than any k_out below C)."""
+    rd = res_dense.copy()
+    live = np.unique(rows[rows >= 0])
+    rd[live[2]] = rng.integers(1, 256, rd.shape[1])
+    rd[live[3], ::2] = 255
+    return rd
+
+
+def entry_edge_resident(rng, resident, rows, k_out: int) -> None:
+    """A churn of a committed entry resident, in place: some of ``rows``'
+    first words bumped, one word past k_out set, one row zeroed."""
+    import torch
+
+    live = np.unique(rows[rows >= 0])
+    pick = torch.from_numpy(rng.choice(live[3:], min(30, live.size - 3), replace=False))
+    resident[pick.to(resident.device), 0] += 1
+    resident[int(live[0]), k_out] = 5
+    resident[int(live[1])] = 0
+
+
+def check_entry_edges(tables, state, rows, res_dense, tag: str, chunk: int) -> None:
+    """K16 and K4's entry rows against their plain versions on one edge
+    batch, exactly. K16: K3 -> K2 per chunk in the all-rows form and the
+    gathered form (the batch's permuted rows, padding included, with one
+    row named twice), at each ``ENTRY_EDGE_K_OUT`` against a
+    resident 8 words wider: from a zero resident (cold), again after
+    committing that pass (K6; steady: no row may change), and after
+    ``entry_edge_resident`` (churn: rows must change). Entry rows: the
+    batch's rows (odd and even indices, padding) over
+    ``entry_edge_dense(res_dense)`` at each k_out and at C, and over the
+    same table less its first row (a base pointer C bytes in)."""
+    import torch
+    from karmada_tpu_torch.ops import divide_replicas
+    from karmada_tpu_torch.scheduler import fleet_kernels as fk
+
+    device = rows.device
+    cap, c = res_dense.shape
+    n = rows.shape[0]
+    rng = np.random.default_rng(c)
+    rows_np = rows.cpu().numpy()
+    for all_rows in (True, False):
+        if all_rows:
+            rows_b = torch.where(rows >= 0, torch.arange(n, dtype=torch.int32,
+                                                          device=device), -1)
+        else:
+            rows_b = rows.clone()
+            rows_b[2] = rows_b[1]  # one row named twice (rows[0] is padding)
+        form = "all-rows" if all_rows else "gathered"
+        divided = []
+        for i in range(n // chunk):
+            rc = rows_b[i * chunk:(i + 1) * chunk]
+            m = fk.fleet_masks(*tables, rc, *state)
+            a, u = divide_replicas(m.strategy, m.replicas, m.feasible, m.static_w,
+                                   m.avail, m.prev, m.fresh, True)
+            divided.append((a, u, m.feasible, m.strategy, rc))
+        for k_out in sorted({min(k, c) for k in ENTRY_EDGE_K_OUT}):
+            resident = torch.zeros((cap, k_out + 8), dtype=torch.int32, device=device)
+            for step in ("cold", "steady", "churn"):
+                if step == "churn":
+                    entry_edge_resident(rng, resident, rows_b.cpu().numpy(), k_out)
+                parts = []
+                for i, args in enumerate(divided):
+                    kw = dict(k_out=k_out, all_rows=all_rows, offset=i * chunk)
+                    got = fk.entry_diff(*args, resident, **kw)
+                    compare(f"entry_diff edges {tag} {form} k_out={k_out} {step}",
+                            tuple(got), tuple(fk.entry_diff_ref(*args, resident, **kw)))
+                    parts.append(got)
+                changed = int(torch.cat([(p.meta >> 10) & 1 for p in parts]).sum())
+                if (changed > 0) != (step != "steady"):
+                    raise AssertionError(f"entry_diff edges {tag} {form} k_out={k_out}: "
+                                         f"{changed} changed rows on the {step} pass")
+                fk.scatter_rows((resident,), torch.cat([p.commit for p in parts]),
+                                (torch.cat([p.entries for p in parts]),))
+    rd = torch.from_numpy(entry_edge_dense(rng, res_dense.cpu().numpy(), rows_np)).to(device)
+    for k_out in sorted({min(k, c) for k in ENTRY_EDGE_K_OUT} | {c}):
+        for label, dense, rows_e in (("", rd, rows),
+                                     (" past row 0", rd[1:], torch.clamp(rows, max=cap - 2))):
+            compare(f"fleet_entry_rows edges {tag} k_out={k_out}{label}",
+                    fk.fleet_entry_rows(dense, rows_e, k_out),
+                    fk.fleet_entry_rows_ref(dense, rows_e, k_out))
 
 
 def widen_prev(state: tuple, k_prev: int, c: int, seed: int) -> tuple:
@@ -1796,6 +1894,44 @@ def dense_budget(nbytes):
             os.environ["KARMADA_TPU_DENSE_BUDGET"] = saved
 
 
+def legacy_inputs(table) -> dict:
+    """What K16 runs with on a legacy table's next all-rows pass: the
+    device tables and state, the adaptive chunk, the all-rows index, the
+    pass's k_out and K2 variant, and the table's resident widened by 8
+    zero columns past k_out (``res_w``, k_res = k_out + 8 on config 5)."""
+    import torch
+    from karmada_tpu_torch.scheduler.core import kernel_variant
+    from karmada_tpu_torch.scheduler.fleet import _pow2
+
+    n = table.n_rows
+    chunk = min(table.chunk, _pow2(max(n, 256)))  # the table's adaptive chunk
+    c = table._dev_tables[1].shape[1]
+    reps = table._st["replicas"][:n]
+    strat = table._st["strategy"][:n]
+    max_n = int(reps.max())
+    wide, fast = kernel_variant(max(table._avail_max, max_n), table._static_max,
+                                int(table._st["prev_counts"][:n].max()), max_n, c)
+    resident = table._resident_entries
+    return dict(tables=table._dev_tables, state=table._dev_state, n=n, chunk=chunk,
+                n_pad=-(-n // chunk) * chunk, rows_all=table._all_rows_dev, c=c,
+                reps=reps, strat=strat, k_out=min(c, _pow2(max(max_n, 1))),
+                has_agg=bool((strat == 3).any()), wide=wide, fast=fast,
+                resident=resident,
+                res_w=torch.cat([resident, resident.new_zeros((resident.shape[0], 8))], 1))
+
+
+def entry_diff_args(li: dict, rows_c) -> tuple:
+    """K3 -> K2 on ``rows_c`` of a legacy table (``legacy_inputs``): K16's
+    positional inputs against the widened resident, and the masks."""
+    from karmada_tpu_torch.ops import divide_replicas
+    from karmada_tpu_torch.scheduler import fleet_kernels as fk
+
+    m = fk.fleet_masks(*li["tables"], rows_c, *li["state"])
+    a, u = divide_replicas(m.strategy, m.replicas, m.feasible, m.static_w, m.avail,
+                           m.prev, m.fresh, li["has_agg"], li["wide"], li["fast"])
+    return (a, u, m.feasible, m.strategy, rows_c, li["res_w"]), m
+
+
 def check_legacy_kernels(table, problems, card: str) -> dict:
     """K16 against its plain version on a legacy table's live inputs, after
     a snapshot drift has rebuilt the tables but before the pass: K3 -> K2
@@ -1809,28 +1945,17 @@ def check_legacy_kernels(table, problems, card: str) -> dict:
     clones of the table's resident: the wire byte for byte and the
     resident. Exact equality; K16 is timed on the first chunk."""
     import torch
-    from karmada_tpu_torch.ops import divide_replicas
     from karmada_tpu_torch.scheduler import fleet_kernels as fk
-    from karmada_tpu_torch.scheduler.core import kernel_variant
-    from karmada_tpu_torch.scheduler.fleet import _cap_round, _pow2
+    from karmada_tpu_torch.scheduler.fleet import _cap_round
 
-    tables, state = table._dev_tables, table._dev_state
-    n = table.n_rows
-    chunk = min(table.chunk, _pow2(max(n, 256)))  # the table's adaptive chunk
-    n_pad = -(-n // chunk) * chunk
-    rows_all = table._all_rows_dev
+    li = legacy_inputs(table)
+    tables, state, n, chunk, n_pad, rows_all, c = (
+        li[k] for k in ("tables", "state", "n", "chunk", "n_pad", "rows_all", "c"))
     if rows_all is None or rows_all.shape[0] != n_pad or len(problems) != n:
         raise AssertionError("the legacy table has no all-rows index of this pass's size")
-    c = tables[1].shape[1]
-    reps = table._st["replicas"][:n]
-    strat = table._st["strategy"][:n]
-    max_n = int(reps.max())
-    k_out = min(c, _pow2(max(max_n, 1)))
-    has_agg = bool((strat == 3).any())
-    wide, fast = kernel_variant(max(table._avail_max, max_n), table._static_max,
-                                int(table._st["prev_counts"][:n].max()), max_n, c)
-    resident = table._resident_entries
-    res_w = torch.cat([resident, resident.new_zeros((resident.shape[0], 8))], 1)
+    reps, strat, k_out, has_agg, wide, fast, resident, res_w = (
+        li[k] for k in ("reps", "strat", "k_out", "has_agg", "wide", "fast", "resident",
+                        "res_w"))
     k_res = res_w.shape[1]
     stats = {}
     rng = np.random.default_rng(SEED + 16)
@@ -1839,10 +1964,8 @@ def check_legacy_kernels(table, problems, card: str) -> dict:
     rows_p = torch.full((chunk,), -1, dtype=torch.int32, device=rows_all.device)
     rows_p[: sub.size] = torch.from_numpy(sub).to(rows_all.device)
     for form, rows_c in (("all-rows", rows_all[:chunk]), ("gathered", rows_p)):
-        m = fk.fleet_masks(*tables, rows_c, *state)
-        a, u = divide_replicas(m.strategy, m.replicas, m.feasible, m.static_w,
-                               m.avail, m.prev, m.fresh, has_agg, wide, fast)
-        args = (a, u, m.feasible, m.strategy, rows_c, res_w)
+        args, m = entry_diff_args(li, rows_c)
+        a, u = args[:2]
         kw = dict(k_out=k_out, all_rows=form == "all-rows", offset=0)
         got, want = fk.entry_diff(*args, **kw), fk.entry_diff_ref(*args, **kw)
         err = compare(f"entry_diff ({form})", tuple(got), tuple(want))
@@ -1883,7 +2006,7 @@ def check_legacy_kernels(table, problems, card: str) -> dict:
     print(f"# fleet_solve (K3 -> K2 -> K16 x {n_pad // chunk}, K6, K5) against "
           f"fleet_solve_ref on the pass's inputs: {flat_k.numel()} wire bytes equal, "
           f"{total} changed entries, resident equal", flush=True)
-    del res_k, res_r, res_w
+    del res_k, res_r, res_w, li
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
     return stats
@@ -1940,7 +2063,18 @@ def device_profile(fn, device, top: int = 6) -> dict:
             per_name[e.key] = per_name.get(e.key, 0.0) + us / 1e6
     busy = sum(per_name.values())
     names = sorted(per_name.items(), key=lambda kv: -kv[1])[:top]
-    return {"wall_s": wall, "busy_s": busy, "top": names}
+    return {"wall_s": wall, "busy_s": busy, "top": names, "by_name": per_name}
+
+
+#: kernels whose device time every traced pass line names, by a substring
+#: of their profiler names: the fleet route's two ordered compactions
+TRACED_KERNELS = {"K16": "entry_diff_kernel", "K4 entry rows": "fleet_entry_rows_kernel"}
+
+
+def traced_kernels(prof: dict) -> str:
+    return ", ".join(
+        f"{label} {sum(v for k, v in prof['by_name'].items() if name in k) * 1e3:.2f} ms"
+        for label, name in TRACED_KERNELS.items())
 
 
 def model_share(engine) -> tuple[float, int]:
@@ -2096,11 +2230,22 @@ def run_fleet_storm(device, card: str, bindings=None, clusters=None,
         profiles["churn"] = device_profile(lambda: out.append(traced_churn()), device)
         res = out[0]
         same_as_reference("churn", churn, res)
+        if not (legacy or models):
+            # a cold pass traced on a new engine over the same snapshot: the
+            # pass that runs phase B (K4's entry rows) over every row; it
+            # must give the last churn pass's outcomes
+            out = []
+            profiles["cold"] = device_profile(lambda: out.append(TensorScheduler(
+                engine.snapshot, chunk_size=4096, device=device).schedule(problems)), device)
+            if outcomes(out[0]) != outcomes(res):
+                raise AssertionError(f"{tag}: a cold pass on the last snapshot differs "
+                                     f"from the last churn pass")
+            del out
     for kind, prof in profiles.items():
         print(f"# {tag} traced {kind} pass: wall {prof['wall_s']:.4f} s under "
               f"the profiler; device busy {prof['busy_s']:.4f} s; largest: "
               + ", ".join(f"{k[:48]} {v * 1e3:.2f} ms" for k, v in prof["top"])
-              + f"; card {card}", flush=True)
+              + f"; {traced_kernels(prof)}; card {card}", flush=True)
     launches = read_counts()
     t0 = time.perf_counter()
     bad = oracle_check(engine, problems, res)

@@ -26,18 +26,27 @@ nothing of JAX.
 
 ``--fleet`` compiles, for each kernel source directory named (default: the
 port's own ``csrc``; another checkout's, such as a parent commit's, can be
-named beside it), ``fleet_masks.cu`` three times: whole, cut before the
-previous-site pass and cut after it, and ``fleet_diff.cu`` whole. A source
-that defines ``FLEET_CUT`` is cut with ``-DFLEET_CUT=1`` / ``2``; an older
-one by the text replacements of ``FLEET_TEXT_CUTS``. Each copy is timed
-(CUDA events, ``chip_smoke.cuda_ms``), not checked, on chunk 0 of the
-config-5 fleet table (K3 masks form, 4096 x 5000) and on every row of it
-(K3 bits form, 102,400 x 5000); the whole copies are also held to the
-plain versions. K4 phase A is timed with d_slots 64 and 0 (no delta
-compaction) on chunk 0 of a steady pass (the resident already holds the
-chunk's result) and of a churn pass (the first drifted snapshot of
+named beside it), a whole copy and the cuts of ``FLEET_CUTS`` of
+``fleet_masks.cu`` (K3: cut before and after the previous-site pass),
+``fleet_diff.cu`` (K4: its entry rows cut to their loads, with no
+compaction) and ``entry_diff.cu`` (K16: cut before its compaction, the
+loads, n_placed, has_cand, the diff and the outputs kept). A source that
+defines ``FLEET_CUT`` is cut with ``-DFLEET_CUT=1`` / ``2``; an older one
+by the text replacements of ``FLEET_TEXT_CUTS``. Each copy is timed (CUDA
+events behind a device spin, ``chip_smoke.cuda_ms``), not checked; the
+whole copies are also held to the plain versions. K3 runs on chunk 0 of
+the config-5 fleet table (masks form, 4096 x 5000) and on every row of it
+(bits form, 102,400 x 5000). K4 phase A is timed with d_slots 64 and 0 (no
+delta compaction) on chunk 0 of a steady pass (the resident already holds
+the chunk's result) and of a churn pass (the first drifted snapshot of
 ``chip_smoke.drift_snapshots``, against the cold pass's resident, restored
-before each launch outside the timed events).
+before each launch outside the timed events). K4's entry rows run on the
+churn pass's changed rows (phase A over every chunk against a clone of
+the cold resident; padded with -1 rows to max(2048, pow2), k_out from the
+replicas, as the table fetches them). K16 runs on chunk 0 of the same
+churn on a config-5 table at a dense budget of 0 (the entry-resident
+route), all-rows form, against the resident widened to k_res = k_out + 8
+(``chip_smoke.legacy_inputs``).
 """
 
 from __future__ import annotations
@@ -81,40 +90,70 @@ def variant_source(src: str, e: int, threads: int, min_blocks: int, cut: int) ->
     return src
 
 
-#: cuts of kernel sources that predate ``FLEET_CUT``: cut -> ((text,
-#: replacement), ...), applied to ``fleet_masks.cu``. Cut 1 returns before
-#: the previous-site pass (row loads, the pairs in shared memory, the row
-#: scalars); cut 2 runs that pass and stores ``prev`` (masks) or its
-#: positive bits (bits) and returns.
-FLEET_TEXT_CUTS = {
-    1: (("  const size_t o = (size_t)j * c_n + c;\n  int32_t pv;",
-         "  return;\n  const size_t o = (size_t)j * c_n + c;\n  int32_t pv;"),
-        ("  int32_t pv;\n  const bool f = c < c_n && cell(",
-         "  if (c >= 0) return;\n  int32_t pv;\n  const bool f = c < c_n && cell(")),
-    2: (("  const size_t o = (size_t)j * c_n + c;\n  int32_t pv;",
-         "  const size_t o = (size_t)j * c_n + c;\n  {\n    uint32_t p2 = 0;\n"
-         "    for (int k = 0; k < k_prev; ++k)\n"
-         "      if (s_site[k] == c) p2 += (uint32_t)s_cnt[k];\n"
-         "    prev[o] = (int32_t)p2;\n    return;\n  }\n  int32_t pv;"),
-        ("  int32_t pv;\n  const bool f = c < c_n && cell(",
-         "  uint32_t p2 = 0;\n  for (int k = 0; k < k_prev; ++k)\n"
-         "    if (s_site[k] == c) p2 += (uint32_t)s_cnt[k];\n"
-         "  const bool f2 = c < c_n && (int32_t)p2 > 0;\n"
-         "  const unsigned word2 = __ballot_sync(0xffffffffu, f2);\n"
-         "  if ((threadIdx.x & 31) == 0 && (c >> 5) < ((c_n + 31) >> 5))\n"
-         "    words[(size_t)j * ((c_n + 31) >> 5) + (c >> 5)] = (int32_t)word2;\n"
-         "  return;\n  int32_t pv;\n  const bool f = c < c_n && cell(")),
+#: the copies ``--fleet`` builds of each source, by cut (0: whole)
+FLEET_CUTS = {"fleet_masks": (0, 1, 2), "fleet_diff": (0, 1), "entry_diff": (0, 1)}
+FLEET_CUT_NAMES = {
+    "fleet_masks": {0: "whole", 1: "cut before prev", 2: "cut after prev"},
+    "fleet_diff": {0: "whole", 1: "entry rows: loads only"},
+    "entry_diff": {0: "whole", 1: "cut before compaction"},
 }
-FLEET_CUT_NAMES = {0: "whole", 1: "cut before prev", 2: "cut after prev"}
+#: cuts of kernel sources that predate ``FLEET_CUT``: source -> cut ->
+#: ((text, replacement), ...). K3 cut 1 returns before the previous-site
+#: pass (row loads, the pairs in shared memory, the row scalars); cut 2
+#: runs that pass and stores ``prev`` (masks) or its positive bits (bits)
+#: and returns. K4 cut 1 reads each tile of an entry row into a running
+#: hash (written only on an impossible value) in place of the block scan.
+#: K16 cut 1 drops the per-tile ``__syncthreads_count`` and block scan.
+FLEET_TEXT_CUTS = {
+    "fleet_masks": {
+        1: (("  const size_t o = (size_t)j * c_n + c;\n  int32_t pv;",
+             "  return;\n  const size_t o = (size_t)j * c_n + c;\n  int32_t pv;"),
+            ("  int32_t pv;\n  const bool f = c < c_n && cell(",
+             "  if (c >= 0) return;\n  int32_t pv;\n  const bool f = c < c_n && cell(")),
+        2: (("  const size_t o = (size_t)j * c_n + c;\n  int32_t pv;",
+             "  const size_t o = (size_t)j * c_n + c;\n  {\n    uint32_t p2 = 0;\n"
+             "    for (int k = 0; k < k_prev; ++k)\n"
+             "      if (s_site[k] == c) p2 += (uint32_t)s_cnt[k];\n"
+             "    prev[o] = (int32_t)p2;\n    return;\n  }\n  int32_t pv;"),
+            ("  int32_t pv;\n  const bool f = c < c_n && cell(",
+             "  uint32_t p2 = 0;\n  for (int k = 0; k < k_prev; ++k)\n"
+             "    if (s_site[k] == c) p2 += (uint32_t)s_cnt[k];\n"
+             "  const bool f2 = c < c_n && (int32_t)p2 > 0;\n"
+             "  const unsigned word2 = __ballot_sync(0xffffffffu, f2);\n"
+             "  if ((threadIdx.x & 31) == 0 && (c >> 5) < ((c_n + 31) >> 5))\n"
+             "    words[(size_t)j * ((c_n + 31) >> 5) + (c >> 5)] = (int32_t)word2;\n"
+             "  return;\n  int32_t pv;\n  const bool f = c < c_n && cell(")),
+    },
+    "fleet_diff": {
+        1: (("  int seen = 0;\n  if (row >= 0) {",
+             "  int seen = 0, acc = 0;\n  if (row >= 0) {"),
+            ("      int tile;\n"
+             "      const int pos = seen + block_scan(d > 0 ? 1 : 0, s_warp, &tile);\n"
+             "      if (d > 0 && pos < k_out) o[pos] = (c << 8) | d;\n"
+             "      seen += tile;\n",
+             "      acc = acc * 31 + d;\n"),
+            ("  const int filled = seen < k_out ? seen : k_out;",
+             "  if (acc == 0x5bd1e995) o[0] = acc;\n"
+             "  const int filled = seen < k_out ? seen : k_out;")),
+    },
+    "entry_diff": {
+        1: (("    if (seen < k_out && __syncthreads_count(sel) > 0) {  // block-uniform\n"
+             "      int tile;\n"
+             "      const int pos = seen + block_scan(sel ? 1 : 0, s_warp, &tile);\n"
+             "      if (sel && pos < k_out) words[pos] = (c << 8) | av;\n"
+             "      seen += tile;\n"
+             "    }\n", ""),),
+    },
+}
 
 
 def _fleet_builds(csrc: str, tmp: str, tag: str) -> dict:
-    """Start nvcc on the K3 copies (cuts 0-2) and the whole K4 of ``csrc``;
+    """Start nvcc on the copies ``FLEET_CUTS`` names of ``csrc``'s sources;
     (kernel, cut) -> (process, library path)."""
     from karmada_tpu_torch import native
 
     procs = {}
-    for name, cuts in (("fleet_masks", (0, 1, 2)), ("fleet_diff", (0,))):
+    for name, cuts in FLEET_CUTS.items():
         src = open(os.path.join(csrc, f"{name}.cu")).read()
         for cut in cuts:
             flags = []
@@ -123,7 +162,7 @@ def _fleet_builds(csrc: str, tmp: str, tag: str) -> dict:
                 text = src
             else:
                 text = src
-                for old, new in FLEET_TEXT_CUTS.get(cut, ()):
+                for old, new in FLEET_TEXT_CUTS[name].get(cut, ()):
                     if old not in text:
                         raise SystemExit(f"k2_variants: {csrc}/{name}.cu holds neither "
                                          f"FLEET_CUT nor {old!r}")
@@ -148,7 +187,7 @@ def _fleet_lib(proc, so: str, label: str):
              if "registers" in ln or "spill" in ln]
     print(f"# {label}: " + "; ".join(usage), flush=True)
     lib = ctypes.CDLL(so)
-    for lib_name in ("fleet_masks", "fleet_diff"):
+    for lib_name in FLEET_CUTS:
         for fn_name, sig in native.SIGNATURES[lib_name].items():
             if hasattr(lib, fn_name):
                 fn = getattr(lib, fn_name)
@@ -164,6 +203,7 @@ def fleet_main(dirs: list) -> int:
     from karmada_tpu_torch.ops import divide_replicas
     from karmada_tpu_torch.scheduler import TensorScheduler
     from karmada_tpu_torch.scheduler import fleet_kernels as fk
+    from karmada_tpu_torch.scheduler.fleet import _pow2
 
     if not torch.cuda.is_available():
         print("k2_variants: no CUDA device", file=sys.stderr)
@@ -182,11 +222,16 @@ def fleet_main(dirs: list) -> int:
     dev = torch.device("cuda", 0)
     engine = TensorScheduler(snap, chunk_size=4096, device=dev)
     engine.schedule(problems)
+    engine_l = TensorScheduler(snap, chunk_size=4096, device=dev)
+    with cs.dense_budget(0):  # the entry-resident route
+        engine_l.schedule(problems)
     torch.cuda.synchronize()
     table = engine._fleet
-    print(f"# config-5 table built and scheduled in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    libs = {k: _fleet_lib(p, so, f"{dirs[k[0]]} {k[1]} {FLEET_CUT_NAMES[k[2]]}")
+    if engine_l._fleet._resident_entries is None:
+        raise SystemExit("k2_variants: the budget-0 table is not entry-resident")
+    print(f"# config-5 tables (dense and entry-resident) built and scheduled in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    libs = {k: _fleet_lib(p, so, f"{dirs[k[0]]} {k[1]} {FLEET_CUT_NAMES[k[1]][k[2]]}")
             for k, (p, so) in procs.items()}
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
     chunk = table.chunk
@@ -259,7 +304,8 @@ def fleet_main(dirs: list) -> int:
                            fk.fleet_bits_ref(*tables, rows_all, *state))
             ms_m = cs.cuda_ms(lambda: masks_run(lib, tables, state, rows0))
             ms_b = cs.cuda_ms(lambda: bits_run(lib, tables, state, rows_all), reps=5)
-            line.append(f"{FLEET_CUT_NAMES[cut]} masks {ms_m:.4f} bits {ms_b:.4f}")
+            line.append(f"{FLEET_CUT_NAMES['fleet_masks'][cut]} masks {ms_m:.4f} "
+                        f"bits {ms_b:.4f}")
         print(f"# K3 split {d} (config-5 chunk 0 {chunk}x{tables[1].shape[1]}; bits "
               f"{rows_all.shape[0]} rows; ms): " + "; ".join(line) + f"; card {card}",
               flush=True)
@@ -295,6 +341,77 @@ def fleet_main(dirs: list) -> int:
               + "; ".join(f"{kind} ({k4[(kind, i)][0]} changed rows, {k4[(kind, i)][1]} "
                           f"changed cells) {k4[(kind, i)][2][0]:.4f} / {k4[(kind, i)][2][1]:.4f}"
                           for kind in ("steady", "churn")) + f"; card {card}", flush=True)
+
+    # K4's entry rows on the churn pass's changed rows: phase A over every
+    # chunk against a clone of the cold resident, as chip_smoke's check
+    res_d, res_m = table._res_dense.clone(), table._res_meta.clone()
+    has_agg = bool((table._st["strategy"][: table.n_rows] == 3).any())
+    changed = []
+    for i in range(rows_all.shape[0] // chunk):
+        rc = rows_all[i * chunk:(i + 1) * chunk]
+        m = fk.fleet_masks(*tables, rc, *state)
+        a, u = divide_replicas(m.strategy, m.replicas, m.feasible, m.static_w, m.avail,
+                               m.prev, m.fresh, has_agg)
+        changed.append(fk.fleet_diff(a, u, m.feasible, m.strategy, rc, res_d, res_m,
+                                     all_rows=True, offset=i * chunk, d_slots=64).changed)
+    del res_m, m, a, u
+    ch_rows = torch.nonzero(torch.cat(changed)).flatten().to(torch.int32)
+    rows_b = torch.full((max(2048, _pow2(max(ch_rows.numel(), 1))),), -1,
+                        dtype=torch.int32, device=dev)
+    rows_b[: ch_rows.numel()] = ch_rows
+    c = res_d.shape[1]
+    k_out = min(c, _pow2(int(table._st["replicas"][: table.n_rows].max())))
+
+    def rows_run(lib):
+        out = torch.empty((rows_b.shape[0], k_out), dtype=torch.int32, device=dev)
+        err = lib.fleet_entry_rows_launch(res_d.data_ptr(), res_d.shape[0], c,
+                                          rows_b.data_ptr(), rows_b.shape[0], k_out,
+                                          out.data_ptr(), stream())
+        native.check_launch("fleet_entry_rows_launch", err)
+        return out
+
+    want = fk.fleet_entry_rows_ref(res_d, rows_b, k_out)
+    for i, d in enumerate(dirs):
+        cs.compare("K4 entry rows", rows_run(libs[(i, "fleet_diff", 0)]), want)
+        line = [f"{FLEET_CUT_NAMES['fleet_diff'][cut]} "
+                f"{cs.cuda_ms(lambda: rows_run(libs[(i, 'fleet_diff', cut)]), reps=5):.4f}"
+                for cut in FLEET_CUTS["fleet_diff"]]
+        print(f"# K4 entry rows split {d} (config-5 churn: {ch_rows.numel()} changed rows "
+              f"padded to {rows_b.shape[0]}, k_out {k_out}; ms a launch): "
+              + "; ".join(line) + f"; card {card}", flush=True)
+    del res_d, want
+
+    # K16 on chunk 0 of the same churn on the entry-resident table
+    if not engine_l.update_snapshot(drift[0]):
+        raise SystemExit("k2_variants: drifted snapshot refused")
+    engine_l._fleet._sync_device()
+    li = cs.legacy_inputs(engine_l._fleet)
+    args, _ = cs.entry_diff_args(li, li["rows_all"][: li["chunk"]])
+    k_out = li["k_out"]
+
+    def diff16_run(lib):
+        a, res = args[0], args[5]
+        b, c = a.shape
+        outs = (torch.empty((b,), dtype=torch.int32, device=dev),
+                torch.empty((b, res.shape[1]), dtype=torch.int32, device=dev),
+                torch.empty((b,), dtype=torch.int64, device=dev))
+        err = lib.entry_diff_launch(*[t.data_ptr() for t in args[:5]], b, c,
+                                    res.data_ptr(), res.shape[0], res.shape[1], k_out, 1, 0,
+                                    *[t.data_ptr() for t in outs], stream())
+        native.check_launch("entry_diff_launch", err)
+        return outs
+
+    want = fk.entry_diff_ref(*args, k_out=k_out, all_rows=True, offset=0)
+    n_changed = int(((want.meta >> 10) & 1).sum().item())
+    for i, d in enumerate(dirs):
+        cs.compare("K16", diff16_run(libs[(i, "entry_diff", 0)]), tuple(want))
+        line = [f"{FLEET_CUT_NAMES['entry_diff'][cut]} "
+                f"{cs.cuda_ms(lambda: diff16_run(libs[(i, 'entry_diff', cut)])):.4f}"
+                for cut in FLEET_CUTS["entry_diff"]]
+        print(f"# K16 split {d} (config-5 legacy churn chunk 0: {args[0].shape[0]} x "
+              f"{args[0].shape[1]}, k_out {k_out}, k_res {args[5].shape[1]}, {n_changed} "
+              f"changed rows; ms a launch): " + "; ".join(line) + f"; card {card}",
+              flush=True)
     return 0
 
 

@@ -23,7 +23,8 @@
 // What bounds it on an H100: bytes. Phase A reads the int32 assignment,
 // the feasible byte and the old uint8 row and writes the uint8 row: 7 B a
 // cell, 143 MB for a 4096 x 5000 chunk, about 0.043 ms at 3.35 TB/s. Phase B
-// reads one uint8 row per changed row and writes k_out words.
+// reads one uint8 row per changed row and writes k_out words a row: 270 MB
+// and 34 MB for config 5's 53,953 churned rows, about 0.09 ms.
 //
 // Phase A's design: one block of 8 warps per row. Each warp owns a
 // contiguous span of the row (up to MAX_STEPS steps of 128 columns) and
@@ -37,44 +38,34 @@
 // barrier a row for C <= 8 x MAX_STEPS x 128) gives each warp its first
 // delta slot, and a warp ranks its own changed cells in site order by
 // four ballots a step. A row with no changed cell skips the compaction,
-// as the JAX program's lax.cond skips a steady chunk's. Phase B: one
-// block per row walks it in tiles of 256 columns with a block-wide scan.
+// as the JAX program's lax.cond skips a steady chunk's.
+//
+// Phase B's design: one warp per row, 4 rows a block, no barrier. A row
+// is gathered at any index, so it starts at any byte: a lane reads the
+// aligned 16-B chunks that overlap the row (up to ROW_STEPS of them a
+// span, 32 lanes apart, all in flight at once) and masks off the bytes
+// outside it. An aligned 16-B load never crosses a page, so the bytes it
+// reads past either end of the row are readable; they are never used.
+// Each chunk's nonzero bytes become a 16-bit mask by byte-wise SIMD
+// (__vcmpne4) and one multiply a word; a warp scan of the masks' popcounts
+// gives each lane its first word slot, in site order, and the lane writes
+// its nonzero bytes below k_out. The row stops at k_out placed cells; a
+// padding row only writes its k_out zeros. k2_variants.py --fleet times a
+// copy built with -DFLEET_CUT=1: phase B's loads alone (folded into a
+// value written only when impossible) and its zero fill, no compaction.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#ifndef FLEET_CUT
+#define FLEET_CUT 0
+#endif
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int DUPLICATED = 0;
-
-// block-wide exclusive scan of one int per thread; *total gets the sum
-// (every thread). Uses and re-arms s_warp[WARPS + 1].
-__device__ __forceinline__ int block_scan(int v, int* s_warp, int* total) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  int x = v;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) s_warp[wid] = x;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int acc = 0;
-    for (int k = 0; k < WARPS; ++k) {
-      const int t = s_warp[k];
-      s_warp[k] = acc;
-      acc += t;
-    }
-    s_warp[WARPS] = acc;
-  }
-  __syncthreads();
-  const int out = s_warp[wid] + x - v;
-  *total = s_warp[WARPS];
-  __syncthreads();  // s_warp is reused by the next call
-  return out;
-}
 
 constexpr int MAX_STEPS = 8;  // 128-column steps a warp holds per span
 constexpr unsigned FULL = 0xffffffffu;
@@ -221,28 +212,77 @@ __global__ void __launch_bounds__(THREADS) fleet_diff_kernel(
   }
 }
 
-__global__ void fleet_entry_rows_kernel(const uint8_t* __restrict__ res_dense,
-                                        int c_n,
-                                        const int32_t* __restrict__ rows,
-                                        int k_out, int32_t* __restrict__ out) {
-  __shared__ int s_warp[WARPS + 1];
-  const int j = blockIdx.x;
+constexpr int ROW_WARPS = 4;   // phase B: one warp a row, 4 rows a block
+constexpr int ROW_STEPS = 10;  // 16-B chunks a lane holds a span: 5120 B a warp
+
+// the nonzero bytes of a 32-bit word as a 4-bit mask (byte e -> bit e)
+__device__ __forceinline__ uint32_t nonzero_nibble(uint32_t x) {
+  return ((__vcmpne4(x, 0u) & 0x08040201u) * 0x01010101u) >> 24;
+}
+
+__global__ void __launch_bounds__(ROW_WARPS * 32) fleet_entry_rows_kernel(
+    const uint8_t* __restrict__ res_dense, int c_n,
+    const int32_t* __restrict__ rows, int m_n, int k_out,
+    int32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long j = (long long)blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
+  if (j >= m_n) return;  // warp-uniform
   const int row = rows[j];
-  int32_t* o = out + (size_t)j * k_out;
-  int seen = 0;
+  int32_t* o = out + j * k_out;
+  int seen = 0;  // nonzero cells ranked so far (warp-uniform)
   if (row >= 0) {
-    const uint8_t* rd = res_dense + (size_t)row * c_n;
-    for (int base = 0; base < c_n && seen < k_out; base += THREADS) {
-      const int c = base + threadIdx.x;
-      const int32_t d = c < c_n ? (int32_t)rd[c] : 0;
-      int tile;
-      const int pos = seen + block_scan(d > 0 ? 1 : 0, s_warp, &tile);
-      if (d > 0 && pos < k_out) o[pos] = (c << 8) | d;
-      seen += tile;
+    const uintptr_t start =
+        reinterpret_cast<uintptr_t>(res_dense) + (size_t)row * c_n;
+    const uint4* q0 = reinterpret_cast<const uint4*>(start & ~(uintptr_t)15);
+    const int off = (int)(start & 15);  // the row's first byte in chunk 0
+    const int end = off + c_n;          // one past its last byte
+    const int nq = (end + 15) >> 4;     // chunks overlapping the row
+    for (int qb = 0; qb < nq && seen < k_out; qb += 32 * ROW_STEPS) {
+      uint4 w[ROW_STEPS];
+#pragma unroll
+      for (int s = 0; s < ROW_STEPS; ++s) {
+        const int q = qb + s * 32 + lane;
+        w[s] = q < nq ? q0[q] : make_uint4(0u, 0u, 0u, 0u);
+      }
+#if FLEET_CUT == 1
+      uint32_t acc = 0;
+#pragma unroll
+      for (int s = 0; s < ROW_STEPS; ++s) acc ^= w[s].x ^ w[s].y ^ w[s].z ^ w[s].w;
+      if (acc == 0x5bd1e995u) o[0] = (int32_t)acc;
+#else
+#pragma unroll
+      for (int s = 0; s < ROW_STEPS; ++s) {
+        const int q = qb + s * 32 + lane;
+        uint32_t nz = nonzero_nibble(w[s].x) | nonzero_nibble(w[s].y) << 4 |
+                      nonzero_nibble(w[s].z) << 8 | nonzero_nibble(w[s].w) << 12;
+        const int lo = off - q * 16, hi = end - q * 16;  // the row's bytes: [lo, hi)
+        if (lo > 0) nz &= 0xFFFFu << lo;
+        if (hi < 16) nz &= hi > 0 ? (1u << hi) - 1u : 0u;
+        if (seen < k_out && __any_sync(FULL, nz)) {  // warp-uniform
+          const int n = __popc(nz);
+          int x = n;  // inclusive scan of the counts over the lanes
+#pragma unroll
+          for (int d = 1; d < 32; d <<= 1) {
+            const int y = __shfl_up_sync(FULL, x, d);
+            if (lane >= d) x += y;
+          }
+          int r = seen + x - n;
+          const int col = q * 16 - off;  // the column of the chunk's byte 0
+          while (nz && r < k_out) {
+            const int e = __ffs(nz) - 1;
+            nz &= nz - 1;
+            const uint32_t wd =
+                e < 8 ? (e < 4 ? w[s].x : w[s].y) : (e < 12 ? w[s].z : w[s].w);
+            o[r++] = ((col + e) << 8) | (int32_t)((wd >> (8 * (e & 3))) & 0xFFu);
+          }
+          seen += __shfl_sync(FULL, x, 31);
+        }
+      }
+#endif
     }
   }
   const int filled = seen < k_out ? seen : k_out;
-  for (int k = filled + threadIdx.x; k < k_out; k += THREADS) o[k] = 0;
+  for (int k = filled + lane; k < k_out; k += 32) o[k] = 0;
 }
 
 }  // namespace
@@ -277,7 +317,8 @@ extern "C" int fleet_entry_rows_launch(const uint8_t* res_dense, int cap,
                                        cudaStream_t stream) {
   (void)cap;
   if (m_n == 0) return 0;
-  fleet_entry_rows_kernel<<<m_n, THREADS, 0, stream>>>(res_dense, c_n, rows,
-                                                       k_out, out);
+  const int blocks = (int)(((long long)m_n + ROW_WARPS - 1) / ROW_WARPS);
+  fleet_entry_rows_kernel<<<blocks, ROW_WARPS * 32, 0, stream>>>(
+      res_dense, c_n, rows, m_n, k_out, out);
   return (int)cudaGetLastError();
 }

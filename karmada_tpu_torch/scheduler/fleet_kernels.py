@@ -386,7 +386,7 @@ def fleet_entry_rows_ref(res_dense, rows, k_out: int) -> torch.Tensor:
 
 
 def fleet_entry_rows(res_dense, rows, k_out: int) -> torch.Tensor:
-    """K4 phase B: one block per row, an ordered compaction of the row's
+    """K4 phase B: one warp per row, an ordered compaction of the row's
     nonzero cells into int32[m, k_out]."""
     if native.on_cpu((res_dense, rows)):
         return fleet_entry_rows_ref(res_dense, rows, k_out)

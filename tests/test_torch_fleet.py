@@ -369,22 +369,54 @@ def test_fleet_pass_wire_equals_jax(c, kind, n, m_cap, d_cap):
         assert (metas[1::2] >> 2).max() == 63  # the > 62 overflow sentinel
 
 
-@pytest.mark.parametrize("c,byte_wire,pack21", [
-    (300, True, True), (300, True, False), (300, False, True), (300, False, False),
-    (50, True, True), (50, False, False),
-])
-def test_fleet_entries_equal_jax(c, byte_wire, pack21):
-    tables, state = tables_state(8, c)
-    rows = rows_for("all", 900, 1024, 8)
-    wide, fast = variant(tables, state, c)
-    rd, _ = residents(tables, state, rows, c, n_chunks=4, wide=wide, fast=fast,
-                      has_agg=True, seed=9, overflow_row=False)
-    rng = np.random.default_rng(9)
-    ch = rng.choice(900, 333, replace=False).astype(np.int32)
+def edge_dense(c: int) -> tuple[np.ndarray, np.ndarray]:
+    """The dense resident a JAX pass over the edge batch of ``c`` (k_prev
+    32) wrote, churned by ``chip_smoke.perturb_residents`` and
+    ``chip_smoke.entry_edge_dense`` (a row of counts 1-255 in every cell,
+    one of 255 in every other cell), and the batch's rows: table rows at
+    odd and even indices in permuted order, with padding."""
+    t = edge_tables(c, 32)
+    tables, state, rows = t["tables"], t["state"], t["rows"]
+    cap = state[0].size
+    _, _, rd, rm = jf._fleet_pass(
+        *map(J, tables), J(rows), *map(J, state), J(np.zeros((cap, c), np.uint8)),
+        J(np.zeros(cap, np.int32)), chunk=CHUNK, n_chunks=rows.size // CHUNK, wide=True,
+        fast=None, has_aggregated=True, all_rows=False, m_cap=rows.size, d_cap=0)
+    rng = np.random.default_rng(c)
+    rd, _ = chip_smoke.perturb_residents(rng, np.array(rd), np.array(rm), rows)
+    return chip_smoke.entry_edge_dense(rng, rd, rows), rows
+
+
+ENTRIES_CASES = [
+    pytest.param(c, byte_wire, pack21, None, id=f"{c}-{byte_wire}-{pack21}")
+    for c, byte_wire, pack21 in ((300, True, True), (300, True, False), (300, False, True),
+                                 (300, False, False), (50, True, True), (50, False, False))
+] + [
+    # the card's edge batches: C from 1 to 5000, k_out 1 (every row with two
+    # nonzero cells truncates) and the fleet's widest, capped at C
+    pytest.param(c, True, k_out > 1, k_out, id=f"edge-{c}-k{k_out}")
+    for c in chip_smoke.FLEET_EDGE_C
+    for k_out in sorted({min(k, c) for k in chip_smoke.ENTRY_EDGE_K_OUT})
+]
+
+
+@pytest.mark.parametrize("c,byte_wire,pack21,k_out", ENTRIES_CASES)
+def test_fleet_entries_equal_jax(c, byte_wire, pack21, k_out):
+    if k_out is None:  # seeded tables, 333 of 900 rows changed
+        tables, state = tables_state(8, c)
+        rows = rows_for("all", 900, 1024, 8)
+        wide, fast = variant(tables, state, c)
+        rd, _ = residents(tables, state, rows, c, n_chunks=4, wide=wide, fast=fast,
+                          has_agg=True, seed=9, overflow_row=False)
+        rng = np.random.default_rng(9)
+        ch = rng.choice(900, 333, replace=False).astype(np.int32)
+        k_out = min(c, _pow2(int(state[3].max())))
+    else:
+        rd, ch = edge_dense(c)
     rows_b = np.full(2048, -1, np.int32)
     rows_b[: len(ch)] = ch
-    k_out = min(c, _pow2(int(state[3].max())))
-    e_want = int((rd[ch] > 0).sum(axis=1).clip(max=k_out).sum())
+    live = ch[ch >= 0]
+    e_want = int((rd[live] > 0).sum(axis=1).clip(max=k_out).sum())
     e_cap = _cap_round(e_want)
     kw = dict(chunk=CHUNK, n_chunks=8, k_out=k_out, e_cap=e_cap,
               byte_wire=byte_wire, pack21=pack21)
@@ -397,12 +429,12 @@ def test_fleet_entries_equal_jax(c, byte_wire, pack21):
     # the entry rows alone: each row's nonzero cells in site order, first
     # k_out; padding rows give zeros
     ents = fk.fleet_entry_rows(T(rd), T(rows_b), k_out).numpy()
-    for j, r in enumerate(ch):
-        nz = np.flatnonzero(rd[r])[:k_out]
+    for j, r in enumerate(rows_b):
         want_row = np.zeros(k_out, np.int32)
-        want_row[: len(nz)] = (nz << 8) | rd[r, nz]
+        if r >= 0:
+            nz = np.flatnonzero(rd[r])[:k_out]
+            want_row[: len(nz)] = (nz << 8) | rd[r, nz]
         np.testing.assert_array_equal(ents[j], want_row)
-    assert not ents[len(ch):].any()
     # an e_cap below the total
     kw["e_cap"] = 64
     np.testing.assert_array_equal(

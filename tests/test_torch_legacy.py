@@ -33,6 +33,7 @@ import karmada_tpu_torch.scheduler.fleet as tfleet
 from karmada_tpu_torch.scheduler import fleet_kernels as fk
 from karmada_tpu_torch.scheduler.fleet import _cap_round, _pow2
 
+import chip_smoke
 from test_torch_fleet import CAP, CHUNK, J, T, rows_for, tables_state, variant
 from test_torch_fleet_engine import Pair, outcome
 
@@ -148,16 +149,43 @@ def test_fleet_solve_int32_wire_equals_jax():
     np.testing.assert_array_equal(g_res.numpy(), w_res)
 
 
-@pytest.mark.parametrize("kind", ["all", "part"])
-def test_entry_diff_ref_equals_the_jax_stages(kind):
+def edge_solve_inputs(c, kind):
+    """The card's edge batch of ``c`` (``chip_smoke.fleet_edge_tables``, k_prev
+    32: duplicate, wrapping and negative previous counts, Duplicated rows,
+    padding rows between live ones), its rows in the all-rows form
+    (position j or -1) or as permuted table rows with one named twice."""
+    t = chip_smoke.fleet_edge_tables(np.random.default_rng(1000 * c + 32), c, 32)
+    rows = t["rows"].copy()
+    if kind == "all":
+        rows = np.where(rows >= 0, np.arange(rows.size, dtype=np.int32), -1)
+    else:
+        rows[2] = rows[1]  # one row named twice (rows[0] is padding)
+    return t["tables"], t["state"], rows, rows.size, True, None, True
+
+
+ENTRY_DIFF_CASES = [pytest.param(300, kind, None, id=kind) for kind in ("all", "part")] + [
+    # the card's edge batches at k_out 1 (every row with two placed cells
+    # truncates) and the fleet's widest, capped at C
+    pytest.param(c, kind, k_out, id=f"edge-{c}-k{k_out}-{kind}")
+    for c in chip_smoke.FLEET_EDGE_C
+    for k_out in sorted({min(k, c) for k in chip_smoke.ENTRY_EDGE_K_OUT})
+    for kind in ("all", "part")
+]
+
+
+@pytest.mark.parametrize("c,kind,k_out", ENTRY_DIFF_CASES)
+def test_entry_diff_ref_equals_the_jax_stages(c, kind, k_out):
     """K16's plain version, chunk by chunk, against what the JAX program
     computes for the same rows: the meta words it ships (n_placed, unsched,
     has_cand, changed) and the entry rows it writes into the resident
     (those of the changed rows; the others must be zero), with the commit
-    index naming each row the resident takes."""
-    c = 300
-    tables, state, rows, n_pad, wide, fast, has_agg, k_out = solve_inputs(
-        c, kind, 700, 50)
+    index naming each row the resident takes; on seeded tables and on the
+    card's edge batches."""
+    if k_out is None:
+        tables, state, rows, n_pad, wide, fast, has_agg, k_out = solve_inputs(
+            c, kind, 700, 50)
+    else:
+        tables, state, rows, n_pad, wide, fast, has_agg = edge_solve_inputs(c, kind)
     k_res = k_out + 8
     kw = dict(chunk=CHUNK, n_chunks=n_pad // CHUNK, k_out=k_out, k_res=k_res,
               e_cap=1 << 16, wide=wide, fast=fast, has_aggregated=has_agg,
