@@ -28,8 +28,9 @@
    counts, padding rows, sites outside [0, C), k_prev 1, 32 and 128, C from
    1 to 5000; cold, steady and churn residents, all-rows and partial
    batches; ``check_entry_edges``: K16 at k_out 1 and 128 with a row named
-   twice, the entry rows over odd and even rows with counts up to 255) and
-   K3 on a seeded 4096 x 5000 batch; equality is
+   twice, the entry rows over odd and even rows with counts up to 255),
+   K3 on a seeded 4096 x 5000 batch, and K5's two wires on the 33
+   ``wire_edge_batch`` cases (``check_wire_edges``); equality is
    exact (integer outputs, tolerance 0). Prints each kernel's median time
    beside the plain version's and its bound (CUDA events behind a device
    spin, so the wrappers' host work is not timed). Then the shapes past
@@ -53,14 +54,20 @@
      first churn pass it holds K3 (both forms; the masks form also at
      k_prev = 128 and in one launch over all 102,400 rows), K2 (on the
      first chunk's inputs, with its phase split), K4 (both stages), K5
-     (both wires) and K6 (both entry points) against their plain versions
-     on the table's own inputs at config-5 shapes (exact), and times them;
+     (the phase-A wire on a steady and on this churn pass's outputs, the
+     entry wire on the churn's phase-B entries; each entry point's device
+     operations under the profiler, and none a concatenation in a whole
+     ``fleet_pass``) and K6 (both entry points) against their plain
+     versions on the table's own inputs at config-5 shapes (exact), and
+     times them;
    - the same storm on the entry-resident route (``KARMADA_TPU_DENSE_BUDGET=0``
      around the table's construction; 2 steady and 2 churn passes): every
      pass equal to the dense storm's row for row, the oracle after the cold
      and the last churn pass, an overflow rerun on the first churn pass,
-     K16 against its plain version in both forms and the whole pass against
-     ``fleet_solve_ref`` byte for byte before the first churn pass;
+     K16 against its plain version in both forms, the whole pass against
+     ``fleet_solve_ref`` byte for byte (no concatenation in it) and K5's
+     entry wire on the pass's own entries, metas in place, before the
+     first churn pass;
    - a mixed-strategy fleet phase (10k x 1000: the four strategies,
      zero-replica, fresh and previous-site rows), whose second pass makes a
      few hundred rows dirty: every row equal to the port's general path on
@@ -1079,6 +1086,62 @@ def _bound(nbytes: float, ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def pass_wire_bytes(changed, dcount, deltas, out, d_cap: int) -> int:
+    """What K5's phase-A wire must move on these inputs: every changed
+    flag, the meta word, delta count and table row of each changed row,
+    the d_slots delta words of each changed row with dcount <= 62 (with a
+    delta section), and the wire and row buffer (``out``) written."""
+    n_ch = int(changed.sum().item())
+    n_ct = int((changed & (dcount <= 62)).sum().item()) if d_cap else 0
+    return changed.numel() + 12 * n_ch + 4 * deltas.shape[1] * n_ct + _nbytes(*out)
+
+
+def device_ops(fn) -> list:
+    """The device operations (kernels, memsets, copies) one call of ``fn``
+    runs, by name, as torch.profiler lists them; empty if the profiler
+    sees no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def check_device_ops(label: str, fn, at_most: int | None = None,
+                     banned=("CatArrayBatchedCopy", "Memcpy DtoD")) -> None:
+    """Print the device operations of one call of ``fn``; fail if they
+    are more than ``at_most`` or include a concatenation or a
+    device-to-device copy."""
+    ops = device_ops(fn) or device_ops(fn)  # a trace that caught nothing, once more
+    if not ops:
+        print(f"# device operations of {label}: not measured (the profiler saw none)",
+              flush=True)
+        return
+    counts = {}
+    for name in ops:
+        counts[name[:40]] = counts.get(name[:40], 0) + 1
+    print(f"# device operations of {label}: {len(ops)}: {counts}", flush=True)
+    bad = [n for n in ops if any(b in n for b in banned)]
+    if bad or (at_most is not None and len(ops) > at_most):
+        raise AssertionError(f"{label}: {len(ops)} device operations (at most {at_most}), "
+                             f"concatenations or copies {bad}")
+
+
+def masked_select_line(label: str, values, flags, card: str) -> None:
+    """``torch.masked_select``'s time on the same flags: the uncapped
+    compaction alone, which synchronises with the host for its output
+    size; a yardstick, not a library version of the wire."""
+    import torch
+
+    ms = cuda_ms(lambda: torch.masked_select(values, flags))
+    print(f"# torch.masked_select on {label}'s flags (uncapped, no wire, "
+          f"synchronises): {ms:.4f} ms; card {card}", flush=True)
+
+
 def compare(name: str, got, want) -> int:
     """Max abs difference of two (tuples of) integer/bool tensors; raises
     unless exactly 0."""
@@ -1221,12 +1284,14 @@ def check_fleet_kernels(table, card: str) -> dict:
 
     # K2 -> K4 phase A over every chunk, against two clones of the residents
 
-    def phase_a(rows_b, all_rows: bool, times=None):
+    def phase_a(rows_b, all_rows: bool, times=None, base=None):
         """K3 -> K2 -> K4 and K4's plain version over the chunks of
-        ``rows_b``, each on its own clone of the residents: the chunks'
-        outputs and both clones, equal; per-chunk device ms in ``times``."""
-        st_k = (table._res_dense.clone(), table._res_meta.clone())
-        st_r = (table._res_dense.clone(), table._res_meta.clone())
+        ``rows_b``, each on its own clone of the residents (the table's,
+        or ``base``): the chunks' outputs and both clones, equal;
+        per-chunk device ms in ``times``."""
+        base = base or (table._res_dense, table._res_meta)
+        st_k = (base[0].clone(), base[1].clone())
+        st_r = (base[0].clone(), base[1].clone())
         parts = []
         for i in range(rows_b.shape[0] // chunk):
             rows_c = rows_b[i * chunk : (i + 1) * chunk]
@@ -1277,27 +1342,54 @@ def check_fleet_kernels(table, card: str) -> dict:
           f"{rows_p.numel()}, exact", flush=True)
     del st_p
 
-    # K5 phase-A wire with the caps this pass picks (the table's own rule)
-    changed = torch.cat([p.changed for p in parts])
-    meta = torch.cat([p.meta for p in parts])
-    dcount = torch.cat([p.dcount for p in parts])
-    deltas = torch.cat([p.deltas for p in parts])
-    # this pass follows steady passes, so the table keeps its current caps
+    # K5 phase-A wire with the caps this pass picks (the table's own rule:
+    # this pass follows steady passes, so the table keeps its caps), on
+    # this churn pass's phase-A outputs and on a steady pass's (phase A
+    # again over the residents the first run wrote: no row changes)
     m_cap, d_cap = table._m_cap_cur, table._d_cap_cur or 0
-    total = int(changed.sum().item())
-    wire_in = (changed, meta, dcount, rows_all, deltas)
-    got_w = fk.fleet_wire(*wire_in, m_cap=m_cap, d_cap=d_cap)
-    want_w = fk.fleet_wire_ref(*wire_in, m_cap=m_cap, d_cap=d_cap)
-    stats["fleet_wire"] = dict(timed(
-        "fleet_wire", lambda: fk.fleet_wire(*wire_in, m_cap=m_cap, d_cap=d_cap),
-        lambda: fk.fleet_wire_ref(*wire_in, m_cap=m_cap, d_cap=d_cap),
-        _nbytes(*wire_in) + _nbytes(*got_w), n_pad * (4 + 64), card,
-    ), max_abs_err=compare("fleet_wire", tuple(got_w), tuple(want_w)))
-    print(f"# fleet_wire check: {total} changed rows of {n}, m_cap {m_cap}, "
-          f"d_cap {d_cap}", flush=True)
+    steady_parts, st_s, _ = phase_a(rows_all, True, base=st_k)
+    del st_s
+    churn_changed = torch.cat([p.changed for p in parts])
+    for kind, wparts in (("churn", parts), ("steady", steady_parts)):
+        changed = torch.cat([p.changed for p in wparts])
+        dcount = torch.cat([p.dcount for p in wparts])
+        wire_in = (changed, torch.cat([p.meta for p in wparts]), dcount, rows_all,
+                   torch.cat([p.deltas for p in wparts]))
+        kw = dict(m_cap=m_cap, d_cap=d_cap)
+        got_w = fk.fleet_wire(*wire_in, **kw)
+        err = compare(f"fleet_wire {kind}", tuple(got_w),
+                      tuple(fk.fleet_wire_ref(*wire_in, **kw)))
+        total = int(changed.sum().item())
+        if (total == 0) != (kind == "steady"):
+            raise AssertionError(f"fleet_wire {kind} inputs: {total} changed rows")
+        n_ct = int((changed & (dcount <= 62)).sum().item())
+        st = timed(f"fleet_wire ({kind} phase-A inputs: {total} changed rows of {n}, "
+                   f"{n_ct} with dcount <= 62, m_cap {m_cap}, d_cap {d_cap})",
+                   lambda: fk.fleet_wire(*wire_in, **kw),
+                   lambda: fk.fleet_wire_ref(*wire_in, **kw),
+                   pass_wire_bytes(changed, dcount, wire_in[4], got_w, d_cap),
+                   n_pad * 4 + n_ct * wire_in[4].shape[1] * 4, card)
+        if kind == "churn":
+            stats["fleet_wire"] = dict(st, max_abs_err=err)
+        if on_card:
+            old_bound, _ = _bound(_nbytes(*wire_in) + _nbytes(*got_w), 0)
+            print(f"# fleet_wire {kind}: the bound counting every delta word (the "
+                  f"parent's): {old_bound:.6f} ms; card {card}", flush=True)
+            masked_select_line(f"fleet_wire {kind}", wire_in[1], changed, card)
+            check_device_ops(f"fleet_wire ({kind})", lambda: fk.fleet_wire(*wire_in, **kw),
+                             at_most=4)
+    del steady_parts, wire_in
+    if on_card:
+        pi = pass_inputs(table)
+        res_p = (table._res_dense.clone(), table._res_meta.clone())
+        check_device_ops("fleet_pass (the whole dense phase A)", lambda: fk.fleet_pass(
+            *tables, rows_all, *state, *res_p, chunk=chunk, n_chunks=n_pad // chunk, wide=pi["wide"], fast=pi["fast"],
+            has_aggregated=pi["has_agg"], all_rows=True, m_cap=m_cap, d_cap=d_cap))
+        del res_p
 
-    # K4 phase B + K5 entry wire over the changed rows, as the exact fetch
-    ch_rows = torch.nonzero(changed).flatten().to(torch.int32)
+    # K4 phase B + K5 entry wire over the churn pass's changed rows, as the
+    # exact fetch
+    ch_rows = torch.nonzero(churn_changed).flatten().to(torch.int32)
     m_pad = max(2048, _pow2(max(int(ch_rows.numel()), 1)))
     rows_b = torch.full((m_pad,), -1, dtype=torch.int32, device=ch_rows.device)
     rows_b[: ch_rows.numel()] = ch_rows
@@ -1319,10 +1411,15 @@ def check_fleet_kernels(table, card: str) -> dict:
         err = compare(f"entry_wire pack21={pack21}", got_x, want_x)
         if pack21 == (c <= 1 << 13):
             stats["entry_wire"] = dict(timed(
-                "entry_wire", lambda: fk.entry_wire(got_e, **kw),
+                f"entry_wire (phase B: {tuple(got_e.shape)} words, e_cap {e_cap}, "
+                f"pack21 {pack21})", lambda: fk.entry_wire(got_e, **kw),
                 lambda: fk.entry_wire_ref(got_e, **kw),
                 _nbytes(got_e) + _nbytes(got_x), got_e.numel() * 3, card,
             ), max_abs_err=err)
+            if on_card:
+                masked_select_line("entry_wire phase B", got_e, got_e > 0, card)
+                check_device_ops("entry_wire (phase B)",
+                                 lambda: fk.entry_wire(got_e, **kw), at_most=3)
     compare("entry_wire int32 form",
             fk.entry_wire(got_e, e_cap=e_cap, byte_wire=False),
             fk.entry_wire_ref(got_e, e_cap=e_cap, byte_wire=False))
@@ -1678,6 +1775,144 @@ def check_entry_edges(tables, state, rows, res_dense, tag: str, chunk: int) -> N
                     fk.fleet_entry_rows_ref(dense, rows_e, k_out))
 
 
+#: the wire edge cases (``wire_edge_batch``): phase-A wires ("pass-*")
+#: and entry wires ("entry-*": standalone; "solve-*": with the metas in
+#: place, as the entry-resident pass writes them)
+WIRE_EDGE_CASES = (
+    "pass-total0", "pass-all", "pass-cap", "pass-cap-1", "pass-cap+1", "pass-cap1",
+    "pass-small", "pass-ragged", "pass-many", "pass-dcount", "pass-nodelta",
+    "entry-total0", "entry-all", "entry-cap", "entry-cap-1", "entry-cap+1", "entry-cap1",
+    "entry-small", "entry-ragged", "entry-many", "entry-bytes3", "entry-int32",
+    *(f"entry-pack21-mod{r}" for r in range(8)),
+    "solve-pack21", "solve-bytes3", "solve-int32",
+)
+
+
+def wire_edge_batch(rng, case: str) -> dict:
+    """K5 inputs on which the wire kernels must stay exact, by the tiles of
+    ``fleet_kernels.WIRE_ROW_TILE`` rows and ``WIRE_ENTRY_TILE`` words.
+
+    Phase A ("pass-*": ``changed``, ``meta``, ``dcount``, ``rows``,
+    ``deltas``, ``m_cap``, ``d_cap``): no row changed; every row changed;
+    the changed-row total at m_cap, m_cap - 1 and m_cap + 1 (with the
+    delta total likewise against d_cap); caps of 1; n below one tile, n
+    not a multiple of the tile, n over 2000 tiles; dcount 62 and 63 at
+    the contributing boundary with rows whose delta words are all zero
+    and zeros between nonzero words; no delta section. Entry wires
+    ("entry-*", "solve-*": ``entries``, ``e_cap``, ``byte_wire``,
+    ``pack21``, ``meta``): no word positive; every word positive; the
+    total at e_cap, e_cap - 1 and e_cap + 1; e_cap 1; under one tile, a
+    ragged last tile, over 2000 tiles; the 21-bit form at every
+    ``21 e_cap mod 8`` with runs of empty tiles (a tile's run starts
+    mid-byte and its first byte draws on a value tiles back); the
+    3-byte and int32 forms, negative words; the metas in place (2 bytes
+    each, or int32 words)."""
+    kind, _, rest = case.partition("-")
+    if kind == "pass":
+        n = {"pass-small": 8, "pass-ragged": 3 * 256 + 40,
+             "pass-many": 2048 * 256}.get(case, 4 * 256)
+        d_slots = 4 if case == "pass-many" else 64
+        p_ch = {"pass-total0": 0.0, "pass-all": 1.0, "pass-many": 0.02}.get(case, 0.4)
+        changed = rng.random(n) < p_ch
+        meta = rng.integers(0, 1 << 10, n).astype(np.int32)
+        dcount = rng.integers(0, 70, n).astype(np.int32)
+        if case == "pass-dcount":
+            dcount[::4] = 62
+            dcount[1::4] = 63
+        rows = rng.permutation(n).astype(np.int32)
+        rows[rng.random(n) < 0.1] = -1
+        deltas = ((rng.integers(0, 5000, (n, d_slots)) << 9)
+                  | rng.integers(1, 256, (n, d_slots))).astype(np.int32)
+        deltas[rng.random((n, d_slots)) < 0.3] = 0  # zeros between nonzero words
+        deltas[np.arange(n) % 5 == 0] = 0  # rows whose words are all zero
+        contrib = changed & (dcount <= 62)
+        total = int(changed.sum())
+        dtotal = int((deltas[contrib] != 0).sum())
+        m_cap, d_cap = max(total, 1), max(dtotal, 1)
+        if case == "pass-cap-1":
+            m_cap, d_cap = max(total - 1, 1), max(dtotal - 1, 1)
+        elif case == "pass-cap+1":
+            m_cap, d_cap = total + 1, dtotal + 1
+        elif case == "pass-cap1":
+            m_cap, d_cap = 1, 1
+        elif case == "pass-total0":
+            m_cap, d_cap = 16, 64
+        if case == "pass-nodelta":
+            d_cap, deltas = 0, deltas[:, :0].copy()
+        return dict(kind="pass", changed=changed, meta=meta, dcount=dcount, rows=rows,
+                    deltas=deltas, m_cap=m_cap, d_cap=d_cap)
+    from karmada_tpu_torch.scheduler.fleet_kernels import WIRE_ENTRY_TILE as tile
+
+    k = 136 if kind == "solve" else 128
+    byte_wire = case not in ("entry-int32", "solve-int32")
+    pack21 = byte_wire and case not in ("entry-bytes3", "solve-bytes3")
+    m = {"entry-small": 1, "entry-ragged": 100, "entry-many": 131_072}.get(
+        case, 400 if pack21 else 200)
+    site_bits = 13 if pack21 else (16 if byte_wire else 23)
+    p_pos = {"entry-total0": 0.0, "entry-all": 1.0, "entry-many": 0.02}.get(case, 0.1)
+    entries = ((rng.integers(0, 1 << site_bits, (m, k), dtype=np.int32) << 8)
+               | rng.integers(1, 256, (m, k), dtype=np.int32))
+    entries[rng.random((m, k), dtype=np.float32) >= p_pos] = 0
+    if case.startswith("entry-pack21") or case == "solve-pack21":
+        # runs of empty tiles between sparse ones
+        flat = entries.reshape(-1)
+        for t in range(-(-flat.size // tile)):
+            if t % 3:
+                flat[t * tile:(t + 1) * tile] = 0
+            else:
+                flat[t * tile + tile // 2:(t + 1) * tile] = 0  # a run of 1/2 tile
+    if not byte_wire:
+        entries[rng.random((m, k)) < 0.01] = -7  # negative words are not entries
+    total = int((entries > 0).sum())
+    e_cap = max(total, 1)
+    if rest.startswith("pack21-mod"):
+        r = int(rest[-1])
+        # 21 e_cap = r (mod 8): the cap rounded down to it from the total
+        # on even r (the last tile caps), up on odd r (the fill writes
+        # the stream's last byte)
+        e_cap = total + (5 * r - total) % 8 if r % 2 else total - (total - 5 * r) % 8
+        e_cap += 8 if e_cap < 1 else 0
+    elif case.endswith("cap-1"):
+        e_cap = max(total - 1, 1)
+    elif case.endswith("cap+1"):
+        e_cap = total + 1
+    elif case.endswith("cap1"):
+        e_cap = 1
+    elif case == "entry-total0":
+        e_cap = 5
+    meta = (rng.integers(0, 1 << 11, m).astype(np.int32) if kind == "solve" else None)
+    return dict(kind="entry", entries=entries, e_cap=e_cap, byte_wire=byte_wire,
+                pack21=pack21, meta=meta)
+
+
+def check_wire_edges(device, card: str) -> None:
+    """K5's two entry points against their plain versions on every
+    ``wire_edge_batch`` case, byte for byte (the wire, the row buffer)."""
+    import torch
+    from karmada_tpu_torch.scheduler import fleet_kernels as fk
+
+    rng = np.random.default_rng(SEED + 5)
+    with uncounted():
+        for case in WIRE_EDGE_CASES:
+            b = wire_edge_batch(rng, case)
+            if b["kind"] == "pass":
+                args = tuple(torch.from_numpy(b[k]).to(device)
+                             for k in ("changed", "meta", "dcount", "rows", "deltas"))
+                kw = dict(m_cap=b["m_cap"], d_cap=b["d_cap"])
+                compare(f"fleet_wire edges {case}", tuple(fk.fleet_wire(*args, **kw)),
+                        tuple(fk.fleet_wire_ref(*args, **kw)))
+            else:
+                ents = torch.from_numpy(b["entries"]).to(device)
+                meta = None if b["meta"] is None else torch.from_numpy(b["meta"]).to(device)
+                kw = dict(e_cap=b["e_cap"], byte_wire=b["byte_wire"], pack21=b["pack21"],
+                          meta=meta)
+                compare(f"entry_wire edges {case}", fk.entry_wire(ents, **kw),
+                        fk.entry_wire_ref(ents, **kw))
+    print(f"# fleet_wire and entry_wire on the {len(WIRE_EDGE_CASES)} wire edge cases "
+          f"({', '.join(WIRE_EDGE_CASES)}): exact; card {card}", flush=True)
+    torch.cuda.empty_cache()
+
+
 def widen_prev(state: tuple, k_prev: int, c: int, seed: int) -> tuple:
     """The table state with prev_sites / prev_counts widened to ``k_prev``
     pairs: the table's own pairs, then each row's first real pair again
@@ -1894,12 +2129,10 @@ def dense_budget(nbytes):
             os.environ["KARMADA_TPU_DENSE_BUDGET"] = saved
 
 
-def legacy_inputs(table) -> dict:
-    """What K16 runs with on a legacy table's next all-rows pass: the
-    device tables and state, the adaptive chunk, the all-rows index, the
-    pass's k_out and K2 variant, and the table's resident widened by 8
-    zero columns past k_out (``res_w``, k_res = k_out + 8 on config 5)."""
-    import torch
+def pass_inputs(table) -> dict:
+    """What a fleet table's next all-rows pass runs with: the device
+    tables and state, the adaptive chunk, the all-rows index, the pass's
+    k_out and K2 variant."""
     from karmada_tpu_torch.scheduler.core import kernel_variant
     from karmada_tpu_torch.scheduler.fleet import _pow2
 
@@ -1911,13 +2144,45 @@ def legacy_inputs(table) -> dict:
     max_n = int(reps.max())
     wide, fast = kernel_variant(max(table._avail_max, max_n), table._static_max,
                                 int(table._st["prev_counts"][:n].max()), max_n, c)
-    resident = table._resident_entries
     return dict(tables=table._dev_tables, state=table._dev_state, n=n, chunk=chunk,
                 n_pad=-(-n // chunk) * chunk, rows_all=table._all_rows_dev, c=c,
                 reps=reps, strat=strat, k_out=min(c, _pow2(max(max_n, 1))),
-                has_agg=bool((strat == 3).any()), wide=wide, fast=fast,
-                resident=resident,
+                has_agg=bool((strat == 3).any()), wide=wide, fast=fast)
+
+
+def legacy_inputs(table) -> dict:
+    """``pass_inputs`` of a legacy table, with its resident and the
+    resident widened by 8 zero columns past k_out (``res_w``, k_res =
+    k_out + 8 on config 5), against which K16 is checked."""
+    import torch
+
+    resident = table._resident_entries
+    return dict(pass_inputs(table), resident=resident,
                 res_w=torch.cat([resident, resident.new_zeros((resident.shape[0], 8))], 1))
+
+
+def legacy_pass_entries(li: dict):
+    """K3 -> K2 -> K16 over every chunk of a legacy table's all-rows pass
+    (``legacy_inputs``) against its resident, each chunk writing its rows
+    of pass-wide buffers, as ``fleet_solve`` runs them: the pass's
+    EntryDiff (n_pad metas, n_pad x k_res entry words, commit rows)."""
+    import torch
+    from karmada_tpu_torch.ops import divide_replicas
+    from karmada_tpu_torch.scheduler import fleet_kernels as fk
+
+    n_pad, chunk, res = li["n_pad"], li["chunk"], li["resident"]
+    diff = fk.EntryDiff(*(torch.empty(sh, dtype=d, device=res.device) for d, sh in (
+        (torch.int32, (n_pad,)), (torch.int32, (n_pad, res.shape[1])),
+        (torch.int64, (n_pad,)))))
+    for i in range(n_pad // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        rc = li["rows_all"][sl]
+        m = fk.fleet_masks(*li["tables"], rc, *li["state"])
+        a, u = divide_replicas(m.strategy, m.replicas, m.feasible, m.static_w, m.avail,
+                               m.prev, m.fresh, li["has_agg"], li["wide"], li["fast"])
+        fk.entry_diff(a, u, m.feasible, m.strategy, rc, res, k_out=li["k_out"],
+                      all_rows=True, offset=i * chunk, out=fk.EntryDiff(*(t[sl] for t in diff)))
+    return diff
 
 
 def entry_diff_args(li: dict, rows_c) -> tuple:
@@ -2006,7 +2271,30 @@ def check_legacy_kernels(table, problems, card: str) -> dict:
     print(f"# fleet_solve (K3 -> K2 -> K16 x {n_pad // chunk}, K6, K5) against "
           f"fleet_solve_ref on the pass's inputs: {flat_k.numel()} wire bytes equal, "
           f"{total} changed entries, resident equal", flush=True)
-    del res_k, res_r, res_w, li
+    if torch.cuda.is_available():
+        res_k.copy_(resident)  # a copy of the resident, made outside the profile
+        check_device_ops("fleet_solve (the whole entry-resident pass)",
+                         lambda: fk.fleet_solve(*tables, rows_all, *state, res_k, **skw))
+    del res_k, res_r, res_w
+    # K5's entry wire on the pass's own entries, the metas in place, as
+    # fleet_solve runs it
+    diff = legacy_pass_entries(li)
+    kw = dict(e_cap=skw["e_cap"], byte_wire=True, pack21=skw["pack21"], meta=diff.meta)
+    got = fk.entry_wire(diff.entries, **kw)
+    err = compare("entry_wire on the legacy pass's entries", got,
+                  fk.entry_wire_ref(diff.entries, **kw))
+    n_ent = int((diff.entries > 0).sum().item())
+    timed(f"entry_wire on the legacy pass's entries ({tuple(diff.entries.shape)} words, "
+          f"{n_ent} entries, e_cap {kw['e_cap']}, pack21 {kw['pack21']}, metas in place; "
+          f"max abs err {err})",
+          lambda: fk.entry_wire(diff.entries, **kw),
+          lambda: fk.entry_wire_ref(diff.entries, **kw),
+          _nbytes(diff.entries, diff.meta, got), diff.entries.numel() * 3, card)
+    if torch.cuda.is_available():
+        masked_select_line("entry_wire legacy", diff.entries, diff.entries > 0, card)
+        check_device_ops("entry_wire (legacy pass)",
+                         lambda: fk.entry_wire(diff.entries, **kw), at_most=3)
+    del diff, got, li
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
     return stats
@@ -2066,14 +2354,20 @@ def device_profile(fn, device, top: int = 6) -> dict:
     return {"wall_s": wall, "busy_s": busy, "top": names, "by_name": per_name}
 
 
-#: kernels whose device time every traced pass line names, by a substring
-#: of their profiler names: the fleet route's two ordered compactions
-TRACED_KERNELS = {"K16": "entry_diff_kernel", "K4 entry rows": "fleet_entry_rows_kernel"}
+#: device operations whose time every traced pass line names, by a
+#: substring of their profiler names: the fleet route's ordered
+#: compactions (K16, K4's entry rows, K5's two wires), the memsets (K5's
+#: look-back state among them), and the concatenations and device copies
+#: that the pass glue no longer makes
+TRACED_KERNELS = {"K16": "entry_diff_kernel", "K4 entry rows": "fleet_entry_rows_kernel",
+                  "K5 fleet_wire": "pass_wire_kernel", "K5 entry_wire": "entry_wire_kernel",
+                  "memsets": "Memset", "cat": "CatArrayBatchedCopy",
+                  "DtoD copies": "Memcpy DtoD"}
 
 
 def traced_kernels(prof: dict) -> str:
     return ", ".join(
-        f"{label} {sum(v for k, v in prof['by_name'].items() if name in k) * 1e3:.2f} ms"
+        f"{label} {sum(v for k, v in prof['by_name'].items() if name in k) * 1e3:.3f} ms"
         for label, name in TRACED_KERNELS.items())
 
 
@@ -3647,6 +3941,7 @@ def main() -> int:
         stats["preempt_select"] = check_preempt_kernel(t, card, "131072 x 5000 seeded")
         del t
         check_fleet_edges(device, card)
+        check_wire_edges(device, card)
 
     def configs():
         for cfg in (1, 2, 3, 4):

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time build variants and truncated copies of K2 (``divide_replicas``) on
 one NVIDIA GPU, beside the built kernel's phase split; with ``--fleet``,
-truncated copies of K3 (``fleet_masks``, both forms) and K4 phase A
-(``fleet_diff``) instead.
+truncated copies of K3 (``fleet_masks``, both forms), K4 (``fleet_diff``),
+K16 (``entry_diff``) and K5's two wires (``fleet_wire``) instead.
 
     python3 k2_variants.py [E/THREADS/MIN_BLOCKS/CUT,...]
     python3 k2_variants.py --fleet [CSRC_DIR ...]
@@ -46,7 +46,21 @@ the cold resident; padded with -1 rows to max(2048, pow2), k_out from the
 replicas, as the table fetches them). K16 runs on chunk 0 of the same
 churn on a config-5 table at a dense budget of 0 (the entry-resident
 route), all-rows form, against the resident widened to k_res = k_out + 8
-(``chip_smoke.legacy_inputs``).
+(``chip_smoke.legacy_inputs``). K5's two wires (``fleet_wire.cu``) run on
+four inputs: the phase-A outputs of a steady config-5 pass (after three
+steady passes, at the caps the table then holds) and of the churn pass
+(at the same caps), both through ``fleet_wire``; the churn pass's phase-B
+entries (K4's entry rows over its changed rows, k_out 128: 65,536 x 128
+words, 21-bit) and the entry-resident churn pass's own entries (K16 over
+every chunk: 102,400 x k_res words, k_res 128 on config 5, 21-bit, e_cap
+the safe bound), both through ``entry_wire``. A source with the three-kernel compaction (the
+older form) is cut after its memsets (1), its count kernels (2), its
+scans (3) and its write kernels (4), the serialiser dropped from every
+cut, so the differences are each stage's time; the single-pass source
+is cut with ``-DFLEET_CUT=1`` (loads, ranking and look-back, no write).
+The entry-resident wire is also timed as ``fleet_solve`` ends: the
+parent's wire and the concatenation that put the metas in, against the
+single-pass wire writing them in place.
 """
 
 from __future__ import annotations
@@ -90,13 +104,26 @@ def variant_source(src: str, e: int, threads: int, min_blocks: int, cut: int) ->
     return src
 
 
-#: the copies ``--fleet`` builds of each source, by cut (0: whole)
-FLEET_CUTS = {"fleet_masks": (0, 1, 2), "fleet_diff": (0, 1), "entry_diff": (0, 1)}
+#: the copies ``--fleet`` builds of each source, by cut (0: whole); K5's
+#: by the form of its source (``wire_form``)
+FLEET_CUTS = {"fleet_masks": (0, 1, 2), "fleet_diff": (0, 1), "entry_diff": (0, 1),
+              "fleet_wire": (0, 1, 2, 3, 4)}
+WIRE_CUTS = {"three-pass": (0, 1, 2, 3, 4), "single-pass": (0, 1)}
 FLEET_CUT_NAMES = {
     "fleet_masks": {0: "whole", 1: "cut before prev", 2: "cut after prev"},
     "fleet_diff": {0: "whole", 1: "entry rows: loads only"},
     "entry_diff": {0: "whole", 1: "cut before compaction"},
+    "fleet_wire": {0: "whole", 1: "cut 1", 2: "cut 2", 3: "cut 3", 4: "cut 4"},
 }
+#: the three-kernel form's K5 entry points (scratch of block counts)
+THREE_PASS_SIGNATURES = {"fleet_wire_launch": "ppppp" "iiii" "ppppp" "i",
+                         "entry_wire_launch": "pqiiipppi"}
+
+
+def wire_form(src: str) -> str:
+    """``three-pass`` for K5 sources with a count, a scan and a write
+    kernel per compaction and a serialiser; ``single-pass`` otherwise."""
+    return "three-pass" if "count_kernel" in src else "single-pass"
 #: cuts of kernel sources that predate ``FLEET_CUT``: source -> cut ->
 #: ((text, replacement), ...). K3 cut 1 returns before the previous-site
 #: pass (row loads, the pairs in shared memory, the row scalars); cut 2
@@ -136,6 +163,20 @@ FLEET_TEXT_CUTS = {
              "  if (acc == 0x5bd1e995) o[0] = acc;\n"
              "  const int filled = seen < k_out ? seen : k_out;")),
     },
+    # K5 (three-pass form): each cut skips the serialisers, and returns
+    # from every compaction before its count (1), scan (2) or write (3)
+    # kernel, or runs it whole (4)
+    "fleet_wire": {
+        cut: tuple(
+            ((f"  {k}<<<", f"  if ({cut} == {i}) return cudaSuccess;\n  {k}<<<")
+             for i, k in ((1, "count_kernel<S>"), (2, "scan_kernel"), (3, "write_kernel<S>"))
+             if i == cut)
+        ) + (("  const long long len = 4 + n / 8",
+              "  return 0;\n  const long long len = 4 + n / 8"),
+             ("  if (!byte_wire)\n    return (int)cudaMemcpyAsync",
+              "  return 0;\n  if (!byte_wire)\n    return (int)cudaMemcpyAsync"))
+        for cut in (1, 2, 3, 4)
+    },
     "entry_diff": {
         1: (("    if (seen < k_out && __syncthreads_count(sel) > 0) {  // block-uniform\n"
              "      int tile;\n"
@@ -155,6 +196,8 @@ def _fleet_builds(csrc: str, tmp: str, tag: str) -> dict:
     procs = {}
     for name, cuts in FLEET_CUTS.items():
         src = open(os.path.join(csrc, f"{name}.cu")).read()
+        if name == "fleet_wire":
+            cuts = WIRE_CUTS[wire_form(src)]
         for cut in cuts:
             flags = []
             if cut and "FLEET_CUT" in src:
@@ -173,11 +216,12 @@ def _fleet_builds(csrc: str, tmp: str, tag: str) -> dict:
             procs[(name, cut)] = (subprocess.Popen(
                 [native.nvcc(), *native.NVCC_FLAGS, *flags, "-Xptxas", "-v", "-o",
                  path + ".so", path + ".cu"],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), path + ".so")
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), path + ".so",
+                wire_form(src) if name == "fleet_wire" else None)
     return procs
 
 
-def _fleet_lib(proc, so: str, label: str):
+def _fleet_lib(proc, so: str, label: str, form=None):
     from karmada_tpu_torch import native
 
     log, _ = proc.communicate()
@@ -188,11 +232,15 @@ def _fleet_lib(proc, so: str, label: str):
     print(f"# {label}: " + "; ".join(usage), flush=True)
     lib = ctypes.CDLL(so)
     for lib_name in FLEET_CUTS:
-        for fn_name, sig in native.SIGNATURES[lib_name].items():
+        sigs = native.SIGNATURES[lib_name]
+        if lib_name == "fleet_wire" and form == "three-pass":
+            sigs = THREE_PASS_SIGNATURES
+        for fn_name, sig in sigs.items():
             if hasattr(lib, fn_name):
                 fn = getattr(lib, fn_name)
                 fn.argtypes = [native._CTYPES[k] for k in sig] + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+    lib.wire_form = form
     return lib
 
 
@@ -203,7 +251,7 @@ def fleet_main(dirs: list) -> int:
     from karmada_tpu_torch.ops import divide_replicas
     from karmada_tpu_torch.scheduler import TensorScheduler
     from karmada_tpu_torch.scheduler import fleet_kernels as fk
-    from karmada_tpu_torch.scheduler.fleet import _pow2
+    from karmada_tpu_torch.scheduler.fleet import _cap_round, _pow2
 
     if not torch.cuda.is_available():
         print("k2_variants: no CUDA device", file=sys.stderr)
@@ -212,16 +260,18 @@ def fleet_main(dirs: list) -> int:
     print(f"# card: {card}", flush=True)
     dirs = dirs or [native.CSRC]
     tmp = tempfile.mkdtemp(prefix="fleet_variants_")
+    uniq = list(dict.fromkeys(dirs))  # a directory named twice is built once
     procs = {}
-    for i, d in enumerate(dirs):
-        procs.update({(i, *k): v for k, v in _fleet_builds(d, tmp, f"d{i}").items()})
+    for u, d in enumerate(uniq):
+        procs.update({(u, *k): v for k, v in _fleet_builds(d, tmp, f"d{u}").items()})
     native.build()
     t0 = time.perf_counter()
     snap, problems = cs.build_workload(karmada_tpu_torch, 5)
     drift = cs.drift_snapshots(karmada_tpu_torch, snap, 1)
     dev = torch.device("cuda", 0)
     engine = TensorScheduler(snap, chunk_size=4096, device=dev)
-    engine.schedule(problems)
+    for _ in range(4):  # cold, then steady passes: the caps settle as the smoke's
+        engine.schedule(problems)
     engine_l = TensorScheduler(snap, chunk_size=4096, device=dev)
     with cs.dense_budget(0):  # the entry-resident route
         engine_l.schedule(problems)
@@ -231,8 +281,10 @@ def fleet_main(dirs: list) -> int:
         raise SystemExit("k2_variants: the budget-0 table is not entry-resident")
     print(f"# config-5 tables (dense and entry-resident) built and scheduled in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    libs = {k: _fleet_lib(p, so, f"{dirs[k[0]]} {k[1]} {FLEET_CUT_NAMES[k[1]][k[2]]}")
-            for k, (p, so) in procs.items()}
+    built = {k: _fleet_lib(p, so, f"{uniq[k[0]]} {k[1]} {FLEET_CUT_NAMES[k[1]][k[2]]}", form)
+             for k, (p, so, form) in procs.items()}
+    libs = {(i, *k[1:]): lib for i, d in enumerate(dirs) for k, lib in built.items()
+            if k[0] == uniq.index(d)}
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
     chunk = table.chunk
     rows_all = table._all_rows_dev
@@ -309,6 +361,10 @@ def fleet_main(dirs: list) -> int:
         print(f"# K3 split {d} (config-5 chunk 0 {chunk}x{tables[1].shape[1]}; bits "
               f"{rows_all.shape[0]} rows; ms): " + "; ".join(line) + f"; card {card}",
               flush=True)
+    # K5's phase-A inputs of a steady pass (phase A over every chunk
+    # against a clone of the settled resident: no row changes)
+    m_cap, d_cap = table._m_cap_cur, table._d_cap_cur or 0
+    wires = {"steady": phase_a_outputs(table, tables, state, rows_all, chunk)}
     # K4 phase A on chunk 0: steady (the cold tables) and churn (drifted)
     k4 = {}
     for kind in ("steady", "churn"):
@@ -344,18 +400,9 @@ def fleet_main(dirs: list) -> int:
 
     # K4's entry rows on the churn pass's changed rows: phase A over every
     # chunk against a clone of the cold resident, as chip_smoke's check
-    res_d, res_m = table._res_dense.clone(), table._res_meta.clone()
-    has_agg = bool((table._st["strategy"][: table.n_rows] == 3).any())
-    changed = []
-    for i in range(rows_all.shape[0] // chunk):
-        rc = rows_all[i * chunk:(i + 1) * chunk]
-        m = fk.fleet_masks(*tables, rc, *state)
-        a, u = divide_replicas(m.strategy, m.replicas, m.feasible, m.static_w, m.avail,
-                               m.prev, m.fresh, has_agg)
-        changed.append(fk.fleet_diff(a, u, m.feasible, m.strategy, rc, res_d, res_m,
-                                     all_rows=True, offset=i * chunk, d_slots=64).changed)
-    del res_m, m, a, u
-    ch_rows = torch.nonzero(torch.cat(changed)).flatten().to(torch.int32)
+    wires["churn"] = phase_a_outputs(table, tables, state, rows_all, chunk)
+    res_d = wires["churn"][-1]
+    ch_rows = torch.nonzero(wires["churn"][0]).flatten().to(torch.int32)
     rows_b = torch.full((max(2048, _pow2(max(ch_rows.numel(), 1))),), -1,
                         dtype=torch.int32, device=dev)
     rows_b[: ch_rows.numel()] = ch_rows
@@ -371,6 +418,7 @@ def fleet_main(dirs: list) -> int:
         return out
 
     want = fk.fleet_entry_rows_ref(res_d, rows_b, k_out)
+    phase_b = want
     for i, d in enumerate(dirs):
         cs.compare("K4 entry rows", rows_run(libs[(i, "fleet_diff", 0)]), want)
         line = [f"{FLEET_CUT_NAMES['fleet_diff'][cut]} "
@@ -379,7 +427,7 @@ def fleet_main(dirs: list) -> int:
         print(f"# K4 entry rows split {d} (config-5 churn: {ch_rows.numel()} changed rows "
               f"padded to {rows_b.shape[0]}, k_out {k_out}; ms a launch): "
               + "; ".join(line) + f"; card {card}", flush=True)
-    del res_d, want
+    del res_d
 
     # K16 on chunk 0 of the same churn on the entry-resident table
     if not engine_l.update_snapshot(drift[0]):
@@ -412,7 +460,140 @@ def fleet_main(dirs: list) -> int:
               f"{args[0].shape[1]}, k_out {k_out}, k_res {args[5].shape[1]}, {n_changed} "
               f"changed rows; ms a launch): " + "; ".join(line) + f"; card {card}",
               flush=True)
+
+    # K5 on its four inputs
+    legacy = cs.legacy_pass_entries(li)
+    safe = int(np.minimum(np.where(li["strat"] == 0, 0, li["reps"]), li["k_out"]).sum())
+    pack21 = li["c"] <= 1 << 13
+    inputs = {
+        "steady phase A": ("pass", wires["steady"][:5], dict(m_cap=m_cap, d_cap=d_cap)),
+        "churn phase A": ("pass", wires["churn"][:5], dict(m_cap=m_cap, d_cap=d_cap)),
+        "dense phase B": ("entry", (phase_b,), dict(
+            e_cap=_cap_round(max(int((phase_b > 0).sum().item()), 1)), pack21=pack21)),
+        "legacy churn": ("entry", (legacy.entries,), dict(e_cap=_cap_round(safe),
+                                                          pack21=pack21)),
+    }
+    for label, (kind, ins, kw) in inputs.items():
+        desc = (f"{int(ins[0].sum().item())} changed rows of {ins[0].shape[0]}, m_cap "
+                f"{kw['m_cap']}, d_cap {kw['d_cap']}" if kind == "pass" else
+                f"{tuple(ins[0].shape)} words, {int((ins[0] > 0).sum().item())} entries, "
+                f"e_cap {kw['e_cap']}, pack21 {kw['pack21']}")
+        want = (fk.fleet_wire_ref(*ins, **kw) if kind == "pass" else
+                fk.entry_wire_ref(ins[0], byte_wire=True, **kw))
+        for i, d in enumerate(dirs):
+            cuts = [c_ for (j, name, c_) in libs if j == i and name == "fleet_wire"]
+            form = libs[(i, "fleet_wire", 0)].wire_form
+            cs.compare(f"K5 {label} {d}", wire_run(libs[(i, "fleet_wire", 0)], kind, ins, kw),
+                       want)
+            times = {c_: cs.cuda_ms(lambda: wire_run(libs[(i, "fleet_wire", c_)], kind, ins,
+                                                     kw)) for c_ in sorted(cuts)}
+            print(f"# K5 split {d} ({form}; {label}: {desc}; ms a launch): "
+                  + "; ".join(f"{WIRE_CUT_LABELS[form][c_]} {t:.4f}" for c_, t in times.items())
+                  + f"; card {card}", flush=True)
+    # the end of fleet_solve: the wire and its metas
+    meta, ents = legacy.meta, legacy.entries
+    kw = dict(e_cap=_cap_round(safe), pack21=pack21)
+    want = fk.entry_wire_ref(ents, byte_wire=True, meta=meta, **kw)
+    for i, d in enumerate(dirs):
+        lib = libs[(i, "fleet_wire", 0)]
+        if lib.wire_form == "three-pass":
+            def tail():
+                wire = wire_run(lib, "entry", (ents,), kw)
+                return fk._solve_wire(wire[:4], meta, wire[4:], True)
+        else:
+            def tail():
+                return wire_run(lib, "entry", (ents,), kw, meta=meta)
+        cs.compare(f"K5 fleet_solve wire {d}", tail(), want)
+        print(f"# K5 fleet_solve's wire {d} ({lib.wire_form}: the legacy churn entries "
+              f"and {meta.numel()} metas; ms): {cs.cuda_ms(tail):.4f}; card {card}",
+              flush=True)
     return 0
+
+
+#: what each K5 copy runs, by source form and cut
+WIRE_CUT_LABELS = {
+    "three-pass": {0: "whole", 1: "memsets", 2: "+count", 3: "+scan", 4: "+write (no serialiser)"},
+    "single-pass": {0: "whole", 1: "no writes"},
+}
+
+
+def phase_a_outputs(table, tables, state, rows_all, chunk):
+    """(changed, meta, dcount, rows, deltas, res_dense): K3 -> K2 -> K4
+    phase A over every chunk of the table's all-rows pass (d_slots 64)
+    against a clone of its dense resident, and that clone after it."""
+    import torch
+    from karmada_tpu_torch.ops import divide_replicas
+    from karmada_tpu_torch.scheduler import fleet_kernels as fk
+
+    res_d, res_m = table._res_dense.clone(), table._res_meta.clone()
+    has_agg = bool((table._st["strategy"][: table.n_rows] == 3).any())
+    parts = []
+    for i in range(rows_all.shape[0] // chunk):
+        rc = rows_all[i * chunk:(i + 1) * chunk]
+        m = fk.fleet_masks(*tables, rc, *state)
+        a, u = divide_replicas(m.strategy, m.replicas, m.feasible, m.static_w, m.avail,
+                               m.prev, m.fresh, has_agg)
+        parts.append(fk.fleet_diff(a, u, m.feasible, m.strategy, rc, res_d, res_m,
+                                   all_rows=True, offset=i * chunk, d_slots=64))
+    changed, meta, dcount, deltas = (torch.cat([p[k] for p in parts]) for k in range(4))
+    return changed, meta, dcount, rows_all, deltas, res_d
+
+
+def wire_run(lib, kind: str, ins: tuple, kw: dict, meta=None):
+    """One launch of a K5 copy (either form) on a phase-A input
+    (``kind`` "pass": changed, meta, dcount, rows, deltas; m_cap, d_cap)
+    or an entry input (entries; e_cap, pack21; the byte wire), with the
+    outputs its wrapper allocates; returns them."""
+    import torch
+    from karmada_tpu_torch import native
+    from karmada_tpu_torch.scheduler import fleet_kernels as fk
+
+    dev = ins[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    three = lib.wire_form == "three-pass"
+    if kind == "pass":
+        changed, _, _, _, deltas = ins
+        m_cap, d_cap = kw["m_cap"], kw["d_cap"]
+        n, d_slots = changed.shape[0], deltas.shape[1]
+        flat = torch.empty((4 + n // 8 + 2 * m_cap + (4 + 3 * d_cap if d_cap else 0),),
+                           dtype=torch.uint8, device=dev)
+        rowbuf = torch.empty((m_cap,), dtype=torch.int32, device=dev)
+        if three:
+            nb = max(-(-n // 2048), -(-(n * d_slots) // 2048) if d_cap else 0, 1)
+            mstream = torch.empty((m_cap,), dtype=torch.int32, device=dev)
+            dstream = torch.empty((max(d_cap, 1),), dtype=torch.int32, device=dev)
+            scratch = torch.empty((2 * nb + 4,), dtype=torch.int32, device=dev)
+            err = lib.fleet_wire_launch(*[t.data_ptr() for t in ins], n, d_slots, m_cap,
+                                        d_cap, mstream.data_ptr(), rowbuf.data_ptr(),
+                                        dstream.data_ptr(), flat.data_ptr(),
+                                        scratch.data_ptr(), nb, stream)
+        else:
+            scratch, fill = fk._wire_launch_args(n, fk.WIRE_ROW_TILE, 6 * m_cap + 3 * d_cap,
+                                                 dev)
+            err = lib.fleet_wire_launch(*[t.data_ptr() for t in ins], n, d_slots, m_cap,
+                                        d_cap, flat.data_ptr(), rowbuf.data_ptr(),
+                                        scratch.data_ptr(), fill, stream)
+        native.check_launch("fleet_wire_launch", err)
+        return flat, rowbuf
+    entries = ins[0]
+    n, e_cap, pack21 = entries.numel(), kw["e_cap"], kw["pack21"]
+    m = 0 if meta is None else meta.numel()
+    body = ((e_cap * 21 + 7) // 8 + 3) if pack21 else 3 * e_cap
+    out = torch.empty((4 + 2 * m + body,), dtype=torch.uint8, device=dev)
+    if three:
+        nb = max(-(-n // 2048), 1)
+        st = torch.empty((max(e_cap, 1),), dtype=torch.int32, device=dev)
+        scratch = torch.empty((2 * nb + 4,), dtype=torch.int32, device=dev)
+        err = lib.entry_wire_launch(entries.data_ptr(), n, e_cap, 1, int(pack21),
+                                    st.data_ptr(), out.data_ptr(), scratch.data_ptr(), nb,
+                                    stream)
+    else:
+        scratch, fill = fk._wire_launch_args(n, fk.WIRE_ENTRY_TILE, body, dev)
+        err = lib.entry_wire_launch(entries.data_ptr(), n, e_cap, 2 if pack21 else 1,
+                                    None if meta is None else meta.data_ptr(), m,
+                                    out.data_ptr(), scratch.data_ptr(), fill, stream)
+    native.check_launch("entry_wire_launch", err)
+    return out
 
 
 def main() -> int:

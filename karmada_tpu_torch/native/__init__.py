@@ -74,8 +74,8 @@ SIGNATURES = {
         "fleet_entry_rows_launch": "piipiip",
     },
     "fleet_wire": {
-        "fleet_wire_launch": "ppppp" "iiii" "ppppp" "i",
-        "entry_wire_launch": "pqiiipppi",
+        "fleet_wire_launch": "ppppp" "iiii" "ppp" "i",
+        "entry_wire_launch": "pqii" "pi" "pp" "i",
     },
     "scatter_rows": {
         "scatter_rows_launch": "pppipii",

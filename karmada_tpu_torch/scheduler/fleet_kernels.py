@@ -329,18 +329,39 @@ def fleet_diff_ref(assignment, unsched, feasible, strategy, rows, res_dense,
     return ChunkDiff(changed, meta, dcount, deltas)
 
 
+def _into(out, got):
+    """``got`` copied into the preallocated ``out`` (views of a pass-wide
+    buffer), which is returned; ``got`` itself without ``out``."""
+    if out is None:
+        return got
+    for o, g in zip(out, got):
+        o.copy_(g)
+    return out
+
+
+def _check_out(name: str, out, want: tuple) -> None:
+    """``out``'s tensors are contiguous, of the dtypes and shapes in
+    ``want`` ((dtype, shape) pairs), on the device of the inputs."""
+    if len(out) != len(want) or any(
+            not o.is_contiguous() or o.dtype != d or tuple(o.shape) != shape
+            for o, (d, shape) in zip(out, want)):
+        raise ValueError(f"{name}: out= must be contiguous tensors of "
+                         f"{[(str(d), s) for d, s in want]}")
+
+
 def fleet_diff(assignment, unsched, feasible, strategy, rows, res_dense,
-               res_meta, *, all_rows: bool, offset: int,
-               d_slots: int) -> ChunkDiff:
+               res_meta, *, all_rows: bool, offset: int, d_slots: int,
+               out: Optional[ChunkDiff] = None) -> ChunkDiff:
     """K4 phase A: one block per row zeroes Duplicated rows, writes dense8
     and the meta word over the resident IN PLACE, and emits the changed
     flag, the changed-cell count and the first ``d_slots`` cell deltas in
     site order (an ordered compaction in place of the JAX sort, skipped on
-    a row with no changed cell)."""
+    a row with no changed cell). With ``out``, the outputs are written
+    into those tensors (a chunk's rows of pass-wide buffers)."""
     args = (assignment, unsched, feasible, strategy, rows, res_dense, res_meta)
     if native.on_cpu(args):
-        return fleet_diff_ref(*args, all_rows=all_rows, offset=offset,
-                              d_slots=d_slots)
+        return _into(out, fleet_diff_ref(*args, all_rows=all_rows, offset=offset,
+                                         d_slots=d_slots))
     native.check("fleet_diff", assignment=(assignment, I32),
                  unsched=(unsched, BOOL), feasible=(feasible, BOOL),
                  strategy=(strategy, I32), rows=(rows, I32),
@@ -354,12 +375,11 @@ def fleet_diff(assignment, unsched, feasible, strategy, rows, res_dense,
             or (all_rows and not 0 <= offset <= cap - b)):
         raise ValueError("fleet_diff: inconsistent shapes")
     dev = rows.device
-    out = ChunkDiff(
-        torch.empty((b,), dtype=BOOL, device=dev),
-        torch.empty((b,), dtype=I32, device=dev),
-        torch.empty((b,), dtype=I32, device=dev),
-        torch.empty((b, d_slots), dtype=I32, device=dev),
-    )
+    want = ((BOOL, (b,)), (I32, (b,)), (I32, (b,)), (I32, (b, d_slots)))
+    if out is None:
+        out = ChunkDiff(*(torch.empty(sh, dtype=d, device=dev) for d, sh in want))
+    else:
+        _check_out("fleet_diff", out, want)
     if b:
         native.launch(fleet_diff, "fleet_diff", "fleet_diff_launch", dev,
                       assignment, unsched, feasible, strategy, rows, b, c,
@@ -477,33 +497,58 @@ def fleet_wire_ref(changed, meta, dcount, rows, deltas, *, m_cap: int,
     return torch.cat(parts), rowbuf
 
 
+def _solve_wire(total_u8_or_i32, meta, body, byte_wire: bool) -> torch.Tensor:
+    """``_fleet_solve``'s wire (fleet.py:400-420): total | meta | entries,
+    the meta words as 2 little-endian bytes on the byte wire."""
+    if byte_wire:
+        m = meta.to(I64)
+        meta_u8 = torch.stack([m & 0xFF, (m >> 8) & 0xFF], dim=-1).to(U8).reshape(-1)
+        return torch.cat([total_u8_or_i32, meta_u8, body])
+    return torch.cat([total_u8_or_i32, meta, body])
+
+
 def entry_wire_ref(entries: torch.Tensor, *, e_cap: int, byte_wire: bool,
-                   pack21: bool = False) -> torch.Tensor:
+                   pack21: bool = False,
+                   meta: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of K5's entry wire (fleet.py:755-769): the positive
     words of ``entries`` in row-major order compacted into ``e_cap``, then
     4 B total + entry bytes (uint8), or int32 [total, stream...] without
-    the byte wire."""
+    the byte wire. With ``meta``, the metas go between the total and the
+    entries (``_fleet_solve``'s wire, fleet.py:400-420)."""
     flat = entries.reshape(-1)
     stream, total = compact_ref(flat, flat > 0, e_cap)
     if byte_wire:
-        return torch.cat([_le32(total), entry_bytes_ref(stream, e_cap, pack21)])
-    return torch.cat([total.reshape(1), stream])
+        head, body = _le32(total), entry_bytes_ref(stream, e_cap, pack21)
+    else:
+        head, body = total.reshape(1), stream
+    if meta is None:
+        return torch.cat([head, body])
+    return _solve_wire(head, meta, body, byte_wire)
 
 
-def _wire_scratch(n_blocks: int, dev) -> torch.Tensor:
-    # per-block counts, per-block offsets, and the totals
-    return torch.empty((2 * n_blocks + 4,), dtype=I32, device=dev)
+#: rows a tile of the phase-A wire, entry words a tile of the entry wire
+#: (csrc/fleet_wire.cu ROW_TILE, ENTRY_TILE)
+WIRE_ROW_TILE = 256
+WIRE_ENTRY_TILE = 8192
+_FILL_BYTES = 32768  # tail bytes a fill block writes, at most 1024 blocks
 
 
-_ITEMS = 2048  # items per compaction block (csrc/fleet_wire.cu ITEMS)
+def _wire_launch_args(n_items: int, tile: int, tail_bytes: int, dev) -> tuple:
+    """The look-back scratch (the tile counter and a status word a tile,
+    zeroed by the launch) and the number of fill blocks for a tail of at
+    most ``tail_bytes``."""
+    n_tiles = max(1, -(-n_items // tile))
+    scratch = torch.empty((1 + n_tiles,), dtype=I64, device=dev)
+    return scratch, max(1, min(1024, -(-tail_bytes // _FILL_BYTES)))
 
 
 def fleet_wire(changed, meta, dcount, rows, deltas, *, m_cap: int,
                d_cap: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """K5 phase-A wire: two ordered capped compactions (changed rows ->
-    metas and rowbuf; delta words of contributing rows -> the delta
-    stream), each a block-count pass, an offset scan and a write pass, then
-    one serialiser pass over the output bytes."""
+    """K5 phase-A wire: one single-pass ordered compaction over the rows
+    (a memset of its look-back state and one launch): the changed rows'
+    metas and table rows, and the delta words of the changed rows with
+    dcount <= 62 (only those rows read theirs), written straight into
+    the wire with the bitmask and the totals."""
     args = (changed, meta, dcount, rows, deltas)
     if native.on_cpu(args):
         return fleet_wire_ref(*args, m_cap=m_cap, d_cap=d_cap)
@@ -511,23 +556,18 @@ def fleet_wire(changed, meta, dcount, rows, deltas, *, m_cap: int,
                  dcount=(dcount, I32), rows=(rows, I32), deltas=(deltas, I32))
     n = changed.shape[0]
     d_slots = deltas.shape[1] if deltas.dim() == 2 else -1
-    if (n % 8 or any(t.shape != (n,) for t in (meta, dcount, rows))
-            or deltas.dim() != 2 or deltas.shape[0] != n
+    if (n % 8 or n >= 1 << 24 or any(t.shape != (n,) for t in (meta, dcount, rows))
+            or deltas.dim() != 2 or deltas.shape[0] != n or d_slots > 64
             or (d_cap and not d_slots) or m_cap < 0 or d_cap < 0):
         raise ValueError("fleet_wire: inconsistent shapes")
     dev = changed.device
     length = 4 + n // 8 + 2 * m_cap + (4 + 3 * d_cap if d_cap else 0)
     flat = torch.empty((length,), dtype=U8, device=dev)
     rowbuf = torch.empty((m_cap,), dtype=I32, device=dev)
-    mstream = torch.empty((m_cap,), dtype=I32, device=dev)
-    dstream = torch.empty((max(d_cap, 1),), dtype=I32, device=dev)
-    nb_m = -(-n // _ITEMS)
-    nb_d = -(-(n * max(d_slots, 0)) // _ITEMS) if d_cap else 0
-    scratch = _wire_scratch(max(nb_m, nb_d, 1), dev)
+    scratch, fill = _wire_launch_args(n, WIRE_ROW_TILE, 6 * m_cap + 3 * d_cap, dev)
     native.launch(fleet_wire, "fleet_wire", "fleet_wire_launch", dev,
-                  changed, meta, dcount, rows, deltas, n, max(d_slots, 0),
-                  m_cap, d_cap, mstream, rowbuf, dstream, flat, scratch,
-                  max(nb_m, nb_d, 1))
+                  changed, meta, dcount, rows, deltas, n, d_slots, m_cap, d_cap,
+                  flat, rowbuf, scratch, fill)
     return flat, rowbuf
 
 
@@ -535,26 +575,34 @@ fleet_wire.launches = 0
 
 
 def entry_wire(entries: torch.Tensor, *, e_cap: int, byte_wire: bool,
-               pack21: bool = False) -> torch.Tensor:
-    """K5 entry wire: the ordered capped compaction of the positive entry
-    words, then the 3-byte or 21-bit serialiser (or the int32 form)."""
-    if native.on_cpu((entries,)):
+               pack21: bool = False,
+               meta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K5 entry wire: one single-pass ordered compaction of the positive
+    entry words (a memset of its look-back state and one launch), each
+    written straight into its 3 bytes, its 21 bits or its int32 word;
+    with ``meta``, the metas are written in place between the total and
+    the entries."""
+    ins = (entries,) if meta is None else (entries, meta)
+    if native.on_cpu(ins):
         return entry_wire_ref(entries, e_cap=e_cap, byte_wire=byte_wire,
-                              pack21=pack21)
-    native.check("entry_wire", entries=(entries, I32))
+                              pack21=pack21, meta=meta)
+    native.check("entry_wire", entries=(entries, I32),
+                 **({} if meta is None else {"meta": (meta, I32)}))
     n = entries.numel()
+    m = 0 if meta is None else meta.numel()
+    if n >= 1 << 31 or e_cap < 0 or (meta is not None and meta.dim() != 1):
+        raise ValueError("entry_wire: inconsistent shapes")
     dev = entries.device
     if byte_wire:
         body = ((e_cap * 21 + 7) // 8 + 3) if pack21 else 3 * e_cap
-        out = torch.empty((4 + body,), dtype=U8, device=dev)
+        out = torch.empty((4 + 2 * m + body,), dtype=U8, device=dev)
     else:
-        out = torch.empty((1 + e_cap,), dtype=I32, device=dev)
-    stream = torch.empty((max(e_cap, 1),), dtype=I32, device=dev)
-    nb = max(-(-n // _ITEMS), 1)
-    scratch = _wire_scratch(nb, dev)
+        body = 4 * e_cap
+        out = torch.empty((1 + m + e_cap,), dtype=I32, device=dev)
+    form = (2 if pack21 else 1) if byte_wire else 0
+    scratch, fill = _wire_launch_args(n, WIRE_ENTRY_TILE, body, dev)
     native.launch(entry_wire, "fleet_wire", "entry_wire_launch", dev,
-                  entries, n, e_cap, int(byte_wire), int(pack21), stream, out,
-                  scratch, nb)
+                  entries, n, e_cap, form, meta, m, out, scratch, fill)
     return out
 
 
@@ -640,32 +688,32 @@ def fleet_pass(cp_bits, cp_static, gvk_bits, prof_table, incomplete_en, rows,
                n_chunks: int, wide: bool, fast: Optional[tuple],
                has_aggregated: bool, all_rows: bool, m_cap: int,
                d_cap: int = 0):
-    """Phase A (``_fleet_pass``): per chunk K3 -> K2 -> K4, then K5 over the
-    whole pass. Returns (flat_wire_u8, rowbuf, res_dense, res_meta); the
-    residents are updated in place and returned for signature parity."""
+    """Phase A (``_fleet_pass``): per chunk K3 -> K2 -> K4, each chunk's
+    K4 writing its rows of pass-wide buffers, then K5 over the whole pass.
+    Returns (flat_wire_u8, rowbuf, res_dense, res_meta); the residents are
+    updated in place and returned for signature parity."""
     c = cp_static.shape[1]
     d_slots = min(64, c) if d_cap else 0
     tables = (cp_bits, cp_static, gvk_bits, prof_table, incomplete_en)
     state = (cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh,
              prev_sites, prev_counts)
-    parts = []
+    n, dev = chunk * n_chunks, rows.device
+    diff = ChunkDiff(torch.empty((n,), dtype=BOOL, device=dev),
+                     torch.empty((n,), dtype=I32, device=dev),
+                     torch.empty((n,), dtype=I32, device=dev),
+                     torch.empty((n, d_slots), dtype=I32, device=dev))
     for i in range(n_chunks):
-        rows_c = rows[i * chunk : (i + 1) * chunk]
-        m = fleet_masks(*tables, rows_c, *state)
+        sl = slice(i * chunk, (i + 1) * chunk)
+        m = fleet_masks(*tables, rows[sl], *state)
         assignment, unsched = divide_replicas(
             m.strategy, m.replicas, m.feasible, m.static_w, m.avail, m.prev,
             m.fresh, has_aggregated, wide, fast,
         )
-        parts.append(fleet_diff(
-            assignment, unsched, m.feasible, m.strategy, rows_c, res_dense,
-            res_meta, all_rows=all_rows, offset=i * chunk, d_slots=d_slots,
-        ))
-    changed = torch.cat([p.changed for p in parts])
-    meta = torch.cat([p.meta for p in parts])
-    dcount = torch.cat([p.dcount for p in parts])
-    deltas = torch.cat([p.deltas for p in parts])
-    flat, rowbuf = fleet_wire(changed, meta, dcount, rows, deltas,
-                              m_cap=m_cap, d_cap=d_cap)
+        fleet_diff(assignment, unsched, m.feasible, m.strategy, rows[sl],
+                   res_dense, res_meta, all_rows=all_rows, offset=i * chunk,
+                   d_slots=d_slots, out=ChunkDiff(*(t[sl] for t in diff)))
+    flat, rowbuf = fleet_wire(diff.changed, diff.meta, diff.dcount, rows,
+                              diff.deltas, m_cap=m_cap, d_cap=d_cap)
     return flat, rowbuf, res_dense, res_meta
 
 
@@ -739,18 +787,21 @@ def entry_diff_ref(assignment, unsched, feasible, strategy, rows, resident, *,
 
 
 def entry_diff(assignment, unsched, feasible, strategy, rows, resident, *,
-               k_out: int, all_rows: bool, offset: int) -> EntryDiff:
+               k_out: int, all_rows: bool, offset: int,
+               out: Optional[EntryDiff] = None) -> EntryDiff:
     """K16: one block per row zeroes a Duplicated row, compacts the row's
     placed cells in site order into its first ``k_out`` entry words (an
     ordered compaction in place of the JAX sort), counts the placed sites
     and the feasible ones, and diffs the words against the resident row,
     which it only reads; ``fleet_solve`` writes the resident after the
     last chunk (K6 over ``commit``), so a row named twice in one batch is
-    diffed against the pre-pass resident both times, as in JAX."""
+    diffed against the pre-pass resident both times, as in JAX. With
+    ``out``, the outputs are written into those tensors (a chunk's rows of
+    pass-wide buffers)."""
     args = (assignment, unsched, feasible, strategy, rows, resident)
     kw = dict(k_out=k_out, all_rows=all_rows, offset=offset)
     if native.on_cpu(args):
-        return entry_diff_ref(*args, **kw)
+        return _into(out, entry_diff_ref(*args, **kw))
     native.check("entry_diff", assignment=(assignment, I32),
                  unsched=(unsched, BOOL), feasible=(feasible, BOOL),
                  strategy=(strategy, I32), rows=(rows, I32),
@@ -763,11 +814,11 @@ def entry_diff(assignment, unsched, feasible, strategy, rows, resident, *,
             or (all_rows and not 0 <= offset <= cap - b)):
         raise ValueError("entry_diff: inconsistent shapes")
     dev = rows.device
-    out = EntryDiff(
-        torch.empty((b,), dtype=I32, device=dev),
-        torch.empty((b, k_res), dtype=I32, device=dev),
-        torch.empty((b,), dtype=I64, device=dev),
-    )
+    want = ((I32, (b,)), (I32, (b, k_res)), (I64, (b,)))
+    if out is None:
+        out = EntryDiff(*(torch.empty(sh, dtype=d, device=dev) for d, sh in want))
+    else:
+        _check_out("entry_diff", out, want)
     if b:
         native.launch(entry_diff, "entry_diff", "entry_diff_launch", dev,
                       assignment, unsched, feasible, strategy, rows, b, c,
@@ -776,16 +827,6 @@ def entry_diff(assignment, unsched, feasible, strategy, rows, resident, *,
 
 
 entry_diff.launches = 0
-
-
-def _solve_wire(total_u8_or_i32, meta, body, byte_wire: bool) -> torch.Tensor:
-    """``_fleet_solve``'s wire (fleet.py:400-420): total | meta | entries,
-    the meta words as 2 little-endian bytes on the byte wire."""
-    if byte_wire:
-        m = meta.to(I64)
-        meta_u8 = torch.stack([m & 0xFF, (m >> 8) & 0xFF], dim=-1).to(U8).reshape(-1)
-        return torch.cat([total_u8_or_i32, meta_u8, body])
-    return torch.cat([total_u8_or_i32, meta, body])
 
 
 def fleet_solve_ref(cp_bits, cp_static, gvk_bits, prof_table, incomplete_en,
@@ -849,31 +890,30 @@ def fleet_solve(cp_bits, cp_static, gvk_bits, prof_table, incomplete_en, rows,
                 fast: Optional[tuple], has_aggregated: bool, all_rows: bool,
                 pack21: bool = False):
     """The single-dispatch pass (``_fleet_solve``): per chunk K3 -> K2 ->
-    K16, then K6 writes the changed entry rows into ``prev_entries`` in
-    place and K5's entry wire compacts and serialises them; the meta
-    bytes go between the total and the entries. Returns (flat,
-    prev_entries)."""
+    K16, each chunk's K16 writing its rows of pass-wide buffers, then K6
+    writes the changed entry rows into ``prev_entries`` in place and K5's
+    entry wire compacts and serialises them, the metas written in place
+    between the total and the entries. Returns (flat, prev_entries)."""
     if prev_entries.shape[1] != k_res:
         raise ValueError("fleet_solve: the resident is not k_res wide")
     tables = (cp_bits, cp_static, gvk_bits, prof_table, incomplete_en)
     state = (cp_idx, gvk_idx, prof_idx, replicas, strategy, fresh,
              prev_sites, prev_counts)
-    parts = []
+    n, dev = chunk * n_chunks, rows.device
+    diff = EntryDiff(torch.empty((n,), dtype=I32, device=dev),
+                     torch.empty((n, k_res), dtype=I32, device=dev),
+                     torch.empty((n,), dtype=I64, device=dev))
     for i in range(n_chunks):
-        rows_c = rows[i * chunk : (i + 1) * chunk]
-        m = fleet_masks(*tables, rows_c, *state)
+        sl = slice(i * chunk, (i + 1) * chunk)
+        m = fleet_masks(*tables, rows[sl], *state)
         assignment, unsched = divide_replicas(
             m.strategy, m.replicas, m.feasible, m.static_w, m.avail, m.prev,
             m.fresh, has_aggregated, wide, fast,
         )
-        parts.append(entry_diff(
-            assignment, unsched, m.feasible, m.strategy, rows_c, prev_entries,
-            k_out=k_out, all_rows=all_rows, offset=i * chunk,
-        ))
-    meta = torch.cat([p.meta for p in parts])
-    entries = torch.cat([p.entries for p in parts])
-    scatter_rows((prev_entries,), torch.cat([p.commit for p in parts]), (entries,))
-    byte_wire = cp_static.shape[1] <= 0xFFFF
-    wire = entry_wire(entries, e_cap=e_cap, byte_wire=byte_wire, pack21=pack21)
-    head = 4 if byte_wire else 1
-    return _solve_wire(wire[:head], meta, wire[head:], byte_wire), prev_entries
+        entry_diff(assignment, unsched, m.feasible, m.strategy, rows[sl],
+                   prev_entries, k_out=k_out, all_rows=all_rows, offset=i * chunk,
+                   out=EntryDiff(*(t[sl] for t in diff)))
+    scatter_rows((prev_entries,), diff.commit, (diff.entries,))
+    flat = entry_wire(diff.entries, e_cap=e_cap, byte_wire=cp_static.shape[1] <= 0xFFFF,
+                      pack21=pack21, meta=diff.meta)
+    return flat, prev_entries

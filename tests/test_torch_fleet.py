@@ -6,6 +6,8 @@ chip_smoke.py. Tolerance: exact — every wire byte for byte, the residents
 and the row buffer element for element. Shapes are small: cap 1024, C 50
 and 300, chunk 256."""
 
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -294,6 +296,99 @@ def test_pack21_and_entry_wire_equal_jax(e_cap):
             np.asarray(jf._entry_wire(J(stream), e_cap, pack21)))
 
 
+@partial(jax.jit, static_argnames=("m_cap", "d_cap"))
+def _jax_pass_wire(changed, meta, dcounts, rows, deltas_all, *, m_cap, d_cap):
+    """``_fleet_pass``'s wire (fleet.py:652-707) line by line, on the
+    scan's flattened outputs."""
+    r = jnp.maximum(rows, 0)
+    wire_meta = meta | (jnp.minimum(dcounts, 63) << 10)
+    cnt = jnp.cumsum(changed.astype(jnp.int32)) - changed
+    total = cnt[-1] + changed[-1].astype(jnp.int32)
+    write = jnp.where(changed & (cnt < m_cap), cnt, m_cap)
+    mstream = jnp.zeros((m_cap + 1,), jnp.int32).at[write].set(wire_meta)[:m_cap]
+    rowbuf = jnp.full((m_cap + 1,), -1, jnp.int32).at[write].set(r)[:m_cap]
+    w32 = changed.reshape(-1, 32).astype(jnp.uint32)
+    shifts = jnp.arange(32, dtype=jnp.uint32)[None, :]
+    words = (w32 << shifts).sum(axis=-1, dtype=jnp.uint32)
+    mask_u8 = jnp.stack([(words >> s) & 0xFF for s in (0, 8, 16, 24)],
+                        axis=-1).astype(jnp.uint8).reshape(-1)
+    total_u8 = jnp.stack([(total >> s) & 0xFF for s in (0, 8, 16, 24)]).astype(jnp.uint8)
+    meta_u8 = jnp.stack([mstream & 0xFF, (mstream >> 8) & 0xFF],
+                        axis=-1).astype(jnp.uint8).reshape(-1)
+    parts = [total_u8, mask_u8, meta_u8]
+    if d_cap:
+        contrib = changed & (dcounts <= 62)
+        rowv = jnp.where(contrib[:, None], deltas_all, 0).reshape(-1)
+        validv = rowv != 0
+        doffs = jnp.cumsum(validv.astype(jnp.int32)) - validv
+        dtotal = doffs[-1] + validv[-1].astype(jnp.int32)
+        dwrite = jnp.where(validv & (doffs < d_cap), doffs, d_cap)
+        dstream = jnp.zeros((d_cap + 1,), jnp.int32).at[dwrite].set(rowv)[:d_cap]
+        dtotal_u8 = jnp.stack([(dtotal >> s) & 0xFF for s in (0, 8, 16, 24)]).astype(jnp.uint8)
+        d_u8 = jnp.stack([dstream & 0xFF, (dstream >> 8) & 0xFF, (dstream >> 16) & 0xFF],
+                         axis=-1).astype(jnp.uint8).reshape(-1)
+        parts += [dtotal_u8, d_u8]
+    return jnp.concatenate(parts), rowbuf
+
+
+@partial(jax.jit, static_argnames=("e_cap", "byte_wire", "pack21"))
+def _jax_entry_wire(entries, meta, *, e_cap, byte_wire, pack21):
+    """``_fleet_entries``' compaction and wire (fleet.py:755-769) line by
+    line; with ``meta``, ``_fleet_solve``'s (fleet.py:380-420), every
+    row changed (the port's K16 zeroes the unchanged rows' entries)."""
+    valid_e = (entries > 0).reshape(-1)
+    offs = jnp.cumsum(valid_e.astype(jnp.int32)) - valid_e
+    total = offs[-1] + valid_e[-1].astype(jnp.int32)
+    write = jnp.where(valid_e & (offs < e_cap), offs, e_cap)
+    stream = jnp.zeros((e_cap + 1,), jnp.int32).at[write].set(entries.reshape(-1))[:e_cap]
+    if byte_wire:
+        total_u8 = jnp.stack([(total >> s) & 0xFF for s in (0, 8, 16, 24)]).astype(jnp.uint8)
+        e_u8 = jf._entry_wire(stream, e_cap, pack21)
+        if meta is None:
+            return jnp.concatenate([total_u8, e_u8])
+        meta_u8 = jnp.stack([meta & 0xFF, (meta >> 8) & 0xFF],
+                            axis=-1).astype(jnp.uint8).reshape(-1)
+        return jnp.concatenate([total_u8, meta_u8, e_u8])
+    if meta is None:
+        return jnp.concatenate([total[None], stream])
+    return jnp.concatenate([total[None], meta, stream])
+
+
+@pytest.mark.parametrize("case", chip_smoke.WIRE_EDGE_CASES)
+def test_wire_edge_batch_equals_jax(case):
+    """K5's plain versions against the JAX wires byte for byte on every
+    ``chip_smoke.wire_edge_batch`` case (the cases the card's kernels are
+    held to): caps at, below and above the totals, caps of 1, n under one
+    tile, ragged and over 2000 tiles, dcount 62 / 63, all-zero delta
+    rows, the 21-bit form at every 21 e_cap mod 8, the 3-byte and int32
+    forms, the metas in place."""
+    b = chip_smoke.wire_edge_batch(np.random.default_rng(
+        chip_smoke.WIRE_EDGE_CASES.index(case)), case)
+    if b["kind"] == "pass":
+        args = [b[k] for k in ("changed", "meta", "dcount", "rows", "deltas")]
+        kw = dict(m_cap=b["m_cap"], d_cap=b["d_cap"])
+        g_flat, g_rowbuf = fk.fleet_wire(*map(T, args), **kw)
+        # the JAX wire packs whole chunks of 256 rows: below that, or past
+        # a multiple, it runs on the rows padded with unchanged ones, as
+        # the engine pads them, and its mask loses the padding's bytes
+        n = args[0].size
+        pad = -n % 256
+        w_flat, w_rowbuf = _jax_pass_wire(
+            *(J(np.concatenate([a, np.zeros((pad, *a.shape[1:]), a.dtype)])) for a in args),
+            **kw)
+        w_flat = np.asarray(w_flat)
+        w_flat = np.concatenate([w_flat[:4 + n // 8], w_flat[4 + (n + pad) // 8:]])
+        np.testing.assert_array_equal(g_flat.numpy(), w_flat)
+        np.testing.assert_array_equal(g_rowbuf.numpy(), np.asarray(w_rowbuf))
+        return
+    kw = dict(e_cap=b["e_cap"], byte_wire=b["byte_wire"], pack21=b["pack21"])
+    meta = b["meta"]
+    got = fk.entry_wire(T(b["entries"]), meta=None if meta is None else T(meta), **kw)
+    want = _jax_entry_wire(J(b["entries"]), None if meta is None else J(meta), **kw)
+    assert got.dtype == (torch.uint8 if b["byte_wire"] else torch.int32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 # --------------------------------------------------------------------------
 # phase A and phase B
 # --------------------------------------------------------------------------
@@ -320,6 +415,74 @@ def residents(tables, state, rows, c, *, n_chunks, wide, fast, has_agg, seed,
     return rd, rm
 
 
+def spy_glue(monkeypatch, diff_name: str, wire_name: str) -> dict:
+    """Record what the pass glue hands K4 / K16 (``out=``) and K5."""
+    seen = {"outs": [], "wire": None}
+    diff, wire = getattr(fk, diff_name), getattr(fk, wire_name)
+
+    def diff_spy(*a, out=None, **kw):
+        seen["outs"].append(out)
+        return diff(*a, out=out, **kw)
+
+    def wire_spy(*a, **kw):
+        seen["wire"] = (a, kw)
+        return wire(*a, **kw)
+
+    monkeypatch.setattr(fk, diff_name, diff_spy)
+    monkeypatch.setattr(fk, wire_name, wire_spy)
+    return seen
+
+
+def assert_views_of(outs, buffers, chunk: int) -> None:
+    """Chunk i's outputs are rows [i * chunk, (i + 1) * chunk) of the
+    pass-wide buffers the wire reads: no concatenation between them."""
+    assert outs and all(o is not None for o in outs)
+    for i, out in enumerate(outs):
+        for o, buf in zip(out, buffers):
+            assert o.data_ptr() == buf[i * chunk:(i + 1) * chunk].data_ptr()
+            assert o.shape == buf[i * chunk:(i + 1) * chunk].shape
+
+
+def test_diff_wrappers_write_out_views():
+    """``fleet_diff`` and ``entry_diff`` with ``out=`` views at a nonzero
+    chunk offset of pass-wide buffers give what they return without it,
+    and leave the buffers' other rows alone."""
+    c, chunk = 300, CHUNK
+    tables, state = tables_state(12, c)
+    rows = rows_for("part", 2 * chunk, 2 * chunk, 12)[chunk:]
+    wide, fast = variant(tables, state, c)
+    m = fk.fleet_masks(*map(T, tables), T(rows), *map(T, state))
+    a, u = fk.divide_replicas(m.strategy, m.replicas, m.feasible, m.static_w, m.avail,
+                              m.prev, m.fresh, True, wide, fast)
+    args = (a, u, m.feasible, m.strategy, T(rows))
+    res = (torch.zeros((CAP, c), dtype=torch.uint8), torch.zeros(CAP, dtype=torch.int32))
+    kw = dict(all_rows=False, offset=0, d_slots=64)
+    want = fk.fleet_diff(*args, *(x.clone() for x in res), **kw)
+    bufs = fk.ChunkDiff(torch.full((3 * chunk,), True), torch.full((3 * chunk,), -5),
+                        torch.full((3 * chunk,), -5),
+                        torch.full((3 * chunk, 64), -5, dtype=torch.int32))
+    sl = slice(chunk, 2 * chunk)
+    got = fk.fleet_diff(*args, *(x.clone() for x in res), **kw,
+                        out=fk.ChunkDiff(*(b[sl] for b in bufs)))
+    for g, w, b in zip(got, want, bufs):
+        assert g.data_ptr() == b[sl].data_ptr()
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+        assert (b[:chunk] == b[0]).all() and (b[2 * chunk:] == b[0]).all()
+    k_out, k_res = 64, 72
+    resident = torch.from_numpy(np.random.default_rng(12).integers(
+        0, 5, (CAP, k_res)).astype(np.int32))
+    kw = dict(k_out=k_out, all_rows=False, offset=0)
+    want = fk.entry_diff(*args, resident, **kw)
+    bufs = fk.EntryDiff(torch.full((3 * chunk,), -5, dtype=torch.int32),
+                        torch.full((3 * chunk, k_res), -5, dtype=torch.int32),
+                        torch.full((3 * chunk,), -5, dtype=torch.int64))
+    got = fk.entry_diff(*args, resident, **kw, out=fk.EntryDiff(*(b[sl] for b in bufs)))
+    for g, w, b in zip(got, want, bufs):
+        assert g.data_ptr() == b[sl].data_ptr()
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+        assert (b[:chunk] == -5).all() and (b[2 * chunk:] == -5).all()
+
+
 @pytest.mark.parametrize("c,kind,n,m_cap,d_cap", [
     (300, "all", 900, 1024, 0),
     (300, "all", 900, 1024, 8192),
@@ -330,11 +493,14 @@ def residents(tables, state, rows, c, *, n_chunks, wide, fast, has_agg, seed,
     (50, "part", 500, 1024, 0),
     (50, "part", 500, 1024, 32),
 ])
-def test_fleet_pass_wire_equals_jax(c, kind, n, m_cap, d_cap):
+def test_fleet_pass_wire_equals_jax(c, kind, n, m_cap, d_cap, monkeypatch):
     """``_fleet_pass`` byte for byte: the flat wire, the row buffer and both
     residents, on all-rows and partial batches, without and with the delta
     section, with an m_cap overflow (16) and a delta-stream overflow (32),
-    and a row with more than 62 changed cells when C = 300."""
+    and a row with more than 62 changed cells when C = 300. Each chunk's
+    K4 writes its rows of the pass-wide buffers K5 reads (no
+    concatenation)."""
+    seen = spy_glue(monkeypatch, "fleet_diff", "fleet_wire")
     tables, state = tables_state(6, c)
     n_pad = -(-n // CHUNK) * CHUNK
     n_chunks = n_pad // CHUNK
@@ -361,6 +527,8 @@ def test_fleet_pass_wire_equals_jax(c, kind, n, m_cap, d_cap):
     np.testing.assert_array_equal(g_rowbuf.numpy(), np.asarray(w_rowbuf))
     np.testing.assert_array_equal(g_rd.numpy(), np.asarray(w_rd))
     np.testing.assert_array_equal(g_rm.numpy(), np.asarray(w_rm))
+    wire_in = seen["wire"][0]
+    assert_views_of(seen["outs"], (wire_in[0], wire_in[1], wire_in[2], wire_in[4]), CHUNK)
     flat = g_flat.numpy()
     total = int(flat[:4].view("<i4")[0])
     assert total > (m_cap if m_cap == 16 else 40)
@@ -460,6 +628,21 @@ def test_wrappers_refuse_mixed_devices_and_bad_dtypes():
         fk.gather_meta(torch.zeros(4, dtype=torch.int32, device="meta"), torch.zeros(4, dtype=torch.int32))
     with pytest.raises(ValueError):
         fk.fleet_entry_rows(a, torch.zeros(2, dtype=torch.int32, device="meta"), 4)
+
+
+def test_wire_tiles_match_the_kernel_source():
+    """The wrappers size K5's look-back scratch by ``WIRE_ROW_TILE`` and
+    ``WIRE_ENTRY_TILE`` (a status word a tile): they must be the tiles of
+    ``csrc/fleet_wire.cu``."""
+    import os
+    import re
+
+    with open(os.path.join(native.CSRC, "fleet_wire.cu")) as f:
+        src = f.read()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert src.count("constexpr int ROW_TILE = THREADS;") == 1
+    assert const["THREADS"] == fk.WIRE_ROW_TILE
+    assert const["THREADS"] * const["VEC"] * const["LOADS"] == fk.WIRE_ENTRY_TILE
 
 
 def _c_signature(src: str, fn_name: str) -> str:

@@ -34,7 +34,8 @@ from karmada_tpu_torch.scheduler import fleet_kernels as fk
 from karmada_tpu_torch.scheduler.fleet import _cap_round, _pow2
 
 import chip_smoke
-from test_torch_fleet import CAP, CHUNK, J, T, rows_for, tables_state, variant
+from test_torch_fleet import (CAP, CHUNK, J, T, assert_views_of, rows_for, spy_glue,
+                              tables_state, variant)
 from test_torch_fleet_engine import Pair, outcome
 
 PKGS = (karmada_tpu, karmada_tpu_torch)
@@ -101,12 +102,15 @@ CASES = [
 
 
 @pytest.mark.parametrize("c,kind,n,extra,e_cap", CASES)
-def test_fleet_solve_equals_jax(c, kind, n, extra, e_cap):
+def test_fleet_solve_equals_jax(c, kind, n, extra, e_cap, monkeypatch):
     """The wire byte for byte and the updated resident, for the plain
     version and for the chained wrappers (whose plain versions run here):
     pack21 at C <= 8192, the 3-byte wire above it, a resident wider than
     k_out, and an entry cap below the changed-entry total (the wire then
-    carries the first e_cap entries and the full total)."""
+    carries the first e_cap entries and the full total). Each chunk's K16
+    writes its rows of the pass-wide buffers K5 reads, metas included
+    (no concatenation)."""
+    seen = spy_glue(monkeypatch, "entry_diff", "entry_wire")
     tables, state, rows, n_pad, wide, fast, has_agg, k_out = solve_inputs(
         c, kind, n, 20 + c % 7)
     k_res = k_out + extra
@@ -123,14 +127,18 @@ def test_fleet_solve_equals_jax(c, kind, n, extra, e_cap):
         assert g_res is t_res and g_flat.dtype == torch.uint8  # in place
         np.testing.assert_array_equal(g_flat.numpy(), w_flat, err_msg=fn.__name__)
         np.testing.assert_array_equal(g_res.numpy(), w_res, err_msg=fn.__name__)
+    wire_args, wire_kw = seen["wire"]
+    assert_views_of(seen["outs"], (wire_kw["meta"], wire_args[0]), CHUNK)
     total = int(w_flat[:4].view("<i4")[0])
     metas = w_flat[4 : 4 + 2 * n_pad].view("<u2")
     assert 0 < (metas >> 10 & 1).sum() < n  # changed and unchanged rows
     assert total > (e_cap or 0)
 
 
-def test_fleet_solve_int32_wire_equals_jax():
-    """Above 0xFFFF clusters the wire is int32 [total, meta..., stream...]."""
+def test_fleet_solve_int32_wire_equals_jax(monkeypatch):
+    """Above 0xFFFF clusters the wire is int32 [total, meta..., stream...],
+    the metas written in place from K16's pass-wide buffer."""
+    seen = spy_glue(monkeypatch, "entry_diff", "entry_wire")
     c, chunk = 0x10000 + 3, 64
     tables, state = tables_state(41, c, u=4, g=2, p=3)
     rows = rows_for("part", 50, chunk, 41)
@@ -147,6 +155,8 @@ def test_fleet_solve_int32_wire_equals_jax():
     assert g_flat.dtype == torch.int32 and int(w_flat[0]) > 0
     np.testing.assert_array_equal(g_flat.numpy(), w_flat)
     np.testing.assert_array_equal(g_res.numpy(), w_res)
+    wire_args, wire_kw = seen["wire"]
+    assert_views_of(seen["outs"], (wire_kw["meta"], wire_args[0]), chunk)
 
 
 def edge_solve_inputs(c, kind):
