@@ -16,7 +16,10 @@
    40,000 and 64 x 1 and 2, and prints its phase split (clock64 per block
    and pass, ``k2_phase_split``) at 4096 x 5000; K1's table form
    ``profile_table`` at U = 8 x 5000, K1's merge form
-   ``estimate_merge_table`` at 4096 x 5000 with 0, 1 and 2 extra estimates,
+   ``estimate_merge_table`` at 4096 x 5000 with 0, 1, 2, 5 and 9 extra
+   estimates, K17 ``first_fit_group`` on a seeded ranked chunk (4096 x 3
+   terms x 5000, also with ``with_base`` off) and on its edge cases
+   (``group_edge_batch``: T = 1, 4 and 9, C from 1 to 16,385),
    K8 ``node_sum_estimate`` at 4096 profile rows x 5000 nodes, K12
    ``quota_admit`` at 131072 rows x 32 namespaces with 4, 17 and 40 dims,
    K13's per-row form ``quota_cluster_caps`` at 4096 x 5000, K14
@@ -100,7 +103,8 @@
    - the ranked multi-term path: 10k rows with three ClusterAffinities
      groups over the config-5 fleet, half in namespaces capping 600
      clusters; every row equal to the ordered-failover referent, some on a
-     fallback group;
+     fallback group; K17 held to its plain version on each of the cell's
+     chunks, and a chunk's stages timed (``ranked_breakdown``);
    - provenance: the config-5 storm engine takes one steady pass disarmed
      and one with an ExplainStore armed (one K14 launch per chunk: 25), and
      the quota cell's surge wave is replayed armed (every denied row
@@ -110,8 +114,9 @@
    - preemption (bench.py ``run_preemption``'s scene at the engine): 100k
      priority-0 residents on config 5's 5000 clusters in 64 label groups,
      cpu then saturated exactly, and a surge of 1000 priority-100 rows: one
-     K15 launch over 101,000 rows (padded to 2^17), victims and
-     placements equal to ``preempt_and_place_np``, K15 equal to its plain
+     K15 launch over 101,000 rows (padded to 2^17), the boosted re-solve's
+     group selection on K17, victims and placements equal to
+     ``preempt_and_place_np``, K15 equal to its plain
      version on the pass's own inputs; then the residents' steady pass with
      the plane armed and disarmed.
    Each path sets the launch counters to 0 just before it and reads them
@@ -994,6 +999,8 @@ KERNELS = {
                        "karmada_tpu/ops/preempt.py:72"),
     "entry_diff": ("cuda", "karmada_tpu_torch/csrc/entry_diff.cu",
                    "karmada_tpu/scheduler/fleet.py:232"),
+    "first_fit_group": ("cuda", "karmada_tpu_torch/csrc/first_fit_group.cu",
+                        "karmada_tpu/ops/masks.py:100"),
 }
 #: the kernels each driven path must launch
 PATH_KERNELS = {
@@ -1015,10 +1022,10 @@ PATH_KERNELS = {
     "quota general": ("quota_admit", "quota_cluster_caps", "profile_table",
                       "estimate_merge_table", "divide_replicas"),
     "ranked": ("quota_admit", "quota_cluster_caps", "profile_table",
-               "estimate_merge_table", "divide_replicas"),
+               "estimate_merge_table", "first_fit_group", "divide_replicas"),
     "explain fleet": ("explain_pass", "divide_replicas"),
     "explain quota": ("explain_pass",),
-    "preemption": ("preempt_select", "divide_replicas", "fleet_masks"),
+    "preemption": ("preempt_select", "first_fit_group", "divide_replicas", "fleet_masks"),
     "config 5 legacy": ("profile_table", "divide_replicas", "fleet_masks",
                         "entry_diff", "scatter_rows", "entry_wire"),
     "mixed fleet legacy": ("profile_table", "divide_replicas", "fleet_masks",
@@ -2060,11 +2067,123 @@ def check_node_sum(arrays: dict, device, card: str, label: str) -> dict:
     ), max_abs_err=compare("node_sum_estimate", got, want))
 
 
+GROUP_ARGS = ("base", "terms", "cp_idx", "term_len", "avail", "replicas", "prev",
+              "dynamic", "fresh")
+
+
+def group_batch(rng, b: int = 4096, t: int = 3, c: int = 5000, u: int = 2) -> dict:
+    """K17 inputs shaped as a ranked chunk: u placements of t nested-looking
+    term masks (a small first group, larger later ones), base masks 80%
+    true, merged availability in [0, 400) with 2% MAX_INT32 cells, a third
+    of the rows with 1-3 previous sites, 75% dynamic rows, 5% fresh."""
+    terms = np.zeros((u, t, c), bool)
+    for k in range(t):
+        terms[:, k] = rng.random((u, c)) < min(0.02 * 8**k, 0.9)
+    prev = np.zeros((b, c), np.int32)
+    for i in np.flatnonzero(rng.random(b) < 1 / 3):
+        prev[i, rng.choice(c, int(rng.integers(1, 4)), replace=False)] = rng.integers(1, 10)
+    avail = rng.integers(0, 400, (b, c)).astype(np.int32)
+    avail[rng.random((b, c)) < 0.02] = 2**31 - 1
+    return {"base": rng.random((b, c)) < 0.8, "terms": terms,
+            "cp_idx": rng.integers(0, u, b).astype(np.int32),
+            "term_len": np.full(u, t, np.int32), "avail": avail,
+            "replicas": rng.integers(1, 100, b).astype(np.int32), "prev": prev,
+            "dynamic": rng.random(b) < 0.75, "fresh": rng.random(b) < 0.05}
+
+
+def group_edge_batch(rng, b: int, t: int, c: int, u: int = 6) -> dict:
+    """K17 inputs on which it must stay exact: placement 0 with every term
+    live, 1 all-false terms, 2 all-true terms (the ClusterAffinity plugin
+    disabled: dead terms true too), 3 one live term, 4 a one-cluster first
+    term and every term live (rows fall back), 5 up to T live terms;
+    MAX_INT32 answers (a twentieth of the rows all of them, so the int64
+    sums pass 2^31 from 2 clusters on), previous counts of 2^30 and
+    replicas of 2^31 - 1, zero-replica rows, steady rows (replicas equal to
+    the first term's previous sum), fresh and non-dynamic rows; the last
+    eighth of the rows padding as the engine pads (no base, placement 0, no
+    replicas, no previous sites, not dynamic)."""
+    hi = 2**31 - 1
+    terms = rng.random((u, t, c)) < rng.uniform(0.05, 0.9, (u, t, 1))
+    terms[1], terms[2] = False, True
+    terms[4, 0] = np.arange(c) == 0
+    term_len = rng.integers(1, t + 1, u).astype(np.int32)
+    term_len[:5] = (t, t, max(t - 1, 1), 1, t)
+    cp_idx = rng.integers(0, u, b).astype(np.int32)
+    base = rng.random((b, c)) < rng.uniform(0.3, 1.0, (b, 1))
+    avail = rng.integers(0, 60, (b, c)).astype(np.int32)
+    avail[rng.random((b, c)) < 0.05] = hi
+    avail[rng.random(b) < 0.05] = hi
+    prev = np.where(rng.random((b, c)) < 0.15, rng.integers(1, 30, (b, c)), 0).astype(np.int32)
+    huge = rng.random(b) < 0.05
+    prev[huge] = np.where(rng.random((int(huge.sum()), c)) < 0.5, 1 << 30, 0)
+    replicas = rng.integers(0, 150, b).astype(np.int32)
+    replicas[rng.random(b) < 0.1] = 0
+    replicas[rng.random(b) < 0.05] = hi
+    steady = rng.random(b) < 0.15
+    first = (base & terms[cp_idx, 0]) * prev.astype(np.int64)
+    replicas[steady] = np.minimum(first.sum(axis=1), hi)[steady]
+    dynamic, fresh = rng.random(b) < 0.75, rng.random(b) < 0.2
+    pad = b - b // 8
+    base[pad:], cp_idx[pad:], replicas[pad:], prev[pad:], avail[pad:] = False, 0, 0, 0, 0
+    dynamic[pad:], fresh[pad:] = False, False
+    return {"base": base, "terms": terms, "cp_idx": cp_idx, "term_len": term_len,
+            "avail": avail, "replicas": replicas, "prev": prev, "dynamic": dynamic,
+            "fresh": fresh}
+
+
+def group_bound(t: dict) -> tuple[int, int]:
+    """(bytes, operations) K17 must move and do on the device tensors ``t``:
+    every row's base and scalars, the dynamic rows' avail and prev, the
+    term masks once, the rank, fit and selected written; a compare and two
+    int64 adds per term and cell of a dynamic row."""
+    b, c = t["base"].shape
+    n_dyn = int(t["dynamic"].sum().item())
+    nbytes = (_nbytes(t["base"], t["terms"], t["cp_idx"], t["term_len"], t["replicas"],
+                      t["dynamic"], t["fresh"]) + n_dyn * c * 8 + b * (4 + 1 + c))
+    return nbytes, 3 * n_dyn * t["terms"].shape[1] * c
+
+
+def check_first_fit_group(t: dict, card: str, label: str, with_base: bool = True,
+                          time_it: bool = True) -> dict:
+    """K17 against its plain version on the device tensors ``t``
+    (``GROUP_ARGS``); exact. Times both when ``time_it``."""
+    from karmada_tpu_torch import ops
+
+    args = [t[k] for k in GROUP_ARGS]
+    kern = lambda: ops.first_fit_group(*args, with_base=with_base)  # noqa: E731
+    plain = lambda: ops.first_fit_group_ref(*args, with_base=with_base)  # noqa: E731
+    err = compare(f"first_fit_group {label}", kern(), plain())
+    if not time_it:
+        print(f"# kernel first_fit_group (K17) {label}: exact", flush=True)
+        return dict(no_times(), max_abs_err=err)
+    nbytes, ops_n = group_bound(t)
+    return dict(timed(f"first_fit_group (K17) {label}", kern, plain, nbytes, ops_n, card),
+                max_abs_err=err)
+
+
+def check_group_kernels(rng, device, card: str) -> dict:
+    """K17 on a seeded ranked chunk (4096 x 3 x 5000; also with_base off)
+    and on ``group_edge_batch`` at T = 1, 4 and 9 and C from 1 to 16,385.
+    Returns the seeded batch's stats."""
+    t = to_device(group_batch(rng), device)
+    stats = check_first_fit_group(t, card, "4096x3x5000 seeded")
+    check_first_fit_group(t, card, "4096x3x5000 seeded, with_base off", with_base=False)
+    del t
+    for b, tn, c in ((512, 9, 16_385), (512, 9, 5000), (512, 4, 5000), (512, 1, 5000),
+                     (256, 9, 37), (256, 4, 1), (64, 1, 1)):
+        t = to_device(group_edge_batch(rng, b, tn, c), device)
+        check_first_fit_group(t, card, f"{b}x{tn}x{c} edge cases", time_it=False)
+        check_first_fit_group(t, card, f"{b}x{tn}x{c} edge cases, with_base off",
+                              with_base=False, time_it=False)
+    return stats
+
+
 def check_merge_table(rng, device, card: str, b: int = 4096, c: int = 5000,
                       u: int = 9) -> dict:
-    """K1's merge form at b x c with E = 0, 1 and 2 extra estimates holding
-    -1 and MAX_INT32 cells, against its plain version; exact. Returns the
-    stats at E = 1 (an estimator registered, the estimator phase's shape)."""
+    """K1's merge form at b x c with E = 0, 1, 2, 5 and 9 extra estimates
+    holding -1 and MAX_INT32 cells, against its plain version; exact.
+    Returns the stats at E = 1 (an estimator registered, the estimator
+    phase's shape)."""
     import torch
     from karmada_tpu_torch import ops
 
@@ -2075,7 +2194,7 @@ def check_merge_table(rng, device, card: str, b: int = 4096, c: int = 5000,
                    "replicas": np.where(rng.random(b) < 0.1, 0,
                                         rng.integers(1, 100, b)).astype(np.int32)}, device)
     stats = {}
-    for e_n in (0, 1, 2):
+    for e_n in (0, 1, 2, 5, 9):
         extras = []
         for _ in range(e_n):
             e = rng.integers(-1, 300, (b, c)).astype(np.int32)
@@ -3313,42 +3432,38 @@ def ranked_referent(engine, problems, results) -> int:
 def ranked_breakdown(engine, problems, device) -> dict:
     """Host-clock seconds of each stage of ``_schedule_chunk_ranked`` on the
     first chunk of ``problems``, synchronising the card after each device
-    stage: pack (numpy masks and the [B, T, C] term stack), estimate
-    (uploads, K1 table form, K13, K1 merge form), fetch (availability to
-    the host), first_fit_group (host numpy), assign (uploads +
-    kernel_variant's max + K2, with the result fetched), unpack."""
-    import torch
-    from karmada_tpu_torch.ops import masks as mops
-    from karmada_tpu_torch.ops.divide import AGGREGATED, DYNAMIC_WEIGHT
+    stage: pack (numpy masks, no term stack), estimate (uploads, K1 table
+    form, K13, K1 merge form), upload (K17's inputs: base, term masks,
+    prev, flags), first_fit_group (K17), fetch (rank and selected to the
+    host), assign (uploads + kernel_variant's max + K2, the result
+    fetched), unpack."""
+    from karmada_tpu_torch.ops.masks import first_fit_group
 
     chunk = problems[: engine.chunk_size]
     compiled = [engine._compiled(p.placement) for p in chunk]
     out = {}
     t0 = time.perf_counter()
-    base, strategy, replicas, static_w, requests, prev, fresh = (
+    padded, (base, strategy, replicas, static_w, requests, prev, fresh) = engine._pad_chunk(
         engine._pack_chunk(chunk, compiled, 0, with_affinity=False))
-    terms = np.stack([np.stack([m for _, m in cp.terms]) for cp in compiled])
-    cand = base[:, None, :] & terms
     out["pack"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    avail = engine._availability(requests, replicas, engine._quota_cap_rows(chunk))
+    host_small, avail = engine._chunk_availability(chunk, requests, replicas, padded)
     sync(device)
     out["estimate"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    avail_np = avail.cpu().numpy()
-    out["fetch"] = time.perf_counter() - t0
+    g = engine._group_inputs(compiled, padded, base, avail, replicas, prev, strategy, fresh)
+    sync(device)
+    out["upload"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    rank, _ = mops.first_fit_group(
-        cand, np.full(len(chunk), terms.shape[1], np.int32), avail_np.astype(np.int64),
-        replicas.astype(np.int64), prev.astype(np.int64),
-        (strategy == DYNAMIC_WEIGHT) | (strategy == AGGREGATED), fresh.astype(bool))
-    feasible = np.take_along_axis(cand, rank[:, None, None].astype(np.intp), axis=1)[:, 0]
+    rank, _fit, selected = first_fit_group(*g)
+    sync(device)
     out["first_fit_group"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    res = engine._assign(strategy, replicas, feasible, static_w,
-                         torch.from_numpy(avail_np).to(device), prev, fresh)
-    assignment = res.assignment.cpu().numpy()
-    unsched = res.unschedulable.cpu().numpy()
+    rank, feasible = rank.cpu().numpy(), selected.cpu().numpy()
+    out["fetch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    assignment, unsched = engine._solve_chunk(host_small, strategy, replicas, feasible,
+                                              static_w, avail, prev, fresh, prev_dev=g[6])
     out["assign"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     engine._unpack(chunk, compiled, rank, feasible, assignment, unsched)
@@ -3356,14 +3471,31 @@ def ranked_breakdown(engine, problems, device) -> dict:
     return out
 
 
+def check_ranked_groups(engine, problems, card: str) -> None:
+    """K17 against its plain version on each chunk of the ranked cell as
+    the engine hands it over (``_group_inputs`` after the chunk's packing
+    and availability); exact; the first chunk timed."""
+    for start in range(0, len(problems), engine.chunk_size):
+        chunk = problems[start : start + engine.chunk_size]
+        compiled = [engine._compiled(p.placement) for p in chunk]
+        padded, (base, strategy, replicas, _sw, requests, prev, fresh) = engine._pad_chunk(
+            engine._pack_chunk(chunk, compiled, 0, with_affinity=False))
+        _small, avail = engine._chunk_availability(chunk, requests, replicas, padded)
+        g = engine._group_inputs(compiled, padded, base, avail, replicas, prev,
+                                 strategy, fresh)
+        check_first_fit_group(dict(zip(GROUP_ARGS, g)), card,
+                              f"ranked chunk at row {start} ({padded} rows)",
+                              time_it=start == 0)
+
+
 def run_ranked(device, card: str, bindings: int = 10_000, clusters=None) -> dict:
     """The ranked cell (``ranked_workload``): ordered-failover rows with
     three ClusterAffinities terms over the config-5 fleet, half of them in
     namespaces whose static assignments cap 600 clusters, through the
     engine's ranked path on the card (K12 admission, then per chunk K1's
-    table form, K13's per-row form, K1's merge form, first_fit_group on the
-    host and K2). Every row equals the ordered-failover referent; some rows
-    must land on a fallback group."""
+    table form, K13's per-row form, K1's merge form, K17 and K2). Every row
+    equals the ordered-failover referent; some rows must land on a fallback
+    group. K17 is held to its plain version on each of the cell's chunks."""
     import karmada_tpu_torch
     from karmada_tpu_torch.scheduler import TensorScheduler
     from karmada_tpu_torch.scheduler.quota import build_quota_snapshot
@@ -3393,6 +3525,7 @@ def run_ranked(device, card: str, bindings: int = 10_000, clusters=None) -> dict
         by_group[key] = by_group.get(key, 0) + 1
     fallback = sum(v for k, v in by_group.items() if k not in first and k != "failed")
     with uncounted():
+        check_ranked_groups(engine, problems, card)
         stages = ranked_breakdown(engine, problems, device)
     print(f"# ranked chunk stages of one 4096-row chunk (s): "
           + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()) + f"; card {card}",
@@ -3931,6 +4064,7 @@ def main() -> int:
             one("divide_replicas", divide_edge_batch(rng, b, c), f"{b}x{c} edge cases")
         stats["profile_table"] = check_profile_table(device, card, rng)
         stats["estimate_merge_table"] = check_merge_table(rng, device, card)
+        stats["first_fit_group"] = check_group_kernels(rng, device, card)
         # an estimator server's batch: 4096 profile rows x 5000 nodes (the
         # Kubernetes node limit), prefilter mask included
         stats["node_sum_estimate"] = check_node_sum(node_batch(rng, 4096, 5000), device,
@@ -4060,12 +4194,15 @@ def main() -> int:
         "explain_pass": ("explain fleet", "explain fleet phase, the armed steady pass"),
         "preempt_select": ("preemption", "preemption phase, the surge pass"),
         "entry_diff": ("legacy", "config 5 legacy passes"),
+        "first_fit_group": ("ranked", "ranked phase pass"),
     }
     print(f"# estimator K8 launches by pass: {paths['estimator']['k8']}", flush=True)
     print(f"# quota K12 launches by pass: {paths['quota']['k12']}", flush=True)
     print(f"# K14 launches: explain fleet {paths['explain fleet']['launches']['explain_pass']}"
           f", explain quota {paths['explain quota']['launches']['explain_pass']}; K15 "
-          f"launches: preemption surge {paths['preemption']['launches']['preempt_select']}",
+          f"launches: preemption surge {paths['preemption']['launches']['preempt_select']}"
+          f"; K17 launches: ranked pass {paths['ranked']['launches']['first_fit_group']}, "
+          f"preemption surge {paths['preemption']['launches']['first_fit_group']}",
           flush=True)
     entries = []
     for name in KERNELS:

@@ -40,6 +40,18 @@
 // gather) and the output is the estimate itself, -1 where the cluster has
 // no summary (no merge). Its bound is the U x C int32 write.
 //
+// Merge form (estimate_merge_table_launch): karmada_tpu/scheduler/core.py:
+// 2376-2385, the gathered profile table min-merged with any number E of
+// extra estimates (static-assignment caps, out-of-tree estimators), in
+// groups of MAX_EXTRAS: each group is one launch with its pointers as
+// kernel arguments, and a group after the first reads the running minimum
+// the group before it wrote (to a scratch buffer and the output in turn,
+// so that the last group writes the output). A running minimum keeps
+// MAX_INT32 where no answer came yet; the zero-replica short-circuit and
+// the sentinel clamp run in the last group only, after the last estimate,
+// as merge_estimates applies them once (estimate.py:108-122). At E <= 4 it
+// is one launch; each later group reads and writes B x C once more.
+//
 // Rows beyond one grid: grid.y holds at most 65535 blocks of ROWS rows, so
 // every entry point launches its grid once per run of 65535 * ROWS rows
 // (row0 is the run's first row); today's chunks need one launch.
@@ -53,7 +65,7 @@ constexpr int TILE_C = 128;   // cluster columns per block (one per thread)
 constexpr int ROWS = 128;     // binding rows per block
 constexpr int U_SHARED = 64;  // profiles held in the shared-memory table
 constexpr long long MAX_I32 = 2147483647LL;
-constexpr int MAX_EXTRAS = 4;  // extra estimates the merge form takes
+constexpr int MAX_EXTRAS = 4;  // extra estimates a merge-form launch takes
 constexpr int MAX_GRID_Y = 65535;  // the grid's y extent
 constexpr long long RUN_ROWS = (long long)MAX_GRID_Y * ROWS;  // rows a launch covers
 
@@ -120,10 +132,10 @@ __global__ void estimate_merge_kernel(
 
 __global__ void estimate_merge_table_kernel(
     const int32_t* __restrict__ table, int u_n, int c_n,
-    const int32_t* __restrict__ prof_inv, const int32_t* __restrict__ e0,
-    const int32_t* __restrict__ e1, const int32_t* __restrict__ e2,
-    const int32_t* __restrict__ e3, int e_n,
-    const int32_t* __restrict__ replicas, int b_n,
+    const int32_t* __restrict__ prof_inv, const int32_t* __restrict__ acc,
+    const int32_t* __restrict__ e0, const int32_t* __restrict__ e1,
+    const int32_t* __restrict__ e2, const int32_t* __restrict__ e3, int e_n,
+    const int32_t* __restrict__ replicas, int b_n, int last,
     int32_t* __restrict__ out, int row0) {
   const int c = blockIdx.x * TILE_C + threadIdx.x;
   if (c >= c_n) return;
@@ -131,13 +143,18 @@ __global__ void estimate_merge_table_kernel(
   const int b0 = row0 + blockIdx.y * ROWS;
   const int b1 = min(b0 + ROWS, b_n);
   for (int b = b0; b < b1; ++b) {
-    int p = prof_inv[b];
-    if (p < 0) p += u_n;
-    p = p < 0 ? 0 : (p >= u_n ? u_n - 1 : p);
     const size_t o = (size_t)b * c_n + c;
-    int32_t v = (int32_t)MAX_I32;  // min over answers, -1 ignored
-    int32_t est = table[(size_t)p * c_n + c];
-    if (est != -1) v = est < v ? est : v;
+    int32_t v, est;  // min over answers, -1 ignored
+    if (acc) {
+      v = acc[o];  // the earlier groups' running minimum
+    } else {
+      int p = prof_inv[b];
+      if (p < 0) p += u_n;
+      p = p < 0 ? 0 : (p >= u_n ? u_n - 1 : p);
+      v = (int32_t)MAX_I32;
+      est = table[(size_t)p * c_n + c];
+      if (est != -1) v = est < v ? est : v;
+    }
 #pragma unroll
     for (int e = 0; e < MAX_EXTRAS; ++e) {
       if (e < e_n) {
@@ -145,9 +162,11 @@ __global__ void estimate_merge_table_kernel(
         if (est != -1) v = est < v ? est : v;
       }
     }
-    const int32_t reps = replicas[b];
-    if (reps == 0) v = (int32_t)MAX_I32;  // non-workload short-circuit
-    if (v == (int32_t)MAX_I32) v = reps;  // untouched sentinel
+    if (last) {  // once, after the last estimate
+      const int32_t reps = replicas[b];
+      if (reps == 0) v = (int32_t)MAX_I32;  // non-workload short-circuit
+      if (v == (int32_t)MAX_I32) v = reps;  // untouched sentinel
+    }
     out[o] = v;
   }
 }
@@ -192,22 +211,35 @@ extern "C" int profile_table_launch(
   return 0;
 }
 
-// out int32[B, C] = merge_estimates(replicas, (table[prof_inv], e0..e{E-1}))
-// for E = e_n <= MAX_EXTRAS extra estimates (unused pointers may be null)
+// out int32[B, C] = merge_estimates(replicas, (table[prof_inv], *extras))
+// for any E = e_n >= 0 extra estimates; extras is a host array of E device
+// pointers; scratch is an int32[B, C] buffer, used (and non-null) only when
+// E > MAX_EXTRAS
 extern "C" int estimate_merge_table_launch(
     const int32_t* table, int u_n, int c_n, const int32_t* prof_inv,
-    const int32_t* e0, const int32_t* e1, const int32_t* e2,
-    const int32_t* e3, int e_n, const int32_t* replicas, int b_n,
-    int32_t* out, cudaStream_t stream) {
-  if (e_n < 0 || e_n > MAX_EXTRAS || (b_n > 0 && u_n <= 0))
+    const int32_t* const* extras, int e_n, const int32_t* replicas, int b_n,
+    int32_t* scratch, int32_t* out, cudaStream_t stream) {
+  const int groups = e_n > MAX_EXTRAS ? (e_n + MAX_EXTRAS - 1) / MAX_EXTRAS : 1;
+  if (e_n < 0 || (e_n > 0 && extras == nullptr) || (groups > 1 && scratch == nullptr) ||
+      (b_n > 0 && u_n <= 0))
     return (int)cudaErrorInvalidValue;
   if (b_n == 0 || c_n == 0) return 0;
-  for (long long row0 = 0; row0 < b_n; row0 += RUN_ROWS) {
-    estimate_merge_table_kernel<<<run_grid(c_n, b_n, row0), TILE_C, 0, stream>>>(
-        table, u_n, c_n, prof_inv, e0, e1, e2, e3, e_n, replicas, b_n, out,
-        (int)row0);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  const int32_t* acc = nullptr;
+  for (int g = 0; g < groups; ++g) {
+    const int first = g * MAX_EXTRAS;
+    const int n = e_n - first < MAX_EXTRAS ? e_n - first : MAX_EXTRAS;
+    const int32_t* e[MAX_EXTRAS] = {nullptr, nullptr, nullptr, nullptr};
+    for (int k = 0; k < n; ++k) e[k] = extras[first + k];
+    // the last group writes out, the one before it scratch, and so on
+    int32_t* dst = (groups - 1 - g) % 2 == 0 ? out : scratch;
+    for (long long row0 = 0; row0 < b_n; row0 += RUN_ROWS) {
+      estimate_merge_table_kernel<<<run_grid(c_n, b_n, row0), TILE_C, 0, stream>>>(
+          table, u_n, c_n, prof_inv, acc, e[0], e[1], e[2], e[3], n, replicas,
+          b_n, g == groups - 1, dst, (int)row0);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    acc = dst;
   }
   return 0;
 }

@@ -43,7 +43,7 @@ KERNELS = (
     "estimate_merge", "divide_replicas", "fleet_masks", "fleet_diff",
     "fleet_wire", "scatter_rows", "model_estimate", "node_sum",
     "quota_admit", "quota_caps", "explain_pass", "preempt_select",
-    "entry_diff",
+    "entry_diff", "first_fit_group",
 )
 
 NVCC_FLAGS = (
@@ -59,7 +59,7 @@ SIGNATURES = {
     "estimate_merge": {
         "estimate_merge_launch": "piipipppip",
         "profile_table_launch": "piipipp",
-        "estimate_merge_table_launch": "piip" "pppp" "i" "pip",
+        "estimate_merge_table_launch": "piip" "pi" "pi" "pp",
     },
     "divide_replicas": {
         "divide_replicas_launch": "pppppppiii" "ppppi",
@@ -91,6 +91,7 @@ SIGNATURES = {
     "explain_pass": {"explain_pass_launch": "pppppppppppp" "iii" "pp"},
     "preempt_select": {"preempt_select_launch": "ppppppp" "iiiii" "pppppp"},
     "entry_diff": {"entry_diff_launch": "pppppii" "p" "iiiii" "ppp"},
+    "first_fit_group": {"first_fit_group_launch": "ppppppppp" "iiiii" "ppp"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong}
 

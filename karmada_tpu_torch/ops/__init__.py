@@ -22,7 +22,9 @@ version on CPU tensors and launch the kernel on CUDA tensors:
   provenance pass, the per-cell stage exclusion bitmask and the per-row
   top-k candidate summary;
 - ``preempt_select`` (K15, ``csrc/preempt_select.cu``): plane-wide victim
-  selection of a preemption pass and the capacity it frees per cluster.
+  selection of a preemption pass and the capacity it frees per cluster;
+- ``first_fit_group`` (K17, ``csrc/first_fit_group.cu``, in ``masks``): the
+  ranked ClusterAffinities path's ordered-failover group selection.
 
 The fleet path's own kernels (K3-K6) live in ``scheduler/fleet_kernels.py``.
 
@@ -45,8 +47,8 @@ from .divide import (  # noqa: F401
     divide_replicas_ref,
 )
 from .estimate import (  # noqa: F401
-    MAX_EXTRAS,
     MAX_INT32,
+    MERGE_GROUP,
     UNAUTHENTIC,
     estimate_merge,
     estimate_merge_ref,
@@ -83,3 +85,4 @@ from .quota import (  # noqa: F401
     quota_cluster_caps,
 )
 from . import masks  # noqa: F401
+from .masks import first_fit_group, first_fit_group_ref  # noqa: F401

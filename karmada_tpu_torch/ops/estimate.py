@@ -18,6 +18,7 @@ extra estimates).
 
 from __future__ import annotations
 
+import ctypes
 
 import torch
 
@@ -176,8 +177,9 @@ def profile_table(
 profile_table.launches = 0
 
 
-#: extra estimates K1's merge form takes beside the profile table
-MAX_EXTRAS = 4
+#: extra estimates one launch of K1's merge form takes (MAX_EXTRAS in
+#: ``csrc/estimate_merge.cu``); more take one launch per group
+MERGE_GROUP = 4
 
 
 def estimate_merge_table_ref(
@@ -200,11 +202,15 @@ def estimate_merge_table(
     extras: tuple[torch.Tensor, ...],
     replicas: torch.Tensor,
 ) -> torch.Tensor:
-    """K1 merge form: ``estimate_merge_table_ref`` as one kernel launch, for
-    at most ``MAX_EXTRAS`` extra estimates.
+    """K1 merge form: ``estimate_merge_table_ref`` on CUDA tensors, for any
+    number of extra estimates. The entry point launches the kernel once per
+    group of ``MERGE_GROUP`` extras (once up to ``MERGE_GROUP``), each group
+    after the first continuing the running minimum of the one before it
+    through a scratch buffer.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise. ``estimate_merge_table.launches`` counts kernel launches."""
+    raise. ``estimate_merge_table.launches`` counts calls of the entry
+    point."""
     extras = tuple(extras)
     if native.on_cpu((table, prof_inv, *extras, replicas)):
         return estimate_merge_table_ref(table, prof_inv, extras, replicas)
@@ -216,17 +222,15 @@ def estimate_merge_table(
     b = prof_inv.shape[0]
     if replicas.shape != (b,) or any(x.shape != (b, c) for x in extras):
         raise ValueError("estimate_merge_table: inconsistent shapes")
-    if len(extras) > MAX_EXTRAS:
-        raise ValueError(f"estimate_merge_table: {len(extras)} extra estimates, "
-                         f"at most {MAX_EXTRAS}")
     if b and not u:
         raise ValueError(f"estimate_merge_table: {b} rows over no profiles")
     out = torch.empty((b, c), dtype=torch.int32, device=table.device)
     if b and c:
-        ptrs = list(extras) + [None] * (MAX_EXTRAS - len(extras))
+        scratch = torch.empty_like(out) if len(extras) > MERGE_GROUP else None
+        ptrs = (ctypes.c_void_p * max(len(extras), 1))(*(x.data_ptr() for x in extras))
         native.launch(estimate_merge_table, "estimate_merge",
                       "estimate_merge_table_launch", table.device, table, u, c,
-                      prof_inv, *ptrs, len(extras), replicas, b, out)
+                      prof_inv, ptrs, len(extras), replicas, b, scratch, out)
     return out
 
 

@@ -7,11 +7,11 @@ vocabulary (label key=value pairs, label keys, taint triples, GVKs) and packed
 into uint32 words, so a full selector evaluates as a handful of AND/OR/
 popcount ops over ``[C, words]`` arrays — no string work on the hot path.
 
-The port's copy runs on the host in numpy, once per snapshot and placement
-compile. So does ``first_fit_group``, the ranked ClusterAffinities
-selection of the ordered-failover path: the JAX engine calls it with numpy
-arrays at every call site (karmada_tpu/scheduler/core.py:1258, 1495, 2559),
-so it runs in numpy there too.
+The port's copy of the bit machinery runs on the host in numpy, once per
+snapshot and placement compile. ``first_fit_group``, the ranked
+ClusterAffinities selection of the ordered-failover path, is the
+hand-written kernel K17 (``csrc/first_fit_group.cu``) on CUDA tensors and
+its plain torch version ``first_fit_group_ref`` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -19,6 +19,10 @@ from __future__ import annotations
 from typing import Iterable, Mapping, Sequence
 
 import numpy as np
+import torch
+
+from .. import native
+from .estimate import _clip_rows
 
 WORD = 32
 
@@ -90,66 +94,110 @@ def affinity_group_rank(term_masks: np.ndarray) -> np.ndarray:
     return idx.min(axis=-2)
 
 
-def first_fit_group(
-    cand_tc: np.ndarray,  # bool[B, T, C] per-term candidate sets
-    term_len: np.ndarray,  # int32[B] live terms per row (<= T)
-    avail: np.ndarray,  # int64[B, C] merged estimator availability
-    replicas: np.ndarray,  # int64[B]
-    prev: np.ndarray,  # int64[B, C] previous placements
-    dynamic: np.ndarray,  # bool[B] divided dynamic-family strategy
-    fresh: np.ndarray,  # bool[B] reschedule-triggered
-) -> tuple[np.ndarray, np.ndarray]:
-    """Batched ordered-failover group selection: each row's FIRST term
-    whose candidate set both exists and passes the divider's
-    schedulability predicate — the exact cohort math of
-    ``refimpl.divider_np.assign_batch_np`` (fresh credits prev, scale-down
-    weighs FULL prev, scale-up targets the shortfall, steady no-ops), so
-    selecting group t here and then solving once is placement-identical
-    to solving groups 0..t in sequence and keeping the first success.
+def first_fit_group_ref(
+    base: torch.Tensor,  # bool[B, C] every filter but the affinity term
+    terms: torch.Tensor,  # bool[U, T, C] ClusterAffinities term masks per placement
+    cp_idx: torch.Tensor,  # int32[B] row -> placement
+    term_len: torch.Tensor,  # int32[U] live terms per placement (<= T)
+    avail: torch.Tensor,  # int32[B, C] merged estimator availability
+    replicas: torch.Tensor,  # int32[B]
+    prev: torch.Tensor,  # int32[B, C] previous placements
+    dynamic: torch.Tensor,  # bool[B] divided dynamic-family strategy
+    fresh: torch.Tensor,  # bool[B] reschedule-triggered
+    with_base: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched ordered-failover group selection (karmada_tpu/ops/masks.py:100):
+    each row's FIRST term whose candidate set ``base & terms[cp_idx, t]``
+    both exists and passes the divider's schedulability predicate — the
+    exact cohort math of ``refimpl.divider_np.assign_batch_np`` (fresh
+    credits prev, scale-down weighs FULL prev, scale-up targets the
+    shortfall, steady no-ops), so selecting group t here and then solving
+    once is placement-identical to solving groups 0..t in sequence and
+    keeping the first success.
 
-    Returns ``(rank int32[B], fit bool[B])``; rows where NO group fits get
-    their LAST live term (its solve produces the failure the per-round
-    loop would have reported). The T axis is a short host loop (T = max
-    ClusterAffinities length, almost always <= 4) over fully-batched
-    [B, C] reductions — O(B*T*C) adds, no [B, T, C] integer temporaries.
-    """
-    _b, t, _c = cand_tc.shape
-    num = replicas.astype(np.int64)
-    prev_full_sum = prev.sum(axis=1)
-    cand_any = cand_tc.any(axis=2)
-    # per-term masked sums as a stack over the short T axis
-    avail_sum = np.stack(
-        [np.where(cand_tc[:, ti, :], avail, 0).sum(axis=1)
-         for ti in range(t)],
-        axis=1,
-    )
-    prev_sum = np.stack(
-        [np.where(cand_tc[:, ti, :], prev, 0).sum(axis=1)
-         for ti in range(t)],
-        axis=1,
-    )
-    dyn = dynamic[:, None]
-    fr = fresh[:, None]
-    num_col = num[:, None]
-    scale_down = dyn & ~fr & (prev_sum > num_col)
-    scale_up = dyn & ~fr & (prev_sum < num_col)
-    steady = dyn & ~fr & (prev_sum == num_col)
-    target = np.where(scale_up, num_col - prev_sum, num_col)
-    w_sum = np.where(
-        fr,
-        avail_sum + prev_sum,
-        np.where(scale_down, prev_full_sum[:, None], avail_sum),
-    )
-    unsched = dyn & ~steady & (w_sum < target)
-    live = np.arange(t, dtype=np.int32)[None, :] < term_len[:, None]
-    fit_t = cand_any & ~unsched & live
-    fit = fit_t.any(axis=1)
-    # first-fitting-group extraction: first-true-index over the T axis
-    # (affinity_group_rank's primitive)
-    term_idx = np.arange(t, dtype=np.int32)[None, :]
-    rank = np.where(fit_t, term_idx, np.int32(t)).min(axis=1)
-    last = np.maximum(term_len - 1, 0).astype(np.int32)
-    return np.where(fit, rank, last).astype(np.int32), fit
+    Returns ``(rank int32[B], fit bool[B], selected bool[B, C])``; rows
+    where NO group fits get their LAST live term (its solve produces the
+    failure the per-round loop would have reported). ``selected`` is
+    ``base & terms[cp_idx, rank]``, or the term mask alone with
+    ``with_base=False``. ``cp_idx`` wraps and clamps as a jnp gather does.
+    The T axis is a loop over [B, C] reductions in int64: the stack of every
+    term's candidate set is never built."""
+    b, c = base.shape
+    t_n = terms.shape[1]
+    u = _clip_rows(cp_idx, terms.shape[0])
+    tl = term_len.to(torch.int64)[u]
+    num = replicas.to(torch.int64)
+    avail64 = avail.to(torch.int64)
+    prev64 = prev.to(torch.int64)
+    prev_full = prev64.sum(dim=1)
+    dyn, fr = dynamic.bool(), fresh.bool()
+    cohort = dyn & ~fr
+    rank = torch.zeros(b, dtype=torch.int64, device=base.device)
+    fit = torch.zeros(b, dtype=torch.bool, device=base.device)
+    for t in range(t_n):
+        cand = base & terms[u, t]
+        avail_sum = torch.where(cand, avail64, 0).sum(dim=1)
+        prev_sum = torch.where(cand, prev64, 0).sum(dim=1)
+        scale_down = cohort & (prev_sum > num)
+        scale_up = cohort & (prev_sum < num)
+        steady = cohort & (prev_sum == num)
+        target = torch.where(scale_up, num - prev_sum, num)
+        w_sum = torch.where(fr, avail_sum + prev_sum,
+                            torch.where(scale_down, prev_full, avail_sum))
+        unsched = dyn & ~steady & (w_sum < target)
+        fit_t = cand.any(dim=1) & ~unsched & (t < tl)
+        rank = torch.where(fit_t & ~fit, t, rank)
+        fit |= fit_t
+    rank = torch.where(fit, rank, (tl - 1).clamp_min(0))
+    sel = terms[u, rank.clamp_max(t_n - 1)]
+    return rank.to(torch.int32), fit, (sel & base if with_base else sel)
+
+
+def first_fit_group(
+    base: torch.Tensor,
+    terms: torch.Tensor,
+    cp_idx: torch.Tensor,
+    term_len: torch.Tensor,
+    avail: torch.Tensor,
+    replicas: torch.Tensor,
+    prev: torch.Tensor,
+    dynamic: torch.Tensor,
+    fresh: torch.Tensor,
+    with_base: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K17: ``first_fit_group_ref`` as one kernel launch on CUDA tensors, at
+    any row count, term count and cluster count.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise. ``first_fit_group.launches`` counts kernel launches."""
+    args = (base, terms, cp_idx, term_len, avail, replicas, prev, dynamic, fresh)
+    if native.on_cpu(args):
+        return first_fit_group_ref(*args, with_base=with_base)
+    native.check(
+        "first_fit_group", base=(base, torch.bool), terms=(terms, torch.bool),
+        cp_idx=(cp_idx, torch.int32), term_len=(term_len, torch.int32),
+        avail=(avail, torch.int32), replicas=(replicas, torch.int32),
+        prev=(prev, torch.int32), dynamic=(dynamic, torch.bool),
+        fresh=(fresh, torch.bool))
+    b, c = base.shape
+    u, t_n = terms.shape[:2]
+    if (terms.shape != (u, t_n, c) or cp_idx.shape != (b,) or term_len.shape != (u,)
+            or avail.shape != (b, c) or prev.shape != (b, c)
+            or any(x.shape != (b,) for x in (replicas, dynamic, fresh))):
+        raise ValueError("first_fit_group: inconsistent shapes")
+    if b and not (u and t_n):
+        raise ValueError(f"first_fit_group: {b} rows over {u} placements of {t_n} terms")
+    dev = base.device
+    rank = torch.empty(b, dtype=torch.int32, device=dev)
+    fit = torch.empty(b, dtype=torch.bool, device=dev)
+    selected = torch.empty((b, c), dtype=torch.bool, device=dev)
+    if b:
+        native.launch(first_fit_group, "first_fit_group", "first_fit_group_launch",
+                      dev, *args, b, u, t_n, c, int(with_base), rank, fit, selected)
+    return rank, fit, selected
+
+
+first_fit_group.launches = 0
 
 
 def label_pair(key: str, value: str) -> str:

@@ -24,9 +24,9 @@ routes, chosen per row exactly as the JAX engine chooses:
   answered on the host by the numpy divider, the JAX engine's own rule.
 
 Multi-term ClusterAffinities rows without spread constraints take the
-ranked path (``_schedule_ranked``): every term's candidate set packed as a
-[B, T, C] tensor, each row's first fitting group picked on the host by
-``ops.masks.first_fit_group`` (numpy, as the JAX engine runs it), and one
+ranked path (``_schedule_ranked``): each row's first fitting group picked
+on the device by K17 (``ops.masks.first_fit_group``) from the row's base
+mask, its placement's term masks and the merged availability, and one
 solve per chunk. Multi-term rows with spread constraints take the per-round
 loop.
 
@@ -59,10 +59,9 @@ plane's worker and detector open the waves; the port has neither yet), so
 the store's ring, whose cap counts waves, evicts.
 
 What is not ported yet, and where the port raises ``NotImplementedError``
-instead of answering differently from the JAX engine: more than
-``ops.MAX_EXTRAS`` out-of-tree estimators (static-assignment caps take one
-of those slots on the general route) and a device mesh. The kernels take
-any cluster count and any number of quota dims. ``dirty_keys`` is
+instead of answering differently from the JAX engine: a device mesh. The
+kernels take any cluster count, any number of quota dims and any number of
+out-of-tree estimators beside the static-assignment caps. ``dirty_keys`` is
 accepted; the JAX delta pass it feeds is result-identical to a full pass,
 and the port runs the full pass. The JAX delta admission
 (``_quota_admission_delta``) is not result-identical to a full admission
@@ -86,7 +85,6 @@ from ..ops.divide import (
 )
 from ..models.modeling import estimate_by_models_np, model_overlay
 from ..ops.estimate import (
-    MAX_EXTRAS,
     MAX_INT32,
     estimate_merge,
     estimate_merge_table,
@@ -263,6 +261,14 @@ def _not_ported(what: str) -> NotImplementedError:
     )
 
 
+def _upload(a, dtype, device) -> torch.Tensor:
+    """``a`` on ``device`` as a contiguous tensor of ``dtype`` (a numpy
+    dtype); a tensor already there passes through."""
+    if isinstance(a, torch.Tensor):
+        return a
+    return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+
 def unique_placements(compiled, rows: int) -> tuple[np.ndarray, list]:
     """(slot int32[rows], unique compiled placements) of ``compiled``: the
     O(B x C) mask algebra runs once per unique placement and is gathered
@@ -339,8 +345,6 @@ class TensorScheduler:
         mesh=None,
         device: str | torch.device = "cuda",
     ):
-        if len(extra_estimators) > MAX_EXTRAS:
-            raise _not_ported(f"more than {MAX_EXTRAS} extra_estimators")
         if mesh is not None:
             raise _not_ported("a device mesh (multi-GPU scheduling)")
         self.device = torch.device(device)
@@ -942,9 +946,8 @@ class TensorScheduler:
         (out-of-tree estimators are not consulted: they read live member
         state, which cannot see a victim not yet evicted), static quota
         caps still folded (preemption never lifts a cap), the ordered
-        affinity selection (``first_fit_group``), spread selection, and the
-        numpy divider while its key fits int64, else K2."""
-        from ..ops import masks as mops
+        affinity selection (K17 on the uploaded mirror), spread selection,
+        and the numpy divider while its key fits int64, else K2."""
         from .spread import select_clusters_batch
 
         snap = self.snapshot
@@ -970,23 +973,8 @@ class TensorScheduler:
             avail = np.where(avail == mi, reps_col, avail)
             avail = np.minimum(avail, mi).astype(np.int32)
 
-            cp_idx, unique_cps = unique_placements(cchunk, b)
-            terms, term_len_u = term_stack(unique_cps, snap.num_clusters)
-            if "ClusterAffinity" in self.disabled_plugins:
-                terms[:] = True
-            cand_tc = base[:, None, :] & terms[cp_idx]
-            rank, _fit = mops.first_fit_group(
-                cand_tc,
-                term_len_u[cp_idx],
-                avail.astype(np.int64),
-                replicas.astype(np.int64),
-                prev.astype(np.int64),
-                (strategy == DYNAMIC_WEIGHT) | (strategy == AGGREGATED),
-                fresh.astype(bool),
-            )
-            feasible = np.take_along_axis(
-                cand_tc, rank[:, None, None].astype(np.intp), axis=1
-            )[:, 0, :]
+            rank, feasible = self._select_groups(
+                cchunk, b, base, avail, replicas, prev, strategy, fresh)
             candidates = select_clusters_batch(
                 snap, chunk, cchunk, 0, feasible, avail, prev)
             wmax = int(max(int(avail.max(initial=0)) + int(prev.max(initial=0)),
@@ -1051,12 +1039,10 @@ class TensorScheduler:
         stage, the spread selection where a derived row exists, pre-cap
         availability (the host mirror, or the device merge when out-of-tree
         estimators answer), the cap stage, the admission stage, and the
-        group that ``first_fit_group`` selects on cap-folded availability.
-        Out-of-tree custom filters have no stage and are not attributed.
-        Every row is composed on its own, so a sub-list of a chunk composes
-        to that sub-list's rows."""
-        from ..ops import masks as mops
-
+        group that K17 (``first_fit_group``) selects on cap-folded
+        availability. Out-of-tree custom filters have no stage and are not
+        attributed. Every row is composed on its own, so a sub-list of a
+        chunk composes to that sub-list's rows."""
         snap = self.snapshot
         disabled = self.disabled_plugins
         compiled = [self._compiled(p.placement) for p in problems]
@@ -1144,22 +1130,11 @@ class TensorScheduler:
         tmax = max(len(cp.terms) for cp in unique_cps)
         if tmax > 1 and "ClusterAffinity" not in disabled:
             avail_rank = avail if cap_rows is None else merged(cap_rows)
-            terms, term_len_u = term_stack(unique_cps, c)
-            base = taint_ok & api_ok & spread_ok
-            cand_tc = base[:, None, :] & terms[cp_idx]
-            rank, _fit = mops.first_fit_group(
-                cand_tc,
-                term_len_u[cp_idx],
-                avail_rank.astype(np.int64),
-                replicas.astype(np.int64),
-                prev.astype(np.int64),
-                dynamic.astype(bool),
-                fresh.astype(bool),
-            )
-            group_rank = rank.astype(np.int32)
-            aff_ok = np.take_along_axis(
-                terms[cp_idx], rank[:, None, None].astype(np.intp), axis=1
-            )[:, 0, :]
+            # aff_ok is the selected term's mask alone: the other stages
+            # keep their own masks
+            group_rank, aff_ok = self._select_groups(
+                compiled, b, taint_ok & api_ok & spread_ok, avail_rank, replicas,
+                prev, strategy, fresh, with_base=False)
         else:
             group_rank = np.zeros(b, np.int32)
             aff_ok = np.stack([cp.terms[0][1] for cp in unique_cps])[cp_idx]
@@ -1737,11 +1712,6 @@ class TensorScheduler:
         cap answer and every extra estimate by K1's merge form. Returns
         int32[B, C] on ``device``."""
         n_extras = len(self.extra_estimators) + (cap_rows is not None)
-        if n_extras > MAX_EXTRAS:
-            raise _not_ported(
-                f"static-assignment caps beside {len(self.extra_estimators)} "
-                f"extra_estimators (K1's merge form takes {MAX_EXTRAS})"
-            )
         profiles, prof_inv = np.unique(requests, axis=0, return_inverse=True)
         dev = self.device
         inv = torch.from_numpy(prof_inv.reshape(-1).astype(np.int32)).to(dev)
@@ -1822,10 +1792,11 @@ class TensorScheduler:
         return False, self._availability(requests, replicas, cap_rows)
 
     def _solve_chunk(self, host_small, strategy, replicas, candidates, static_w,
-                     avail, prev, fresh) -> tuple[np.ndarray, np.ndarray]:
+                     avail, prev, fresh, prev_dev=None) -> tuple[np.ndarray, np.ndarray]:
         """(assignment, unschedulable) of one padded chunk: the numpy divider
         for a tiny batch whose (weight, last, index) key fits one int64,
-        else K2 on the device (uploading a host ``avail`` first)."""
+        else K2 on the device (uploading a host ``avail`` first, and ``prev``
+        unless ``prev_dev`` holds its upload)."""
         if host_small:
             wmax = int(max(int(avail.max(initial=0)) + int(prev.max(initial=0)),
                            int(static_w.max(initial=0)), 0))
@@ -1839,7 +1810,8 @@ class TensorScheduler:
 
             return assign_batch_np(
                 strategy, replicas, candidates, static_w, avail, prev, fresh)
-        res = self._assign(strategy, replicas, candidates, static_w, avail, prev, fresh)
+        res = self._assign(strategy, replicas, candidates, static_w, avail, prev, fresh,
+                           prev_dev=prev_dev)
         # the chunk's one device->host copy of the result
         return res.assignment.cpu().numpy(), res.unschedulable.cpu().numpy()
 
@@ -1848,51 +1820,68 @@ class TensorScheduler:
         problems: list[BindingProblem],
         compiled: list[CompiledPlacement],
     ) -> list[ScheduleResult]:
-        """One chunk of the ordered-failover path: every term's mask packed
-        as a [B, T, C] candidate tensor, each row's first fitting affinity
-        group picked in one vectorized selection (``ops.masks.
-        first_fit_group``, the divider's exact schedulability predicate, on
-        the host as the JAX engine runs it), then one solve of the whole
-        chunk against the selected masks."""
-        from ..ops import masks as mops
-
+        """One chunk of the ordered-failover path: each row's first fitting
+        affinity group picked on the device by K17 (``ops.masks.
+        first_fit_group``, the divider's exact schedulability predicate) from
+        the row's base mask, its placement's term masks and the merged
+        availability, which stays on the device; then one solve of the
+        whole chunk against the selected masks."""
         padded, (base, strategy, replicas, static_w, requests, prev, fresh) = (
             self._pad_chunk(self._pack_chunk(problems, compiled, 0, with_affinity=False))
         )
-        # stacked per-placement term masks bool[U, Tmax, C] and live-term
-        # counts; pad rows take slot 0 with no candidates
-        cp_idx, unique_cps = unique_placements(compiled, padded)
-        terms, term_len_u = term_stack(unique_cps, self.snapshot.num_clusters)
-        if "ClusterAffinity" in self.disabled_plugins:
-            terms[:] = True
-
         host_small, avail = self._chunk_availability(problems, requests, replicas, padded)
-        avail_np = avail if host_small else avail.cpu().numpy()
-        cand_tc = base[:, None, :] & terms[cp_idx]
-        rank, _fit = mops.first_fit_group(
-            cand_tc,
-            term_len_u[cp_idx],
-            avail_np.astype(np.int64),
-            replicas.astype(np.int64),
-            prev.astype(np.int64),
-            (strategy == DYNAMIC_WEIGHT) | (strategy == AGGREGATED),
-            fresh.astype(bool),
-        )
-        feasible = np.take_along_axis(
-            cand_tc, rank[:, None, None].astype(np.intp), axis=1
-        )[:, 0, :]
+        prev_dev = _upload(prev, np.int32, self.device)
+        rank, feasible = self._select_groups(
+            compiled, padded, base, avail, replicas, prev_dev, strategy, fresh)
         from .spread import select_clusters_batch  # local import (cycle-free)
 
         # spread selection still narrows single-term spread rows
         candidates = select_clusters_batch(
             self.snapshot, problems, compiled, 0, feasible, avail, prev)
         assignment, unschedulable = self._solve_chunk(
-            host_small, strategy, replicas, candidates, static_w, avail, prev, fresh)
+            host_small, strategy, replicas, candidates, static_w, avail, prev, fresh,
+            prev_dev=prev_dev)
         return self._unpack(problems, compiled, rank, candidates,
                             assignment, unschedulable)
 
-    def _assign(self, strategy, replicas, candidates, static_w, avail, prev, fresh):
-        """K2 over one padded chunk; ``avail`` is already on the device."""
+    def _select_groups(self, compiled, rows, base, avail, replicas, prev, strategy,
+                       fresh, with_base=True) -> tuple[np.ndarray, np.ndarray]:
+        """(rank int32[rows], selected bool[rows, C]) on the host: K17 on the
+        engine's device over ``_group_inputs``."""
+        from ..ops.masks import first_fit_group
+
+        rank, _fit, selected = first_fit_group(
+            *self._group_inputs(compiled, rows, base, avail, replicas, prev, strategy,
+                                fresh),
+            with_base=with_base)
+        return rank.cpu().numpy(), selected.cpu().numpy()
+
+    def _group_inputs(self, compiled, rows, base, avail, replicas, prev, strategy,
+                      fresh) -> tuple[torch.Tensor, ...]:
+        """K17's nine inputs on the engine's device, in its argument order:
+        the rows' base masks, their placements' ClusterAffinities term masks
+        (every term true when the plugin is disabled; rows past
+        ``len(compiled)`` take placement 0) and live-term counts, and the
+        rows' availability, replicas, previous placements and cohort flags.
+        ``avail`` and ``prev`` may already lie on the device; the others are
+        uploaded once."""
+        cp_idx, unique_cps = unique_placements(compiled, rows)
+        terms, term_len = term_stack(unique_cps, self.snapshot.num_clusters)
+        if "ClusterAffinity" in self.disabled_plugins:
+            terms[:] = True
+        dev = self.device
+        dynamic = (strategy == DYNAMIC_WEIGHT) | (strategy == AGGREGATED)
+        return (
+            _upload(base, bool, dev), _upload(terms, bool, dev),
+            _upload(cp_idx, np.int32, dev), _upload(term_len, np.int32, dev),
+            _upload(avail, np.int32, dev), _upload(replicas, np.int32, dev),
+            _upload(prev, np.int32, dev), _upload(dynamic, bool, dev),
+            _upload(fresh, bool, dev))
+
+    def _assign(self, strategy, replicas, candidates, static_w, avail, prev, fresh,
+                prev_dev=None):
+        """K2 over one padded chunk; ``avail`` is already on the device, and
+        so is ``prev`` when ``prev_dev`` holds its upload."""
         max_n = int(replicas.max(initial=0))
         c = candidates.shape[1] if candidates.ndim == 2 else 1
         wide, fast = kernel_variant(
@@ -1903,18 +1892,14 @@ class TensorScheduler:
             c,
         )
         dev = self.device
-
-        def up(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
-
         return divide_replicas(
-            up(strategy, np.int32),
-            up(replicas, np.int32),
-            up(candidates, bool),
-            up(static_w, np.int32),
+            _upload(strategy, np.int32, dev),
+            _upload(replicas, np.int32, dev),
+            _upload(candidates, bool, dev),
+            _upload(static_w, np.int32, dev),
             avail,
-            up(prev, np.int32),
-            up(fresh, bool),
+            _upload(prev if prev_dev is None else prev_dev, np.int32, dev),
+            _upload(fresh, bool, dev),
             has_aggregated=bool((strategy == AGGREGATED).any()),
             wide=wide,
             fast=fast,

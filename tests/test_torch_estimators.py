@@ -219,7 +219,7 @@ def test_node_sum_equals_jax(seed, b, n):
         assert (want < 0).any() or (want == HI).any()  # the wrap is exercised
 
 
-@pytest.mark.parametrize("extras", [0, 1, 2, 3])
+@pytest.mark.parametrize("extras", [0, 1, 2, 3, 5, 9])
 def test_merge_table_ref_equals_jax(extras):
     """K1's merge form (plain version, and its wrapper on CPU tensors) ==
     JAX merge_estimates over (table[prof_inv], *extras), indices clipped as
@@ -242,6 +242,20 @@ def test_merge_table_ref_equals_jax(extras):
     np.testing.assert_array_equal(TO.estimate_merge_table_ref(*targs).numpy(), want)
     np.testing.assert_array_equal(TO.estimate_merge_table(*targs).numpy(), want)
     assert TO.estimate_merge_table.launches == 0
+
+
+def test_merge_group_matches_the_kernel_source():
+    """The merge form's wrapper allocates its scratch buffer past
+    ``MERGE_GROUP`` extras: the kernel's group size (``MAX_EXTRAS`` in
+    ``csrc/estimate_merge.cu``) must be the same."""
+    import os
+    import re
+
+    from karmada_tpu_torch import native
+
+    with open(os.path.join(native.CSRC, "estimate_merge.cu")) as f:
+        src = f.read()
+    assert re.findall(r"constexpr int MAX_EXTRAS = (\d+);", src) == [str(TO.MERGE_GROUP)]
 
 
 def test_new_wrappers_raise_off_cpu():

@@ -215,7 +215,7 @@ def test_registry_extra_estimators_equal_jax():
     assert calls("t") == [1, 1, 2, 1, 1] and calls("j") == [1, 1, 2, 1, 1]
 
 
-@pytest.mark.parametrize("extras", [0, 1, 2])
+@pytest.mark.parametrize("extras", [0, 1, 2, 5, 9])
 def test_host_availability_mirror_with_extras_equals_jax(extras):
     """``_availability_np`` with ``extras`` (the engine's host mirror, the
     row checks' referent) == the JAX engine's ``_availability`` with the

@@ -11,7 +11,8 @@
   and the results, in the cases of tests/test_preemption.py's engine tests
   (the same-pass re-solve, priority 0 never demands, no eligible victims,
   a quota-denied row never preempts, the boosted re-solve keeps static
-  caps), on the fleet route too, with the provenance capture after the
+  caps, ranked demanders whose boosted re-solve selects a fallback
+  ClusterAffinities group), on the fleet route too, with the provenance capture after the
   re-solve, and on the error paths (a source that raises, a pool over
   2^17 rows) that must leave the results intact and no outcome.
 
@@ -378,6 +379,47 @@ def test_pool_over_the_row_bound_never_preempts():
     res, eng, _ = both(saturated, lambda pkg: (lambda ex: pools[pkg]),
                        lambda pkg: [demander(pkg, "hi", replicas=2)])
     assert res[0].error == TS.INSUFFICIENT_ERROR and eng.last_preemption is None
+
+
+def tiered(pkg, c=6):
+    """Six saturated 4-cpu clusters in three label groups: m0/m1 "a",
+    m2/m3 "b", m4/m5 "c"."""
+    b = mod(pkg, "utils.builders")
+    return [b.new_cluster(f"m{i}", cpu="4", memory="100Gi", allocated={"cpu": "4"},
+                          labels={"group": "abc"[i // 2]}) for i in range(c)]
+
+
+def ranked_placement(pkg, groups):
+    api = mod(pkg, "api")
+    return mod(pkg, "utils.builders").dynamic_weight_placement(cluster_affinities=[
+        api.ClusterAffinityTerm(affinity_name=f"grp-{g}",
+                                label_selector=api.LabelSelector(match_labels={"group": g}))
+        for g in groups])
+
+
+def test_boosted_resolve_selects_ranked_groups():
+    """Surge rows with two and three ClusterAffinities terms: the boosted
+    re-solve's group selection (K17's plain version on the CPU) runs with
+    T = 2 and 3 over capacity the victims free only on later groups, and
+    the placements, affinity names and the verdict equal the JAX
+    engine's."""
+    def problems(pkg):
+        return [demander(pkg, "two", replicas=2, placement=ranked_placement(pkg, "ab")),
+                demander(pkg, "three", replicas=2, placement=ranked_placement(pkg, "acb")),
+                demander(pkg, "wide", replicas=3, placement=ranked_placement(pkg, "abc"))]
+
+    def source(pkg):
+        pool = [resident(pkg, f"v{i}", {f"m{2 + i % 4}": 1}) for i in range(8)]
+        return lambda exclude: [p for p in pool if p.key not in exclude]
+
+    res, eng, _ = both(tiered, source, problems)
+    out = eng.last_preemption
+    assert out is not None and out.victims and out.placed
+    by = {r.key: r for r in res}
+    placed = [by[k] for k in out.placed]
+    # no victim frees group a: every placed row sits on a fallback group
+    assert placed and all(r.affinity_name != "grp-a" for r in placed)
+    assert all(not any(c in r.clusters for c in ("m0", "m1")) for r in placed)
 
 
 def wide(pkg, c=40):

@@ -312,17 +312,67 @@ def test_disarmed_quota_is_the_plain_engine():
     assert all(r.success for r in res) and pair.engines[1].quota is None
 
 
+def estimators(n: int) -> list:
+    """``n`` out-of-tree estimators, each answering -1 (no answer), MAX_INT32
+    and a real value on different clusters (which cluster gives which
+    answer shifts with the estimator), for any batch."""
+    def answer(k):
+        def est(requests, replicas):
+            b, j = len(replicas), np.arange(300)
+            row = np.where((j + k) % 3 == 0, -1,
+                           np.where((j + k) % 3 == 1, 2**31 - 1, 3 + (7 * j + 13 * k) % 40))
+            return np.broadcast_to(row.astype(np.int32), (b, 300)).copy()
+        return est
+
+    return [answer(k) for k in range(n)]
+
+
+def general_pair(n_estimators: int):
+    """Both engines over the 300-cluster fleet with ``n_estimators``
+    ``estimators``, on the general route."""
+    engines = []
+    for pkg in PKGS:
+        snap = mod(pkg, "scheduler").ClusterSnapshot(fleet_for(pkg, "general"))
+        kw = dict(chunk_size=1024, extra_estimators=estimators(n_estimators))
+        eng = (JS.TensorScheduler(snap, **kw) if pkg is karmada_tpu
+               else TS.TensorScheduler(snap, device="cpu", **kw))
+        eng.fleet_threshold = 10**9
+        engines.append((pkg, snap, eng))
+    return engines
+
+
 def test_caps_beyond_the_merge_slots_raise():
-    """K1's merge form takes four extra answers: caps beside four
-    estimators is a branch the port does not serve."""
-    snap = TS.ClusterSnapshot(fleet_for(karmada_tpu_torch, "general"))
-    ests = [lambda req, reps: -np.ones((len(reps), snap.num_clusters), np.int32)] * 4
-    eng = TS.TensorScheduler(snap, chunk_size=1024, extra_estimators=ests, device="cpu")
-    eng.set_quota(TS.build_quota_snapshot(
-        [frq(karmada_tpu_torch, "c", {"cpu": 10**9}, static=[("m0", {"cpu": 1000})])],
-        snap, 1))
-    with pytest.raises(NotImplementedError):
-        eng.schedule([problem(karmada_tpu_torch, f"c/{i}", "c", 3) for i in range(300)])
+    """K1's merge form takes any number of extra answers: static-assignment
+    caps beside 4 estimators (5 answers) and beside 8 (9 answers) place as
+    the JAX engine places, where the port used to raise."""
+    for n in (4, 8):
+        outs = []
+        for pkg, snap, eng in general_pair(n):
+            eng.set_quota(mod(pkg, "scheduler").build_quota_snapshot(
+                [frq(pkg, "c", {"cpu": 10**9}, static=[("m0", {"cpu": 1000}),
+                                                      ("m2", {"cpu": 5000})])],
+                snap, 1))
+            outs.append(outcome(eng.schedule(
+                [problem(pkg, f"c/{i}", "c", 3 + i % 60) for i in range(300)])))
+        assert outs[1] == outs[0]
+        placed = [o for o in outs[1] if not o[2]]
+        assert placed and all(o[1].get("m0", 0) <= 1 for o in placed)
+
+
+@pytest.mark.parametrize("n", [5, 9])
+def test_extra_estimators_past_four_equal_jax(n):
+    """5 and 9 out-of-tree estimators and no caps, on the general route:
+    one merge over every answer, as in the JAX engine."""
+    outs = []
+    for pkg, _snap, eng in general_pair(n):
+        outs.append(outcome(eng.schedule(
+            [problem(pkg, f"z/{i}", "", 3 + i % 60) for i in range(300)])))
+    assert outs[1] == outs[0]
+    # every row placed, none on a cluster past the smallest real answer
+    answers = np.stack([est(None, [0])[0] for est in estimators(n)]).astype(np.int64)
+    cap = np.where(answers == -1, 2**31 - 1, answers).min(axis=0)
+    assert all(not o[2] for o in outs[1])
+    assert all(v <= cap[int(name[1:])] for o in outs[1] for name, v in o[1].items())
 
 
 def test_avail_max_bound_under_a_cap_above_every_summary_answer():

@@ -66,30 +66,104 @@ def test_affinity_group_rank_equals_jax():
     assert TM.affinity_group_rank(np.zeros((2, 3), bool)).tolist() == [2, 2, 2]
 
 
+def port_groups(arrays, with_base=True):
+    """The port's ``first_fit_group`` (its plain version: CPU tensors) on
+    numpy ``arrays`` keyed by ``chip_smoke.GROUP_ARGS``."""
+    got = TM.first_fit_group(*(torch.from_numpy(np.ascontiguousarray(arrays[k]))
+                               for k in chip_smoke.GROUP_ARGS), with_base=with_base)
+    assert [g.dtype for g in got] == [torch.int32, torch.bool, torch.bool]
+    return tuple(g.numpy() for g in got)
+
+
+def jax_group_args(a):
+    """The JAX ``first_fit_group``'s arguments for the port's: the [B, T, C]
+    candidate stack and per-row live-term counts, int64 sums' inputs."""
+    return (a["base"][:, None, :] & a["terms"][a["cp_idx"]], a["term_len"][a["cp_idx"]],
+            a["avail"].astype(np.int64), a["replicas"].astype(np.int64),
+            a["prev"].astype(np.int64), a["dynamic"], a["fresh"])
+
+
+def check_groups(a):
+    """Port == JAX under numpy == JAX's backend-generic body under jnp (the
+    CPU backend), for rank and fit; ``selected`` equals the candidate stack
+    (or, with_base off, the term masks) at each row's rank."""
+    import jax.numpy as jnp
+
+    rank, fit, selected = port_groups(a)
+    jargs = jax_group_args(a)
+    want = JM.first_fit_group(*jargs)
+    on_device = JM._first_fit_group_kernel(jnp, *map(jnp.asarray, jargs))
+    for w in (want, on_device):
+        np.testing.assert_array_equal(rank, np.asarray(w[0]))
+        np.testing.assert_array_equal(fit, np.asarray(w[1]))
+    rows = np.arange(len(rank))
+    np.testing.assert_array_equal(selected, jargs[0][rows, rank])
+    _r, _f, term_only = port_groups(a, with_base=False)
+    np.testing.assert_array_equal(term_only, a["terms"][a["cp_idx"]][rows, rank])
+    return rank, fit
+
+
 @pytest.mark.parametrize("seed", range(6))
 def test_first_fit_group_equals_jax(seed):
     """Every cohort of the divider's predicate (fresh, scale-up, scale-down,
     steady, non-dynamic strategies), empty terms, rows with fewer live
     terms than T, and availability near int32."""
     rng = np.random.default_rng(seed)
-    b, t, c = 64, int(rng.integers(1, 5)), int(rng.integers(1, 30))
-    cand = rng.random((b, t, c)) < rng.uniform(0.0, 0.8, (b, t, 1))
-    term_len = rng.integers(1, t + 1, b).astype(np.int32)
-    avail = rng.integers(0, 50, (b, c)).astype(np.int64)
+    b, t, c, u = 64, int(rng.integers(1, 5)), int(rng.integers(1, 30)), 5
+    terms = rng.random((u, t, c)) < rng.uniform(0.0, 0.8, (u, t, 1))
+    base = rng.random((b, c)) < rng.uniform(0.3, 1.0, (b, 1))
+    cp_idx = rng.integers(0, u, b).astype(np.int32)
+    term_len = rng.integers(1, t + 1, u).astype(np.int32)
+    avail = rng.integers(0, 50, (b, c)).astype(np.int32)
     avail[rng.random((b, c)) < 0.02] = 2**31 - 1
-    replicas = rng.integers(0, 120, b).astype(np.int64)
-    prev = np.where(rng.random((b, c)) < 0.2, rng.integers(1, 20, (b, c)), 0).astype(np.int64)
+    replicas = rng.integers(0, 120, b).astype(np.int32)
+    prev = np.where(rng.random((b, c)) < 0.2, rng.integers(1, 20, (b, c)), 0).astype(np.int32)
     steady = rng.random(b) < 0.2
-    prev_sum = prev.sum(axis=1)
-    replicas[steady] = prev_sum[steady]
-    dynamic = rng.random(b) < 0.7
-    fresh = rng.random(b) < 0.2
-    args = (cand, term_len, avail, replicas, prev, dynamic, fresh)
-    got = TM.first_fit_group(*args)
-    want = JM.first_fit_group(*args)
-    assert got[0].dtype == np.int32 and got[1].dtype == bool
-    np.testing.assert_array_equal(got[0], want[0])
-    np.testing.assert_array_equal(got[1], want[1])
+    replicas[steady] = prev.sum(axis=1)[steady]
+    check_groups({"base": base, "terms": terms, "cp_idx": cp_idx, "term_len": term_len,
+                  "avail": avail, "replicas": replicas, "prev": prev,
+                  "dynamic": rng.random(b) < 0.7, "fresh": rng.random(b) < 0.2})
+
+
+@pytest.mark.parametrize("t,c", [(1, 1), (4, 1), (9, 1), (4, 37), (1, 5000), (4, 5000),
+                                 (9, 5000)])
+def test_first_fit_group_edge_cases_equal_jax(t, c):
+    """``chip_smoke.group_edge_batch``, the batch K17 is held to on the
+    card: T past one register group (9), term_len below T, all-false and
+    all-true terms (dead ones included), padded rows, one cluster and 5000
+    with MAX_INT32 answers (int64 sums past 2^31), zero replicas, steady
+    rows at exactly their previous sum, fresh and non-dynamic rows."""
+    a = chip_smoke.group_edge_batch(np.random.default_rng(100 * t + c), 96, t, c)
+    rank, fit = check_groups(a)
+    pad = 96 - 96 // 8
+    # padded rows: placement 0's last live term, no fit
+    assert (rank[pad:] == max(int(a["term_len"][0]) - 1, 0)).all() and not fit[pad:].any()
+    # a placement with every term empty never fits
+    assert not fit[a["cp_idx"] == 1].any()
+    if c == 5000:  # the int64 sums did pass 2^31
+        dyn_sums = (a["avail"].astype(np.int64) * a["base"]).sum(axis=1)[a["dynamic"]]
+        assert dyn_sums.max() > 2**31
+    if t > 1:  # a fallback group was selected somewhere
+        assert (fit & (rank > 0)).any()
+
+
+def test_first_fit_group_seeded_chunk_equals_jax():
+    """``chip_smoke.group_batch``, the seeded ranked chunk K17 is timed on,
+    at a reduced size."""
+    check_groups(chip_smoke.group_batch(np.random.default_rng(8), b=256, c=700))
+
+
+def test_first_fit_group_checks_its_inputs():
+    """The wrapper's shape checks (on the meta device, no kernel) and the
+    plain version on CPU tensors launching nothing."""
+    a = chip_smoke.group_edge_batch(np.random.default_rng(1), 16, 3, 9)
+    args = [torch.from_numpy(np.ascontiguousarray(a[k])) for k in chip_smoke.GROUP_ARGS]
+    before = TM.first_fit_group.launches
+    TM.first_fit_group(*args)
+    assert TM.first_fit_group.launches == before
+    meta = [x.to("meta") for x in args]
+    with pytest.raises(ValueError):  # not one CUDA device
+        TM.first_fit_group(*meta)
 
 
 def test_solve_one_ordered_copy_equals_jax():
