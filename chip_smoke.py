@@ -119,6 +119,24 @@
      ``preempt_and_place_np``, K15 equal to its plain
      version on the pass's own inputs; then the residents' steady pass with
      the plane armed and disarmed.
+   - the scheduler process (``run_controller``): a ``Store`` and a
+     ``Runtime`` driving the port's ``SchedulerController`` from
+     ResourceBinding events to written placements (``binding_objects``
+     builds every object; each binding round-trips to its recipe problem):
+     config 5's 100k bindings x 5000 clusters in a cold wave (every written
+     placement equal to the storm's cold pass on the controller's cluster
+     order and to the numpy divider), a settle with nothing to do and a
+     resync that gates everything out (no engine pass), a 1000-row scale
+     wave, a drift round of the ``ContinuousDescheduler`` at its default
+     budget (the trigger set equal to ``rebalance_np``'s, exactly those
+     bindings rescheduled), the quota cell's recipe at 20k rows (partitions
+     equal to ``admit_wave_np``; a raise re-enqueues exactly the raised
+     namespace's denied bindings) and the preemption scene at 20k residents
+     (victims, eviction tasks and placements equal to
+     ``preempt_and_place_np``); each wave's wall split into store apply,
+     gate and problem build, engine pass and write-back, and the
+     controller's share. K3, K2, K4 and K5 must launch in the cold wave,
+     K12 in the quota wave and K15 in the preemption surge.
    Each path sets the launch counters to 0 just before it and reads them
    just after; every kernel of the path must have launched.
 4. prints one JSON line of per-kernel numbers, the card line again, and last
@@ -133,6 +151,7 @@ from __future__ import annotations
 import contextlib
 import importlib
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -286,6 +305,50 @@ def build_workload(pkg, config: int, bindings: int | None = None,
         for i in range(n)
     ]
     return snap, problems
+
+
+def binding_objects(pkg, snap, problems, limits: dict | None = None,
+                    used: dict | None = None, caps: dict | None = None,
+                    triggered_at: float = 1.0):
+    """(clusters, ResourceBindings, FederatedResourceQuotas) of one recipe
+    in ``pkg``: the snapshot's own Cluster objects, one binding per
+    problem, and (with ``limits``) ``quota_frqs``'s FRQs. Each binding is
+    built so that the scheduler process's ``_build_problem`` round-trips it
+    to a problem equal to the recipe's: the key is the binding's namespaced
+    name (``ns/name``, or the bare name in namespace ""), the gvk splits at
+    its last "/", ``prev`` becomes ``spec.clusters``, each evicted cluster a
+    graceful-eviction task (a preemption task where the problem names it in
+    ``preempt_clusters``), and a fresh row carries a reschedule trigger at
+    ``triggered_at`` that was never served."""
+    api = importlib.import_module(f"{pkg.__name__}.api")
+    work = importlib.import_module(f"{pkg.__name__}.api.work")
+    out = []
+    for p in problems:
+        ns, _, name = p.key.rpartition("/")
+        if ns != p.namespace or "/" not in p.gvk:
+            raise ValueError(f"binding_objects: {p.key!r} (namespace {p.namespace!r}, "
+                             f"gvk {p.gvk!r}) does not round-trip")
+        api_version, _, kind = p.gvk.rpartition("/")
+        tasks = [work.GracefulEvictionTask(
+            from_cluster=c, reason=(work.EVICTION_REASON_PREEMPTED if c in p.preempt_clusters
+                                    else work.EVICTION_REASON_APPLICATION_FAILURE))
+            for c in p.evict_clusters]
+        out.append(api.ResourceBinding(
+            meta=api.ObjectMeta(name=name, namespace=ns),
+            spec=api.ResourceBindingSpec(
+                resource=api.ObjectReference(api_version=api_version, kind=kind,
+                                             namespace=ns, name=name),
+                replicas=p.replicas,
+                replica_requirements=api.ReplicaRequirements(resource_request=p.requests),
+                placement=p.placement,
+                priority=p.priority,
+                clusters=[api.TargetCluster(name=c, replicas=r) for c, r in p.prev.items()],
+                graceful_eviction_tasks=tasks,
+                reschedule_triggered_at=triggered_at if p.fresh else None,
+            ),
+        ))
+    frqs = [] if limits is None else quota_frqs(pkg, snap, limits, used, caps)
+    return list(snap.clusters), out, frqs
 
 
 def node_states(pkg, n: int, seed: int) -> list:
@@ -812,18 +875,16 @@ def referent_caps(engine, problems, requests):
     return out.astype(np.int32)
 
 
-def oracle_check(engine, problems, results, extra=None) -> int:
+def referent_results(engine, problems, extra=None) -> list:
     """Re-solve every row on the host from the same packed inputs: the
     engine's packing, the numpy estimate (the engine's tiny-batch mirror
     ``_availability_np``, merged with the rows' static-assignment quota caps
     from ``referent_caps`` when the engine has any and with ``extra``'s
-    answer when given),
-    the host spread selection and the numpy divider. Returns the number of
-    rows that differ. ``problems`` may be any sub-list of a wave with its
-    results (rows are solved independently): a quota'd wave checks its
-    admitted rows. Chunks are checked on
-    a pool of threads (numpy releases the GIL in its array work); the
-    placements are compiled first, on this thread."""
+    answer when given), the host spread selection and the numpy divider.
+    Returns the referent's results in row order. Rows are solved
+    independently, so ``problems`` may be any sub-list of a wave. Chunks
+    are solved on a pool of threads (numpy releases the GIL in its array
+    work); the placements are compiled first, on this thread."""
     import os
     from concurrent.futures import ThreadPoolExecutor
 
@@ -833,7 +894,7 @@ def oracle_check(engine, problems, results, extra=None) -> int:
     snap = engine.snapshot
     compiled_all = [engine._compiled(p.placement) for p in problems]
 
-    def chunk_bad(start: int) -> int:
+    def chunk_want(start: int) -> list:
         chunk = problems[start : start + engine.chunk_size]
         compiled = compiled_all[start : start + engine.chunk_size]
         feasible, strategy, replicas, static_w, requests, prev, fresh = (
@@ -847,16 +908,24 @@ def oracle_check(engine, problems, results, extra=None) -> int:
         assignment, unsched = assign_batch_np(
             strategy, replicas, cand, static_w, avail, prev, fresh
         )
-        want = engine._unpack(chunk, compiled, 0, cand, assignment, unsched)
-        return sum(
-            (got.key, got.clusters, got.error, got.feasible)
-            != (exp.key, exp.clusters, exp.error, exp.feasible)
-            for got, exp in zip(results[start : start + len(chunk)], want)
-        )
+        return engine._unpack(chunk, compiled, 0, cand, assignment, unsched)
 
     starts = range(0, len(problems), engine.chunk_size)
     with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
-        return sum(pool.map(chunk_bad, starts))
+        return [r for want in pool.map(chunk_want, starts) for r in want]
+
+
+def oracle_check(engine, problems, results, extra=None) -> int:
+    """Every row against ``referent_results`` (key, placements, error and
+    feasible set); ``problems`` may be any sub-list of a wave with its
+    results (a quota'd wave checks its admitted rows). Returns the number
+    of rows that differ."""
+    want = referent_results(engine, problems, extra)
+    return sum(
+        (got.key, got.clusters, got.error, got.feasible)
+        != (exp.key, exp.clusters, exp.error, exp.feasible)
+        for got, exp in zip(results, want)
+    )
 
 
 def sync(device) -> None:
@@ -1033,6 +1102,12 @@ PATH_KERNELS = {
     "wide fleet": ("profile_table", "divide_replicas", "fleet_masks", "fleet_diff",
                    "fleet_wire"),
     "wide quota": ("quota_admit", "profile_table", "divide_replicas"),
+    "controller cold": ("profile_table", "divide_replicas", "fleet_masks", "fleet_diff",
+                        "fleet_wire"),
+    "controller quota": ("quota_admit", "quota_caps_fold", "profile_table",
+                         "divide_replicas", "fleet_masks", "fleet_diff", "fleet_wire"),
+    "controller preemption": ("preempt_select", "first_fit_group", "divide_replicas",
+                              "fleet_masks"),
 }
 
 
@@ -3760,6 +3835,95 @@ def run_explain_fleet(device, card: str, engine=None, problems=None, bindings=No
     return out
 
 
+def preemption_scene(residents: int, clusters: int, surge: int, pkg=None):
+    """bench.py ``run_preemption``'s scene (bench.py:2809-3190), built with
+    ``pkg``'s modules (karmada_tpu_torch by default): (snapshot, residents,
+    surge, per-replica request). ``clusters`` clusters of 200 cpu / 4000Gi
+    / 10^6 pods in min(64, C // 8) label groups; ``residents`` priority-0
+    rows of 2 replicas x (500m cpu, 512Mi), each pinned to one group;
+    ``surge`` priority-100 rows of the same shape over every cluster. Keys
+    are ``default/w<i>`` and ``default/hi<i>``."""
+    name = pkg.__name__ if pkg is not None else "karmada_tpu_torch"
+    api = importlib.import_module(f"{name}.api")
+    b = importlib.import_module(f"{name}.utils.builders")
+    q = importlib.import_module(f"{name}.utils.quantity")
+    s = importlib.import_module(f"{name}.scheduler")
+
+    n_groups = max(1, min(64, clusters // 8))
+    snap = s.ClusterSnapshot([
+        b.new_cluster(f"p{i:04d}", cpu="200", memory="4000Gi", pods=1_000_000,
+                      labels={"group": f"g{i % n_groups}"}) for i in range(clusters)])
+    group_pl = [b.dynamic_weight_placement(cluster_affinity=api.ClusterAffinity(
+        label_selector=api.LabelSelector(match_labels={"group": f"g{k}"})))
+        for k in range(n_groups)]
+    req = q.parse_resource_list({"cpu": "500m", "memory": "512Mi"})
+    low = [s.BindingProblem(key=f"default/w{i}", placement=group_pl[i % n_groups],
+                            replicas=2, requests=req, gvk="apps/v1/Deployment",
+                            namespace="default")
+           for i in range(residents)]
+    hi_pl = b.dynamic_weight_placement()
+    hi = [s.BindingProblem(key=f"default/hi{i}", placement=hi_pl, replicas=2, requests=req,
+                           gvk="apps/v1/Deployment", namespace="default", priority=100)
+          for i in range(surge)]
+    return snap, low, hi, req
+
+
+def saturated_clusters(clusters, placements, req, pkg=None) -> list:
+    """New Cluster objects (``pkg``'s, karmada_tpu_torch's by default) of
+    the same names and labels whose cpu is saturated exactly by
+    ``placements`` (each {cluster: replicas} of one resident of request
+    ``req``): allocatable = allocated = the residents' usage."""
+    name = pkg.__name__ if pkg is not None else "karmada_tpu_torch"
+    new_cluster = importlib.import_module(f"{name}.utils.builders").new_cluster
+    col = {cl.name: j for j, cl in enumerate(clusters)}
+    used = np.zeros((len(clusters), 3), np.int64)  # cpu milli, memory bytes, pods
+    for placement in placements:
+        for nm, reps in placement.items():
+            used[col[nm]] += (reps * req["cpu"], reps * req["memory"], reps)
+    return [new_cluster(cl.name, cpu=f"{u[0]}m", memory="4000Gi", pods=1_000_000,
+                        labels=cl.meta.labels,
+                        allocated={"cpu": f"{u[0]}m", "memory": int(u[1]), "pods": int(u[2])})
+            for cl, u in zip(clusters, used)]
+
+
+def preempt_referent(demanders, pool, names, dims, base_caps) -> tuple[list, dict]:
+    """``preempt_and_place_np`` on ``preemption_scene``'s rows: sequential
+    victim selection over ``pool`` (residents with ``prev``) and a one-row
+    numpy divide per demander over the boosted capacity, request vectors
+    computed here. Returns (victim keys, demander key -> placement)."""
+    from karmada_tpu_torch.refimpl import DYNAMIC_WEIGHT
+    from karmada_tpu_torch.refimpl.preempt_np import preempt_and_place_np
+
+    def vec(requests):
+        return np.array([max(requests.get(d, 0), 1) if d == "pods" else requests.get(d, 0)
+                         for d in dims], np.int64)
+
+    prios, dem_rows, freed_rows, ok, weights = [], [], [], [], []
+    for p in demanders:
+        prios.append(p.priority)
+        dem_rows.append(vec(p.requests) * max(p.replicas - sum(p.prev.values()), 0))
+        freed_rows.append(np.zeros(len(dims), np.int64))
+        ok.append(False)
+        weights.append(0)
+    for v in pool:
+        total = sum(v.prev.values())
+        prios.append(v.priority)
+        dem_rows.append(np.zeros(len(dims), np.int64))
+        freed_rows.append(vec(v.requests) * total)
+        ok.append(total > 0)
+        weights.append(total)
+    return preempt_and_place_np(
+        [p.key for p in demanders + pool], prios, np.stack(dem_rows), np.stack(freed_rows),
+        ok, weights, names=names, assigned={v.key: v.prev for v in pool},
+        requests={p.key: vec(p.requests) for p in demanders + pool}, base_caps=base_caps,
+        demanders=[p.key for p in demanders],
+        # no cluster carries a taint and every one enables the workload's API
+        candidates={p.key: np.ones(len(names), bool) for p in demanders},
+        strategies={p.key: DYNAMIC_WEIGHT for p in demanders},
+        replicas={p.key: p.replicas for p in demanders},
+        prev={p.key: p.prev for p in demanders})
+
+
 def run_preemption(device, card: str, residents: int = 100_000, clusters: int = 5000,
                    surge: int = 1000) -> dict:
     """bench.py ``run_preemption``'s scene (bench.py:2809-3190) at the
@@ -3774,25 +3938,12 @@ def run_preemption(device, card: str, residents: int = 100_000, clusters: int = 
     ``preempt_and_place_np``. K15 is held to its plain version on the
     pass's own inputs. Then the residents' wave as a steady pass, the
     plane armed and disarmed."""
-    from karmada_tpu_torch.api.policy import ClusterAffinity, LabelSelector
-    from karmada_tpu_torch.refimpl import DYNAMIC_WEIGHT
-    from karmada_tpu_torch.refimpl.preempt_np import preempt_and_place_np
     from karmada_tpu_torch.scheduler import BindingProblem, ClusterSnapshot, TensorScheduler
-    from karmada_tpu_torch.utils.builders import dynamic_weight_placement, new_cluster
-    from karmada_tpu_torch.utils.quantity import parse_resource_list
 
     t0 = time.perf_counter()
-    n_groups = max(1, min(64, clusters // 8))
-    names = [f"p{i:04d}" for i in range(clusters)]
-    labels = [{"group": f"g{i % n_groups}"} for i in range(clusters)]
-    snap = ClusterSnapshot([new_cluster(nm, cpu="200", memory="4000Gi", pods=1_000_000,
-                                        labels=lb) for nm, lb in zip(names, labels)])
-    group_pl = [dynamic_weight_placement(cluster_affinity=ClusterAffinity(
-        label_selector=LabelSelector(match_labels={"group": f"g{k}"})))
-        for k in range(n_groups)]
-    req = parse_resource_list({"cpu": "500m", "memory": "512Mi"})
-    low = [BindingProblem(key=f"default/w{i}", placement=group_pl[i % n_groups], replicas=2,
-                          requests=req, gvk="apps/v1/Deployment") for i in range(residents)]
+    snap, low, hi, req = preemption_scene(residents, clusters, surge)
+    names = snap.names
+    n_groups = len({cl.meta.labels["group"] for cl in snap.clusters})
     engine = TensorScheduler(snap, chunk_size=4096, device=device)
     t1 = time.perf_counter()
     cold = engine.schedule(low)
@@ -3801,16 +3952,7 @@ def run_preemption(device, card: str, residents: int = 100_000, clusters: int = 
     if not all(r.success for r in cold):
         raise AssertionError("preemption: a resident did not place")
 
-    # saturate cpu exactly: allocatable = allocated = the residents' usage
-    col = {nm: j for j, nm in enumerate(names)}
-    used = np.zeros((clusters, 3), np.int64)  # cpu milli, memory bytes, pods
-    for r in cold:
-        for nm, reps in r.clusters.items():
-            used[col[nm]] += (reps * req["cpu"], reps * req["memory"], reps)
-    sat = ClusterSnapshot([
-        new_cluster(nm, cpu=f"{u[0]}m", memory="4000Gi", pods=1_000_000, labels=lb,
-                    allocated={"cpu": f"{u[0]}m", "memory": int(u[1]), "pods": int(u[2])})
-        for nm, lb, u in zip(names, labels, used)])
+    sat = ClusterSnapshot(saturated_clusters(snap.clusters, [r.clusters for r in cold], req))
     if not engine.update_snapshot(sat):
         raise AssertionError("preemption: the saturated snapshot was refused")
     dims = list(sat.dims)
@@ -3819,9 +3961,6 @@ def run_preemption(device, card: str, residents: int = 100_000, clusters: int = 
         raise AssertionError("preemption: free cpu remains after saturation")
     pool = [BindingProblem(key=p.key, placement=p.placement, replicas=2, requests=req,
                            gvk=p.gvk, prev=dict(r.clusters)) for p, r in zip(low, cold)]
-    hi_pl = dynamic_weight_placement()
-    hi = [BindingProblem(key=f"default/hi{i}", placement=hi_pl, replicas=2, requests=req,
-                         gvk="apps/v1/Deployment", priority=100) for i in range(surge)]
     build_s = time.perf_counter() - t0 - cold_s
     engine.set_preemption(lambda exclude: [v for v in pool if v.key not in exclude])
 
@@ -3848,37 +3987,8 @@ def run_preemption(device, card: str, residents: int = 100_000, clusters: int = 
                  if device.type == "cuda" else no_times())
         del t, inputs
 
-    # the referent: sequential selection and a one-row numpy divide per
-    # demander over the boosted capacity; request vectors computed here
-    def vec(requests):
-        return np.array([max(requests.get(d, 0), 1) if d == "pods" else requests.get(d, 0)
-                         for d in dims], np.int64)
-
     t1 = time.perf_counter()
-    prios, dem_rows, freed_rows, ok, weights = [], [], [], [], []
-    for p in demanders:
-        prios.append(p.priority)
-        dem_rows.append(vec(p.requests) * max(p.replicas - sum(p.prev.values()), 0))
-        freed_rows.append(np.zeros(len(dims), np.int64))
-        ok.append(False)
-        weights.append(0)
-    for v in pool:
-        total = sum(v.prev.values())
-        prios.append(v.priority)
-        dem_rows.append(np.zeros(len(dims), np.int64))
-        freed_rows.append(vec(v.requests) * total)
-        ok.append(total > 0)
-        weights.append(total)
-    want_victims, want_placed = preempt_and_place_np(
-        [p.key for p in demanders + pool], prios, np.stack(dem_rows), np.stack(freed_rows),
-        ok, weights, names=names, assigned={v.key: v.prev for v in pool},
-        requests={p.key: vec(p.requests) for p in demanders + pool}, base_caps=base_caps,
-        demanders=[p.key for p in demanders],
-        # no cluster carries a taint and every one enables the workload's API
-        candidates={p.key: np.ones(clusters, bool) for p in demanders},
-        strategies={p.key: DYNAMIC_WEIGHT for p in demanders},
-        replicas={p.key: p.replicas for p in demanders},
-        prev={p.key: p.prev for p in demanders})
+    want_victims, want_placed = preempt_referent(demanders, pool, names, dims, base_caps)
     by_key = {r.key: r for r in res}
     got_victims = [v[0] for v in out.victims]
     bad_victims = len(set(want_victims) ^ set(got_victims))
@@ -3915,6 +4025,592 @@ def run_preemption(device, card: str, residents: int = 100_000, clusters: int = 
     return {"launches": launches, "stats": stats, "surge_s": surge_s, "cold_s": cold_s,
             "walls": walls, "victims": len(got_victims), "placed": len(out.placed),
             "still": len(out.still_unschedulable), "rows": rows, "padded": padded}
+
+
+# --------------------------------------------------------------------------
+# the scheduler process: Store, Runtime and SchedulerController on the card
+# --------------------------------------------------------------------------
+
+
+def written(rb) -> tuple:
+    """What the scheduler process wrote on ``rb``: (key, its placements
+    sorted by cluster, the Scheduled=False message or "")."""
+    sched = next((c for c in rb.status.conditions if c.type == "Scheduled"), None)
+    return (rb.meta.namespaced_name,
+            tuple(sorted((tc.name, tc.replicas) for tc in rb.spec.clusters)),
+            sched.message if sched is not None and not sched.status else "")
+
+
+def unwritten(rbs, placed: bool = False) -> int:
+    """Bindings the write-back has not reached at their generation: no
+    Scheduled condition (with ``placed``, no Scheduled=True) or an observed
+    generation behind the spec's."""
+    def done(rb) -> bool:
+        sched = next((c for c in rb.status.conditions if c.type == "Scheduled"), None)
+        return (sched is not None and (sched.status or not placed)
+                and rb.status.scheduler_observed_generation == rb.meta.generation)
+    return sum(not done(rb) for rb in rbs)
+
+
+def expected_written(problems, results) -> list:
+    """``written`` as the write-back derives it from engine results: a
+    placed row its placements (every feasible cluster at 0 replicas for a
+    zero-replica row); a row that failed its previous placement and the
+    error."""
+    out = []
+    for p, r in zip(problems, results):
+        if not r.success:
+            out.append((p.key, tuple(sorted(p.prev.items())), r.error))
+        elif p.replicas > 0:
+            out.append((p.key, tuple(sorted(r.clusters.items())), ""))
+        else:
+            out.append((p.key, tuple((n, 0) for n in sorted(r.feasible)), ""))
+    return out
+
+
+def written_digest(rows) -> np.ndarray:
+    """int64[B]: a hash of each ``written`` tuple."""
+    return np.fromiter((hash(w) for w in rows), np.int64, len(rows))
+
+
+def written_check(engine, problems, bindings) -> int:
+    """Every binding's written placement and error against
+    ``referent_results`` on its problem. Returns the rows that differ."""
+    want = expected_written(problems, referent_results(engine, problems))
+    return sum(written(rb) != w for rb, w in zip(bindings, want))
+
+
+class Written:
+    """A binding's write-back read as a result (``.key``, ``.error``), for
+    the partition checks."""
+
+    def __init__(self, rb):
+        self.key, _, self.error = written(rb)
+
+
+class ReconcileFaults(logging.Handler):
+    """The worker's error records (a reconcile that raised, a key dropped
+    after its retries), formatted with their tracebacks."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.records: list[str] = []
+
+    def emit(self, record) -> None:
+        self.records.append(self.format(record))
+
+
+def settle_wave(tag: str, rt, ctl, device, card: str, apply_s: float = 0.0,
+                max_steps: int = 100_000) -> dict:
+    """One ``run_until_settled`` of the plane, timed and split from its
+    spans: the store apply that enqueued it (``apply_s``, measured by the
+    caller), gate and problem build (the scheduler drain's start to its
+    first ``scheduler.pass``), the engine passes (the ``scheduler.pass``
+    spans, with the engine's ``last_breakdown``) and write-back (the last
+    pass's end to the drain's end). The controller's share is everything
+    but the engine passes. Raises when a reconcile raised (the worker
+    logs it and requeues the key) or a key is left waiting for a retry."""
+    from karmada_tpu_torch.utils.tracing import tracer
+
+    faults = ReconcileFaults()
+    log = logging.getLogger("karmada_tpu_torch")
+    log.addHandler(faults)
+    t0 = time.perf_counter()
+    try:
+        steps = rt.run_until_settled(max_steps=max_steps)
+        sync(device)
+    finally:
+        log.removeHandler(faults)
+    wall = time.perf_counter() - t0
+    if faults.records or ctl.worker._retries:
+        raise AssertionError(f"{tag}: {len(faults.records)} reconcile errors, "
+                             f"{len(ctl.worker._retries)} keys awaiting a retry; first:\n"
+                             + (faults.records[0] if faults.records else ""))
+    spans = [s for s in tracer.dump() if s["start"] >= t0 - 1e-6]
+    passes = [s for s in spans if s["name"] == "scheduler.pass"]
+    drains = [s for s in spans if s["name"] == "controller.scheduler"]
+    engine_s = sum(s["duration_s"] for s in passes)
+    gate_s = write_s = 0.0
+    if passes and drains:
+        gate_s = passes[0]["start"] - drains[0]["start"]
+        write_s = (drains[-1]["start"] + drains[-1]["duration_s"]
+                   - passes[-1]["start"] - passes[-1]["duration_s"])
+    ctl_s = apply_s + wall - engine_s
+    out = {"wall": wall, "apply_s": apply_s, "gate_s": gate_s, "engine_s": engine_s,
+           "write_s": write_s, "controller_s": ctl_s, "steps": steps,
+           "passes": [s["attrs"].get("bindings", 0) for s in passes],
+           "dirty": [s["attrs"].get("dirty_rows", 0) for s in passes]}
+    if passes:
+        share = ctl_s / (ctl_s + engine_s)
+        print(f"# {tag}: {sum(out['passes'])} bindings in {len(passes)} engine pass(es) "
+              f"{out['passes']}; apply {apply_s:.4f} s + settle {wall:.4f} s = "
+              f"{apply_s + wall:.4f} s: gate and problem build {gate_s:.4f} s, engine "
+              f"pass {engine_s:.4f} s [{breakdown_line(ctl._engine)}], write-back "
+              f"{write_s:.4f} s; controller {ctl_s:.4f} s, {share:.3f} of the wave, "
+              f"{ctl_s / engine_s:.2f}x the engine pass; card {card}", flush=True)
+    else:
+        print(f"# {tag}: apply {apply_s:.4f} s + settle {wall:.4f} s ({steps} reconcile "
+              f"steps), no engine pass; card {card}", flush=True)
+    return out
+
+
+def drift_referent(engine, problems, current: dict, budget: int) -> list:
+    """``rebalance_np``'s trigger set over ``problems`` (the descheduler's
+    fresh candidates, in arrival order) on the engine's packed inputs: per
+    row the engine's candidate clusters after the host spread selection,
+    its strategy and replicas, and the numpy availability (with the quota
+    caps of ``referent_caps``). ``rebalance_np`` divides one row at a time
+    (about 1 ms a row at 5000 clusters), so each chunk first runs the
+    divider it calls, ``assign_batch_np``, over all its rows at once with
+    ``rebalance_np``'s arguments (no static weights, fresh; rows are
+    independent), on a pool of threads, and keeps its top ``budget`` rows
+    by (drift desc, arrival asc). ``rebalance_np`` then runs over the union
+    of those rows in arrival order: the whole set's top ``budget`` are
+    among them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from karmada_tpu_torch.refimpl import assign_batch_np
+    from karmada_tpu_torch.refimpl.divider import STATIC_WEIGHT
+    from karmada_tpu_torch.refimpl.preempt_np import rebalance_np
+    from karmada_tpu_torch.scheduler.spread import select_clusters_batch
+
+    snap = engine.snapshot
+    col = snap.index
+    compiled_all = [engine._compiled(p.placement) for p in problems]
+
+    def chunk_top(start: int) -> dict:
+        chunk = problems[start : start + engine.chunk_size]
+        b = len(chunk)
+        compiled = compiled_all[start : start + engine.chunk_size]
+        feasible, strategy, replicas, static_w, requests, prev, fresh = (
+            engine._pack_chunk(chunk, compiled, 0))
+        if (np.asarray(strategy[:b]) == STATIC_WEIGHT).any():
+            raise ValueError("drift_referent: rebalance_np divides without static weights")
+        caps = referent_caps(engine, chunk, requests)
+        avail = engine._availability_np(requests, replicas,
+                                        extras=() if caps is None else (caps,))
+        cand = select_clusters_batch(snap, chunk, compiled, 0, feasible, avail, prev)
+        cur = np.zeros((b, snap.num_clusters), np.int32)
+        for i, p in enumerate(chunk):
+            for nm, reps in current.get(p.key, {}).items():
+                cur[i, col[nm]] = reps
+        assignment, unsched = assign_batch_np(
+            np.asarray(strategy[:b]), np.asarray(replicas[:b]), np.asarray(cand[:b], bool),
+            np.zeros((b, snap.num_clusters), np.int32), np.asarray(avail[:b], np.int32),
+            cur, np.ones(b, bool))
+        drift = np.where(np.asarray(unsched, bool), 0,
+                         np.abs(np.asarray(assignment, np.int64) - cur).sum(axis=1))
+        order = sorted((i for i in range(b) if drift[i] > 0), key=lambda i: (-drift[i], i))
+        return {chunk[i].key: (np.array(cand[i], bool), int(strategy[i]), int(replicas[i]),
+                               np.array(avail[i], np.int32))
+                for i in order[:budget]}
+
+    tops: dict = {}
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        for top in pool.map(chunk_top, range(0, len(problems), engine.chunk_size)):
+            tops.update(top)
+    keys = [p.key for p in problems if p.key in tops]
+    return rebalance_np(
+        keys, names=snap.names, current=current,
+        candidates={k: v[0] for k, v in tops.items()},
+        strategies={k: v[1] for k, v in tops.items()},
+        replicas={k: v[2] for k, v in tops.items()},
+        avail={k: v[3] for k, v in tops.items()}, budget=budget)[1]
+
+
+def run_controller(device, card: str, bindings=None, clusters=None, scale: int = 1000,
+                   quota_rows: int = 20_000, residents: int = 20_000,
+                   surge: int = 1000) -> dict:
+    """The scheduler process on the card: a ``Store`` and a ``Runtime``
+    driving the port's ``SchedulerController`` (and a
+    ``ContinuousDescheduler`` scoring through it), from ResourceBinding
+    events to written placements. Every binding is built by
+    ``binding_objects`` and must round-trip to its recipe problem.
+
+    1. cold wave: config 5 (``build_workload``; 100k bindings x 5000
+       clusters) applied to the store and settled; every binding's written
+       placement and error equal those of the storm's cold pass run on the
+       controller's cluster order (a new engine over the controller's
+       snapshot, which sorts the clusters by name) and ``referent_results``
+       row for row;
+    2. a settle with nothing to do: the write-back's echoes enqueued
+       nothing, and a resync of every binding gates them all out (no
+       engine pass);
+    3. scale wave: ``scale`` bindings (seed 99) take new replica counts;
+       one engine pass over exactly them, each equal to the numpy divider;
+    4. drift round: every cluster's allocation drifts (``drift_snapshots``,
+       the store's Cluster objects in place, delivered as one cluster
+       event: each cluster event re-enqueues every binding, so one stands
+       for the lot) and re-gates nothing; one ``ContinuousDescheduler``
+       round at the default budget (64) triggers exactly
+       ``drift_referent``'s set, and the settle after it reschedules
+       exactly those bindings, each to the numpy divider's fresh ideal;
+    5. quota wave: the quota cell's recipe (``quota_workload``, cut to
+       ``quota_rows`` rows at the full cluster count) under one FRQ a
+       namespace whose status is not reconciled (so the snapshot reads the
+       usage from the store's bindings) and whose cpu limit is that usage
+       plus half the namespace's wave demand; the partition equals
+       ``admit_wave_np`` and the admitted rows the numpy divider; then one
+       namespace is raised and exactly its denied bindings are re-enqueued
+       and admitted;
+    6. preemption wave: ``preemption_scene`` (``residents`` residents at
+       the full cluster count): the residents' cold wave, the clusters'
+       cpu saturated by it (one cluster event), then ``surge``
+       priority-100 bindings; their wave's victims, eviction tasks and
+       placements equal ``preempt_and_place_np``'s.
+
+    Each wave prints its wall and split (``settle_wave``). Returns the
+    launch counts of the cold, quota and preemption waves and the waves'
+    numbers."""
+    import karmada_tpu_torch
+    from karmada_tpu_torch.controllers import ContinuousDescheduler, SchedulerController
+    from karmada_tpu_torch.controllers.rebalance import disruption_budget
+    from karmada_tpu_torch.scheduler import (
+        BindingProblem,
+        TensorScheduler,
+        build_quota_snapshot,
+    )
+    from karmada_tpu_torch.scheduler.quota import QUOTA_EXCEEDED_ERROR, UNLIMITED
+    from karmada_tpu_torch.utils import Runtime, Store
+
+    pkg = karmada_tpu_torch
+    on_card = device.type == "cuda"
+    out = {"waves": {}}
+
+    def plane():
+        store, rt = Store(), Runtime()
+        ctl = SchedulerController(store, rt, device=device)
+        # a reconcile that raises is not retried here: its wave fails
+        # (``settle_wave``) after one engine pass, not after the
+        # worker's bisection and 16 retries of a 100k-row batch
+        ctl.worker.MAX_RETRIES = ctl.worker.POISON_TOLERANCE = 0
+        return store, rt, ctl
+
+    def apply(store, objs) -> float:
+        t0 = time.perf_counter()
+        errors = store.apply_many(objs)
+        if errors:
+            raise AssertionError(f"controller: the store refused {len(errors)} objects")
+        return time.perf_counter() - t0
+
+    def round_trip(tag, ctl, problems) -> None:
+        bad = sum(ctl._problem_cache.get(p.key) != p for p in problems)
+        if bad:
+            raise AssertionError(f"{tag}: {bad} bindings' problems differ from the recipe's")
+
+    # -- 1. cold wave ------------------------------------------------------
+    t0 = time.perf_counter()
+    snap, problems = build_workload(pkg, 5, bindings, clusters)
+    cluster_objs, rbs, _ = binding_objects(pkg, snap, problems)
+    n = len(problems)
+    build_s = time.perf_counter() - t0
+    store, rt, ctl = plane()
+    desched = ContinuousDescheduler(store, rt, ctl)
+    desched.active = False  # rounds run by hand below
+    apply(store, cluster_objs)
+    reset_counts()
+    cold = settle_wave("controller cold wave", rt, ctl, device, card,
+                       apply(store, rbs))
+    out["cold_launches"] = read_counts()
+    out["waves"]["cold"] = cold
+    engine = ctl._engine
+    if cold["passes"] != [n] or engine._fleet is None:
+        raise AssertionError(f"controller cold wave: passes {cold['passes']}, fleet "
+                             f"{engine._fleet is not None}")
+    round_trip("controller cold wave", ctl, problems)
+    got = [written(rb) for rb in rbs]
+    t0 = time.perf_counter()
+    with uncounted():
+        ref = TensorScheduler(ctl._snapshot, chunk_size=4096, device=device).schedule(problems)
+    sync(device)
+    ref_s = time.perf_counter() - t0
+    bad_ref = int((written_digest(got) != written_digest(expected_written(problems, ref))).sum())
+    failed = sum(1 for w in got if w[2])
+    missed = unwritten(rbs)
+    t0 = time.perf_counter()
+    bad = written_check(engine, problems, rbs)
+    check_s = time.perf_counter() - t0
+    print(f"# controller cold wave: {n} bindings x {snap.num_clusters} clusters (build "
+          f"{build_s:.1f} s); {n - failed} placed, {missed} not written; written digest against the storm's cold "
+          f"pass on the controller's cluster order ({ref_s:.2f} s): {n - bad_ref} ok / "
+          f"{bad_ref} bad; numpy-divider check {n - bad} ok / {bad} bad ({check_s:.1f} s); "
+          f"launches { {k: v for k, v in out['cold_launches'].items() if v} }", flush=True)
+    if bad_ref or bad or missed:
+        raise AssertionError(f"controller cold wave: {bad_ref} rows differ from the storm's "
+                             f"cold pass, {bad} from the numpy divider, {missed} not written")
+    del ref
+
+    # -- 2. a settle with nothing to do -------------------------------------
+    before = engine.solve_batches
+    echoes = rt.pending()
+    idle = settle_wave("controller idle settle", rt, ctl, device, card)
+    t0 = time.perf_counter()
+    for rb in rbs:
+        ctl.worker.enqueue(("ResourceBinding", rb.meta.namespaced_name))
+    resync = settle_wave("controller resync (every binding re-gated)", rt, ctl, device,
+                         card, time.perf_counter() - t0)
+    if echoes or idle["steps"] or idle["passes"] or resync["passes"] or failed \
+            or engine.solve_batches != before:
+        raise AssertionError(f"controller idle settle: {echoes} echoes queued, passes "
+                             f"{idle['passes']} / {resync['passes']}, {failed} unplaced rows")
+    out["waves"]["resync"] = resync
+
+    # -- 3. scale wave -------------------------------------------------------
+    rng = np.random.default_rng(99)
+    idx = sorted(map(int, rng.choice(n, min(scale, n), replace=False)))
+    reps = rng.integers(1, 100, len(idx))
+    scaled, want = [], []
+    for i, r in zip(idx, reps):
+        rb, p = rbs[i], problems[i]
+        r = int(r) if int(r) != rb.spec.replicas else int(r) + 1
+        rb.spec.replicas = r
+        rb.meta.generation += 1
+        scaled.append(rb)
+        want.append(BindingProblem(
+            key=p.key, placement=p.placement, replicas=r, requests=p.requests, gvk=p.gvk,
+            prev={tc.name: tc.replicas for tc in rb.spec.clusters}))
+    wave = settle_wave("controller scale wave", rt, ctl, device, card, apply(store, scaled))
+    out["waves"]["scale"] = wave
+    round_trip("controller scale wave", ctl, want)
+    bad = written_check(engine, want, scaled) + unwritten(scaled)
+    print(f"# controller scale wave: {len(scaled)} bindings (seed 99); dirty rows "
+          f"{wave['dirty']}; written and held to the numpy divider {len(scaled) - bad} ok / "
+          f"{bad} bad", flush=True)
+    if wave["passes"] != [len(scaled)] or bad:
+        raise AssertionError(f"controller scale wave: passes {wave['passes']}, {bad} rows "
+                             "unwritten or differ from the numpy divider")
+
+    # -- 4. drift round ------------------------------------------------------
+    drift_snapshots(pkg, ctl._snapshot, 1)
+    t0 = time.perf_counter()
+    store.apply(ctl._snapshot.clusters[0])
+    regate = settle_wave("controller drift re-gate", rt, ctl, device, card,
+                         time.perf_counter() - t0)
+    if regate["passes"]:
+        raise AssertionError(f"controller drift re-gate scheduled {regate['passes']}")
+    cands = desched._candidates()
+    current = {rb.meta.namespaced_name: {tc.name: tc.replicas for tc in rb.spec.clusters}
+               for _, rb, _ in cands}
+    # the round's split: its candidates' problem build and its dry solve
+    # (instance wrappers; the rest is scoring and stamping)
+    split = {}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                split[name] = time.perf_counter() - t
+        return call
+
+    desched._candidates = timed("candidates", desched._candidates)
+    ctl.dry_solve = timed("dry solve", ctl.dry_solve)
+    t0 = time.perf_counter()
+    stats = desched.rebalance_once()
+    round_s = time.perf_counter() - t0
+    dry_bd = breakdown_line(ctl._engine)
+    del desched._candidates, ctl.dry_solve
+    budget = disruption_budget()
+    t0 = time.perf_counter()
+    want_keys = drift_referent(ctl._engine, [p for _, _, p in cands], current, budget)
+    ref_s = time.perf_counter() - t0
+    trig = stats["triggered"]
+    replace = settle_wave("controller drift settle", rt, ctl, device, card)
+    fresh = [ctl._problem_cache[k] for k in trig]
+    moved = [store.get("ResourceBinding", k) for k in trig]
+    bad = written_check(ctl._engine, fresh, moved) + unwritten(moved, placed=True)
+    stale = sum(rb.status.last_scheduled_time < rb.spec.reschedule_triggered_at
+                for rb in moved)
+    print(f"# controller drift round: {stats['scored']} scored, {stats['drifted']} drifted, "
+          f"{len(trig)} of budget {budget} triggered in {round_s:.4f} s (candidates "
+          f"{split['candidates']:.4f} s, dry solve {split['dry solve']:.4f} s "
+          f"[{dry_bd}], scoring and stamps "
+          f"{round_s - split['candidates'] - split['dry solve']:.4f} s); rebalance_np's set {'equal' if trig == want_keys else 'DIFFERENT'} "
+          f"({ref_s:.1f} s); settle rescheduled {replace['passes']}; {len(trig) - bad} "
+          f"re-placed at the numpy divider's fresh ideal / {bad} bad; card {card}",
+          flush=True)
+    if trig != want_keys or replace["passes"] != [len(trig)] or bad or stale \
+            or len(trig) != min(budget, stats["drifted"]) or not trig:
+        raise AssertionError(f"controller drift round: triggered {len(trig)}, referent "
+                             f"{len(want_keys)}, passes {replace['passes']}, {bad} bad, "
+                             f"{stale} unconsumed")
+    out["waves"]["drift"] = dict(replace, round_s=round_s, triggered=len(trig),
+                                 drifted=stats["drifted"], **split)
+    del store, rt, ctl, desched, rbs, cands, engine
+
+    # -- 5. quota wave -------------------------------------------------------
+    snap, qprobs = quota_workload(pkg, quota_rows, clusters)
+    for p in qprobs:
+        p.key = f"{p.namespace}/{p.key}"
+    ns_index = {ns: k for k, ns in enumerate(QUOTA_NAMESPACES)}
+    ns_ids, demand = wave_demand(snap, qprobs, ns_index)
+    cpu_dim = list(snap.dims).index("cpu")
+    used = {ns: 0 for ns in QUOTA_NAMESPACES}
+    wave_cpu = {ns: 0 for ns in QUOTA_NAMESPACES}
+    for i, p in enumerate(qprobs):
+        used[p.namespace] += sum(p.prev.values()) * int(p.requests.get("cpu", 0))
+        wave_cpu[p.namespace] += int(demand[i, cpu_dim])
+    limits = {ns: {"cpu": used[ns] + wave_cpu[ns] // 2} for ns in QUOTA_NAMESPACES}
+    cluster_objs, qrbs, frqs = binding_objects(pkg, snap, qprobs, limits)
+    store, rt, ctl = plane()
+    apply(store, cluster_objs)
+    apply(store, frqs)
+
+    def quota_rem0():
+        """The remaining quota a wave starts from: the FRQs packed against
+        the controller's cluster order, the usage read from the store."""
+        from karmada_tpu_torch.scheduler import ClusterSnapshot
+
+        snap_c = ClusterSnapshot(ctl._sorted_clusters())
+        q = build_quota_snapshot(store.list("FederatedResourceQuota"), snap_c, 0, store=store)
+        return snap_c, q, q.remaining.copy()
+
+    t0 = time.perf_counter()
+    store.apply_many(qrbs)
+    apply_s = time.perf_counter() - t0
+    snap_c, q0, rem0 = quota_rem0()
+    want_rem = np.array([[limits[ns]["cpu"] - used[ns] if j == cpu_dim else UNLIMITED
+                          for j in range(len(snap_c.dims))] for ns in sorted(limits)])
+    if not np.array_equal(rem0, np.maximum(want_rem, 0)):
+        raise AssertionError("controller quota wave: the store's usage was not read")
+    reset_counts()
+    wave = settle_wave("controller quota wave", rt, ctl, device, card, apply_s)
+    out["quota_launches"] = read_counts()
+    out["waves"]["quota"] = wave
+    if on_card and out["quota_launches"]["quota_admit"] != 1:
+        raise AssertionError(f"controller quota wave: {out['quota_launches']['quota_admit']} "
+                             "K12 launches")
+    round_trip("controller quota wave", ctl, qprobs)
+    res = [Written(rb) for rb in qrbs]
+    adm, den, _ = check_partition("controller quota wave", snap_c, qprobs, res, q0, rem0)
+    ok_rows = [i for i, r in enumerate(res) if r.error != QUOTA_EXCEEDED_ERROR]
+    bad = written_check(ctl._engine, [qprobs[i] for i in ok_rows], [qrbs[i] for i in ok_rows])
+    bad += unwritten(qrbs)
+    print(f"# controller quota wave: {len(qprobs)} bindings x {snap.num_clusters} clusters "
+          f"in {len(QUOTA_NAMESPACES)} namespaces ({CAP_NAMESPACES} capped; rows cut from "
+          f"100000 to {len(qprobs)}); {adm} quota'd rows admitted, {den} denied, equal to "
+          f"admit_wave_np; admitted rows against the numpy divider (and every row written) "
+          f"{len(ok_rows) - bad} ok / {bad} bad; K12 launches {out['quota_launches']['quota_admit']}", flush=True)
+    if not (adm and den) or bad:
+        raise AssertionError(f"controller quota wave: admitted {adm}, denied {den}, {bad} bad")
+    raised = "nsq02"
+    denied = {("ResourceBinding", qprobs[i].key) for i, r in enumerate(res)
+              if r.error == QUOTA_EXCEEDED_ERROR and qprobs[i].namespace == raised}
+    frq = store.get("FederatedResourceQuota", f"{raised}/quota")
+    frq.spec.overall = {"cpu": 1 << 40}
+    t0 = time.perf_counter()
+    store.apply(frq)
+    apply_s = time.perf_counter() - t0
+    queued = set(ctl.worker._queued)
+    if not denied or queued != denied:
+        raise AssertionError(f"controller quota raise: {len(queued)} bindings re-enqueued, "
+                             f"{len(denied)} denied in {raised}")
+    rows = [i for i, p in enumerate(qprobs) if ("ResourceBinding", p.key) in denied]
+    snap_c, q0, rem0 = quota_rem0()
+    wave = settle_wave(f"controller quota raise of {raised}", rt, ctl, device, card, apply_s)
+    out["waves"]["quota raise"] = wave
+    sub_p, sub_b = [qprobs[i] for i in rows], [qrbs[i] for i in rows]
+    adm, den, _ = check_partition("controller quota raise", snap_c, sub_p,
+                                  [Written(rb) for rb in sub_b], q0, rem0)
+    bad = written_check(ctl._engine, sub_p, sub_b) + unwritten(sub_b, placed=True)
+    print(f"# controller quota raise of {raised}: exactly its {len(denied)} denied bindings "
+          f"re-enqueued; {adm} admitted, {den} denied, equal to admit_wave_np; numpy-divider "
+          f"check {len(rows) - bad} ok / {bad} bad", flush=True)
+    if den or bad or wave["passes"] != [len(rows)]:
+        raise AssertionError(f"controller quota raise: {den} denied, {bad} bad, passes "
+                             f"{wave['passes']}")
+    del store, rt, ctl, qrbs, qprobs
+
+    # -- 6. preemption wave --------------------------------------------------
+    snap, low, hi, req = preemption_scene(residents, clusters or 5000, surge)
+    cluster_objs, low_rbs, _ = binding_objects(pkg, snap, low)
+    _, hi_rbs, _ = binding_objects(pkg, snap, hi)
+    store, rt, ctl = plane()
+    apply(store, cluster_objs)
+    wave = settle_wave("controller preemption residents' wave", rt, ctl, device, card,
+                       apply(store, low_rbs))
+    out["waves"]["residents"] = wave
+    placements = [dict(written(rb)[1]) for rb in low_rbs]
+    missed = unwritten(low_rbs, placed=True)
+    if missed:
+        raise AssertionError(f"controller preemption: {missed} residents lack Scheduled=True")
+    for cl, sat in zip(snap.clusters, saturated_clusters(snap.clusters, placements, req)):
+        cl.status = sat.status
+    t0 = time.perf_counter()
+    store.apply(snap.clusters[0])
+    regate = settle_wave("controller preemption saturation re-gate", rt, ctl, device, card,
+                         time.perf_counter() - t0)
+    if regate["passes"]:
+        raise AssertionError(f"controller preemption re-gate scheduled {regate['passes']}")
+    reset_counts()
+    wave = settle_wave("controller preemption surge wave", rt, ctl, device, card,
+                       apply(store, hi_rbs), max_steps=1)
+    out["preempt_launches"] = read_counts()
+    out["waves"]["surge"] = wave
+    outcome = ctl._engine.last_preemption
+    if outcome is None or not outcome.victims or wave["passes"] != [len(hi)]:
+        raise AssertionError(f"controller preemption: passes {wave['passes']}, outcome "
+                             f"{outcome}")
+    if on_card and out["preempt_launches"]["preempt_select"] != 1:
+        raise AssertionError(f"controller preemption: "
+                             f"{out['preempt_launches']['preempt_select']} K15 launches")
+    sat_snap = ctl._engine.snapshot
+    dims = list(sat_snap.dims)
+    base_caps = np.asarray(sat_snap.available_cap)
+    if int(np.maximum(base_caps[:, dims.index("cpu")], 0).sum()) != 0:
+        raise AssertionError("controller preemption: free cpu remains after saturation")
+    pool = [BindingProblem(key=p.key, placement=p.placement, replicas=p.replicas,
+                           requests=p.requests, gvk=p.gvk, prev=pl, namespace=p.namespace)
+            for p, pl in zip(low, placements)]
+    keys = set(outcome.placed) | set(outcome.still_unschedulable)
+    demanders = [p for p in hi if p.key in keys]
+    t0 = time.perf_counter()
+    want_victims, want_placed = preempt_referent(demanders, pool, sat_snap.names, dims,
+                                                 base_caps)
+    check_s = time.perf_counter() - t0
+    got_victims = {v[0] for v in outcome.victims}
+    prev_of = {p.key: p.prev for p in pool}
+    bad_tasks = 0
+    for key in got_victims:
+        rb = store.get("ResourceBinding", key)
+        tasks = {t.from_cluster: t.replicas for t in rb.spec.graceful_eviction_tasks
+                 if t.reason == "PreemptedByHigherPriority"}
+        cond = next((c for c in rb.status.conditions if c.type == "Preempted"), None)
+        bad_tasks += (tasks != prev_of[key] or rb.spec.clusters != [] or cond is None
+                      or not cond.status)
+    by_key = {rb.meta.namespaced_name: rb for rb in hi_rbs}
+    bad_placed = sum(dict(written(by_key[p.key])[1]) != want_placed[p.key]
+                     for p in demanders) + unwritten(hi_rbs)
+    bad_victims = len(got_victims ^ set(want_victims))
+    rest = settle_wave("controller preemption victims' wave", rt, ctl, device, card)
+    out["waves"]["victims"] = rest
+    # the victims' own wave: each rescheduled once with its evicted
+    # clusters excluded, written, and held to the numpy divider
+    vkeys = sorted(got_victims)
+    vprobs = [ctl._problem_cache[k] for k in vkeys]
+    vrbs = [store.get("ResourceBinding", k) for k in vkeys]
+    bad_rest = sum(bool(p.prev) or set(p.evict_clusters) != set(prev_of[p.key])
+                   or set(p.preempt_clusters) != set(prev_of[p.key]) for p in vprobs)
+    t0 = time.perf_counter()
+    bad_rest += written_check(ctl._engine, vprobs, vrbs) + unwritten(vrbs)
+    rest_s = time.perf_counter() - t0
+    print(f"# controller preemption: {residents} residents x {snap.num_clusters} clusters "
+          f"(rows cut from 100000), {len(hi)} priority-100 bindings: {len(got_victims)} "
+          f"victims ({bad_victims} differ from preempt_and_place_np; {bad_tasks} with wrong "
+          f"eviction tasks or conditions), {len(outcome.placed)} placed, "
+          f"{len(outcome.still_unschedulable)} still unschedulable; demanders' placements "
+          f"{len(demanders) - bad_placed} ok / {bad_placed} bad ({check_s:.1f} s); the "
+          f"victims' own wave {rest['passes']}, held to the numpy divider with their "
+          f"clusters excluded {len(vkeys) - bad_rest} ok / {bad_rest} bad ({rest_s:.1f} s); "
+          f"K15 launches "
+          f"{out['preempt_launches']['preempt_select']}; card {card}", flush=True)
+    if bad_victims or bad_tasks or bad_placed or bad_rest or not outcome.placed \
+            or rest["passes"] != [len(vkeys)]:
+        raise AssertionError(f"controller preemption: {bad_victims} victims, {bad_tasks} "
+                             f"tasks, {bad_placed} placements and {bad_rest} victims' "
+                             f"reschedules differ; victims' passes {rest['passes']}")
+    return out
 
 
 def check_shape_limits(device, card: str) -> dict:
@@ -4164,6 +4860,13 @@ def main() -> int:
         require_launched("preemption", out["launches"])
         paths["preemption"] = out
 
+    def controller():
+        out = run_controller(device, card)
+        require_launched("controller cold", out["cold_launches"])
+        require_launched("controller quota", out["quota_launches"])
+        require_launched("controller preemption", out["preempt_launches"])
+        paths["controller"] = out
+
     def limits():
         out = check_shape_limits(device, card)
         require_launched("wide fleet", out["wide fleet"]["launches"])
@@ -4175,7 +4878,8 @@ def main() -> int:
                      ("explain fleet", explain_fleet), ("legacy", legacy), ("mixed", mixed),
                      ("mixed legacy", mixed_legacy), ("general", general),
                      ("models", models), ("estimator", estimator),
-                     ("quota", quota), ("ranked", ranked), ("preemption", preemption)):
+                     ("quota", quota), ("ranked", ranked), ("preemption", preemption),
+                     ("controller", controller)):
         phase(name, fn)
 
     # launches: each kernel's count on the path that drives it
@@ -4204,6 +4908,12 @@ def main() -> int:
           f"; K17 launches: ranked pass {paths['ranked']['launches']['first_fit_group']}, "
           f"preemption surge {paths['preemption']['launches']['first_fit_group']}",
           flush=True)
+    ctl = paths["controller"]
+    print("# controller launches (through SchedulerController): cold wave "
+          + ", ".join(f"{k} {ctl['cold_launches'][k]}"
+                      for k in ("fleet_masks", "divide_replicas", "fleet_diff", "fleet_wire"))
+          + f"; quota wave quota_admit {ctl['quota_launches']['quota_admit']}; preemption "
+          f"surge preempt_select {ctl['preempt_launches']['preempt_select']}", flush=True)
     entries = []
     for name in KERNELS:
         key, on = where.get(name, ("storm", "config 5 fleet passes"))

@@ -1,16 +1,37 @@
-"""Work API: the replica requirements an estimator answers for.
+"""Work API: ResourceBinding (the scheduling unit) and the replica
+requirements an estimator answers for.
 
-The port's own copy of the estimator-facing subset of
-``karmada_tpu.api.work`` (``NodeClaim``, ``ReplicaRequirements``).
+The port's own copy of the binding half of ``karmada_tpu.api.work``;
+``Work`` and its manifests belong to the propagation controllers, which the
+port does not carry yet.
 
-Ref: pkg/apis/work/v1alpha2/binding_types.go — ReplicaRequirements (:193)
-and NodeClaim.
+Ref: pkg/apis/work/v1alpha2/binding_types.go — ResourceBinding (:58),
+ReplicaRequirements (:193), TargetCluster (:229), GracefulEvictionTask (:238),
+BindingSnapshot/RequiredBy (:309), status (:326-353).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Optional
+
+from .core import Condition, ObjectMeta, ObjectReference
+from .policy import Placement
+
+# Binding condition type (binding_types.go:355-371)
+SCHEDULED = "Scheduled"
+
+# Eviction producers/reasons (binding_types.go well-knowns)
+EVICTION_REASON_APPLICATION_FAILURE = "ApplicationFailure"
+# victim evictions produced by the batched preemption kernel (K15)
+EVICTION_PRODUCER_PREEMPTION = "PreemptionKernel"
+EVICTION_REASON_PREEMPTED = "PreemptedByHigherPriority"
+# victim condition type
+PREEMPTED = "Preempted"
+# PurgeMode
+PURGE_IMMEDIATELY = "Immediately"
+PURGE_GRACIOUSLY = "Graciously"
+PURGE_NEVER = "Never"
 
 
 @dataclass
@@ -33,3 +54,109 @@ class ReplicaRequirements:
     node_claim: Optional[NodeClaim] = None
     namespace: str = ""
     priority_class_name: str = ""
+
+
+@dataclass
+class TargetCluster:
+    """One schedule-result entry. Ref: binding_types.go:229-236."""
+
+    name: str
+    replicas: int = 0
+
+
+@dataclass
+class GracefulEvictionTask:
+    """Ref: binding_types.go:238-307."""
+
+    from_cluster: str
+    replicas: int = 0
+    reason: str = ""
+    message: str = ""
+    producer: str = ""
+    purge_mode: str = PURGE_GRACIOUSLY
+    grace_period_seconds: Optional[int] = None
+    suppress_deletion: Optional[bool] = None
+    creation_timestamp: float = 0.0
+    # state carried over for stateful failover (PreservedLabelState)
+    preserved_label_state: dict[str, str] = field(default_factory=dict)
+    clusters_before_failover: list[str] = field(default_factory=list)
+
+
+@dataclass
+class BindingSnapshot:
+    """Dependent-binding shadow of another binding's schedule result.
+    Ref: binding_types.go:309-324 (RequiredBy)."""
+
+    namespace: str = ""
+    name: str = ""
+    clusters: list[TargetCluster] = field(default_factory=list)
+
+
+@dataclass
+class AggregatedStatusItem:
+    """Per-cluster aggregated status. Ref: binding_types.go:326-353."""
+
+    cluster_name: str
+    status: Optional[dict] = None
+    applied: bool = False
+    health: str = "Unknown"  # Healthy | Unhealthy | Unknown
+    applied_message: str = ""
+
+
+@dataclass
+class ResourceBindingSpec:
+    """Ref: binding_types.go:58-148."""
+
+    resource: ObjectReference = field(default_factory=ObjectReference)
+    replicas: int = 0
+    replica_requirements: Optional[ReplicaRequirements] = None
+    placement: Optional[Placement] = None
+    # scheduling priority class: orders waves and ranks preemption victims
+    # (0 = never preempts, preemptible by any class above it)
+    priority: int = 0
+    clusters: list[TargetCluster] = field(default_factory=list)
+    graceful_eviction_tasks: list[GracefulEvictionTask] = field(default_factory=list)
+    required_by: list[BindingSnapshot] = field(default_factory=list)
+    reschedule_triggered_at: Optional[float] = None
+    conflict_resolution: str = "Abort"
+    failover: Optional[Any] = None  # FailoverBehavior snapshot from policy
+    propagate_deps: bool = False
+    suspend_dispatching: bool = False
+    # per-cluster dispatch suspension (Suspension.DispatchingOnClusters,
+    # binding_types.go:150-153)
+    suspend_dispatching_on_clusters: Optional[list[str]] = None
+    preserve_resources_on_deletion: bool = False
+    scheduler_name: str = "default-scheduler"
+
+
+@dataclass
+class ResourceBindingStatus:
+    """Ref: binding_types.go:326-353."""
+
+    scheduler_observed_generation: int = 0
+    scheduler_observed_affinity_name: str = ""
+    last_scheduled_time: Optional[float] = None
+    conditions: list[Condition] = field(default_factory=list)
+    aggregated_status: list[AggregatedStatusItem] = field(default_factory=list)
+
+
+@dataclass
+class ResourceBinding:
+    KIND = "ResourceBinding"
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: ResourceBindingSpec = field(default_factory=ResourceBindingSpec)
+    status: ResourceBindingStatus = field(default_factory=ResourceBindingStatus)
+
+    @property
+    def cluster_scoped(self) -> bool:
+        return False
+
+
+@dataclass
+class ClusterResourceBinding(ResourceBinding):
+    KIND = "ClusterResourceBinding"
+
+    @property
+    def cluster_scoped(self) -> bool:
+        return True

@@ -195,8 +195,11 @@ def rebalance_np(
             drifts[key] = 0  # nowhere better to go: no drift trigger
             continue
         drifts[key] = int(np.abs(assignment[0] - prev_row).sum())
+    arrival: dict[str, int] = {}
+    for i, k in enumerate(keys):
+        arrival.setdefault(k, i)
     ranked = sorted(
         (k for k in keys if drifts.get(k, 0) > 0),
-        key=lambda k: (-drifts[k], list(keys).index(k)),
+        key=lambda k: (-drifts[k], arrival[k]),
     )
     return drifts, ranked[: max(int(budget), 0)]

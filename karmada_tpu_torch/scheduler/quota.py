@@ -117,7 +117,8 @@ def per_replica_vector(requests: dict, dims: Sequence[str]) -> np.ndarray:
 
 def usage_from_bindings(store, namespaces) -> dict:
     """namespace -> {resource: used} from bound ResourceBindings
-    (``store.list("ResourceBinding")``, duck-typed: the port has no store):
+    (``store.list("ResourceBinding")`` of the port's ``utils.Store``, as the
+    scheduler process hands it to ``build_quota_snapshot``):
     ``assigned replicas x per-replica request`` per resource, each
     replica occupying one pod (the same projection demand_row applies,
     so demand and usage can never disagree). THE single source of the

@@ -1,6 +1,8 @@
 """Shared utilities: quantities, the feature gate, object builders, reason
-codes, the wave tracer (``tracing``) and the provenance store
-(``explainstore``)."""
+codes, the wave tracer (``tracing``), the provenance store
+(``explainstore``), the metric registry (``metrics``), and the control
+plane's object store (``store``) and cooperative worker runtime
+(``worker``)."""
 
 from .quantity import (  # noqa: F401
     CPU,
@@ -9,3 +11,5 @@ from .quantity import (  # noqa: F401
     parse_quantity,
     parse_resource_list,
 )
+from .store import Event, Store, obj_key, obj_kind  # noqa: F401
+from .worker import DONE, REQUEUE, Runtime, Worker  # noqa: F401

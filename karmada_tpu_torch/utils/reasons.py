@@ -1,15 +1,17 @@
 """Reason codes of the scheduling pipeline: the port's copy of the part of
-``karmada_tpu/utils/reasons.py`` the engine emits.
+``karmada_tpu/utils/reasons.py`` the engine and the scheduler process emit.
 
 The decision stages are listed in exclusion-bit order (``STAGE_REASONS[i]``
 is bit ``i`` of the explain plane's per-cluster mask), then the
-``Scheduled`` condition codes, and ``classify_error`` maps an engine
-``ScheduleResult.error`` onto them. The quota plane takes its
-``QuotaExceeded`` code from here.
+``Scheduled`` condition codes and the descheduler's event code, and
+``classify_error`` maps an engine ``ScheduleResult.error`` onto them. The
+quota plane takes its ``QuotaExceeded`` code from here; ``TransitionDedup``
+gates the scheduler process's per-transition counters.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
@@ -20,7 +22,7 @@ class Reason:
     of a ``kind="stage"`` reason (None otherwise)."""
 
     code: str
-    #: "stage" | "condition"
+    #: "stage" | "condition" | "event"
     kind: str
     description: str
     stage_bit: Optional[int] = None
@@ -72,6 +74,11 @@ REASONS: dict[str, Reason] = {
                "none schedules"),
         Reason("Unschedulable", "condition",
                "binding not scheduled for an unclassified engine reason"),
+        Reason("RebalanceTriggered", "event",
+               "continuous-descheduler drift re-placement: the binding's "
+               "resident placement scored worse than a fresh solve and a "
+               "RescheduleTriggeredAt was stamped within the disruption "
+               "budget — also a karmada_tpu_preemptions_total reason label"),
     )
 }
 
@@ -93,3 +100,34 @@ def classify_error(error: str) -> str:
         if needle in error:
             return code
     return "Unschedulable"
+
+
+class TransitionDedup:
+    """Once-per-transition counter gate.
+
+    ``observe(key, reason, generation)`` answers True exactly when the
+    (reason, generation) pair differs from the last observation for
+    ``key`` — so a parked binding re-enqueued across passes within one
+    generation can never double-increment ``quota_denied_total`` /
+    ``unschedulable_total``, while a NEW generation (quota moved, spec
+    changed) counts again. Bounded by ``cap`` (full = wholesale reset —
+    counters over-count once rather than grow without bound)."""
+
+    def __init__(self, cap: int = 1 << 20):
+        self.cap = cap
+        self._lock = threading.Lock()
+        self._last: dict = {}
+
+    def observe(self, key, reason: str, generation=None) -> bool:
+        state = (reason, generation)
+        with self._lock:
+            if self._last.get(key) == state:
+                return False
+            if len(self._last) >= self.cap and key not in self._last:
+                self._last.clear()
+            self._last[key] = state
+            return True
+
+    def forget(self, key) -> None:
+        with self._lock:
+            self._last.pop(key, None)

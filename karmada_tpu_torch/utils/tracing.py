@@ -4,7 +4,11 @@
 A monotonic WAVE id is stamped when new work enters the plane
 (``begin_wave``/``ensure_wave``) and closed at quiescence (``end_wave``);
 every instrumented region records a ``Span`` carrying that wave id and its
-parent span id, in a bounded ring. The engine reads
+parent span id, in a bounded ring. ``Runtime.run_until_settled`` opens the
+wave of a settle and records its ``settle`` span with one
+``controller.<worker>`` child per worker drain; the scheduler process records
+one ``scheduler.pass`` span per engine pass under it (attrs ``bindings``,
+``dirty_rows``, ``preempted``). The engine reads
 ``tracer.current_context().wave`` to stamp its provenance captures and
 records ``scheduler.explain`` and ``scheduler.preempt`` spans.
 

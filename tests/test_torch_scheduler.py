@@ -236,7 +236,10 @@ def test_port_imports_without_jax_or_karmada_tpu():
     assert {"karmada_tpu_torch.ops.explain", "karmada_tpu_torch.ops.preempt",
             "karmada_tpu_torch.utils.explainstore", "karmada_tpu_torch.utils.tracing",
             "karmada_tpu_torch.refimpl.explain_np",
-            "karmada_tpu_torch.refimpl.preempt_np"} <= set(mods)
+            "karmada_tpu_torch.refimpl.preempt_np",
+            "karmada_tpu_torch.controllers.scheduler_controller",
+            "karmada_tpu_torch.controllers.rebalance", "karmada_tpu_torch.utils.store",
+            "karmada_tpu_torch.utils.worker", "karmada_tpu_torch.utils.metrics"} <= set(mods)
     code = f"""
 import importlib, importlib.abc, sys
 sys.modules["jax"] = None
