@@ -137,6 +137,21 @@
      gate and problem build, engine pass and write-back, and the
      controller's share. K3, K2, K4 and K5 must launch in the cold wave,
      K12 in the quota wave and K15 in the preemption surge.
+   - the control plane's propagation path (``run_plane``): the port's
+     ``ControlPlane`` on BASELINE config 4 (10k Deployments x 500 member
+     clusters whose NodeStates sum to the recipe's summaries, config 4's
+     PropagationPolicy and a registry OverridePolicy on one region): join
+     (every Cluster Ready with its recipe summary), a cold wave (every
+     binding equal to the numpy divider on the plane's own engine
+     snapshot, one Work per placed cluster, every member holding exactly
+     its Deployments with the divided replicas and the override's image on
+     its region), a status round (status back to every template), a
+     1000-template scale wave (one engine pass over exactly them, no other
+     Work written again) and a 1000-template delete wave (their bindings,
+     Works and member objects gone, nothing else touched); each wave's wall
+     split into store apply, detector, scheduler gate, engine pass, binding
+     render, execution apply and status collection. K1's table form, K3,
+     K2, K4 and K5 must launch in the cold wave.
    Each path sets the launch counters to 0 just before it and reads them
    just after; every kernel of the path must have launched.
 4. prints one JSON line of per-kernel numbers, the card line again, and last
@@ -200,6 +215,22 @@ def with_default_models(pkg, clusters, seed: int = 5, max_count: int = 6) -> Non
         ]
 
 
+def config4_placement(pkg):
+    """BASELINE config 4's placement: Divided by available replicas over the
+    ``env=prod`` clusters, spread over 2-4 regions and 2-10 clusters."""
+    api = importlib.import_module(f"{pkg.__name__}.api")
+    b = importlib.import_module(f"{pkg.__name__}.utils.builders")
+    return b.dynamic_weight_placement(
+        cluster_affinity=api.ClusterAffinity(
+            label_selector=api.LabelSelector(match_labels={"env": "prod"})
+        ),
+        spread_constraints=[
+            api.SpreadConstraint(spread_by_field="region", min_groups=2, max_groups=4),
+            api.SpreadConstraint(spread_by_field="cluster", min_groups=2, max_groups=10),
+        ],
+    )
+
+
 def build_workload(pkg, config: int, bindings: int | None = None,
                    clusters: int | None = None, models: bool = False):
     """(snapshot, problems) of BASELINE config 1, 2, 3, 4 or 5, built with the
@@ -249,15 +280,7 @@ def build_workload(pkg, config: int, bindings: int | None = None,
         return s.ClusterSnapshot(fleet), problems
     if config == 4:
         fleet = b.synthetic_fleet(clusters or 500, seed=4)
-        pl = b.dynamic_weight_placement(
-            cluster_affinity=api.ClusterAffinity(
-                label_selector=api.LabelSelector(match_labels={"env": "prod"})
-            ),
-            spread_constraints=[
-                api.SpreadConstraint(spread_by_field="region", min_groups=2, max_groups=4),
-                api.SpreadConstraint(spread_by_field="cluster", min_groups=2, max_groups=10),
-            ],
-        )
+        pl = config4_placement(pkg)
         problems = [
             s.BindingProblem(key=f"b{i}", placement=pl, replicas=(i % 40) + 1,
                              requests=req, gvk="apps/v1/Deployment")
@@ -349,6 +372,79 @@ def binding_objects(pkg, snap, problems, limits: dict | None = None,
         ))
     frqs = [] if limits is None else quota_frqs(pkg, snap, limits, used, caps)
     return list(snap.clusters), out, frqs
+
+
+#: the plane cell's OverridePolicy: a registry override on one region's
+#: clusters, so the override manager runs on a share of the Works
+PLANE_OVERRIDE_REGION = "region-5"
+PLANE_REGISTRY = "mirror.example.com"
+PLANE_NODES = 4  # NodeStates a member
+
+
+def member_nodes(pkg, cluster, k: int = PLANE_NODES) -> list:
+    """``k`` NodeStates whose sums are ``cluster``'s recipe allocatable and
+    allocated (the remainders on the first node): what the cluster status
+    controller sums back into the same summary."""
+    NodeState = importlib.import_module(f"{pkg.__name__}.estimator.accurate").NodeState
+    rs = cluster.status.resource_summary
+    nodes = [NodeState(name=f"{cluster.name}-n{j}") for j in range(k)]
+    for total, attr in ((rs.allocatable, "allocatable"), (rs.allocated, "requested")):
+        for r, v in total.items():
+            q, rem = divmod(int(v), k)
+            for j, node in enumerate(nodes):
+                getattr(node, attr)[r] = q + (rem if j == 0 else 0)
+    return nodes
+
+
+def plane_objects(pkg, templates: int = 10_000, clusters: int = 500) -> dict:
+    """BASELINE config 4 as the control plane receives it, built with the
+    modules of ``pkg``: ``synthetic_fleet(clusters, seed=4)`` as Cluster
+    objects, one MemberCluster each whose NodeStates sum to its recipe
+    summary (``member_nodes``), ``templates`` Deployments ``d{i}`` with
+    replicas ``(i % 40) + 1`` (config 4's requests: 250m cpu and 512Mi),
+    one PropagationPolicy with config 4's placement, and one OverridePolicy
+    whose ImageOverrider rewrites the registry on the clusters of
+    ``PLANE_OVERRIDE_REGION``."""
+    api = importlib.import_module(f"{pkg.__name__}.api")
+    pol = importlib.import_module(f"{pkg.__name__}.api.policy")
+    b = importlib.import_module(f"{pkg.__name__}.utils.builders")
+    member = importlib.import_module(f"{pkg.__name__}.utils.member")
+    fleet = b.synthetic_fleet(clusters, seed=4)
+    members = []
+    for cl in fleet:
+        m = member.MemberCluster(cl.name)
+        m.nodes = member_nodes(pkg, cl)
+        members.append(m)
+    selectors = [pol.ResourceSelector(api_version="apps/v1", kind="Deployment")]
+    policy = pol.PropagationPolicy(
+        meta=api.ObjectMeta(name="config4", namespace="default"),
+        spec=pol.PropagationSpec(resource_selectors=selectors,
+                                 placement=config4_placement(pkg)))
+    override = pol.OverridePolicy(
+        meta=api.ObjectMeta(name="regional-mirror", namespace="default"),
+        spec=pol.OverrideSpec(resource_selectors=selectors, override_rules=[
+            pol.RuleWithCluster(
+                target_cluster=pol.ClusterAffinity(field_selector=pol.FieldSelector(
+                    match_expressions=[pol.LabelSelectorRequirement(
+                        key="region", operator="In", values=(PLANE_OVERRIDE_REGION,))])),
+                overriders=pol.Overriders(image_overrider=[pol.ImageOverrider(
+                    component="Registry", operator="replace", value=PLANE_REGISTRY)]))]))
+    deployments = [b.new_deployment(f"d{i}", replicas=(i % 40) + 1)
+                   for i in range(templates)]
+    return {"clusters": fleet, "members": members, "deployments": deployments,
+            "policy": policy, "override": override}
+
+
+def plane_picks(templates: int, scale: int, delete: int) -> tuple[dict, list]:
+    """The plane's later waves, from seed 99: ``scale`` templates' indices
+    with new replica counts in [1, 40], each other than its count
+    ``(i % 40) + 1``, and ``delete`` other templates' indices."""
+    rng = np.random.default_rng(99)
+    picked = [int(i) for i in rng.choice(templates, scale + delete, replace=False)]
+    reps = rng.integers(1, 41, scale)
+    scaled = {i: int(r) if int(r) != (i % 40) + 1 else int(r) % 40 + 1
+              for i, r in zip(sorted(picked[:scale]), reps)}
+    return scaled, sorted(picked[scale:])
 
 
 def node_states(pkg, n: int, seed: int) -> list:
@@ -1108,6 +1204,8 @@ PATH_KERNELS = {
                          "divide_replicas", "fleet_masks", "fleet_diff", "fleet_wire"),
     "controller preemption": ("preempt_select", "first_fit_group", "divide_replicas",
                               "fleet_masks"),
+    "plane cold": ("profile_table", "divide_replicas", "fleet_masks", "fleet_diff",
+                   "fleet_wire"),
 }
 
 
@@ -4613,6 +4711,331 @@ def run_controller(device, card: str, bindings=None, clusters=None, scale: int =
     return out
 
 
+def plane_wave(tag: str, cp, device, card: str, apply_s: float = 0.0) -> dict:
+    """One ``ControlPlane.settle``, timed and split from its spans: the store
+    apply that started it (``apply_s``, measured by the caller), the
+    detector's drains (bindings created), the scheduler's gate and problem
+    build (its drains less its engine passes), the engine passes
+    (``scheduler.pass``), the binding controller's render, the execution
+    controller's member applies, status collection (the work-status and
+    binding-status drains, template write-back included) and the rest
+    (cluster status ticks, the cluster and unified-auth drains, the loop).
+    Raises when any worker of the plane caught a reconcile error or holds a
+    key for a retry: the plane's workers retry nothing
+    (``MAX_RETRIES = POISON_TOLERANCE = 0``), so an engine error fails its
+    wave at once. Returns the split; the caller prints it with its checks
+    (``plane_line``)."""
+    from karmada_tpu_torch.utils.tracing import tracer
+
+    faults = ReconcileFaults()
+    log = logging.getLogger("karmada_tpu_torch")
+    log.addHandler(faults)
+    t0 = time.perf_counter()
+    try:
+        steps = cp.settle()
+        sync(device)
+    finally:
+        log.removeHandler(faults)
+    wall = time.perf_counter() - t0
+    retries = sum(len(w._retries) for w in cp.runtime.workers)
+    if faults.records or retries or cp.runtime.pending():
+        raise AssertionError(f"plane {tag}: {len(faults.records)} reconcile errors, {retries} "
+                             f"keys awaiting a retry, {cp.runtime.pending()} queued; first:\n"
+                             + (faults.records[0] if faults.records else ""))
+    spans = [s for s in tracer.dump() if s["start"] >= t0 - 1e-6]
+
+    def drained(worker: str) -> float:
+        return sum(s["duration_s"] for s in spans if s["name"] == f"controller.{worker}")
+
+    passes = [s for s in spans if s["name"] == "scheduler.pass"]
+    engine_s = sum(s["duration_s"] for s in passes)
+    split = {
+        "store apply": apply_s,
+        "detector": drained("detector"),
+        "scheduler gate and build": drained("scheduler") - engine_s,
+        "engine pass": engine_s,
+        "binding render": drained("binding"),
+        "execution apply": drained("execution"),
+        "status collection": drained("work-status") + drained("binding-status"),
+    }
+    controllers = sum(s["duration_s"] for s in spans if s["name"].startswith("controller."))
+    split["other"] = wall - controllers
+    return {"wall": wall, "apply_s": apply_s, "steps": steps, "split": split,
+            "passes": [s["attrs"].get("bindings", 0) for s in passes]}
+
+
+def plane_line(tag: str, wave: dict, checks: str, card: str) -> None:
+    split = ", ".join(f"{k} {v:.4f} s" for k, v in wave["split"].items())
+    print(f"# plane {tag}: apply {wave['apply_s']:.4f} s + settle {wave['wall']:.4f} s = "
+          f"{wave['apply_s'] + wave['wall']:.4f} s ({wave['steps']} reconcile steps, engine "
+          f"passes {wave['passes']}): {split}; {checks}; card {card}", flush=True)
+
+
+def plane_members_check(cp, rbs, region_of: dict) -> int:
+    """Member objects that differ from the bindings: every member holds
+    exactly the Deployments its bindings name, each with ``spec.replicas``
+    equal to its divided count and the override's registry where the
+    OverridePolicy's rule matches its cluster (the template's image
+    elsewhere). Returns the number of (member, Deployment) entries that
+    differ."""
+    want = {name: {} for name in cp.members.names()}
+    for rb in rbs:
+        for tc in rb.spec.clusters:
+            want[tc.name][rb.spec.resource.name] = tc.replicas
+    bad = 0
+    for name, objs in want.items():
+        image = (f"{PLANE_REGISTRY}/nginx:1.25" if region_of[name] == PLANE_OVERRIDE_REGION
+                 else "nginx:1.25")
+        got = {(o.meta.namespace, o.meta.name, o.spec["replicas"],
+                o.spec["template"]["spec"]["containers"][0]["image"])
+               for o in cp.members.get(name).list("apps/v1/Deployment")}
+        bad += len(got ^ {("default", d, reps, image) for d, reps in objs.items()})
+    return bad
+
+
+def plane_recipe_check(pkg, rbs, probs, replicas_of: dict) -> int:
+    """Problems that differ from the recipe: each binding's problem, as the
+    plane's detector and scheduler built it, must carry config 4's placement
+    (``config4_placement``), the replicas ``replicas_of`` gives its binding,
+    config 4's requests (250m cpu and 512Mi) and the Deployment's gvk, so a
+    placement or count lost on the way to the engine cannot pass the
+    divider check, which solves the same problems. Returns the number of
+    bindings whose problem differs."""
+    q = importlib.import_module(f"{pkg.__name__}.utils.quantity")
+    placement = config4_placement(pkg)
+    requests = q.parse_resource_list({"cpu": "250m", "memory": "512Mi"})
+    return sum(p is None or p.key != rb.meta.namespaced_name or p.placement != placement
+               or p.replicas != replicas_of[rb.meta.namespaced_name]
+               or p.requests != requests or p.gvk != "apps/v1/Deployment"
+               for rb, p in zip(rbs, probs))
+
+
+def run_plane(device, card: str, templates: int = 10_000, clusters: int = 500,
+              scale: int = 1000, delete: int = 1000) -> dict:
+    """The control plane's propagation path on the card: the port's
+    ``ControlPlane`` (detector, binding, execution, work-status,
+    binding-status, cluster status and scheduler controllers over one store)
+    from Deployments and their policy to Deployments in member clusters and
+    status back to the templates, on BASELINE config 4 (``plane_objects``).
+
+    1. join: the fleet joined in Push mode; every Cluster Ready, its
+       summary (the status controller's sum over the member's NodeStates)
+       equal to the recipe's, with the nine default resource models the
+       cluster webhook gives it and no allocatable modelings;
+    2. cold wave: the templates, the PropagationPolicy and the
+       OverridePolicy applied and settled; every binding written and its
+       placement equal to the numpy divider on the plane's own engine
+       snapshot (``written_check`` on the controller's problems); one Work
+       per placed cluster; every member holding exactly its Deployments
+       with the divided replicas and the override's image on its region
+       (``plane_members_check``); the engine on the summary route (no
+       cluster with models, K7 never launched);
+    3. status round: every member reports each of its Deployments ready;
+       every template's ``status.readyReplicas`` equals its replicas and
+       every binding's aggregated status is Healthy on exactly its clusters;
+    4. scale wave: ``scale`` templates (``plane_picks``, seed 99) take new
+       replica counts; one engine pass over exactly their bindings, each to
+       the numpy divider; their Works and member objects carry the new
+       counts; no Work of another binding is written again (its resource
+       version and manifests as they were);
+    5. delete wave: ``delete`` other templates deleted; their bindings,
+       Works and member objects gone, and nothing else touched.
+
+    Each wave prints one ``# plane <wave>:`` line (``plane_line``) with its
+    wall, its split (``plane_wave``), its checks and the card. Returns the
+    waves and the cold wave's launch counts."""
+    import karmada_tpu_torch
+    from karmada_tpu_torch.controllers.propagation import WORK_BINDING_LABEL, work_manifests
+    from karmada_tpu_torch.controlplane import ControlPlane
+    from karmada_tpu_torch.utils.metrics import works_rendered
+
+    pkg = karmada_tpu_torch
+    out = {"waves": {}}
+    t0 = time.perf_counter()
+    objs = plane_objects(pkg, templates, clusters)
+    build_s = time.perf_counter() - t0
+    recipe = {cl.name: (dict(cl.status.resource_summary.allocatable),
+                        dict(cl.status.resource_summary.allocated)) for cl in objs["clusters"]}
+    region_of = {cl.name: cl.spec.region for cl in objs["clusters"]}
+    cp = ControlPlane(device=device)
+    for w in cp.runtime.workers:
+        w.MAX_RETRIES = w.POISON_TOLERANCE = 0
+    store, ctl = cp.store, cp.scheduler
+
+    def bindings() -> list:
+        return sorted(store.list("ResourceBinding"), key=lambda rb: rb.meta.namespaced_name)
+
+    def works_by_ref() -> dict:
+        by: dict = {}
+        for w in store.list("Work"):
+            ref = w.meta.labels.get(WORK_BINDING_LABEL)
+            if ref:
+                by.setdefault(ref.partition(":")[2], []).append(w)
+        return by
+
+    # -- 1. join -------------------------------------------------------------
+    t0 = time.perf_counter()
+    for cl, m in zip(objs["clusters"], objs["members"]):
+        cp.join_cluster(cl, m)
+    wave = plane_wave("join", cp, device, card, time.perf_counter() - t0)
+    bad = 0
+    for cl in store.list("Cluster"):
+        ready = any(c.type == "Ready" and c.status for c in cl.status.conditions)
+        rs = cl.status.resource_summary
+        bad += (not ready or (rs.allocatable, rs.allocated) != recipe[cl.name]
+                or len(cl.spec.resource_models) != 9 or bool(rs.allocatable_modelings))
+    plane_line("join", wave, f"{clusters} clusters (recipe built in {build_s:.1f} s): Ready "
+               f"with the recipe's summary and 9 default models {clusters - bad} ok / {bad} "
+               "bad", card)
+    if bad or len(store.list("Cluster")) != clusters:
+        raise AssertionError(f"plane join: {bad} clusters not Ready or off the recipe")
+    out["waves"]["join"] = wave
+
+    # -- 2. cold wave --------------------------------------------------------
+    t0 = time.perf_counter()
+    store.apply(objs["policy"])
+    store.apply(objs["override"])
+    if store.apply_many(objs["deployments"]):
+        raise AssertionError("plane cold wave: the store refused templates")
+    apply_s = time.perf_counter() - t0
+    reset_counts()
+    rendered0 = works_rendered.value()
+    wave = plane_wave("cold", cp, device, card, apply_s)
+    out["cold_launches"] = read_counts()
+    out["waves"]["cold"] = wave
+    engine = ctl._engine
+    rbs = bindings()
+    probs = [ctl._problem_cache.get(rb.meta.namespaced_name) for rb in rbs]
+    if len(rbs) != templates or None in probs or wave["passes"] != [templates] \
+            or engine._fleet is None:
+        raise AssertionError(f"plane cold wave: {len(rbs)} bindings, passes {wave['passes']}, "
+                             f"fleet {engine._fleet is not None}")
+    t0 = time.perf_counter()
+    bad_recipe = plane_recipe_check(pkg, rbs, probs, {
+        f"default/d{i}-deployment": (i % 40) + 1 for i in range(templates)})
+    bad_div = written_check(engine, probs, rbs) + unwritten(rbs, placed=True)
+    by_ref = works_by_ref()
+    placed_n = sum(len(rb.spec.clusters) for rb in rbs)
+    bad_works = sum(sorted(w.meta.namespace[len("karmada-es-"):] for w in
+                           by_ref.get(rb.meta.namespaced_name, ()))
+                    != sorted(tc.name for tc in rb.spec.clusters) for rb in rbs)
+    n_works = sum(map(len, by_ref.values()))
+    delta = sum(w.spec.workload_template is not None for ws in by_ref.values() for w in ws)
+    bad_members = plane_members_check(cp, rbs, region_of)
+    models = bool(engine.snapshot.model_pack.has_models.any())
+    check_s = time.perf_counter() - t0
+    launched = {k: v for k, v in out["cold_launches"].items() if v}
+    plane_line("cold", wave, f"{templates} templates x {clusters} clusters: problems "
+               f"off the recipe (placement, replicas, requests) {bad_recipe}; numpy-divider "
+               f"check {templates - bad_div} ok / {bad_div} bad; {n_works} Works for "
+               f"{placed_n} placed clusters ({delta} template-delta, "
+               f"{works_rendered.value() - rendered0:.0f} rendered; {bad_works} bindings' "
+               f"Works off their clusters); members' Deployments, replicas and images "
+               f"{bad_members} bad; models route {models}; checks {check_s:.1f} s; "
+               f"launches {launched}", card)
+    if bad_recipe or bad_div or bad_works or n_works != placed_n or bad_members or models \
+            or out["cold_launches"]["model_overlay"]:
+        raise AssertionError(f"plane cold wave: {bad_recipe} problems off the recipe, "
+                             f"{bad_div} bindings differ from the numpy divider, {bad_works} bindings' Works and {bad_members} member "
+                             f"objects are wrong, models route {models}")
+
+    # -- 3. status round -----------------------------------------------------
+    t0 = time.perf_counter()
+    for name in sorted(cp.members.names()):
+        member = cp.members.get(name)
+        for obj in member.list("apps/v1/Deployment"):
+            reps = obj.spec["replicas"]
+            member.set_workload_status("apps/v1/Deployment", obj.meta.namespace, obj.meta.name,
+                                       {"replicas": reps, "readyReplicas": reps,
+                                        "updatedReplicas": reps})
+    wave = plane_wave("status", cp, device, card, time.perf_counter() - t0)
+    out["waves"]["status"] = wave
+    tpls = store.list("Resource")
+    bad_tpl = sum(t.status.get("readyReplicas") != t.spec["replicas"] for t in tpls)
+    bad_agg = sum(
+        sorted(i.cluster_name for i in rb.status.aggregated_status)
+        != sorted(tc.name for tc in rb.spec.clusters)
+        or not all(i.health == "Healthy" and i.applied for i in rb.status.aggregated_status)
+        for rb in rbs)
+    plane_line("status", wave, f"{n_works} member Deployments report ready: templates' "
+               f"readyReplicas {len(tpls) - bad_tpl} ok / {bad_tpl} bad; bindings' aggregated "
+               f"status Healthy on their clusters {len(rbs) - bad_agg} ok / {bad_agg} bad", card)
+    if bad_tpl or bad_agg or len(tpls) != templates:
+        raise AssertionError(f"plane status round: {bad_tpl} templates and {bad_agg} bindings "
+                             "without their members' status")
+
+    # -- 4. scale wave -------------------------------------------------------
+    scaled, deleted = plane_picks(templates, scale, delete)
+    scaled_keys = {f"default/d{i}-deployment": reps for i, reps in scaled.items()}
+    before = {w.meta.namespaced_name: (w.meta.resource_version, w.meta.generation)
+              for key, ws in works_by_ref().items() if key not in scaled_keys for w in ws}
+    manifests_before = {k: [m.spec for m in work_manifests(store, store.get("Work", k))]
+                        for k in list(before)[:: max(1, len(before) // 2000)]}
+    t0 = time.perf_counter()
+    for i, reps in scaled.items():
+        t = store.get("Resource", f"default/d{i}")
+        t.spec["replicas"] = reps
+        t.meta.generation += 1
+        store.apply(t)
+    apply_s = time.perf_counter() - t0
+    reset_counts()
+    rendered0 = works_rendered.value()
+    wave = plane_wave("scale", cp, device, card, apply_s)
+    out["waves"]["scale"] = wave
+    out["scale_launches"] = read_counts()
+    rbs = bindings()
+    srbs = [rb for rb in rbs if rb.meta.namespaced_name in scaled_keys]
+    sprobs = [ctl._problem_cache[rb.meta.namespaced_name] for rb in srbs]
+    bad_reps = plane_recipe_check(pkg, srbs, sprobs, scaled_keys)
+    bad_div = written_check(ctl._engine, sprobs, srbs) + unwritten(srbs, placed=True)
+    bad_members = plane_members_check(cp, rbs, region_of)
+    rewritten = sum((w := store.get("Work", k)) is None
+                    or (w.meta.resource_version, w.meta.generation) != v
+                    for k, v in before.items())
+    rewritten += sum([m.spec for m in work_manifests(store, store.get("Work", k))] != v
+                     for k, v in manifests_before.items())
+    plane_line("scale", wave, f"{len(scaled)} templates (seed 99) rescaled: numpy-divider "
+               f"check {len(srbs) - bad_div} ok / {bad_div} bad ({bad_reps} problems off the "
+               f"recipe or the new replicas); {works_rendered.value() - rendered0:.0f} Works rendered; members "
+               f"{bad_members} bad; other bindings' Works written again {rewritten} of "
+               f"{len(before)}; launches "
+               f"{ {k: v for k, v in out['scale_launches'].items() if v} }", card)
+    if wave["passes"] != [len(scaled)] or len(srbs) != len(scaled) or bad_reps or bad_div \
+            or bad_members or rewritten:
+        raise AssertionError(f"plane scale wave: passes {wave['passes']}, {bad_div} bindings "
+                             f"differ from the numpy divider, {bad_members} member objects "
+                             f"wrong, {rewritten} other Works written again")
+
+    # -- 5. delete wave ------------------------------------------------------
+    gone_keys = {f"default/d{i}-deployment" for i in deleted}
+    kept = {rb.meta.namespaced_name: [(tc.name, tc.replicas) for tc in rb.spec.clusters]
+            for rb in rbs if rb.meta.namespaced_name not in gone_keys}
+    before = {w.meta.namespaced_name: w.meta.resource_version
+              for key, ws in works_by_ref().items() if key in kept for w in ws}
+    t0 = time.perf_counter()
+    for i in deleted:
+        store.delete("Resource", f"default/d{i}")
+    wave = plane_wave("delete", cp, device, card, time.perf_counter() - t0)
+    out["waves"]["delete"] = wave
+    rbs = bindings()
+    left = {rb.meta.namespaced_name: [(tc.name, tc.replicas) for tc in rb.spec.clusters]
+            for rb in rbs}
+    by_ref = works_by_ref()
+    stale = sum(k in by_ref for k in gone_keys)
+    touched = sum((w := store.get("Work", k)) is None or w.meta.resource_version != v
+                  for k, v in before.items())
+    bad_members = plane_members_check(cp, rbs, region_of)
+    plane_line("delete", wave, f"{len(deleted)} templates deleted: {len(rbs)} bindings left "
+               f"({'equal' if left == kept else 'NOT equal'} to the others before), "
+               f"{stale} deleted bindings with Works, {touched} other Works touched, "
+               f"members {bad_members} bad, passes {wave['passes']}", card)
+    if left != kept or stale or touched or bad_members or wave["passes"]:
+        raise AssertionError(f"plane delete wave: bindings {'kept' if left == kept else 'off'}"
+                             f", {stale} with Works, {touched} other Works touched, "
+                             f"{bad_members} member objects wrong")
+    return out
+
+
 def check_shape_limits(device, card: str) -> dict:
     """The shapes past the kernels' old limits, served: K1 beyond one grid
     (65535 blocks of 128 rows), each of its three forms at 65535 x 128 + 1
@@ -4867,6 +5290,11 @@ def main() -> int:
         require_launched("controller preemption", out["preempt_launches"])
         paths["controller"] = out
 
+    def plane():
+        out = run_plane(device, card)
+        require_launched("plane cold", out["cold_launches"])
+        paths["plane"] = out
+
     def limits():
         out = check_shape_limits(device, card)
         require_launched("wide fleet", out["wide fleet"]["launches"])
@@ -4879,7 +5307,7 @@ def main() -> int:
                      ("mixed legacy", mixed_legacy), ("general", general),
                      ("models", models), ("estimator", estimator),
                      ("quota", quota), ("ranked", ranked), ("preemption", preemption),
-                     ("controller", controller)):
+                     ("controller", controller), ("plane", plane)):
         phase(name, fn)
 
     # launches: each kernel's count on the path that drives it
@@ -4914,6 +5342,14 @@ def main() -> int:
                       for k in ("fleet_masks", "divide_replicas", "fleet_diff", "fleet_wire"))
           + f"; quota wave quota_admit {ctl['quota_launches']['quota_admit']}; preemption "
           f"surge preempt_select {ctl['preempt_launches']['preempt_select']}", flush=True)
+    plane = paths["plane"]
+    print("# plane launches (through ControlPlane): cold wave "
+          + ", ".join(f"{k} {v}" for k, v in plane["cold_launches"].items() if v)
+          + "; scale wave "
+          + ", ".join(f"{k} {v}" for k, v in plane["scale_launches"].items() if v)
+          + "; wave walls " + ", ".join(
+              f"{k} {w['apply_s'] + w['wall']:.2f} s" for k, w in plane["waves"].items()),
+          flush=True)
     entries = []
     for name in KERNELS:
         key, on = where.get(name, ("storm", "config 5 fleet passes"))

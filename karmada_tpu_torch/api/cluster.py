@@ -18,12 +18,19 @@ from .core import Condition, ObjectMeta
 
 # SyncMode
 PUSH = "Push"
+PULL = "Pull"
 
 # Taint effects (k8s core semantics; scheduler filters NoSchedule/NoExecute:
 # pkg/scheduler/framework/plugins/tainttoleration/taint_toleration.go:46-74)
 NO_SCHEDULE = "NoSchedule"
 PREFER_NO_SCHEDULE = "PreferNoSchedule"
 NO_EXECUTE = "NoExecute"
+
+# Well-known cluster condition / taint keys
+# (ref: pkg/apis/cluster/v1alpha1/well_known_constants.go)
+CLUSTER_CONDITION_READY = "Ready"
+TAINT_CLUSTER_NOT_READY = "cluster.karmada.io/not-ready"
+TAINT_CLUSTER_UNREACHABLE = "cluster.karmada.io/unreachable"
 
 
 @dataclass(frozen=True)

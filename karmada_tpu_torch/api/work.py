@@ -1,13 +1,11 @@
-"""Work API: ResourceBinding (the scheduling unit) and the replica
-requirements an estimator answers for.
+"""Work API: ResourceBinding (the scheduling unit) and Work (the per-cluster
+manifest envelope).
 
-The port's own copy of the binding half of ``karmada_tpu.api.work``;
-``Work`` and its manifests belong to the propagation controllers, which the
-port does not carry yet.
-
-Ref: pkg/apis/work/v1alpha2/binding_types.go — ResourceBinding (:58),
+The port's own copy of ``karmada_tpu.api.work``. Ref:
+pkg/apis/work/v1alpha2/binding_types.go — ResourceBinding (:58),
 ReplicaRequirements (:193), TargetCluster (:229), GracefulEvictionTask (:238),
-BindingSnapshot/RequiredBy (:309), status (:326-353).
+BindingSnapshot/RequiredBy (:309), status (:326-353);
+pkg/apis/work/v1alpha1/work_types.go — Work.
 """
 
 from __future__ import annotations
@@ -15,13 +13,21 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
-from .core import Condition, ObjectMeta, ObjectReference
+from .core import Condition, ObjectMeta, ObjectReference, Resource
 from .policy import Placement
 
-# Binding condition type (binding_types.go:355-371)
+# Binding condition types (binding_types.go:355-371)
 SCHEDULED = "Scheduled"
+FULLY_APPLIED = "FullyApplied"
+
+# Work condition types (work_types.go)
+WORK_APPLIED = "Applied"
+WORK_AVAILABLE = "Available"
+WORK_DEGRADED = "Degraded"
 
 # Eviction producers/reasons (binding_types.go well-knowns)
+EVICTION_PRODUCER_TAINT_MANAGER = "TaintManager"
+EVICTION_REASON_TAINT_UNTOLERATED = "TaintUntolerated"
 EVICTION_REASON_APPLICATION_FAILURE = "ApplicationFailure"
 # victim evictions produced by the batched preemption kernel (K15)
 EVICTION_PRODUCER_PREEMPTION = "PreemptionKernel"
@@ -160,3 +166,75 @@ class ClusterResourceBinding(ResourceBinding):
     @property
     def cluster_scoped(self) -> bool:
         return True
+
+
+# ---------------------------------------------------------------------------
+# Work (ref: pkg/apis/work/v1alpha1/work_types.go)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ManifestStatus:
+    identifier: ObjectReference = field(default_factory=ObjectReference)
+    status: Optional[dict] = None
+    health: str = "Unknown"
+
+
+@dataclass
+class WorkloadTemplateRef:
+    """Template-delta Work rendering: instead of a full manifest clone per
+    target cluster, a Work may reference ONE content-addressed
+    ``WorkloadTemplate`` (shared by every Work of the workload family)
+    plus a small per-cluster ``patch`` of spec fields —
+    the replica revision the binding controller would have applied.
+    Consumers rehydrate via ``controllers.propagation.work_manifests``;
+    identity fields ride here so indexes and status routing never need
+    the template body."""
+
+    digest: str = ""
+    api_version: str = ""
+    kind: str = ""
+    namespace: str = ""
+    name: str = ""
+    patch: dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class WorkloadTemplate:
+    """One rendered manifest per workload family, stored content-addressed
+    (``meta.name`` == digest) once instead of inside each of N Works.
+    ``manifest`` is the pruned jsonable Resource document (the shape
+    ``utils.codec.to_jsonable`` emits)."""
+
+    KIND = "WorkloadTemplate"
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    manifest: dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class WorkSpec:
+    workload: list[Resource] = field(default_factory=list)
+    # template-delta rendering: when set (and workload is empty) the
+    # manifest is template + patch; full-object ``workload`` remains the
+    # fallback for non-templatable workloads (custom revise hooks,
+    # override-transformed targets) and the kill-switch path
+    workload_template: Optional[WorkloadTemplateRef] = None
+    suspend_dispatching: bool = False
+    preserve_resources_on_deletion: bool = False
+    conflict_resolution: str = "Overwrite"  # Overwrite | Abort
+
+
+@dataclass
+class WorkStatus:
+    conditions: list[Condition] = field(default_factory=list)
+    manifest_statuses: list[ManifestStatus] = field(default_factory=list)
+
+
+@dataclass
+class Work:
+    KIND = "Work"
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: WorkSpec = field(default_factory=WorkSpec)
+    status: WorkStatus = field(default_factory=WorkStatus)

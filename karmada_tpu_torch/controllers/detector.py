@@ -1,0 +1,328 @@
+"""ResourceDetector: template -> policy match -> ResourceBinding.
+
+The port's own copy of ``karmada_tpu/controllers/detector.py``. Ref:
+pkg/detector/detector.go — event-driven discovery of resource templates,
+policy matching with priority + preemption (policy.go, preemption.go),
+claiming (claim.go), and ResourceBinding construction with
+interpreter-provided replicas (BuildResourceBinding, detector.go:710-752).
+Policy add/update/delete re-binds claimed templates (detector.go:851-1360).
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Optional
+
+from ..api.core import ObjectMeta, Resource
+from ..api.policy import ClusterPropagationPolicy, ResourceSelector
+from ..api.work import ClusterResourceBinding, ResourceBinding, ResourceBindingSpec
+from ..interpreter import ResourceInterpreter
+from ..utils import DONE, Runtime, Store
+from ..utils.features import POLICY_PREEMPTION, feature_gate
+from ..utils.tracing import tracer
+from .overridemanager import resource_matches_selector
+
+log = logging.getLogger("karmada_tpu_torch")
+
+# claim labels (ref: policy permanent-ID labels, claim.go)
+POLICY_LABEL = "propagationpolicy.karmada.io/name"
+POLICY_NS_LABEL = "propagationpolicy.karmada.io/namespace"
+CLUSTER_POLICY_LABEL = "clusterpropagationpolicy.karmada.io/name"
+
+
+def binding_name(template: Resource) -> str:
+    return f"{template.meta.name}-{template.kind.lower()}"
+
+
+def policy_matches(template: Resource, selectors: list[ResourceSelector]) -> bool:
+    return any(resource_matches_selector(template, s) for s in selectors)
+
+
+def _policy_priority(policy, template: Resource) -> tuple:
+    """Implicit priority (ref: policy.go getHighestPriorityPropagationPolicy):
+    explicit spec.priority first; for ties, name-selector matches outrank
+    selector-only matches; final tiebreak alphabetical (oldest-wins is
+    approximated by name for determinism)."""
+    by_name = any(
+        s.name == template.meta.name and (not s.kind or s.kind == template.kind)
+        for s in policy.spec.resource_selectors
+    )
+    return (-policy.spec.priority, 0 if by_name else 1, policy.meta.name)
+
+
+class ResourceDetector:
+    def __init__(
+        self,
+        store: Store,
+        runtime: Runtime,
+        interpreter: ResourceInterpreter,
+    ) -> None:
+        self.store = store
+        self.interpreter = interpreter
+        # per-drain write set: claims + bindings buffer during
+        # a batched drain and flush as one store.apply_many; per-namespace
+        # ownership sharding keeps one namespace's storm from serializing
+        # another's drain on a single queue
+        self._buffering = False
+        self._pending: list = []
+        self.worker = runtime.new_worker(
+            "detector", self._reconcile,
+            reconcile_batch=self._reconcile_batch,
+            shard_fn=lambda key: key.partition("/")[0] if "/" in key else "",
+        )
+        # keys whose pending reconcile was triggered ONLY by Karmada itself
+        # (policy events), not by a user template change — consumed by the
+        # lazy-activation gate (detector.go:444,529 resourceChangeByKarmada).
+        # _user_pending tracks queued template-event keys so a policy event
+        # arriving AFTER a user change (but before the worker drains) cannot
+        # re-mark the coalesced reconcile as Karmada-triggered and swallow
+        # the user's update under a Lazy policy.
+        self._by_karmada: set[str] = set()
+        self._user_pending: set[str] = set()
+        store.watch("Resource", self._on_template_event)
+        store.watch("PropagationPolicy", self._on_policy_event)
+        store.watch("ClusterPropagationPolicy", self._on_policy_event)
+
+    # -- events ------------------------------------------------------------
+
+    def _on_template_event(self, event) -> None:
+        # a user-driven template event is the canonical start of a wave:
+        # stamp the monotonic wave id HERE so the whole downstream chain
+        # (policy match -> binding -> scheduler pass -> work render ->
+        # status) records its spans under one tree (utils.tracing). A
+        # burst of events shares the open wave; the wave closes when the
+        # plane settles.
+        tracer.ensure_wave("detector")
+        self._by_karmada.discard(event.key)  # a user change always syncs
+        self._user_pending.add(event.key)
+        self.worker.enqueue(event.key)
+
+    def _on_policy_event(self, event) -> None:
+        # scope the requeue the way the reference does: templates matching
+        # the (new) selectors, plus templates currently claimed by this
+        # policy (they may need to unbind after a selector change)
+        policy = event.obj
+        selectors = policy.spec.resource_selectors
+        pname = policy.meta.name
+        for template in self.store.list("Resource"):
+            claimed = (
+                template.meta.labels.get(POLICY_LABEL) == pname
+                or template.meta.labels.get(CLUSTER_POLICY_LABEL) == pname
+            )
+            if claimed or policy_matches(template, selectors):
+                key = template.meta.namespaced_name
+                if key not in self._user_pending:
+                    self._by_karmada.add(key)
+                self.worker.enqueue(key)
+
+    # -- reconcile ---------------------------------------------------------
+
+    def _reconcile_batch(self, keys) -> dict:
+        out: dict = {}
+        self._buffering = True
+        try:
+            for key in keys:
+                out[key] = self._reconcile(key)
+        finally:
+            self._buffering = False
+            self._flush()
+        return out
+
+    def _apply(self, obj) -> None:
+        if self._buffering:
+            self._pending.append(obj)
+        else:
+            self.store.apply(obj)
+
+    def _flush(self) -> None:
+        pending, self._pending = self._pending, []
+        if not pending:
+            return
+        for obj, err in self.store.apply_many(pending):
+            log.error("detector: apply rejected for %s: %s",
+                      obj.meta.namespaced_name, err)
+            # re-reconcile the TEMPLATE the rejected write belongs to
+            # (bindings carry their template in spec.resource) — the
+            # unbatched path raised here and the worker retried
+            resource = getattr(obj.spec, "resource", None)
+            self.worker.enqueue(
+                resource.namespaced_key
+                if resource is not None
+                else obj.meta.namespaced_name
+            )
+
+    def _reconcile(self, key: str) -> Optional[str]:
+        by_karmada = key in self._by_karmada
+        self._by_karmada.discard(key)
+        self._user_pending.discard(key)
+        template = self.store.get("Resource", key)
+        if template is None:
+            self._remove_binding_for(key)
+            return DONE
+        policy = self._match_policy(template)
+        if policy is None:
+            self._unclaim(template)
+            return DONE
+        self._claim(template, policy)
+        self._ensure_binding(template, policy, by_karmada)
+        return DONE
+
+    def _match_policy(self, template: Resource):
+        """Priority + preemption matching. Namespaced policies outrank
+        cluster-scoped ones for namespaced resources (detector.go ordering:
+        PropagationPolicy first, then ClusterPropagationPolicy)."""
+        candidates = [
+            p
+            for p in self.store.list("PropagationPolicy", template.meta.namespace or None)
+            if p.meta.namespace == template.meta.namespace
+            and policy_matches(template, p.spec.resource_selectors)
+        ]
+        pool = sorted(candidates, key=lambda p: _policy_priority(p, template))
+        claimed_by = template.meta.labels.get(POLICY_LABEL)
+        if not pool:
+            cluster_pool = sorted(
+                (
+                    p
+                    for p in self.store.list("ClusterPropagationPolicy")
+                    if policy_matches(template, p.spec.resource_selectors)
+                ),
+                key=lambda p: _policy_priority(p, template),
+            )
+            pool = cluster_pool
+            # the preemption gate guards whichever claim kind this pool
+            # competes for — a CPP-claimed template is protected from other
+            # CPPs exactly like a PP-claimed one from other PPs
+            claimed_by = template.meta.labels.get(CLUSTER_POLICY_LABEL)
+        if not pool:
+            return None
+        best = pool[0]
+        if claimed_by and claimed_by != best.meta.name:
+            # a higher-priority policy takes a claimed template only when the
+            # PolicyPreemption gate is on AND the policy itself declares
+            # spec.preemption Always (preemption.go: both are required)
+            may_preempt = (
+                feature_gate.enabled(POLICY_PREEMPTION)
+                and best.spec.preemption == "Always"
+            )
+            if not may_preempt:
+                # keep the existing claim unless it vanished
+                current = next((p for p in pool if p.meta.name == claimed_by), None)
+                if current is not None:
+                    return current
+        return best
+
+    def _claim(self, template: Resource, policy) -> None:
+        labels = template.meta.labels
+        if isinstance(policy, ClusterPropagationPolicy) or policy.cluster_scoped:
+            changed = labels.get(CLUSTER_POLICY_LABEL) != policy.meta.name
+            labels[CLUSTER_POLICY_LABEL] = policy.meta.name
+            labels.pop(POLICY_LABEL, None)
+            labels.pop(POLICY_NS_LABEL, None)
+        else:
+            changed = labels.get(POLICY_LABEL) != policy.meta.name
+            labels[POLICY_LABEL] = policy.meta.name
+            labels[POLICY_NS_LABEL] = policy.meta.namespace
+            labels.pop(CLUSTER_POLICY_LABEL, None)
+        if changed:
+            self._apply(template)
+
+    def _unclaim(self, template: Resource) -> None:
+        labels = template.meta.labels
+        had = (
+            labels.pop(POLICY_LABEL, None) is not None
+            or labels.pop(CLUSTER_POLICY_LABEL, None) is not None
+        )
+        labels.pop(POLICY_NS_LABEL, None)
+        if had:
+            self.store.apply(template)
+            self._remove_binding_for(template.meta.namespaced_name)
+
+    def _ensure_binding(self, template: Resource, policy, by_karmada: bool = False) -> None:
+        """BuildResourceBinding (detector.go:710-752). Cluster-scoped
+        templates produce ClusterResourceBindings."""
+        replicas, requirements = self.interpreter.get_replicas(template)
+        name = binding_name(template)
+        key = (
+            f"{template.meta.namespace}/{name}" if template.meta.namespace else name
+        )
+        kind = "ResourceBinding" if template.meta.namespace else "ClusterResourceBinding"
+        existing = self.store.get(kind, key)
+        # Lazy activation (detector.go:444-450): a reconcile that Karmada
+        # itself triggered (policy change) must not refresh an existing
+        # binding when the bound policy defers activation — the new policy
+        # content lands only when the USER next updates the template. The
+        # claim above still records the new policy id.
+        if (
+            existing is not None
+            and by_karmada
+            and policy.spec.activation_preference == "Lazy"
+        ):
+            return
+        spec = ResourceBindingSpec(
+            resource=template.object_reference(),
+            replicas=replicas,
+            replica_requirements=requirements,
+            placement=policy.spec.placement,
+            # the policy's explicit priority reaches the ResourceBinding
+            # spec (the scheduler orders waves and ranks victims by it)
+            priority=policy.spec.priority,
+            conflict_resolution=policy.spec.conflict_resolution,
+            propagate_deps=policy.spec.propagate_deps,
+            suspend_dispatching=policy.spec.suspend_dispatching,
+            suspend_dispatching_on_clusters=policy.spec.suspend_dispatching_on_clusters,
+            preserve_resources_on_deletion=policy.spec.preserve_resources_on_deletion,
+            failover=policy.spec.failover,
+            scheduler_name=policy.spec.scheduler_name,
+        )
+        if existing is not None:
+            # preserve schedule state; bump generation when the scheduling-
+            # relevant spec changed (placement or replicas)
+            spec.clusters = existing.spec.clusters
+            spec.graceful_eviction_tasks = existing.spec.graceful_eviction_tasks
+            spec.reschedule_triggered_at = existing.spec.reschedule_triggered_at
+            changed = (
+                existing.spec.placement != spec.placement
+                or existing.spec.replicas != spec.replicas
+                or existing.spec.replica_requirements != spec.replica_requirements
+                or existing.spec.priority != spec.priority
+            )
+            existing.spec = spec
+            if changed:
+                existing.meta.generation += 1
+            self._apply(existing)
+        else:
+            cls = ResourceBinding if template.meta.namespace else ClusterResourceBinding
+            rb = cls(
+                meta=ObjectMeta(
+                    name=name,
+                    namespace=template.meta.namespace,
+                    labels={
+                        POLICY_LABEL: policy.meta.name,
+                    },
+                ),
+                spec=spec,
+            )
+            self._apply(rb)
+
+    def _remove_binding_for(self, template_key: str) -> None:
+        ns, _, name = template_key.rpartition("/")
+        for kind in ("ResourceBinding", "ClusterResourceBinding"):
+            for rb in self.store.list(kind):
+                if (
+                    rb.spec.resource.namespaced_key == template_key
+                    or (rb.meta.namespace == ns and rb.spec.resource.name == name)
+                ):
+                    self.store.delete(kind, rb.meta.namespaced_name)
+
+    def write_back_status(self, binding: ResourceBinding) -> None:
+        """Detector also writes aggregated status back onto the template
+        (detector.go status sync)."""
+        template = self.store.get("Resource", binding.spec.resource.namespaced_key)
+        if template is None:
+            return
+        updated = self.interpreter.aggregate_status(
+            template, binding.status.aggregated_status
+        )
+        if updated.status != template.status:
+            template.status = updated.status
+            self.store.apply(template)

@@ -22,7 +22,7 @@ from ..api.cluster import (
     ResourceSummary,
     Taint,
 )
-from ..api.core import Condition, ObjectMeta
+from ..api.core import Condition, ObjectMeta, Resource
 from ..api.policy import (
     ClusterAffinity,
     ClusterPreferences,
@@ -120,6 +120,40 @@ def aggregated_placement(**kw) -> Placement:
             replica_division_preference="Aggregated",
         ),
         **kw,
+    )
+
+
+def new_deployment(
+    name: str,
+    *,
+    namespace: str = "default",
+    replicas: int = 2,
+    cpu: str = "250m",
+    memory: str = "512Mi",
+    image: str = "nginx:1.25",
+    labels: Optional[Mapping[str, str]] = None,
+) -> Resource:
+    """A kube-shaped Deployment template (the samples/nginx analogue)."""
+    return Resource(
+        api_version="apps/v1",
+        kind="Deployment",
+        meta=ObjectMeta(name=name, namespace=namespace, labels=dict(labels or {})),
+        spec={
+            "replicas": replicas,
+            "template": {
+                "spec": {
+                    "containers": [
+                        {
+                            "name": name,
+                            "image": image,
+                            "resources": {
+                                "requests": {"cpu": cpu, "memory": memory}
+                            },
+                        }
+                    ]
+                }
+            },
+        },
     )
 
 

@@ -1,7 +1,7 @@
 """Observability: counters, gauges and histograms with a Prometheus registry.
 
 The port's own copy of the metric types of ``karmada_tpu/utils/metrics.py``
-and of the families the scheduler process moves. Ref:
+and of the families the scheduler process and the propagation path move. Ref:
 pkg/scheduler/metrics/metrics.go:61-115 (schedule_attempts_total,
 e2e_scheduling_duration_seconds) and pkg/metrics (controller metrics). Text
 exposition follows the Prometheus format (``Registry.render``). The JAX
@@ -208,7 +208,8 @@ class Registry:
         return "\n".join(lines) + "\n"
 
 
-# the global registry and the scheduler process's families
+# the global registry and the families of the scheduler process and the
+# propagation path
 registry = Registry()
 
 schedule_attempts = registry.counter(
@@ -231,6 +232,11 @@ settle_seconds = registry.histogram(
     "one run_until_settled drain of the whole controller fleet (a storm "
     "wave is one settle)",
     buckets=E2E_BUCKETS,
+)
+works_rendered = registry.counter(
+    "karmada_tpu_controller_works_rendered_total",
+    "Work objects created or updated by the binding controller (the "
+    "work-render throughput of a propagation wave)",
 )
 worker_reconciles = registry.counter(
     "karmada_tpu_worker_reconciles_total",

@@ -5,8 +5,8 @@ pkg/util/worker.go:33-140 (util.AsyncWorker — workqueue + reconcile loop).
 The same enqueue/reconcile contract, driven cooperatively by
 ``Runtime.run_until_settled`` so the plane runs in-process without sleeping
 threads. What the JAX module adds for its serve deployments (wall-clock
-backoff of failing keys, namespace-sharded queues) is not part of this copy:
-a REQUEUE here re-enqueues at once, up to ``Worker.MAX_RETRIES``.
+backoff of failing keys) is not part of this copy: a REQUEUE here
+re-enqueues at once, up to ``Worker.MAX_RETRIES``.
 """
 
 from __future__ import annotations
@@ -25,7 +25,14 @@ REQUEUE = "requeue"
 class Worker:
     """A named reconcile queue. ``reconcile(key)`` returns DONE or REQUEUE
     (or raises — treated as REQUEUE). A REQUEUE re-enqueues immediately and
-    the key is dropped after MAX_RETRIES."""
+    the key is dropped after MAX_RETRIES.
+
+    Ownership sharding: keys route to per-ownership-token queues drained
+    round-robin (the detector and binding workers shard by namespace; by
+    default every key has one token, and the worker drains in enqueue
+    order), and a batch drain holds keys of one token only — so one
+    namespace's storm never head-of-line-blocks another's drain, and each
+    batched write set stays within one ownership domain."""
 
     MAX_RETRIES = 16
 
@@ -38,6 +45,7 @@ class Worker:
             Callable[[list[Hashable]], dict[Hashable, Optional[str]]]
         ] = None,
         batch_size: int = 1024,
+        shard_fn: Callable[[Hashable], Hashable] = lambda key: None,
     ):
         self.name = name
         self.reconcile = reconcile
@@ -47,7 +55,10 @@ class Worker:
         # queued item instead of paying per-key packing/dispatch.
         self.reconcile_batch = reconcile_batch
         self.batch_size = batch_size
-        self._queue: collections.deque[Hashable] = collections.deque()
+        # key -> ownership token; tokens materialize shard queues lazily
+        self.shard_fn = shard_fn
+        self._shards: dict[Hashable, collections.deque] = {}
+        self._shard_rr: collections.deque = collections.deque()
         self._queued: set[Hashable] = set()
         self._retries: collections.Counter = collections.Counter()
 
@@ -55,14 +66,32 @@ class Worker:
         if key in self._queued:
             return
         self._queued.add(key)
-        self._queue.append(key)
+        token = self.shard_fn(key)
+        q = self._shards.get(token)
+        if q is None:
+            q = self._shards[token] = collections.deque()
+            self._shard_rr.append(token)
+        q.append(key)
 
     def _pop_batch(self, limit: int) -> list:
+        """Pop up to ``limit`` queued keys of ONE ownership token
+        (round-robin across tokens), so a batch never mixes ownership
+        domains."""
         keys: list = []
-        while self._queue and len(keys) < limit:
-            k = self._queue.popleft()
-            self._queued.discard(k)
-            keys.append(k)
+        while self._shard_rr and not keys:
+            token = self._shard_rr.popleft()
+            q = self._shards.get(token)
+            if not q:
+                self._shards.pop(token, None)
+                continue
+            while q and len(keys) < limit:
+                k = q.popleft()
+                self._queued.discard(k)
+                keys.append(k)
+            if q:
+                self._shard_rr.append(token)  # remainder: back of rotation
+            else:
+                self._shards.pop(token, None)
         return keys
 
     def __len__(self) -> int:

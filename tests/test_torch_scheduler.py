@@ -239,7 +239,10 @@ def test_port_imports_without_jax_or_karmada_tpu():
             "karmada_tpu_torch.refimpl.preempt_np",
             "karmada_tpu_torch.controllers.scheduler_controller",
             "karmada_tpu_torch.controllers.rebalance", "karmada_tpu_torch.utils.store",
-            "karmada_tpu_torch.utils.worker", "karmada_tpu_torch.utils.metrics"} <= set(mods)
+            "karmada_tpu_torch.utils.worker", "karmada_tpu_torch.utils.metrics",
+            "karmada_tpu_torch.controlplane", "karmada_tpu_torch.controllers.propagation",
+            "karmada_tpu_torch.controllers.detector", "karmada_tpu_torch.interpreter.native",
+            "karmada_tpu_torch.utils.member", "karmada_tpu_torch.webhook.chain"} <= set(mods)
     code = f"""
 import importlib, importlib.abc, sys
 sys.modules["jax"] = None
