@@ -21,11 +21,18 @@
    terms x 5000, also with ``with_base`` off) and on its edge cases
    (``group_edge_batch``: T = 1, 4 and 9, C from 1 to 16,385),
    K8 ``node_sum_estimate`` at 4096 profile rows x 5000 nodes, K12
-   ``quota_admit`` at 131072 rows x 32 namespaces with 4, 17 and 40 dims,
-   K13's per-row form ``quota_cluster_caps`` at 4096 x 5000, K14
-   ``explain_pass`` at 4096 x 5000 (a batch full of key ties) and at C = 5,
-   and K15 ``preempt_select`` at 131072 rows (R = 4, C = 5000, 16 priority
-   classes, ~30% victims, ~5% demanders); K3 (both forms), K4 (phase A and
+   ``quota_admit`` at 131072 rows x 32 namespaces with 4, 17 and 40 dims
+   and x 1, 1024 and 4096 namespaces with 4, and on its edge batches
+   (``admit_edge_batch``: B = 1, ragged, N = 0 and 1, unquota'd and
+   out-of-range ids, runs across and along the tiles, 2^17 clamp-sized
+   rows, remaining 0 and UNLIMITED, a denied row's place in line, R = 1,
+   16, 17 and 40), K13's per-row form ``quota_cluster_caps`` at 4096 x
+   5000, K14 ``explain_pass`` at 4096 x 5000 (a batch full of key ties)
+   and at C = 5, and K15 ``preempt_select`` at 131072 rows (R = 4 and 17,
+   C = 5000, 16 priority classes, ~30% victims, ~5% demanders) and on its
+   edge batches (``preempt_edge_batch``: no victims, no demanders, equal
+   keys, wrapping keys, b_key above B, B = 1 and 2^17, weights out of
+   range, rows that free nothing, R = 1, 16, 17 and 40); K3 (both forms), K4 (phase A and
    the entry rows) and K16 (both forms) on the fleet edge batches
    (``fleet_edge_tables``: duplicate, wrapping and negative previous
    counts, padding rows, sites outside [0, C), k_prev 1, 32 and 128, C from
@@ -40,9 +47,12 @@
    the kernels' old limits, served: K1 at 65535 x 128 + 1 rows in its three forms against
    the plain versions, an engine at 16,385 clusters scheduling 2000
    config-5 bindings through the fleet (every row against the numpy
-   divider), and a 17-dim quota wave (``wide_quota_scene``) whose
+   divider), a 17-dim quota wave (``wide_quota_scene``) whose
    partition equals ``admit_wave_np`` and whose admitted rows equal the
-   numpy divider;
+   numpy divider, and a 17-dim preemption wave (``preemption_scene`` with
+   13 extended resources: 2000 residents x 500 clusters, a 100-row surge)
+   that launches K15 once and whose victims and placements equal
+   ``preempt_and_place_np``;
 3. end-to-end phase, every row checked against the port's numpy divider on
    the same packed inputs (``oracle_check``):
    - BASELINE configs 1 and 2 (host-small numpy path), 3 (resource models
@@ -1198,6 +1208,7 @@ PATH_KERNELS = {
     "wide fleet": ("profile_table", "divide_replicas", "fleet_masks", "fleet_diff",
                    "fleet_wire"),
     "wide quota": ("quota_admit", "profile_table", "divide_replicas"),
+    "wide preemption": ("preempt_select",),
     "controller cold": ("profile_table", "divide_replicas", "fleet_masks", "fleet_diff",
                         "fleet_wire"),
     "controller quota": ("quota_admit", "quota_caps_fold", "profile_table",
@@ -3190,37 +3201,113 @@ def caps_batch(rng, b: int = 4096, c: int = 5000, n: int = 8, r: int = 4) -> dic
             "requests": req}
 
 
+#: K12's edge batches (``admit_edge_batch``)
+ADMIT_EDGE_CASES = ("b1", "ragged", "n0", "n1", "unquotad", "past_n", "runs", "tile_runs",
+                    "clamp", "remaining0", "unlimited", "head_of_line", "r1", "r16", "r17",
+                    "r40")
+
+
+def admit_edge_batch(case: str) -> dict:
+    """K12 inputs on which it must stay exact, by ``case`` (each drawn from
+    its own seed, so the CPU tests pose the same batches): B = 1; a ragged
+    wave (6921 rows: three sort tiles and part of a fourth) with ids over
+    -1..N+1; N = 0 and N = 1; every row unquota'd; every id at or above
+    N; namespaces in runs of 1500 rows across the tile edges, and runs of
+    exactly one tile; 2^17 rows of one namespace at DEMAND_CLAMP (the sum
+    reaches 2^61; a dim limited at 2^61 - 2^44 denies the last row alone);
+    remaining 0 (the first half of the wave asks nothing and is admitted)
+    and remaining
+    UNLIMITED; a denied row followed by smaller rows that would fit, which
+    it keeps out (its place in line); R = 1, 16, 17 and 40, each namespace
+    bound on one dim (the last for even namespaces, the first for odd)."""
+    rng = np.random.default_rng(1200 + ADMIT_EDGE_CASES.index(case))
+    b, n, r = 6921, 32, 4
+    if case == "b1":
+        b = 1
+    elif case in ("n0", "n1"):
+        n = int(case[1])
+    elif case[0] == "r" and case[1:].isdigit():
+        n, r = 5, int(case[1:])
+    ns = rng.integers(-1, n + 2, b).astype(np.int32)
+    demand = rng.integers(0, 1 << 20, (b, r)).astype(np.int64)
+    demand[rng.random((b, r)) < 0.1] = 0
+    if case == "unquotad":
+        ns[:] = -1
+    elif case == "past_n":
+        ns = rng.integers(n, n + 5, b).astype(np.int32)
+    elif case == "runs":
+        n = 5
+        ns = np.minimum(np.arange(b) // 1500, n - 1).astype(np.int32)
+        ns[::97] = -1
+    elif case == "tile_runs":
+        n, b = 4, 4 * 2048 + 100
+        ns = (np.arange(b) // 2048).astype(np.int32)  # the last 100 rows: id N
+        demand = rng.integers(0, 1 << 20, (b, r)).astype(np.int64)
+    elif case == "clamp":
+        b, n, r = 1 << 17, 1, 2
+        ns, demand = np.zeros(b, np.int32), np.full((b, r), 2**44, np.int64)
+        return {"ns_ids": ns, "demand": demand,
+                "remaining": np.array([[2**62, 2**61 - 2**44]], np.int64)}
+    elif case == "head_of_line":
+        b, n, r = 5000, 2, 1
+        ns = (np.arange(b) % 2).astype(np.int32)
+        demand = np.ones((b, r), np.int64)
+        demand[200], demand[b - 1] = 10**6, 10**6  # namespace 0 early, 1 last
+        return {"ns_ids": ns, "demand": demand, "remaining": np.array([[1500], [3000]])}
+    remaining = np.zeros((n, r), np.int64)
+    for k in range(n):
+        remaining[k] = demand[ns == k].sum(axis=0) // 2
+    remaining[rng.random((n, r)) < 0.2] = 2**62
+    if case[0] == "r" and case[1:].isdigit():
+        remaining[:] = 2**62
+        for k in range(n):
+            dim = r - 1 if k % 2 == 0 else 0
+            remaining[k, dim] = demand[ns == k, dim].sum() // 2
+    elif case == "remaining0":  # the first half asks nothing: admitted
+        remaining[:] = 0
+        demand[: b // 2] = 0
+    elif case == "unlimited":
+        remaining[:] = 2**62
+    return {"ns_ids": ns, "demand": demand, "remaining": remaining}
+
+
+def check_admit_edges(device, card: str) -> None:
+    """K12 against its plain version on every ``admit_edge_batch`` case;
+    exact."""
+    from karmada_tpu_torch import ops
+
+    for case in ADMIT_EDGE_CASES:
+        t = to_device(admit_edge_batch(case), device)
+        args = (t["ns_ids"], t["demand"], t["remaining"])
+        got = ops.quota_admit(*args)
+        compare(f"quota_admit edge case {case}", got, ops.quota_admit_ref(*args))
+    print(f"# K12 edge cases: {len(ADMIT_EDGE_CASES)} exact ({', '.join(ADMIT_EDGE_CASES)}); "
+          f"card {card}", flush=True)
+
+
 def check_quota_kernels(rng, device, card: str) -> dict:
-    """K12 at B = 131072, N = 32 (R = 4, 17 and 40) and K13's per-row form
-    at 4096 x 5000 against their plain versions on the card; exact."""
+    """K12 at B = 131072 with N = 32 (R = 4, 17 and 40) and N = 1, 1024 and
+    4096 (R = 4), and on its edge batches; K13's per-row form at 4096 x 5000;
+    against their plain versions on the card; exact."""
     from karmada_tpu_torch import ops
 
     stats = {}
-    t = to_device(admit_batch(rng), device)
-    args = (t["ns_ids"], t["demand"], t["remaining"])
-    got = ops.quota_admit(*args)
-    b, r = t["demand"].shape
-    n = t["remaining"].shape[0]
-    err = compare("quota_admit", got, ops.quota_admit_ref(*args))
-    denied = int((~got[0]).sum().item())
-    stats["quota_admit"] = dict(timed(
-        f"quota_admit (K12) B={b} N={n}", lambda: ops.quota_admit(*args),
-        lambda: ops.quota_admit_ref(*args),
-        _nbytes(*args, *got),
-        # per row and dim: the scan's add, the compare, the admitted add
-        b * r * 3, card,
-    ), max_abs_err=err)
-    print(f"# K12 check: {denied} of {b} rows denied", flush=True)
-    # past the 16 dims one tile of K12's shared memory holds
-    for r_wide in (17, 40):
-        t = to_device(admit_batch(rng, r=r_wide), device)
+    wide = np.random.default_rng(SEED + 32)  # the namespace counts' own draws
+    for n, r in ((32, 4), (32, 17), (32, 40), (1, 4), (1024, 4), (4096, 4)):
+        t = to_device(admit_batch(rng if n == 32 else wide, n=n, r=r), device)
         args = (t["ns_ids"], t["demand"], t["remaining"])
         got = ops.quota_admit(*args)
-        compare(f"quota_admit {r_wide} dims", got, ops.quota_admit_ref(*args))
+        b = t["demand"].shape[0]
+        err = compare(f"quota_admit N={n} R={r}", got, ops.quota_admit_ref(*args))
         denied = int((~got[0]).sum().item())
-        timed(f"quota_admit (K12) B={b} N={n} R={r_wide}", lambda: ops.quota_admit(*args),
-              lambda: ops.quota_admit_ref(*args), _nbytes(*args, *got), b * r_wide * 3, card)
-        print(f"# K12 at {r_wide} dims: exact, {denied} of {b} rows denied", flush=True)
+        st = timed(f"quota_admit (K12) B={b} N={n} R={r}", lambda: ops.quota_admit(*args),
+                   lambda: ops.quota_admit_ref(*args), _nbytes(*args, *got),
+                   # per row and dim: the scan's add, the compare, the admitted add
+                   b * r * 3, card)
+        print(f"# K12 at N={n} R={r}: exact, {denied} of {b} rows denied", flush=True)
+        if (n, r) == (32, 4):
+            stats["quota_admit"] = dict(st, max_abs_err=err)
+    check_admit_edges(device, card)
     t = to_device(caps_batch(rng), device)
     args = (t["caps"], t["ns_rows"], t["requests"])
     got = ops.quota_cluster_caps(*args)
@@ -3834,7 +3921,87 @@ def check_preempt_kernel(t: dict, card: str, label: str, b_key: int | None = Non
     print(f"# kernel preempt_select {label}: {len(args[0])} rows, {sel} victims selected",
           flush=True)
     nbytes, ops_n = preempt_bound(t, got[0])
-    return timed("preempt_select", kern, plain, nbytes, ops_n, card)
+    return timed(f"preempt_select {label}", kern, plain, nbytes, ops_n, card)
+
+
+#: K15's edge batches (``preempt_edge_batch``)
+PREEMPT_EDGE_CASES = ("no_victims", "no_demanders", "equal_keys", "wrapping", "b_key", "b1",
+                      "b2e17", "weights", "nothing_freed", "r1", "r16", "r17", "r40")
+
+
+def preempt_edge_batch(case: str) -> dict:
+    """K15 inputs (numpy; ``b_key`` beside them) on which it must stay
+    exact, by ``case`` (each drawn from its own seed, so the CPU tests pose
+    the same batches): no eligible victim; no demand; every row of one
+    priority and one weight (equal d keys; nothing is displaced);
+    priorities at and past 2^20 and up to 2^31 - 1, and negative ones, at
+    b_key 2^17 (the packed victim key wraps), with requests near 2^40 (the
+    int64 sums wrap); b_key above B; B = 1; B = 2^17 (16 classes); weights
+    below 0 and above MAX_WEIGHT; eligible rows that free nothing; R = 1,
+    16, 17 and 40. Otherwise 5000 rows (two sort tiles and part of a third)
+    over 7 clusters in 5 classes, a third demanders, a third victims."""
+    rng = np.random.default_rng(1500 + PREEMPT_EDGE_CASES.index(case))
+    b, r, c, classes, b_key = 5000, 4, 7, 5, None
+    if case == "b1":
+        b = 1
+    elif case == "b2e17":
+        b, c, classes = 1 << 17, 3, 16
+    elif case[0] == "r" and case[1:].isdigit():
+        r = int(case[1:])
+    prio = rng.integers(0, classes, b).astype(np.int32)
+    role = rng.integers(0, 3, b)
+    requests = rng.integers(0, 8, (b, r)).astype(np.int64)
+    if case == "wrapping":
+        prio = rng.choice(np.array([0, 1, 2**20 - 1, 2**20, 2**20 + 5, 2**27, 2**29, 2**30,
+                                    2**31 - 1, -1, -5], np.int32), b)
+        requests = rng.integers(0, 1 << 40, (b, r)).astype(np.int64)
+        b_key = 1 << 17
+    elif case == "b_key":
+        b_key = 8192
+    elif case == "equal_keys":
+        prio[:] = 3
+    dem = (role == 0) & (prio > 0) if case != "wrapping" else role == 0
+    demand = np.where(dem[:, None], rng.integers(0, 24, (b, r)), 0).astype(np.int64)
+    if case == "wrapping":
+        demand = np.where(dem[:, None], rng.integers(0, 1 << 62, (b, r)), 0).astype(np.int64)
+    vic = role == 1
+    assigned = np.where(vic[:, None], rng.integers(0, 4, (b, c)), 0).astype(np.int32)
+    if case == "equal_keys":
+        assigned = np.where(vic[:, None], 1, 0).astype(np.int32)
+    weight = assigned.sum(axis=1).astype(np.int32)
+    victim_ok = vic & (weight > 0)
+    freed = np.where(victim_ok[:, None], weight[:, None].astype(np.int64) * requests, 0)
+    if case == "no_victims":
+        victim_ok[:], freed[:] = False, 0
+    elif case == "no_demanders":
+        demand[:] = 0
+    elif case == "weights":
+        weight = rng.choice(np.array([-(2**31), -7, -1, 0, 3, 2**20 - 1, 2**20, 2**20 + 9,
+                                      2**31 - 1], np.int32), b)
+    elif case == "nothing_freed":
+        freed[rng.random(b) < 0.5] = 0
+    return {"prio": prio, "demand": demand, "freed": freed, "victim_ok": victim_ok,
+            "weight": weight, "assigned": assigned, "requests": requests, "b_key": b_key}
+
+
+def check_preempt_edges(device, card: str) -> None:
+    """K15 against its plain version on every ``preempt_edge_batch`` case;
+    exact."""
+    from karmada_tpu_torch import ops
+
+    picked = 0
+    for case in PREEMPT_EDGE_CASES:
+        a = preempt_edge_batch(case)
+        b_key = a.pop("b_key")
+        t = to_device(a, device)
+        args = [t[k] for k in ("prio", "demand", "freed", "victim_ok", "weight", "assigned",
+                               "requests")]
+        got = ops.preempt_select(*args, b_key=b_key)
+        compare(f"preempt_select edge case {case}", got,
+                ops.preempt_select_ref(*args, b_key=b_key))
+        picked += int(got[0].sum().item())
+    print(f"# K15 edge cases: {len(PREEMPT_EDGE_CASES)} exact ({', '.join(PREEMPT_EDGE_CASES)})"
+          f", {picked} victims in all; card {card}", flush=True)
 
 
 def explain_capture(tag: str, engine, problems, device, card: str, sample: int = 64,
@@ -3933,14 +4100,18 @@ def run_explain_fleet(device, card: str, engine=None, problems=None, bindings=No
     return out
 
 
-def preemption_scene(residents: int, clusters: int, surge: int, pkg=None):
+def preemption_scene(residents: int, clusters: int, surge: int, pkg=None,
+                     extra_dims: int = 0):
     """bench.py ``run_preemption``'s scene (bench.py:2809-3190), built with
     ``pkg``'s modules (karmada_tpu_torch by default): (snapshot, residents,
     surge, per-replica request). ``clusters`` clusters of 200 cpu / 4000Gi
     / 10^6 pods in min(64, C // 8) label groups; ``residents`` priority-0
     rows of 2 replicas x (500m cpu, 512Mi), each pinned to one group;
     ``surge`` priority-100 rows of the same shape over every cluster. Keys
-    are ``default/w<i>`` and ``default/hi<i>``."""
+    are ``default/w<i>`` and ``default/hi<i>``. With ``extra_dims``, every
+    cluster also carries 10,000 of each extended resource
+    ``example.com/rNN`` and every request asks 1-3 of each, as
+    ``wide_quota_scene`` adds them (13: 17 dims)."""
     name = pkg.__name__ if pkg is not None else "karmada_tpu_torch"
     api = importlib.import_module(f"{name}.api")
     b = importlib.import_module(f"{name}.utils.builders")
@@ -3948,13 +4119,18 @@ def preemption_scene(residents: int, clusters: int, surge: int, pkg=None):
     s = importlib.import_module(f"{name}.scheduler")
 
     n_groups = max(1, min(64, clusters // 8))
-    snap = s.ClusterSnapshot([
-        b.new_cluster(f"p{i:04d}", cpu="200", memory="4000Gi", pods=1_000_000,
-                      labels={"group": f"g{i % n_groups}"}) for i in range(clusters)])
+    ext = [f"example.com/r{k:02d}" for k in range(extra_dims)]
+    fleet = [b.new_cluster(f"p{i:04d}", cpu="200", memory="4000Gi", pods=1_000_000,
+                           labels={"group": f"g{i % n_groups}"}) for i in range(clusters)]
+    for cl in fleet:
+        for d in ext:
+            cl.status.resource_summary.allocatable[d] = 10_000
+    snap = s.ClusterSnapshot(fleet)
     group_pl = [b.dynamic_weight_placement(cluster_affinity=api.ClusterAffinity(
         label_selector=api.LabelSelector(match_labels={"group": f"g{k}"})))
         for k in range(n_groups)]
-    req = q.parse_resource_list({"cpu": "500m", "memory": "512Mi"})
+    req = {**q.parse_resource_list({"cpu": "500m", "memory": "512Mi"}),
+           **{d: 1 + k % 3 for k, d in enumerate(ext)}}
     low = [s.BindingProblem(key=f"default/w{i}", placement=group_pl[i % n_groups],
                             replicas=2, requests=req, gvk="apps/v1/Deployment",
                             namespace="default")
@@ -3970,7 +4146,8 @@ def saturated_clusters(clusters, placements, req, pkg=None) -> list:
     """New Cluster objects (``pkg``'s, karmada_tpu_torch's by default) of
     the same names and labels whose cpu is saturated exactly by
     ``placements`` (each {cluster: replicas} of one resident of request
-    ``req``): allocatable = allocated = the residents' usage."""
+    ``req``): allocatable = allocated = the residents' usage; extended
+    resources keep their allocatable, unallocated."""
     name = pkg.__name__ if pkg is not None else "karmada_tpu_torch"
     new_cluster = importlib.import_module(f"{name}.utils.builders").new_cluster
     col = {cl.name: j for j, cl in enumerate(clusters)}
@@ -3978,10 +4155,17 @@ def saturated_clusters(clusters, placements, req, pkg=None) -> list:
     for placement in placements:
         for nm, reps in placement.items():
             used[col[nm]] += (reps * req["cpu"], reps * req["memory"], reps)
-    return [new_cluster(cl.name, cpu=f"{u[0]}m", memory="4000Gi", pods=1_000_000,
-                        labels=cl.meta.labels,
-                        allocated={"cpu": f"{u[0]}m", "memory": int(u[1]), "pods": int(u[2])})
-            for cl, u in zip(clusters, used)]
+    out = []
+    for cl, u in zip(clusters, used):
+        sat = new_cluster(cl.name, cpu=f"{u[0]}m", memory="4000Gi", pods=1_000_000,
+                          labels=cl.meta.labels,
+                          allocated={"cpu": f"{u[0]}m", "memory": int(u[1]),
+                                     "pods": int(u[2])})
+        alloc = sat.status.resource_summary.allocatable
+        for d, v in cl.status.resource_summary.allocatable.items():
+            alloc.setdefault(d, v)
+        out.append(sat)
+    return out
 
 
 def preempt_referent(demanders, pool, names, dims, base_caps) -> tuple[list, dict]:
@@ -4023,7 +4207,7 @@ def preempt_referent(demanders, pool, names, dims, base_caps) -> tuple[list, dic
 
 
 def run_preemption(device, card: str, residents: int = 100_000, clusters: int = 5000,
-                   surge: int = 1000) -> dict:
+                   surge: int = 1000, extra_dims: int = 0) -> dict:
     """bench.py ``run_preemption``'s scene (bench.py:2809-3190) at the
     engine: ``clusters`` clusters of 200 cpu / 4000Gi / 10^6 pods in
     min(64, C // 8) label groups; ``residents`` priority-0 rows of 2
@@ -4035,11 +4219,12 @@ def run_preemption(device, card: str, residents: int = 100_000, clusters: int = 
     once, and its victims and the demanders' placements must equal
     ``preempt_and_place_np``. K15 is held to its plain version on the
     pass's own inputs. Then the residents' wave as a steady pass, the
-    plane armed and disarmed."""
+    plane armed and disarmed. ``extra_dims`` extended resources on every
+    cluster and in every request (``preemption_scene``)."""
     from karmada_tpu_torch.scheduler import BindingProblem, ClusterSnapshot, TensorScheduler
 
     t0 = time.perf_counter()
-    snap, low, hi, req = preemption_scene(residents, clusters, surge)
+    snap, low, hi, req = preemption_scene(residents, clusters, surge, extra_dims=extra_dims)
     names = snap.names
     n_groups = len({cl.meta.labels["group"] for cl in snap.clusters})
     engine = TensorScheduler(snap, chunk_size=4096, device=device)
@@ -4094,7 +4279,8 @@ def run_preemption(device, card: str, residents: int = 100_000, clusters: int = 
                                             else {}) for p in demanders)
     check_s = time.perf_counter() - t1
     print(f"# preemption surge: {len(demanders)} demanders over {len(pool)} residents "
-          f"({rows} rows, sort keys for {padded}); pass {surge_s:.4f} s; K15 launches "
+          f"({rows} rows, sort keys for {padded}, {len(dims)} dims); pass {surge_s:.4f} s; "
+          f"K15 launches "
           f"{launches['preempt_select']}; {len(got_victims)} victims, {len(out.placed)} "
           f"placed, {len(out.still_unschedulable)} still unschedulable; referent "
           f"preempt_and_place_np: victims {len(want_victims)} ({bad_victims} differ), "
@@ -4122,7 +4308,8 @@ def run_preemption(device, card: str, residents: int = 100_000, clusters: int = 
           f"launches { {k: v for k, v in launches.items() if v} }; card {card}", flush=True)
     return {"launches": launches, "stats": stats, "surge_s": surge_s, "cold_s": cold_s,
             "walls": walls, "victims": len(got_victims), "placed": len(out.placed),
-            "still": len(out.still_unschedulable), "rows": rows, "padded": padded}
+            "still": len(out.still_unschedulable), "rows": rows, "padded": padded,
+            "dims": len(dims)}
 
 
 # --------------------------------------------------------------------------
@@ -5041,10 +5228,13 @@ def check_shape_limits(device, card: str) -> dict:
     (65535 blocks of 128 rows), each of its three forms at 65535 x 128 + 1
     rows equal to its plain version; an engine at 16,385 clusters (one past
     K2's old shared-memory sort) scheduling 2000 config-5 bindings through
-    the fleet, every row against the numpy divider; and a 17-dim quota
+    the fleet, every row against the numpy divider; a 17-dim quota
     wave (one past K12's old 16) on the fleet, its partition against
-    ``admit_wave_np`` and its admitted rows against the numpy divider.
-    Returns each engine path's launches."""
+    ``admit_wave_np`` and its admitted rows against the numpy divider; and
+    a 17-dim preemption wave (one past K15's old 16: ``preemption_scene``
+    with 13 extended resources, 2000 residents x 500 clusters, a 100-row
+    surge), one K15 launch, its victims and placements against
+    ``preempt_and_place_np``. Returns each engine path's launches."""
     import torch
     from karmada_tpu_torch import ops
 
@@ -5075,9 +5265,10 @@ def check_shape_limits(device, card: str) -> dict:
 
 
 def check_wide_engines(device, card: str, clusters: int = 16_385, bindings: int = 2000,
-                       quota_bindings: int = 2000) -> dict:
-    """The engine past K2's and K12's old limits (``check_shape_limits``);
-    smaller sizes rehearse it on the CPU."""
+                       quota_bindings: int = 2000, residents: int = 2000,
+                       preempt_clusters: int = 500, surge: int = 100) -> dict:
+    """The engine past K2's, K12's and K15's old limits
+    (``check_shape_limits``); smaller sizes rehearse it on the CPU."""
     import karmada_tpu_torch
     from karmada_tpu_torch.scheduler import TensorScheduler
 
@@ -5123,6 +5314,17 @@ def check_wide_engines(device, card: str, clusters: int = 16_385, bindings: int 
           f"{'fleet' if engine._fleet is not None else 'general'} route, {admitted} admitted, "
           f"{denied} denied, equal to admit_wave_np; {checked} admitted rows equal to the "
           f"numpy divider; card {card}", flush=True)
+    del engine, results
+    # run_preemption holds victims and placements to preempt_and_place_np and
+    # requires one K15 launch on the card
+    wide = run_preemption(device, card, residents=residents, clusters=preempt_clusters,
+                          surge=surge, extra_dims=13)
+    if wide["dims"] != 17:
+        raise AssertionError(f"the wide preemption wave has {wide['dims']} dims, not 17")
+    out["wide preemption"] = wide
+    print(f"# K15 at {wide['dims']} dims: {wide['victims']} victims, {wide['placed']} placed, "
+          f"equal to preempt_and_place_np; K15 launches "
+          f"{wide['launches']['preempt_select']}; card {card}", flush=True)
     return out
 
 
@@ -5193,6 +5395,11 @@ def main() -> int:
         t = preempt_batch(rng, device)
         stats["preempt_select"] = check_preempt_kernel(t, card, "131072 x 5000 seeded")
         del t
+        # past the 16 dims the parent K15 refused, on its own draws
+        t = preempt_batch(np.random.default_rng(SEED + 17), device, r=17)
+        check_preempt_kernel(t, card, "131072 x 5000 seeded, 17 dims")
+        del t
+        check_preempt_edges(device, card)
         check_fleet_edges(device, card)
         check_wire_edges(device, card)
 
@@ -5299,6 +5506,7 @@ def main() -> int:
         out = check_shape_limits(device, card)
         require_launched("wide fleet", out["wide fleet"]["launches"])
         require_launched("wide quota", out["wide quota"]["launches"])
+        require_launched("wide preemption", out["wide preemption"]["launches"])
         paths.update(out)
 
     for name, fn in (("kernels", kernels), ("limits", limits),

@@ -8,18 +8,20 @@
 //        victim_ok uint8[B] (bool), weight int32[B], assigned int32[B, C],
 //        requests int64[B, R]
 //   out: victims uint8[B] (bool), freed_caps int64[C, R]
-//   scratch (the wrapper allocates it): keys int64[2, N2], idx int32[2, N2],
-//        excl int64[2, R, N2], tile_sums int64[2, R, N2 / 1024 + 1]
-//        with N2 = max(2048, the power of two >= B)
+//   scratch (the wrapper allocates it): keys uint64[2][2][B], idx
+//        int32[2][2][B], counts uint32[2 * 8 * 256 * (1 + tiles) + 1],
+//        d_in uint64[R][B], tsum uint64[2][scan_tiles][R], sel int32[B];
+//        tiles = ceil(B / 2048), scan_tiles = ceil(B / 1024)
 //   b_key: the row count the packed keys are built with (>= B): the JAX
 //        program's padded row count, so that a wrapping key wraps as there
 //
 // The rule, as the JAX program computes it:
 //  - demand_gt(q) = the total demand of the rows whose priority is > q. JAX
 //    sorts the rows by the key -(prio * B) - (B - 1 - row) (prio desc, then
-//    row asc), takes the exclusive prefix sums of demand in that order and,
-//    per victim, the first position whose prio <= q (searchsorted): that
-//    prefix is demand_gt(q), or the whole sum when no such position exists.
+//    row asc; no int64 wrap for an int32 prio and B <= 2^17), takes the
+//    exclusive prefix sums of demand in that order and, per victim, the
+//    first position whose prio <= q (searchsorted): that prefix is
+//    demand_gt(q), or the whole sum when no such position exists.
 //  - the victims are sorted by the packed key
 //      v_prio * ((MAX_WEIGHT + 1) * B) + (MAX_WEIGHT - clip(weight)) * B + row
 //    with v_prio = prio for an eligible victim and MAX_PRIORITY + 1 for
@@ -34,286 +36,370 @@
 // is stable, so both sorts order by (key, row): equal keys keep row order.
 //
 // Launches, all on the caller's stream:
-//  1. keys: both sort keys per row; rows past B get the largest key and an
-//     index past B, so they sort last.
-//  2. a bitonic sort of (key, index) pairs, both arrays at once (grid.y):
-//     one launch sorts every 2048-element tile in shared memory; then per
-//     merge size the strides >= 2048 run as one global compare-exchange
-//     launch each and the strides < 2048 as one shared-memory launch.
-//     N2 = 2^17 takes 28 launches.
-//  3. a two-level scan: per 1024-element tile a block-wide exclusive scan
-//     (warp shuffles) of the demand (in d order) and of freed (in v order),
-//     per dim, with the tile's total; then one block scans the tile totals.
-//  4. select: one thread per sorted victim position binary-searches the d
-//     order for the first prio <= its own, adds the tile offsets and
-//     writes its row's flag.
-//  5. freed_caps: zeroed, then blocks of (256 clusters x 512 rows) skip the
-//     rows that were not selected (a warp-uniform branch), accumulate
-//     assigned * requests in registers and add their sums atomically
-//     (addition modulo 2^64 is exact in any order).
+//  1. keys: per row the d key ~(prio ^ 2^31) << 32 (prio descending is its
+//     ascending order; the row tiebreak comes from the sort's stability;
+//     in the high half it shares the v key's passes) and the v key with
+//     its sign bit flipped (the signed order of the wrapped int64 key is
+//     then the unsigned order), the sort's digit counts of both, freed_caps
+//     zeroed.
+//  2. a stable LSD radix sort of both (key, row) arrays at once (grid.y;
+//     radix_sort.cuh): one launch per 8-bit digit from the lowest an array
+//     needs, a digit equal in every key skipped, and where b_key is 2^k
+//     the v key's digits below bit k too (they only repeat the row order
+//     the sort keeps): 6 launches at b_key 2^17; with 16 priority classes
+//     there the d key takes one pass, the v key four.
+//  3. tiles: per 1024-position tile, the demand in d order scanned within
+//     the tile (d_in) and its tile sums, and the tile sums of freed in v
+//     order; dims DT at a time.
+//  4. select: per tile of the v order, the tile sums of both orders scanned
+//     by one warp into shared memory (the carry of the freed scan; the base
+//     of each d tile), the in-tile scan of freed; per position the first d
+//     position whose prio <= its own (a binary search of the sorted d keys,
+//     a thread's searches in step), so
+//     demand_gt = the d tile's base + d_in there; the verdict, the flag
+//     written through the stored row, and the victims appended to a list
+//     (warp ballots and one atomic a warp: the list's order is free, since
+//     the product's sums are exact in any order).
+//  5. freed_caps: blocks stride over the list of victims, one victim's
+//     row of assigned at a time, read coalesced with eight cells a thread
+//     in flight (the bytes, not the few non-zero cells, bound it); each
+//     non-zero cell adds assigned * request to its cluster's sums
+//     atomically, every dim (addition modulo 2^64 is exact in any order).
 //
 // What bounds it on an H100: latency, not bytes. The selection's inputs are
 // at most 2^17 rows of ~60 bytes (8 MB, a few microseconds at HBM rate);
-// the ~34 dependent launches of the sort and scans cost some microseconds
-// each. The freed-capacity product reads only the selected rows' assigned.
+// the launches above are about 13, each over at most 128 blocks, and the
+// freed-capacity product reads only the victims' rows of assigned.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "radix_sort.cuh"
+
 namespace {
+
+using radix::BINS;
+using radix::ITEMS;
+using radix::MAX_DIGITS;
+using radix::SCAN_ITEMS;
+using radix::SCAN_TILE;
+using radix::Seg;
+using radix::THREADS;
+using radix::TILE;
+typedef unsigned long long u64;
 
 constexpr long long MAX_PRIORITY = (1LL << 20) - 1;
 constexpr long long MAX_WEIGHT = (1LL << 20) - 1;
-constexpr int SORT_TILE = 2048;  // elements a shared-memory sort block holds
-constexpr int SORT_THREADS = SORT_TILE / 2;
-constexpr int SCAN_TILE = 1024;
-constexpr int SCAN_WARPS = SCAN_TILE / 32;
-constexpr int MAX_R = 16;
-constexpr int CAP_COLS = 256;
-constexpr int CAP_ROWS = 512;
-typedef unsigned long long u64;
+constexpr int DT = 4;           // dims a scan carries in registers
+constexpr int CAP_THREADS = 256;  // the freed-capacity product's block
+constexpr int CAP_UNROLL = 8;     // cells a thread of it loads at once
+constexpr int CAP_GRID = 2048;    // its blocks at most, striding over the victims
+constexpr int SAMPLES = 2048;  // chunks of the sorted d keys a select block holds
 
-__device__ __forceinline__ bool greater(long long ka, int ia, long long kb, int ib) {
-  return ka > kb || (ka == kb && ia > ib);
+// prio descending as an ascending key, in the high half: its digits share
+// the v key's passes (radix positions 4-7)
+__device__ __forceinline__ u64 d_key(int32_t prio) {
+  return (u64)((uint32_t)prio ^ 0x7fffffffu) << 32;
 }
 
-__global__ void keys_kernel(const int32_t* __restrict__ prio,
-                            const uint8_t* __restrict__ victim_ok,
-                            const int32_t* __restrict__ weight, int b_n, int b_key,
-                            int n2, long long* __restrict__ keys,
-                            int32_t* __restrict__ idx) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n2) return;
-  long long dkey = 0x7fffffffffffffffLL, vkey = 0x7fffffffffffffffLL;
-  if (i < b_n) {
-    const long long p = prio[i];
+__global__ void __launch_bounds__(THREADS) preempt_keys_kernel(
+    const int32_t* __restrict__ prio, const uint8_t* __restrict__ victim_ok,
+    const int32_t* __restrict__ weight, int b_n, int b_key, u64* __restrict__ keys,
+    int32_t* __restrict__ idx, uint32_t* __restrict__ hist, uint32_t* __restrict__ counts,
+    unsigned firsts, int c_n, int r_n, int64_t* __restrict__ freed_caps) {
+  __shared__ uint32_t s_hist[2][MAX_DIGITS * BINS];
+  for (int i = threadIdx.x; i < 2 * MAX_DIGITS * BINS; i += THREADS) (&s_hist[0][0])[i] = 0;
+  __syncthreads();
+  const int tile = blockIdx.x, tiles = gridDim.x;
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const int e = tile * TILE + it * THREADS + threadIdx.x;
+    if (e >= b_n) continue;
+    const long long p = prio[e];
     const long long b = b_key;
-    dkey = -(p * b) - (b - 1 - i);
-    long long w = weight[i];
+    long long w = weight[e];
     w = w < 0 ? 0 : (w > MAX_WEIGHT ? MAX_WEIGHT : w);
-    const long long vp = victim_ok[i] ? p : MAX_PRIORITY + 1;
-    const u64 k = (u64)vp * (u64)((MAX_WEIGHT + 1) * b) + (u64)(MAX_WEIGHT - w) * (u64)b + (u64)i;
-    vkey = (long long)k;
+    const long long vp = victim_ok[e] ? p : MAX_PRIORITY + 1;
+    const u64 vkey = (u64)vp * (u64)((MAX_WEIGHT + 1) * b) + (u64)(MAX_WEIGHT - w) * (u64)b +
+                     (u64)e;
+    const u64 dk = d_key(prio[e]);
+    const u64 vk = vkey ^ (1ull << 63);
+    keys[e] = dk;                       // array 0 (d), buffer 0
+    keys[(size_t)2 * b_n + e] = vk;     // array 1 (v), buffer 0
+    idx[e] = e;
+    idx[(size_t)2 * b_n + e] = e;
+    radix::count_key(dk, radix::first_of(firsts, 0), MAX_DIGITS, s_hist[0]);
+    radix::count_key(vk, radix::first_of(firsts, 1), MAX_DIGITS, s_hist[1]);
   }
-  keys[i] = dkey;
-  keys[n2 + i] = vkey;
-  idx[i] = i;
-  idx[n2 + i] = i;
+  for (int y = 0; y < 2; ++y) {
+    radix::flush_counts(s_hist[y], MAX_DIGITS, radix::first_of(firsts, y), tile, tiles,
+                        hist + (size_t)y * MAX_DIGITS * BINS,
+                        counts + (size_t)y * MAX_DIGITS * tiles * BINS);
+  }
+  const size_t cells = (size_t)c_n * r_n;
+  for (size_t i = (size_t)tile * THREADS + threadIdx.x; i < cells; i += (size_t)tiles * THREADS) {
+    freed_caps[i] = 0;
+  }
 }
 
-// one compare-exchange of positions a < b for merge size ``size``
-__device__ __forceinline__ void cmp_swap(long long* key, int32_t* id, int a, int b, bool up) {
-  const long long ka = key[a], kb = key[b];
-  const int ia = id[a], ib = id[b];
-  if (greater(ka, ia, kb, ib) == up) {
-    key[a] = kb;
-    key[b] = ka;
-    id[a] = ib;
-    id[b] = ia;
+// y = 0: demand in d order, scanned within the tile (d_in[r][pos]) and
+// summed (tsum[0][tile][r]); y = 1: freed in v order, summed (tsum[1])
+__global__ void __launch_bounds__(THREADS) preempt_tiles_kernel(
+    const u64* __restrict__ keys, const int32_t* __restrict__ idx,
+    const uint32_t* __restrict__ hist, unsigned firsts, const int64_t* __restrict__ demand,
+    const int64_t* __restrict__ freed, int b_n, int r_n, u64* __restrict__ d_in,
+    u64* __restrict__ tsum) {
+  const int y = blockIdx.y, tile = blockIdx.x, tiles = gridDim.x;
+  const int buf = radix::sorted_buffer(radix::plan_mask(
+      hist + (size_t)y * MAX_DIGITS * BINS, b_n, MAX_DIGITS, radix::first_of(firsts, y)));
+  const int32_t* sidx = idx + ((size_t)y * 2 + buf) * b_n;
+  const int64_t* src = y == 0 ? demand : freed;
+  const int p0 = tile * SCAN_TILE + threadIdx.x * SCAN_ITEMS;
+  int row[SCAN_ITEMS];
+#pragma unroll
+  for (int j = 0; j < SCAN_ITEMS; ++j) row[j] = p0 + j < b_n ? sidx[p0 + j] : -1;
+  for (int r0 = 0; r0 < r_n; r0 += DT) {
+    u64 x[SCAN_ITEMS][DT];
+    Seg<DT> t = radix::seg_identity<DT>();
+#pragma unroll
+    for (int j = 0; j < SCAN_ITEMS; ++j) {
+#pragma unroll
+      for (int k = 0; k < DT; ++k) {
+        x[j][k] = row[j] >= 0 && r0 + k < r_n ? (u64)src[(size_t)row[j] * r_n + r0 + k] : 0;
+        t.s[k] += x[j][k];
+      }
+    }
+    Seg<DT> total;
+    const Seg<DT> pre = radix::block_seg_scan(t, &total);
+    if (y == 0) {
+      u64 run[DT];
+#pragma unroll
+      for (int k = 0; k < DT; ++k) run[k] = pre.s[k];
+#pragma unroll
+      for (int j = 0; j < SCAN_ITEMS; ++j) {
+#pragma unroll
+        for (int k = 0; k < DT; ++k) {
+          if (row[j] >= 0 && r0 + k < r_n) d_in[(size_t)(r0 + k) * b_n + p0 + j] = run[k];
+          run[k] += x[j][k];
+        }
+      }
+    }
+    if (threadIdx.x < DT && r0 + threadIdx.x < r_n) {
+      tsum[((size_t)y * tiles + tile) * r_n + r0 + threadIdx.x] = total.s[threadIdx.x];
+    }
   }
 }
 
-// the strides < SORT_TILE of merge sizes ``size_lo`` .. ``size_hi`` over one
-// tile held in shared memory (size_lo == 2: the full local sort)
-__global__ void sort_shared_kernel(long long* __restrict__ keys, int32_t* __restrict__ idx,
-                                   int n2, int size_lo, int size_hi) {
-  __shared__ long long sk[SORT_TILE];
-  __shared__ int32_t si[SORT_TILE];
-  long long* key = keys + (size_t)blockIdx.y * n2;
-  int32_t* id = idx + (size_t)blockIdx.y * n2;
-  const int tile = blockIdx.x * SORT_TILE;
-  for (int t = threadIdx.x; t < SORT_TILE; t += SORT_THREADS) {
-    sk[t] = key[tile + t];
-    si[t] = id[tile + t];
+__global__ void __launch_bounds__(THREADS) preempt_select_kernel(
+    const int32_t* __restrict__ prio, const int64_t* __restrict__ freed,
+    const uint8_t* __restrict__ victim_ok, const u64* __restrict__ keys,
+    const int32_t* __restrict__ idx, const uint32_t* __restrict__ hist, unsigned firsts,
+    const u64* __restrict__ d_in, const u64* __restrict__ tsum, int b_n, int r_n,
+    uint8_t* __restrict__ victims, int32_t* __restrict__ sel, uint32_t* __restrict__ sel_count) {
+  __shared__ u64 s_dbase[THREADS + 1][DT];  // exclusive sums of the d tiles; [tiles] = total
+  __shared__ u64 s_vcarry[DT];              // freed in v order before this tile
+  __shared__ u64 s_sample[SAMPLES];         // the last d key of each chunk
+  const int tile = blockIdx.x, tiles = gridDim.x, tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int buf_d =
+      radix::sorted_buffer(radix::plan_mask(hist, b_n, MAX_DIGITS, radix::first_of(firsts, 0)));
+  const int buf_v = radix::sorted_buffer(radix::plan_mask(
+      hist + (size_t)MAX_DIGITS * BINS, b_n, MAX_DIGITS, radix::first_of(firsts, 1)));
+  const u64* dkeys = keys + (size_t)buf_d * b_n;
+  const int32_t* vidx = idx + ((size_t)2 + buf_v) * b_n;
+  const u64* tsum_d = tsum;
+  const u64* tsum_v = tsum + (size_t)tiles * r_n;
+
+  const int p0 = tile * SCAN_TILE + tid * SCAN_ITEMS;
+  int row[SCAN_ITEMS], pos[SCAN_ITEMS];
+  u64 want[SCAN_ITEMS];
+  bool sel_any[SCAN_ITEMS];
+#pragma unroll
+  for (int j = 0; j < SCAN_ITEMS; ++j) {
+    row[j] = p0 + j < b_n ? vidx[p0 + j] : -1;
+    sel_any[j] = false;
+    pos[j] = 0;
+    want[j] = row[j] >= 0 ? d_key(prio[row[j]]) : 0;
+  }
+  // the first d position whose prio <= each row's (d keys >= its own): the
+  // chunk from a sample of the sorted d keys in shared memory (each
+  // chunk's last key), then a branchless lower bound in the chunk, the
+  // SCAN_ITEMS searches in step so their loads are in flight together
+  const int stride = (b_n + SAMPLES - 1) / SAMPLES;
+  const int chunks = (b_n + stride - 1) / stride;
+  for (int i = tid; i < chunks; i += THREADS) {
+    s_sample[i] = dkeys[min((i + 1) * stride, b_n) - 1];
   }
   __syncthreads();
-  for (int size = size_lo; size <= size_hi; size <<= 1) {
-    for (int stride = min(size, SORT_TILE) >> 1; stride > 0; stride >>= 1) {
-      const int t = threadIdx.x;
-      const int pos = 2 * t - (t & (stride - 1));
-      const bool up = ((tile + pos) & size) == 0;
-      cmp_swap(sk, si, pos, pos + stride, up);
-      __syncthreads();
+  int len = stride;
+#pragma unroll
+  for (int j = 0; j < SCAN_ITEMS; ++j) {
+    int lo = 0, hi = chunks;  // the first chunk whose last key >= want
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s_sample[mid] >= want[j]) hi = mid;
+      else lo = mid + 1;
     }
+    pos[j] = min(lo * stride, b_n);  // b_n when every key is below want
   }
-  for (int t = threadIdx.x; t < SORT_TILE; t += SORT_THREADS) {
-    key[tile + t] = sk[t];
-    id[tile + t] = si[t];
-  }
-}
-
-// one stride >= SORT_TILE of merge size ``size``, over global memory
-__global__ void sort_step_kernel(long long* __restrict__ keys, int32_t* __restrict__ idx,
-                                 int n2, int size, int stride) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n2 / 2) return;
-  const int pos = 2 * t - (t & (stride - 1));
-  cmp_swap(keys + (size_t)blockIdx.y * n2, idx + (size_t)blockIdx.y * n2, pos, pos + stride,
-           (pos & size) == 0);
-}
-
-// exclusive block-wide scan of x (modulo 2^64); the block total in *total
-__device__ __forceinline__ u64 block_excl_scan(u64 x, u64* warp_sums, u64* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  u64 v = x;
+  for (; len > 1;) {
+    const int half = len >> 1;
 #pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const u64 y = __shfl_up_sync(0xffffffffu, v, off);
-    if (lane >= off) v += y;
-  }
-  if (lane == 31) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    u64 w = lane < SCAN_WARPS ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const u64 y = __shfl_up_sync(0xffffffffu, w, off);
-      if (lane >= off) w += y;
+    for (int j = 0; j < SCAN_ITEMS; ++j) {
+      if (pos[j] + half < b_n && dkeys[pos[j] + half] < want[j]) pos[j] += half;
     }
-    if (lane < SCAN_WARPS) warp_sums[lane] = w;
+    len -= half;
   }
-  __syncthreads();
-  const u64 before = warp == 0 ? 0 : warp_sums[warp - 1];
-  *total = warp_sums[SCAN_WARPS - 1];
-  return before + v - x;
-}
+#pragma unroll
+  for (int j = 0; j < SCAN_ITEMS; ++j) pos[j] += pos[j] < b_n && dkeys[pos[j]] < want[j] ? 1 : 0;
 
-// z = 0: demand in d order; z = 1: freed in v order; one dim per blockIdx.y
-__global__ void scan_tiles_kernel(const int64_t* __restrict__ demand,
-                                  const int64_t* __restrict__ freed,
-                                  const int32_t* __restrict__ idx, int b_n, int r_n, int n2,
-                                  int n_tiles, u64* __restrict__ excl,
-                                  u64* __restrict__ tile_sums) {
-  __shared__ u64 warp_sums[SCAN_WARPS];
-  const int z = blockIdx.z, r = blockIdx.y, tile = blockIdx.x;
-  const int i = tile * SCAN_TILE + threadIdx.x;
-  const int row = idx[(size_t)z * n2 + i];
-  const int64_t* src = z == 0 ? demand : freed;
-  const u64 x = row < b_n ? (u64)src[(size_t)row * r_n + r] : 0;
-  u64 total;
-  const u64 ex = block_excl_scan(x, warp_sums, &total);
-  excl[((size_t)z * r_n + r) * n2 + i] = ex;
-  if (threadIdx.x == 0) tile_sums[((size_t)z * r_n + r) * (n_tiles + 1) + tile] = total;
-}
-
-// exclusive scan of the tile totals in place; slot n_tiles gets the total
-__global__ void scan_sums_kernel(int r_n, int n_tiles, u64* __restrict__ tile_sums) {
-  __shared__ u64 warp_sums[SCAN_WARPS];
-  u64* sums = tile_sums + ((size_t)blockIdx.y * r_n + blockIdx.x) * (n_tiles + 1);
-  const int t = threadIdx.x;  // n_tiles <= SCAN_TILE (the wrapper checks)
-  const u64 x = t < n_tiles ? sums[t] : 0;
-  u64 total;
-  const u64 ex = block_excl_scan(x, warp_sums, &total);
-  if (t < n_tiles) sums[t] = ex;
-  if (t == 0) sums[n_tiles] = total;
-}
-
-__global__ void select_kernel(const int32_t* __restrict__ prio,
-                              const int64_t* __restrict__ freed,
-                              const uint8_t* __restrict__ victim_ok,
-                              const int32_t* __restrict__ idx, const u64* __restrict__ excl,
-                              const u64* __restrict__ tile_sums, int b_n, int r_n, int n2,
-                              int n_tiles, uint8_t* __restrict__ victims) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= b_n) return;
-  const int32_t* d_idx = idx;
-  const int row = idx[n2 + i];
-  const int vp = prio[row];
-  // first d position whose prio <= vp (prio is non-increasing along d)
-  int lo = 0, hi = b_n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (prio[d_idx[mid]] <= vp) hi = mid;
-    else lo = mid + 1;
-  }
-  const int pos = lo;
-  bool sel = false;
-  if (victim_ok[row]) {
-    for (int r = 0; r < r_n; ++r) {
-      const u64* d_sums = tile_sums + (size_t)r * (n_tiles + 1);
-      const u64* v_sums = tile_sums + ((size_t)r_n + r) * (n_tiles + 1);
-      const u64 d_gt = pos < b_n
-          ? excl[(size_t)r * n2 + pos] + d_sums[pos / SCAN_TILE]
-          : d_sums[n_tiles];
-      const u64 cum = excl[((size_t)r_n + r) * n2 + i] + v_sums[i / SCAN_TILE];
-      if (freed[(size_t)row * r_n + r] > 0 && (long long)cum < (long long)d_gt) sel = true;
+  for (int r0 = 0; r0 < r_n; r0 += DT) {
+    // warp 0: the d tiles' exclusive sums (and their total) and this v
+    // tile's carry; the block scan's barriers below publish them
+    if (tid < 32) {
+      u64 run[DT], vc[DT];
+#pragma unroll
+      for (int k = 0; k < DT; ++k) run[k] = vc[k] = 0;
+      for (int t0 = 0; t0 < tiles; t0 += 32) {
+        const int t = t0 + lane;
+#pragma unroll
+        for (int k = 0; k < DT; ++k) {
+          const bool in = t < tiles && r0 + k < r_n;
+          const u64 x = in ? tsum_d[(size_t)t * r_n + r0 + k] : 0;
+          if (in && t < tile) vc[k] += tsum_v[(size_t)t * r_n + r0 + k];
+          u64 incl = x;
+#pragma unroll
+          for (int off = 1; off < 32; off <<= 1) {
+            const u64 y = __shfl_up_sync(0xffffffffu, incl, off);
+            if (lane >= off) incl += y;
+          }
+          if (t < tiles) s_dbase[t][k] = run[k] + incl - x;
+          run[k] += __shfl_sync(0xffffffffu, incl, 31);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < DT; ++k) {
+        vc[k] = radix::warp_sum(vc[k]);
+        if (lane == 0) {
+          s_dbase[tiles][k] = run[k];
+          s_vcarry[k] = vc[k];
+        }
+      }
     }
+    // the in-tile exclusive sums of freed in v order
+    u64 x[SCAN_ITEMS][DT];
+    Seg<DT> t = radix::seg_identity<DT>();
+#pragma unroll
+    for (int j = 0; j < SCAN_ITEMS; ++j) {
+#pragma unroll
+      for (int k = 0; k < DT; ++k) {
+        x[j][k] = row[j] >= 0 && r0 + k < r_n ? (u64)freed[(size_t)row[j] * r_n + r0 + k] : 0;
+        t.s[k] += x[j][k];
+      }
+    }
+    Seg<DT> total;
+    const Seg<DT> pre = radix::block_seg_scan(t, &total);  // its barriers publish warp 0's
+    u64 cum[DT];
+#pragma unroll
+    for (int k = 0; k < DT; ++k) cum[k] = s_vcarry[k] + pre.s[k];
+#pragma unroll
+    for (int j = 0; j < SCAN_ITEMS; ++j) {
+#pragma unroll
+      for (int k = 0; k < DT; ++k) {
+        if (row[j] >= 0 && r0 + k < r_n) {
+          const u64 d_gt =
+              pos[j] < b_n ? s_dbase[pos[j] / SCAN_TILE][k] + d_in[(size_t)(r0 + k) * b_n + pos[j]]
+                           : s_dbase[tiles][k];
+          if ((long long)x[j][k] > 0 && (long long)cum[k] < (long long)d_gt) sel_any[j] = true;
+        }
+        cum[k] += x[j][k];
+      }
+    }
+    __syncthreads();  // s_dbase and s_vcarry are rewritten by the next tile of dims
   }
-  victims[row] = sel ? 1 : 0;
+
+#pragma unroll
+  for (int j = 0; j < SCAN_ITEMS; ++j) {
+    const bool s = row[j] >= 0 && sel_any[j] && victim_ok[row[j]];
+    if (row[j] >= 0) victims[row[j]] = s ? 1 : 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, s);
+    if (!ballot) continue;
+    uint32_t base = 0;
+    if (lane == 0) base = atomicAdd(sel_count, (uint32_t)__popc(ballot));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (s) sel[base + __popc(ballot & ((1u << lane) - 1))] = row[j];
+  }
 }
 
-__global__ void freed_caps_kernel(const uint8_t* __restrict__ victims,
-                                  const int32_t* __restrict__ assigned,
-                                  const int64_t* __restrict__ requests, int b_n, int r_n,
-                                  int c_n, int64_t* __restrict__ freed_caps) {
-  const int c = blockIdx.x * CAP_COLS + threadIdx.x;
-  const int row0 = blockIdx.y * CAP_ROWS;
-  const int row1 = min(row0 + CAP_ROWS, b_n);
-  u64 acc[MAX_R];
+// one victim row at a time a block, its cells read coalesced, CAP_UNROLL
+// a thread in flight; a non-zero cell adds assigned * request to its
+// cluster's R sums (victims hold few clusters: the atomics are few)
+__global__ void __launch_bounds__(CAP_THREADS) freed_caps_kernel(
+    const int32_t* __restrict__ sel, const uint32_t* __restrict__ sel_count,
+    const int32_t* __restrict__ assigned, const int64_t* __restrict__ requests, int r_n,
+    int c_n, int64_t* __restrict__ freed_caps) {
+  const int n_sel = (int)*sel_count;
+  for (int i = blockIdx.x; i < n_sel; i += gridDim.x) {
+    const int row = sel[i];
+    const int32_t* a_row = assigned + (size_t)row * c_n;
+    const int64_t* req = requests + (size_t)row * r_n;
+    for (int c0 = 0; c0 < c_n; c0 += CAP_THREADS * CAP_UNROLL) {
+      int32_t a[CAP_UNROLL];
 #pragma unroll
-  for (int r = 0; r < MAX_R; ++r) acc[r] = 0;
-  bool any = false;
-  for (int row = row0; row < row1; ++row) {
-    if (!victims[row]) continue;  // uniform across the block
-    any = true;
-    if (c >= c_n) continue;
-    const u64 a = (u64)(long long)assigned[(size_t)row * c_n + c];
+      for (int u = 0; u < CAP_UNROLL; ++u) {
+        const int c = c0 + u * CAP_THREADS + threadIdx.x;
+        a[u] = c < c_n ? a_row[c] : 0;
+      }
 #pragma unroll
-    for (int r = 0; r < MAX_R; ++r) {
-      if (r < r_n) acc[r] += a * (u64)requests[(size_t)row * r_n + r];
-    }
-  }
-  if (!any || c >= c_n) return;
-#pragma unroll
-  for (int r = 0; r < MAX_R; ++r) {
-    if (r < r_n && acc[r] != 0) {
-      atomicAdd(reinterpret_cast<u64*>(freed_caps) + (size_t)c * r_n + r, acc[r]);
+      for (int u = 0; u < CAP_UNROLL; ++u) {
+        if (a[u] == 0) continue;
+        const size_t cell = (size_t)(c0 + u * CAP_THREADS + threadIdx.x) * r_n;
+        for (int r = 0; r < r_n; ++r) {
+          const u64 v = (u64)(long long)a[u] * (u64)req[r];
+          if (v) atomicAdd(reinterpret_cast<u64*>(freed_caps) + cell + r, v);
+        }
+      }
     }
   }
 }
 
 }  // namespace
 
-// victims uint8[B], freed_caps int64[C, R] = preempt_select(...); R <= 16,
-// n2 = max(2048, pow2 >= B), B <= b_key <= 2^17 (the wrapper checks)
+// victims uint8[B], freed_caps int64[C, R] = preempt_select(...), for any R;
+// 1 <= B <= b_key <= 2^17 (the wrapper checks)
 extern "C" int preempt_select_launch(const int32_t* prio, const int64_t* demand,
                                      const int64_t* freed, const uint8_t* victim_ok,
                                      const int32_t* weight, const int32_t* assigned,
                                      const int64_t* requests, int b_n, int b_key, int r_n,
-                                     int c_n, int n2, uint8_t* victims, int64_t* freed_caps,
-                                     long long* keys, int32_t* idx, int64_t* excl,
-                                     int64_t* tile_sums, cudaStream_t stream) {
-  if (r_n < 1 || r_n > MAX_R || n2 < SORT_TILE || (n2 & (n2 - 1)) || b_n > n2 || b_key < b_n ||
-      n2 / SCAN_TILE > SCAN_TILE) {
+                                     int c_n, uint8_t* victims, int64_t* freed_caps, u64* keys,
+                                     int32_t* idx, uint32_t* counts, u64* d_in, u64* tsum,
+                                     int32_t* sel, cudaStream_t stream) {
+  const int tiles = (b_n + TILE - 1) / TILE;
+  const int scan_tiles = (b_n + SCAN_TILE - 1) / SCAN_TILE;
+  if (b_n < 1 || b_key < b_n || r_n < 0 || c_n < 0 || scan_tiles > THREADS) {
     return (int)cudaErrorInvalidValue;
   }
-  const int n_tiles = n2 / SCAN_TILE;
-  u64* ex = reinterpret_cast<u64*>(excl);
-  u64* sums = reinterpret_cast<u64*>(tile_sums);
-  keys_kernel<<<(n2 + 255) / 256, 256, 0, stream>>>(prio, victim_ok, weight, b_n, b_key, n2,
-                                                    keys, idx);
-  const dim3 tiles(n2 / SORT_TILE, 2);
-  sort_shared_kernel<<<tiles, SORT_THREADS, 0, stream>>>(keys, idx, n2, 2, SORT_TILE);
-  for (int size = 2 * SORT_TILE; size <= n2; size <<= 1) {
-    for (int stride = size >> 1; stride >= SORT_TILE; stride >>= 1) {
-      sort_step_kernel<<<dim3((n2 / 2 + 255) / 256, 2), 256, 0, stream>>>(keys, idx, n2, size,
-                                                                          stride);
-    }
-    sort_shared_kernel<<<tiles, SORT_THREADS, 0, stream>>>(keys, idx, n2, size, size);
-  }
-  scan_tiles_kernel<<<dim3(n_tiles, r_n, 2), SCAN_TILE, 0, stream>>>(
-      demand, freed, idx, b_n, r_n, n2, n_tiles, ex, sums);
-  scan_sums_kernel<<<dim3(r_n, 2), SCAN_TILE, 0, stream>>>(r_n, n_tiles, sums);
-  if (b_n > 0) {
-    select_kernel<<<(b_n + 255) / 256, 256, 0, stream>>>(prio, freed, victim_ok, idx, ex, sums,
-                                                         b_n, r_n, n2, n_tiles, victims);
-  }
-  cudaMemsetAsync(freed_caps, 0, (size_t)c_n * r_n * sizeof(int64_t), stream);
-  if (b_n > 0 && c_n > 0) {
-    freed_caps_kernel<<<dim3((c_n + CAP_COLS - 1) / CAP_COLS, (b_n + CAP_ROWS - 1) / CAP_ROWS),
-                        CAP_COLS, 0, stream>>>(victims, assigned, requests, b_n, r_n, c_n,
-                                               freed_caps);
+  uint32_t* hist = counts;                                  // [2][8][BINS]
+  uint32_t* tile_counts = counts + 2 * MAX_DIGITS * BINS;   // [2][8][tiles][BINS]
+  uint32_t* sel_count = tile_counts + (size_t)2 * MAX_DIGITS * tiles * BINS;
+  // b_key = 2^k: the v key is the row plus a multiple of 2^k, so its digits
+  // wholly below bit k only repeat the row order (radix_sort.cuh)
+  const int k = (b_key & (b_key - 1)) == 0 ? __builtin_ctz((unsigned)b_key) : 0;
+  const unsigned firsts = 4u | (unsigned)(k / radix::BITS) << 4;  // d key: 4; v key: k / 8
+  cudaMemsetAsync(counts, 0,
+                  ((size_t)2 * MAX_DIGITS * BINS * (1 + tiles) + 1) * sizeof(uint32_t), stream);
+  preempt_keys_kernel<<<tiles, THREADS, 0, stream>>>(prio, victim_ok, weight, b_n, b_key, keys,
+                                                     idx, hist, tile_counts, firsts, c_n, r_n,
+                                                     freed_caps);
+  radix::sort_pairs(keys, idx, hist, tile_counts, b_n, MAX_DIGITS, firsts, 2, stream);
+  preempt_tiles_kernel<<<dim3(scan_tiles, 2), THREADS, 0, stream>>>(
+      keys, idx, hist, firsts, demand, freed, b_n, r_n, d_in, tsum);
+  preempt_select_kernel<<<scan_tiles, THREADS, 0, stream>>>(prio, freed, victim_ok, keys, idx,
+                                                            hist, firsts, d_in, tsum, b_n, r_n,
+                                                            victims, sel, sel_count);
+  if (c_n > 0 && r_n > 0) {
+    freed_caps_kernel<<<b_n < CAP_GRID ? b_n : CAP_GRID, CAP_THREADS, 0, stream>>>(
+        sel, sel_count, assigned, requests, r_n, c_n, freed_caps);
   }
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` holds one kernel with a plain C entry point. It is
 compiled on first use by ``nvcc -gencode arch=compute_90a,code=sm_90a
 -shared`` into ``_build/lib<name>-<source hash>.so`` beside the package
-(the directory is git-ignored) and loaded with ctypes. The source hash in
-the file name means an edited kernel is never served from a stale build.
+(the directory is git-ignored) and loaded with ctypes. The hash covers the
+source and the shared headers (``csrc/*.cuh``), so an edited kernel is never
+served from a stale build.
 ``build()`` starts one ``nvcc`` per source, all at once, so a cold start
 pays for the slowest kernel only.
 
@@ -83,13 +84,13 @@ SIGNATURES = {
     },
     "model_estimate": {"model_overlay_launch": "pppiiipi" "ppp" "i" "p"},
     "node_sum": {"node_sum_launch": "piippip"},
-    "quota_admit": {"quota_admit_launch": "pppiiipp"},
+    "quota_admit": {"quota_admit_launch": "pppiiipp" "ppppp" "i"},
     "quota_caps": {
         "quota_caps_launch": "piiippip",
         "quota_fold_launch": "piiippip",
     },
     "explain_pass": {"explain_pass_launch": "pppppppppppp" "iii" "pp"},
-    "preempt_select": {"preempt_select_launch": "ppppppp" "iiiii" "pppppp"},
+    "preempt_select": {"preempt_select_launch": "ppppppp" "iiii" "pppppppp"},
     "entry_diff": {"entry_diff_launch": "pppppii" "p" "iiiii" "ppp"},
     "first_fit_group": {"first_fit_group_launch": "ppppppppp" "iiiii" "ppp"},
 }
@@ -116,10 +117,14 @@ def nvcc() -> str:
 
 
 def so_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The build of ``csrc/<name>.cu``, named by a hash of the source and of
+    every shared header beside it (``csrc/*.cuh``)."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names=KERNELS) -> dict[str, float]:

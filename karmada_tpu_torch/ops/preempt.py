@@ -31,17 +31,15 @@ from __future__ import annotations
 import torch
 
 from .. import native
-from .quota import MAX_ADMIT_ROWS
+from .quota import _BINS, _SCAN_TILE, _TILE, MAX_ADMIT_ROWS
 
 #: priority values must fit the packed sort key beside the displacement
 #: weight and row index: prio in [0, 2^20), weight < 2^20, B <= 2^17
 MAX_PRIORITY = (1 << 20) - 1
 MAX_WEIGHT = (1 << 20) - 1
 
-#: resource dims K15 carries in registers (the wrapper refuses more)
-_MAX_DIMS = 16
-_SORT_TILE = 2048
-_SCAN_TILE = 1024
+#: the counts of K15's sort: two arrays of eight 8-bit digits
+_SORT_COUNTS = 2 * 8 * _BINS
 
 
 def _check(prio, demand, freed, victim_ok, weight, assigned, requests,
@@ -114,14 +112,15 @@ def preempt_select_ref(prio, demand, freed, victim_ok, weight, assigned, request
 
 def preempt_select(prio, demand, freed, victim_ok, weight, assigned, requests,
                    b_key: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """K15: ``preempt_select_ref`` behind one C entry point (a bitonic sort
-    of both keys, a two-level scan, the selection, the freed-capacity
-    product; see ``csrc/preempt_select.cu``).
+    """K15: ``preempt_select_ref`` behind one C entry point (a stable radix
+    sort of both keys, the tile sums, the selection fused with the
+    victim-order scan, the freed-capacity product over the list of victims;
+    see ``csrc/preempt_select.cu``).
 
     Inputs: ``prio`` int32[B], ``demand``/``freed``/``requests``
     int64[B, R], ``victim_ok`` bool[B], ``weight`` int32[B], ``assigned``
-    int32[B, C]; R <= 16; ``b_key`` as in ``preempt_select_ref``, at
-    least B and at most MAX_ADMIT_ROWS.
+    int32[B, C]; any R; ``b_key`` as in ``preempt_select_ref``, at least B
+    and at most MAX_ADMIT_ROWS.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise. ``preempt_select.launches`` counts kernel launches (one per
@@ -134,22 +133,29 @@ def preempt_select(prio, demand, freed, victim_ok, weight, assigned, requests,
                  weight=(weight, torch.int32), assigned=(assigned, torch.int32),
                  requests=(requests, torch.int64))
     b, r, c, bk = _check(*args, b_key)
-    if not 1 <= r <= _MAX_DIMS:
-        raise ValueError(f"preempt_select: {r} dims, at most {_MAX_DIMS}")
     dev = demand.device
-    victims = torch.zeros(b, dtype=torch.bool, device=dev)
-    freed_caps = torch.zeros((c, r), dtype=torch.int64, device=dev)
     if b == 0:
-        return victims, freed_caps
-    n2 = max(_SORT_TILE, 1 << (b - 1).bit_length())
-    n_tiles = n2 // _SCAN_TILE
-    keys = torch.empty((2, n2), dtype=torch.int64, device=dev)
-    idx = torch.empty((2, n2), dtype=torch.int32, device=dev)
-    excl = torch.empty((2, r, n2), dtype=torch.int64, device=dev)
-    tile_sums = torch.empty((2, r, n_tiles + 1), dtype=torch.int64, device=dev)
+        return (torch.zeros(b, dtype=torch.bool, device=dev),
+                torch.zeros((c, r), dtype=torch.int64, device=dev))
+    victims = torch.empty(b, dtype=torch.bool, device=dev)
+    freed_caps = torch.empty((c, r), dtype=torch.int64, device=dev)
     native.launch(preempt_select, "preempt_select", "preempt_select_launch", dev,
-                  *args, b, bk, r, c, n2, victims, freed_caps, keys, idx, excl, tile_sums)
+                  *args, b, bk, r, c, victims, freed_caps, *select_scratch(b, r, dev))
     return victims, freed_caps
+
+
+def select_scratch(b: int, r: int, dev) -> tuple:
+    """K15's scratch after its outputs, as ``preempt_select_launch`` takes
+    it: both sorts' keys (uint64 in the kernel) and rows, two buffers each;
+    their digit counts and the victim count; the in-tile sums of demand in
+    priority order; both orders' tile sums; the list of victims."""
+    tiles, scan_tiles = -(-b // _TILE), -(-b // _SCAN_TILE)
+    return (torch.empty((2, 2, b), dtype=torch.int64, device=dev),
+            torch.empty((2, 2, b), dtype=torch.int32, device=dev),
+            torch.empty(_SORT_COUNTS * (1 + tiles) + 1, dtype=torch.int32, device=dev),
+            torch.empty((r, b), dtype=torch.int64, device=dev),
+            torch.empty((2, scan_tiles, r), dtype=torch.int64, device=dev),
+            torch.empty(b, dtype=torch.int32, device=dev))
 
 
 preempt_select.launches = 0

@@ -96,19 +96,29 @@ def quota_admit_ref(
     return admitted, wave_used
 
 
+#: positions a block of K12's and K15's sorts, and of their scans, owns
+#: (``csrc/radix_sort.cuh`` TILE and SCAN_TILE), and the bins of one 8-bit
+#: digit
+_TILE = 2048
+_SCAN_TILE = 1024
+_BINS = 256
+
+
 def quota_admit(
     ns_ids: torch.Tensor,
     demand: torch.Tensor,
     remaining: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K12: ``quota_admit_ref`` as one kernel launch of N + 1 blocks, one
-    per namespace segment, at any number of dims (see
-    ``csrc/quota_admit.cu``). Demand must keep
+    """K12: ``quota_admit_ref`` behind one C entry point, at any number of
+    namespaces and dims: a stable radix partition of the rows by namespace,
+    a segmented scan of the demand over it, the compare and the
+    per-namespace reduction (see ``csrc/quota_admit.cu``). Demand must keep
     the packing contract (0 <= demand <= DEMAND_CLAMP); under it every row
     whose id lies outside [0, N) is admitted, as in the plain version.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise. ``quota_admit.launches`` counts kernel launches."""
+    raise. ``quota_admit.launches`` counts kernel launches (one per
+    call)."""
     args = (ns_ids, demand, remaining)
     if native.on_cpu(args):
         return quota_admit_ref(*args)
@@ -119,8 +129,23 @@ def quota_admit(
     admitted = torch.empty(b, dtype=torch.bool, device=dev)
     wave_used = torch.empty((n, r), dtype=torch.int64, device=dev)
     native.launch(quota_admit, "quota_admit", "quota_admit_launch", dev,
-                  ns_ids, demand, remaining, b, n, r, admitted, wave_used)
+                  *args, b, n, r, admitted, wave_used, *admit_scratch(b, n, r, dev))
     return admitted, wave_used
+
+
+def admit_scratch(b: int, n: int, r: int, dev) -> tuple:
+    """K12's scratch after its outputs, as ``quota_admit_launch`` takes it:
+    the sort's keys (uint32 in the kernel) and rows, both buffers; its
+    digit counts; each tile's first and last segment and last segment's
+    demand; and the number of 8-bit digits of the segment ids (0..N)."""
+    tiles, scan_tiles = -(-b // _TILE), -(-b // _SCAN_TILE)
+    ndig = max(1, -(-n.bit_length() // 8))
+    return (torch.empty((2, b), dtype=torch.int32, device=dev),
+            torch.empty((2, b), dtype=torch.int32, device=dev),
+            torch.empty(ndig * _BINS * (1 + tiles), dtype=torch.int32, device=dev),
+            torch.empty((scan_tiles, 2), dtype=torch.int32, device=dev),
+            torch.empty((scan_tiles, r), dtype=torch.int64, device=dev),
+            ndig)
 
 
 quota_admit.launches = 0

@@ -156,6 +156,35 @@ def test_key_width_replaces_padding(case):
         assert port(rows)[0].tolist() == [False, False, True]
 
 
+ROW_ARGS = ("prio", "demand", "freed", "victim_ok", "weight", "assigned", "requests")
+
+
+@pytest.mark.parametrize("case", chip_smoke.PREEMPT_EDGE_CASES)
+def test_preempt_select_edge_cases_equal_jax(case):
+    """``chip_smoke.preempt_edge_batch``, the batches K15 is held to on the
+    card: no victims, no demanders, all keys equal, priorities at and past
+    2^20 (the wrapping key) and negative, b_key above B, B = 1 and 2^17,
+    weights below 0 and above MAX_WEIGHT, rows that free nothing, R = 1,
+    16, 17 and 40. The plain version equals the JAX program on the rows
+    padded to b_key (JAX's own padding), victims and freed capacity."""
+    a = chip_smoke.preempt_edge_batch(case)
+    b_key = a.pop("b_key")
+    rows = tuple(a[k] for k in ROW_ARGS)
+    b = len(rows[0])
+    width = b_key or b
+    padded = tuple(np.pad(x, ((0, width - b),) + ((0, 0),) * (x.ndim - 1)) for x in rows)
+    jv, jcaps = jax_preempt_select(*padded)
+    v, caps = port(rows, b_key=b_key)
+    np.testing.assert_array_equal(v, np.asarray(jv)[:b])
+    np.testing.assert_array_equal(caps, np.asarray(jcaps))
+    if case in ("no_victims", "no_demanders", "equal_keys", "b1"):
+        assert not v.any() and not caps.any()
+    else:
+        assert v.any()
+    if case == "nothing_freed":
+        assert not v[~rows[2].any(axis=1)].any()
+
+
 def test_equal_priorities_never_displace():
     """Demanders and residents of one class: nothing is selected."""
     rng = np.random.default_rng(2)

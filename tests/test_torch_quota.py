@@ -137,6 +137,42 @@ def test_quota_admit_past_16_dims_equals_jax_and_oracle(r):
     assert admitted[inq].any() and not admitted[inq].all()
 
 
+@pytest.mark.parametrize("case", chip_smoke.ADMIT_EDGE_CASES)
+def test_quota_admit_edge_cases_equal_jax(case):
+    """``chip_smoke.admit_edge_batch``, the batches K12 is held to on the
+    card: B = 1, a ragged wave, N = 0 and 1, every row unquota'd or at an id
+    at or above N, namespaces in runs across and along the sort tiles,
+    2^17 clamp-sized rows summing to 2^61, remaining 0 and UNLIMITED, a
+    denied row holding its place in line, R = 1, 16, 17 and 40. The plain
+    version equals JAX, and for in-range ids the sequential oracle."""
+    a = chip_smoke.admit_edge_batch(case)
+    ns, demand, remaining = a["ns_ids"], a["demand"], a["remaining"]
+    admitted, used = assert_admit_equal(ns, demand, remaining)
+    n = remaining.shape[0]
+    inq = (ns >= 0) & (ns < n)
+    if case != "clamp":  # the oracle's Python loop at 2^17 rows is slow, not wrong
+        flags, u_np = TR.admit_wave_np(np.where(inq, ns, -1).tolist(), demand, remaining)
+        np.testing.assert_array_equal(admitted, flags)
+        np.testing.assert_array_equal(used, u_np)
+    assert admitted[~inq].all()
+    if case in ("n0", "unquotad", "past_n", "unlimited"):
+        assert admitted.all()
+    if case in ("n0", "unquotad", "past_n"):
+        assert not used.any()
+    if case == "clamp":
+        assert admitted[:-1].all() and not admitted[-1]
+        assert used.tolist() == [[(TQ.MAX_ADMIT_ROWS - 1) * TQ.DEMAND_CLAMP] * 2]
+    if case == "head_of_line":
+        even = np.arange(len(ns)) % 2 == 0
+        assert admitted[even][:100].all() and not admitted[even][100:].any()
+        assert admitted[~even][:-1].all() and not admitted[-1]
+    if case == "remaining0":
+        half = len(ns) // 2
+        assert admitted[:half].all() and not admitted[half:][inq[half:]].any()
+    if case in ("ragged", "runs", "tile_runs", "r1", "r16", "r17", "r40"):
+        assert admitted[inq].any() and not admitted[inq].all()
+
+
 def test_demand_clamp_headroom():
     """A wave of clamp-sized demands at the row bound cannot overflow."""
     b = TQ.MAX_ADMIT_ROWS

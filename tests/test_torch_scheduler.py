@@ -213,13 +213,17 @@ def test_wide_quota_wave_equals_jax(route):
 
 def test_chip_smoke_wide_engines_rehearse_on_cpu(capsys):
     """chip_smoke's served-limits phase at a small size on the CPU: the
-    fleet engine's rows against the numpy divider and the 17-dim quota
-    wave against ``admit_wave_np``; each raises on any difference."""
+    fleet engine's rows against the numpy divider, the 17-dim quota wave
+    against ``admit_wave_np`` and the 17-dim preemption wave against
+    ``preempt_and_place_np``; each raises on any difference."""
     out = chip_smoke.check_wide_engines(torch.device("cpu"), "cpu", clusters=1200,
-                                        bindings=400, quota_bindings=600)
-    assert set(out) == {"wide fleet", "wide quota"}
+                                        bindings=400, quota_bindings=600, residents=400,
+                                        preempt_clusters=80, surge=20)
+    assert set(out) == {"wide fleet", "wide quota", "wide preemption"}
+    assert out["wide preemption"]["dims"] == 17 and out["wide preemption"]["victims"] > 0
     printed = capsys.readouterr().out
-    assert "400 ok / 0 bad" in printed and "at 17 dims" in printed
+    assert "400 ok / 0 bad" in printed and "K12 at 17 dims" in printed
+    assert "K15 at 17 dims" in printed
 
 
 def _modules(pkg_dir: pathlib.Path) -> list[str]:
