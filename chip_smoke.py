@@ -20,7 +20,14 @@
    estimates, K17 ``first_fit_group`` on a seeded ranked chunk (4096 x 3
    terms x 5000, also with ``with_base`` off) and on its edge cases
    (``group_edge_batch``: T = 1, 4 and 9, C from 1 to 16,385),
-   K8 ``node_sum_estimate`` at 4096 profile rows x 5000 nodes, K12
+   K8 ``node_sum_estimate`` at 4096 profile rows x 5000 nodes and 8 x 4000
+   (each beside its launch floor: an empty kernel at K8's grid and cluster
+   shape, timed the same way) and on its edge batches
+   (``node_edge_batch``: divisors 1, 2, 3, 7, 2^k and 2^k +- 1, large
+   primes, 2^63 - 1; dividends at and beside their multiples, 2^62 - 1,
+   2^63 - 1, negatives; rows requesting nothing, filtering every node,
+   wrapping the int64 sum, tying two dims; N 1 to 16,385, B 1 to 4096, R 1
+   to 41), K12
    ``quota_admit`` at 131072 rows x 32 namespaces with 4, 17 and 40 dims
    and x 1, 1024 and 4096 namespaces with 4, and on its edge batches
    (``admit_edge_batch``: B = 1, ragged, N = 0 and 1, unquota'd and
@@ -28,7 +35,11 @@
    rows, remaining 0 and UNLIMITED, a denied row's place in line, R = 1,
    16, 17 and 40), K13's per-row form ``quota_cluster_caps`` at 4096 x
    5000, K14 ``explain_pass`` at 4096 x 5000 (a batch full of key ties)
-   and at C = 5, and K15 ``preempt_select`` at 131072 rows (R = 4 and 17,
+   and at C = 5, and on its edge batches (``explain_edge_batch``: C 1 to
+   16,385 about the 16-cell step, k 1 to 8, rows at every offset mod 16,
+   tied keys, keys that wrap int64, fewer than k non-zero keys, padding
+   rows; one batch also through misaligned views), and K15
+   ``preempt_select`` at 131072 rows (R = 4 and 17,
    C = 5000, 16 priority classes, ~30% victims, ~5% demanders) and on its
    edge batches (``preempt_edge_batch``: no victims, no demanders, equal
    keys, wrapping keys, b_key above B, B = 1 and 2^17, weights out of
@@ -118,9 +129,10 @@
    - provenance: the config-5 storm engine takes one steady pass disarmed
      and one with an ExplainStore armed (one K14 launch per chunk: 25), and
      the quota cell's surge wave is replayed armed (every denied row
-     carries the QuotaExceeded bit); each capture's first chunk equals
-     K14's plain version on the composed inputs and a 64-row sample of
-     every capture equals the numpy referent ``explain_batch_np``;
+     carries the QuotaExceeded bit); every chunk's K14 output equals its
+     plain version on the same device inputs (``held_to_plain``), each
+     capture's first chunk equals it on the composed inputs and a 64-row
+     sample of every capture equals the numpy referent ``explain_batch_np``;
    - preemption (bench.py ``run_preemption``'s scene at the engine): 100k
      priority-0 residents on config 5's 5000 clusters in 64 label groups,
      cpu then saturated exactly, and a surge of 1000 priority-100 rows: one
@@ -2235,8 +2247,38 @@ def node_batch(rng, b: int, n: int, r: int = 4) -> dict:
     return {"node_avail": avail, "node_ok": rng.random((b, n)) < 0.8, "requests": req}
 
 
+def node_sum_bound(t: dict, out) -> tuple[int, int]:
+    """(bytes, operations) K8 must move and do on the device tensors ``t``:
+    the node table, the prefilter mask and the requests read once, the
+    answers written once; per cell, per dim the row requests, a clamp, a
+    division and a min (64-bit, each counted as one operation), and per
+    cell the sentinel's compare and select, the mask's select and the add."""
+    b, n = t["node_ok"].shape
+    requested = int((t["requests"] > 0).sum().item())
+    nbytes = _nbytes(t["node_avail"], t["node_ok"], t["requests"], out)
+    return nbytes, n * (3 * requested + 4 * b)
+
+
+def launch_floor(n: int, r: int, b: int, device):
+    """A function that launches the empty kernel of ``node_sum.cu`` at K8's
+    grid and cluster shape for B = ``b``, N = ``n``, R = ``r``: K8's launch
+    floor there."""
+    import torch
+    from karmada_tpu_torch import native
+
+    fn = native.load("node_sum").launch_floor_launch
+
+    def call():
+        native.check_launch("launch_floor_launch",
+                            fn(n, r, b, torch.cuda.current_stream(device).cuda_stream))
+    return call
+
+
 def check_node_sum(arrays: dict, device, card: str, label: str) -> dict:
-    """K8 against its plain version on the card; exact."""
+    """K8 against its plain version on the card; exact. On the card also the
+    launch floor at its shape (an empty kernel at K8's grid and cluster
+    shape, timed the same way), printed on its own line."""
+    import torch
     from karmada_tpu_torch.estimator import accurate as acc
 
     t = to_device(arrays, device)
@@ -2244,11 +2286,110 @@ def check_node_sum(arrays: dict, device, card: str, label: str) -> dict:
     b, n = t["node_ok"].shape
     r = t["requests"].shape[1]
     got, want = acc.node_sum_estimate(*args), acc.node_sum_estimate_ref(*args)
-    return dict(timed(
-        f"node_sum_estimate (K8) {label}", lambda: acc.node_sum_estimate(*args),
-        lambda: acc.node_sum_estimate_ref(*args),
-        _nbytes(*args, got), b * n * (2 * r + 2), card,
-    ), max_abs_err=compare("node_sum_estimate", got, want))
+    err = compare("node_sum_estimate", got, want)
+    stats = dict(timed(f"node_sum_estimate (K8) {label}", lambda: acc.node_sum_estimate(*args),
+                       lambda: acc.node_sum_estimate_ref(*args), *node_sum_bound(t, got), card),
+                 max_abs_err=err)
+    if torch.cuda.is_available():
+        stats["floor_ms"] = cuda_ms(launch_floor(n, r, b, device))
+        print(f"# launch floor at K8's {label} shape: {stats['floor_ms']:.4f} ms (an empty "
+              f"kernel at its grid and cluster shape; K8 {stats['ms']:.4f} ms, "
+              f"{stats['ms'] / stats['floor_ms']:.2f}x the floor); SM clock now "
+              f"{sm_clock()}; card {card}", flush=True)
+    return stats
+
+
+def sm_clock() -> str:
+    """The card's SM clock and power draw as nvidia-smi reads them now (K8
+    is bound by issue, so its times move with the clock)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=30)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "not read"
+
+
+#: K8 edge batches (B, N, R): every node count about a warp, a 256-node
+#: cluster step and a block of 4096 rows, one row to 4096, one dim to one
+#: group's 40, and 41, 81 and 100 dims (two and three groups of dims)
+NODE_EDGE_CASES = (
+    (1, 1, 1), (1, 16_385, 4), (1, 4000, 17), (8, 1, 4), (8, 31, 4), (8, 32, 17),
+    (8, 33, 1), (8, 255, 4), (8, 256, 4), (8, 257, 17), (8, 4000, 4), (8, 4000, 17),
+    (8, 16_385, 1), (8, 4000, 40), (8, 300, 41), (100, 4000, 4), (999, 257, 4),
+    (4096, 1, 1), (4096, 33, 4), (4096, 256, 17), (4096, 257, 4), (4096, 1000, 4),
+    (64, 1000, 81), (8, 300, 100),
+)
+#: divisors K8's multiplier and shift must divide by exactly
+NODE_EDGE_DIVISORS = (1, 2, 3, 7, 2**31 - 1, 2**31, 2**31 + 1, 2**32 - 1, 2**32, 2**32 + 1,
+                      2**62 - 1, 2**62, 2**62 + 1, 1_000_000_007, 2**61 - 1,
+                      9_223_372_036_854_775_783, 2**63 - 1)
+
+
+def node_edge_batch(rng, b: int, n: int, r: int) -> dict:
+    """K8 inputs on which it must stay exact. Requests: the divisors of
+    ``NODE_EDGE_DIVISORS`` (1, 2, 3, 7, 2^k and 2^k +- 1 for k = 31, 32 and
+    62, large primes, 2^63 - 1), small ones and zeros. Node headroom: 0,
+    multiples q d - 1, q d and q d + 1 of a divisor some row asks for (up to
+    2^63 - 1), 2^62 - 1, 2^62, 2^63 - 1, small values and negatives down to
+    INT64_MIN (clamped to 0). Row roles, rotated by the seed: one requests
+    nothing, one requests 1 of dim 0 with every node passing while a third
+    of the nodes hold 2^62 - 1 there (per-node answers just under the
+    sentinel: the int64 sum wraps), one has every node filtered out, one
+    asks dim 1 what it asks dim 0 while half the nodes hold the same in
+    both (ratios tied across dims), the rest mixed (a batch of fewer than 5
+    rows: mixed)."""
+    hi = 2**63 - 1
+    div = np.array(NODE_EDGE_DIVISORS, dtype=np.int64)
+    req = rng.integers(1, 5000, (b, r)).astype(np.int64)
+    pick = rng.random((b, r))
+    req[pick < 0.5] = rng.choice(div, int((pick < 0.5).sum()))
+    req[pick > 0.85] = 0
+    ok = rng.random((b, n)) < rng.uniform(0.2, 1.0, (b, 1))
+    roles = (np.arange(b) + (rng.integers(0, 5) if b >= 5 else 4)) % 5
+    if r >= 2:
+        req[roles == 3, 1] = req[roles == 3, 0] = rng.integers(1, 5000, int((roles == 3).sum()))
+    req[roles == 0] = 0
+    req[roles == 1] = 0
+    req[roles == 1, 0] = 1
+    ok[roles == 1] = True
+    ok[roles == 2] = False
+    avail = rng.integers(0, 200_000, (n, r)).astype(np.int64)
+    kind = rng.integers(0, 8, (n, r))
+    avail[kind == 3] = 0
+    avail[kind == 4] = rng.choice(np.array([-1, -(2**40), -(2**63)]), int((kind == 4).sum()))
+    avail[kind == 5] = rng.choice(np.array([2**62 - 1, 2**62, hi]), int((kind == 5).sum()))
+    # a multiple q d of a divisor some row asks for of that dim (q up to
+    # (2^63 - 1) // d, or small), and its neighbours q d - 1 and q d + 1
+    cells, dims = np.nonzero(kind >= 6)
+    d = req[rng.integers(0, b, len(cells)), dims]
+    d = np.where(d > 0, d, rng.choice(div, len(cells)))
+    qmax = hi // d
+    q = np.where(rng.random(len(cells)) < 0.7,
+                 np.minimum((rng.random(len(cells)) * qmax.astype(float)).astype(np.int64), qmax),
+                 np.minimum(rng.integers(0, 1000, len(cells)), qmax))
+    v = q * d
+    step = rng.integers(-1, 2, len(cells))
+    avail[cells, dims] = np.where((step == 1) & (v == hi), v, v + step)
+    if r >= 2:
+        half = rng.random(n) < 0.5
+        avail[half, 1] = avail[half, 0]
+    if (roles == 1).any():
+        avail[rng.random(n) < 1 / 3, 0] = 2**62 - 1
+    return {"node_avail": avail, "node_ok": ok, "requests": req}
+
+
+def check_node_edges(device, card: str) -> None:
+    """K8 against its plain version on every ``NODE_EDGE_CASES`` batch;
+    exact."""
+    from karmada_tpu_torch.estimator import accurate as acc
+
+    t0 = time.perf_counter()
+    for k, (b, n, r) in enumerate(NODE_EDGE_CASES):
+        t = to_device(node_edge_batch(np.random.default_rng(SEED + 800 + k), b, n, r), device)
+        args = (t["node_avail"], t["node_ok"], t["requests"])
+        compare(f"node_sum_estimate edge case {b}x{n}x{r}", acc.node_sum_estimate(*args),
+                acc.node_sum_estimate_ref(*args))
+    print(f"# K8 edge cases: {len(NODE_EDGE_CASES)} exact (B x N x R: "
+          + ", ".join(f"{b}x{n}x{r}" for b, n, r in NODE_EDGE_CASES)
+          + f"; {time.perf_counter() - t0:.1f} s); card {card}", flush=True)
 
 
 GROUP_ARGS = ("base", "terms", "cp_idx", "term_len", "avail", "replicas", "prev",
@@ -3830,6 +3971,18 @@ def explain_batch(rng, b: int, c: int) -> dict:
     }
 
 
+def explain_bound(t: dict, k: int) -> tuple[int, int]:
+    """(bytes, operations) K14 must move and do on the device tensors ``t``:
+    each input read once (``prev`` only at the k winners of a row: the
+    gather is its one read), the mask and the top-k written once; 12
+    integer operations a cell (8 stage bits, the key's multiply-add, two
+    compares)."""
+    b, c = t["aff_ok"].shape
+    nbytes = (_nbytes(*(v for name, v in t.items() if name != "prev")) + b * k * 4
+              + b * c + b * k * 5 * 4)
+    return nbytes, 12 * b * c
+
+
 def check_explain_kernel(rng, device, card: str) -> dict:
     """K14 against its plain version on the card, exact, at the main path's
     chunk (4096 x 5000, k = 8) and at C = 5 (k = 5); timed at the first."""
@@ -3838,23 +3991,113 @@ def check_explain_kernel(rng, device, card: str) -> dict:
 
     stats = None
     for b, c in ((4096, 5000), (64, 5)):
-        arrays = explain_batch(rng, b, c)
-        t = list(to_device(arrays, device).values())
+        t = to_device(explain_batch(rng, b, c), device)
+        args = list(t.values())
         k = ops.topk_width(c)
-        kern = lambda: ops.explain_pass(*t, k=k)  # noqa: E731
-        plain = lambda: ops.explain_pass_ref(*t, k=k)  # noqa: E731
+        kern = lambda: ops.explain_pass(*args, k=k)  # noqa: E731
+        plain = lambda: ops.explain_pass_ref(*args, k=k)  # noqa: E731
         compare(f"explain_pass {b}x{c}", kern(), plain())
         torch.cuda.synchronize()
         if stats is None:
-            # each input read once (``prev`` only at the k winners of a row:
-            # the gather is its one read), the mask and the top-k written
-            # once; 12 integer operations a cell (8 stage bits, the key's
-            # multiply-add, two compares)
-            nbytes = (sum(a.nbytes for n, a in arrays.items() if n != "prev") + b * k * 4
-                      + b * c + b * k * 5 * 4)
-            stats = timed("explain_pass", kern, plain, nbytes, 12 * b * c, card)
+            stats = timed("explain_pass", kern, plain, *explain_bound(t, k), card)
     print(f"# kernel explain_pass at C = 5: exact; card {card}", flush=True)
     return stats
+
+
+#: K14 edge batches (B, C, k): every C about the 16-cell step and a warp's
+#: 512 cells at k = topk_width(C), and k = 1..7 at C = 5000; B odd, so with
+#: an odd C the rows start at every byte offset mod 16
+EXPLAIN_EDGE_C = (1, 5, 7, 8, 15, 16, 17, 31, 33, 5000, 5001, 16_385)
+EXPLAIN_EDGE_CASES = (tuple((37, c, min(c, 8)) for c in EXPLAIN_EDGE_C)
+                      + tuple((37, 5000, k) for k in range(1, 8)))
+
+
+def explain_edge_batch(rng, b: int, c: int) -> dict:
+    """K14 inputs on which it must stay exact, rows by kind (i mod 7): 0
+    mixed; 1 every key tied (one availability, nothing assigned); 2 ties on
+    availability alone (nothing assigned, availability in {0, 1, 2}); 3
+    extremes (assignment and availability at MAX_INT32, availability at -1
+    and INT32_MIN, assignment INT32_MIN: keys that wrap int64); 4 fewer
+    than k non-zero keys (availability -1 but for at most k - 1 cells); 5
+    padding rows as the JAX engine pads (replicas 0, all-false masks,
+    admitted, nothing else set); 6 negative keys (availability down to
+    INT32_MIN, nothing assigned)."""
+    lo, hi = -(2**31), 2**31 - 1
+    kind = np.arange(b) % 7
+    t = {
+        "aff_ok": rng.random((b, c)) < 0.8,
+        "taint_ok": rng.random((b, c)) < 0.9,
+        "api_ok": rng.random((b, c)) < 0.95,
+        "spread_ok": rng.random((b, c)) < 0.85,
+        "avail": rng.integers(-3, 60, (b, c)).astype(np.int32),
+        "caps": np.where(rng.random((b, c)) < 0.3, rng.integers(-2, 5, (b, c)),
+                         hi).astype(np.int32),
+        "admitted": rng.random(b) < 0.8,
+        "dynamic": rng.random(b) < 0.7,
+        "replicas": rng.integers(0, 12, b).astype(np.int32),
+        "assignment": np.where(rng.random((b, c)) < 0.3, rng.integers(1, 6, (b, c)),
+                               0).astype(np.int32),
+        "prev": rng.integers(0, 3, (b, c)).astype(np.int32),
+        "preempted": rng.random((b, c)) < 0.1,
+    }
+    av, asg = t["avail"], t["assignment"]
+    av[kind == 1], asg[kind == 1] = 7, 0
+    av[kind == 2] = rng.integers(0, 3, (int((kind == 2).sum()), c))
+    asg[kind == 2] = 0
+    for i in np.flatnonzero(kind == 3):
+        av[i] = rng.choice(np.array([hi, -1, lo, 0, 5], np.int32), c)
+        asg[i] = rng.choice(np.array([hi, 0, 0, 1, lo], np.int32), c)
+        t["caps"][i] = rng.choice(np.array([hi, lo, 0, 1], np.int32), c)
+        t["prev"][i] = rng.choice(np.array([hi, 0, 3], np.int32), c)
+    t["replicas"][kind == 3] = hi
+    for i in np.flatnonzero(kind == 4):
+        av[i], asg[i] = -1, 0
+        few = rng.choice(c, int(rng.integers(0, min(c, 8))), replace=False)
+        av[i, few] = rng.integers(0, 9, len(few))
+    pad = kind == 5
+    for name in ("aff_ok", "taint_ok", "api_ok", "spread_ok", "preempted"):
+        t[name][pad] = False
+    av[pad], asg[pad], t["caps"][pad], t["prev"][pad] = 0, 0, 0, 0
+    t["replicas"][pad], t["dynamic"][pad], t["admitted"][pad] = 0, False, True
+    neg = np.flatnonzero(kind == 6)
+    av[neg] = rng.integers(lo, 0, (len(neg), c))
+    av[neg] = np.where(rng.random((len(neg), c)) < 0.2, lo, av[neg])
+    asg[neg] = 0
+    return t
+
+
+def misaligned(t: dict) -> dict:
+    """The same tensors as views whose data starts one element past a fresh
+    allocation: no base address is 16-B aligned."""
+    import torch
+
+    out = {}
+    for name, v in t.items():
+        flat = torch.empty(v.numel() + 1, dtype=v.dtype, device=v.device)
+        view = flat[1:].view(v.shape)
+        view.copy_(v)
+        out[name] = view
+    return out
+
+
+def check_explain_edges(device, card: str) -> None:
+    """K14 against its plain version on every ``EXPLAIN_EDGE_CASES`` batch,
+    and on one batch through misaligned views (every cell one a lane);
+    exact."""
+    from karmada_tpu_torch import ops
+
+    t0 = time.perf_counter()
+    for j, (b, c, k) in enumerate(EXPLAIN_EDGE_CASES):
+        t = to_device(explain_edge_batch(np.random.default_rng(SEED + 900 + j), b, c), device)
+        forms = [("", t)] + ([(", misaligned views", misaligned(t))] if j == 10 else [])
+        for form, tt in forms:
+            args = list(tt.values())
+            compare(f"explain_pass edge case {b}x{c} k={k}{form}",
+                    ops.explain_pass(*args, k=k), ops.explain_pass_ref(*args, k=k))
+    print(f"# K14 edge cases: {len(EXPLAIN_EDGE_CASES)} exact (B x C x k: "
+          + ", ".join(f"{b}x{c}x{k}" for b, c, k in EXPLAIN_EDGE_CASES)
+          + f"; {b}x{EXPLAIN_EDGE_CASES[10][1]} also through misaligned views; "
+          f"{time.perf_counter() - t0:.1f} s); card {card}", flush=True)
 
 
 def preempt_batch(rng, device, b: int = 131_072, c: int = 5000, r: int = 4,
@@ -4004,6 +4247,54 @@ def check_preempt_edges(device, card: str) -> None:
           f", {picked} victims in all; card {card}", flush=True)
 
 
+class held_to_plain:
+    """Inside the block every call the engine makes to K14
+    (``karmada_tpu_torch.ops.explain.explain_pass``, which ``_explain_chunk``
+    imports at each call) launches the kernel alone and keeps its inputs
+    and outputs (references: the engine uploads fresh tensors for each
+    chunk and writes none of them afterwards; about 0.43 GB a 4096 x 5000
+    chunk stays on the device until ``check``). ``check``, after the block
+    and outside any timed wall, holds each kept call to its plain version on
+    the same inputs, exactly and uncounted, and sets ``seconds`` to the time
+    it took; ``chunks`` counts the calls held. The stand-in's ``launches``
+    is the wrapper's own (the wrapper counts its launches through that
+    module name)."""
+
+    def __init__(self, tag: str):
+        self.tag, self.kept, self.chunks, self.seconds = tag, [], 0, 0.0
+
+    @property
+    def launches(self) -> int:
+        return self.kernel.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.kernel.launches = n
+
+    def __call__(self, *args, k):
+        got = self.kernel(*args, k=k)
+        self.kept.append((args, k, got))
+        return got
+
+    def __enter__(self):
+        from karmada_tpu_torch.ops import explain
+
+        self.module, self.kernel = explain, explain.explain_pass
+        explain.explain_pass = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.explain_pass = self.kernel
+
+    def check(self) -> None:
+        t0 = time.perf_counter()
+        with uncounted():
+            for n, (args, k, got) in enumerate(self.kept):
+                compare(f"{self.tag} chunk {n}", got, self.module.explain_pass_ref(*args, k=k))
+        self.chunks, self.kept = len(self.kept), []
+        self.seconds = time.perf_counter() - t0
+
+
 def explain_capture(tag: str, engine, problems, device, card: str, sample: int = 64,
                     seed: int = SEED + 21) -> dict:
     """One pass of ``problems`` with a fresh ExplainStore armed, then the
@@ -4011,9 +4302,12 @@ def explain_capture(tag: str, engine, problems, device, card: str, sample: int =
     and read just after (and restored afterwards, so the caller's path
     counts stay its own). Checks: one capture per chunk (on the card, one
     K14 launch per chunk); the first chunk's capture equal to K14's plain
-    version on the composed inputs (``_explain_inputs``); a ``sample``-row
-    sample of every capture equal to the numpy referent
-    ``explain_batch_np`` on those rows' composed inputs."""
+    version on the composed inputs (``_explain_inputs``); every chunk's K14
+    launch equal to K14's plain version on the same device inputs
+    (``held_to_plain``: kept during the pass, compared after its wall); a
+    ``sample``-row sample
+    of every capture equal to the numpy referent ``explain_batch_np`` on
+    those rows' composed inputs."""
     import torch
     from karmada_tpu_torch import ops
     from karmada_tpu_torch.refimpl.explain_np import explain_batch_np
@@ -4024,15 +4318,19 @@ def explain_capture(tag: str, engine, problems, device, card: str, sample: int =
     store = ExplainStore(cap=4)
     engine.set_explain(store)
     try:
-        t0 = time.perf_counter()
-        res = engine.schedule(problems)
-        sync(device)
-        wall = time.perf_counter() - t0
+        with held_to_plain(tag) as held:
+            t0 = time.perf_counter()
+            res = engine.schedule(problems)
+            sync(device)
+            wall = time.perf_counter() - t0
         launches = read_counts()
     finally:
         engine.set_explain(None)
         for name, fn in wrappers().items():
             fn.launches = saved[name]
+    held.check()
+    if held.chunks != -(-len(problems) // engine.chunk_size):
+        raise AssertionError(f"{tag}: {held.chunks} chunks held to K14's plain version")
     caps = store.captures()
     chunks = -(-len(problems) // engine.chunk_size)
     if len(caps) != chunks:
@@ -4064,7 +4362,8 @@ def explain_capture(tag: str, engine, problems, device, card: str, sample: int =
         sampled += len(rows)
     check_s = time.perf_counter() - t0
     print(f"# {tag}: armed pass {wall:.4f} s, {len(caps)} captures, K14 launches "
-          f"{launches['explain_pass']}; first chunk equal to K14's plain version, "
+          f"{launches['explain_pass']}; each of the {held.chunks} chunks' K14 output equal "
+          f"to its plain version ({held.seconds:.1f} s), the first chunk's capture too, "
           f"{sampled} sampled rows equal to explain_batch_np ({check_s:.1f} s); card {card}",
           flush=True)
     return {"wall": wall, "launches": launches, "captures": len(caps), "chunks": chunks,
@@ -5390,8 +5689,11 @@ def main() -> int:
         # Kubernetes node limit), prefilter mask included
         stats["node_sum_estimate"] = check_node_sum(node_batch(rng, 4096, 5000), device,
                                                     card, "4096x5000")
+        check_node_sum(node_batch(rng, 8, 4000), device, card, "8x4000 seeded")
+        check_node_edges(device, card)
         stats.update(check_quota_kernels(rng, device, card))
         stats["explain_pass"] = check_explain_kernel(rng, device, card)
+        check_explain_edges(device, card)
         t = preempt_batch(rng, device)
         stats["preempt_select"] = check_preempt_kernel(t, card, "131072 x 5000 seeded")
         del t

@@ -38,35 +38,29 @@ Shapes: K12 at 131,072 rows (``chip_smoke.admit_batch``) with N = 1, 32,
 at full size: 100k residents placed by a cold pass, 1000 surge rows;
 101,000 rows, sort keys for 2^17). A form that refuses a shape (the
 bitonic K15 past 16 dims) is reported as refused. Prints one line per
-measurement and writes ``chiprun_out/k12_k15_variants.json``. Imports
-nothing of JAX.
+measurement and writes ``chiprun_out/k12_k15_variants.json``. Builds,
+calls and times through ``kernel_variants``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import ctypes
-import json
-import os
 import statistics
-import subprocess
 import sys
 import tempfile
 
 import numpy as np
 
 import chip_smoke as cs
+import kernel_variants as kv
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
-CSRC = os.path.join(ROOT, "karmada_tpu_torch", "csrc")
-
-#: C arguments of each form's entry point, before the stream (native.SIGNATURES' letters)
-SIGNATURES = {
-    ("quota_admit", "per-namespace"): "pppiiipp",
-    ("quota_admit", "radix"): "pppiiipp" "ppppp" "i",
-    ("preempt_select", "bitonic"): "ppppppp" "iiiii" "pppppp",
-    ("preempt_select", "radix"): "ppppppp" "iiii" "pppppppp",
-}
 ENTRY = {"quota_admit": "quota_admit_launch", "preempt_select": "preempt_select_launch"}
+#: C arguments of the older forms' entry points, before the stream (the
+#: radix forms' are ``native.SIGNATURES``')
+OLD_SIGNATURES = {
+    ("quota_admit", "per-namespace"): "pppiiipp",
+    ("preempt_select", "bitonic"): "ppppppp" "iiiii" "pppppp",
+}
 
 #: the per-namespace K12 with clock64 around its block scans: (text, replacement)
 ADMIT_CLOCKS = (
@@ -121,57 +115,29 @@ def form(name: str, src: str) -> str:
     return "bitonic" if "sort_step_kernel" in src else "radix"
 
 
-def sources(csrc: str) -> dict:
-    """(kernel, variant) -> source text: the whole of each kernel, and the
-    phase-split copies of the older forms."""
+def sources(dirs: list) -> dict:
+    """(dir, kernel, variant) -> source text: the whole of each kernel, and
+    the phase-split copies of the older forms."""
     out = {}
-    for name in ENTRY:
-        src = open(os.path.join(csrc, f"{name}.cu")).read()
-        out[(name, "whole")] = src
-        if form(name, src) == "per-namespace":
-            clocked = src
-            for old, new in ADMIT_CLOCKS:
-                if old not in clocked:
-                    raise SystemExit(f"k12_k15_variants: {name} no longer holds {old!r}")
-                clocked = clocked.replace(old, new)
-            out[(name, "clocks")] = clocked
-        elif form(name, src) == "bitonic":
-            for cut, text in SELECT_CUTS.items():
-                if text not in src:
-                    raise SystemExit(f"k12_k15_variants: {name} no longer holds {text!r}")
-                out[(name, f"cut{cut}")] = src.replace(
-                    text, f"  return (int)cudaGetLastError();\n{text}", 1)
+    for d in dirs:
+        for name in ENTRY:
+            src = kv.source(d, name)
+            out[(d, name, "whole")] = src
+            if form(name, src) == "per-namespace":
+                out[(d, name, "clocks")] = kv.variants(
+                    "k12_k15_variants", name, src, {"clocks": ADMIT_CLOCKS})["clocks"]
+            elif form(name, src) == "bitonic":
+                cuts = {f"cut{cut}": ((text, f"  return (int)cudaGetLastError();\n{text}"),)
+                        for cut, text in SELECT_CUTS.items()}
+                for var, text in kv.variants("k12_k15_variants", name, src, cuts).items():
+                    out[(d, name, var)] = text
     return out
 
 
-def build(dirs: list, tmp: str) -> dict:
-    """Compile every variant of every directory, all nvcc at once; returns
-    dir -> (kernel, variant) -> ctypes library."""
+def signature(name: str, kind: str) -> str:
     from karmada_tpu_torch import native
 
-    procs = {}
-    for k, d in enumerate(dirs):
-        for (name, var), text in sources(d).items():
-            src = os.path.join(tmp, f"{name}-{k}-{var}.cu")
-            with open(src, "w") as f:
-                f.write(text)
-            so = src[:-3] + ".so"
-            cmd = [native.nvcc(), *native.NVCC_FLAGS, "-I", d, "-o", so, src]
-            procs[(d, name, var)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                      stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
-    for (d, name, var), (proc, so) in procs.items():
-        log, _ = proc.communicate(timeout=600)
-        if proc.returncode:
-            raise SystemExit(f"k12_k15_variants: nvcc failed on {d} {name} {var}:\n{log}")
-        lib = ctypes.CDLL(so)
-        text = open(os.path.join(d, f"{name}.cu")).read()
-        fn = getattr(lib, ENTRY[name])
-        fn.argtypes = [native._CTYPES[c] for c in SIGNATURES[(name, form(name, text))]] + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        libs.setdefault(d, {})[(name, var)] = lib
-    return libs
+    return OLD_SIGNATURES.get((name, kind)) or native.SIGNATURES[name][ENTRY[name]]
 
 
 def caller(lib, name: str, kind: str, t: dict):
@@ -181,14 +147,8 @@ def caller(lib, name: str, kind: str, t: dict):
     import torch
     from karmada_tpu_torch.ops import preempt, quota
 
-    fn = getattr(lib, ENTRY[name])
     dev = next(iter(t.values())).device
-
-    def run(*args):
-        vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-        err = fn(*vals, torch.cuda.current_stream(dev).cuda_stream)
-        if err:
-            raise RuntimeError(f"{name} ({kind}): launch refused, error {err}")
+    run = kv.entry(lib, ENTRY[name], signature(name, kind), dev)
 
     if name == "quota_admit":
         ns, demand, rem = t["ns_ids"], t["demand"], t["remaining"]
@@ -231,33 +191,6 @@ def plain(name: str, t: dict):
     args = [t[k] for k in ("prio", "demand", "freed", "victim_ok", "weight", "assigned",
                            "requests")]
     return lambda: ops.preempt_select_ref(*args, b_key=t.get("b_key"))
-
-
-def profiled(fn) -> dict:
-    """Device milliseconds of one call of ``fn`` by kernel name (memsets
-    included), from torch.profiler; empty if it saw no device activity."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    out = {}
-    for _ in range(2):  # a trace that caught nothing, once more
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0)
-            if us:
-                name = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
-                name = name.split("(")[0].split("<")[0].split("::")[-1]
-                n, ms = out.get(name, (0, 0.0))
-                out[name] = (n + e.count, ms + us / 1e3)
-        if out:
-            break
-    return out
 
 
 def admit_clock_split(lib, t: dict, card: str, label: str) -> dict:
@@ -308,20 +241,14 @@ def main(argv: list) -> int:
     import torch
     from karmada_tpu_torch import native
 
-    if not torch.cuda.is_available():
-        print("k12_k15_variants: no CUDA device", file=sys.stderr)
+    setup = kv.start(argv, "k12_k15_variants")
+    if setup is None:
         return 1
-    device = torch.device("cuda", 0)
-    card = cs.card_line()
-    named = [os.path.abspath(d) for d in (argv or [CSRC])]
-    dirs = list(dict.fromkeys(named))
-    print(f"# card: {card}; torch {torch.__version__}; CUDA {torch.version.cuda}; "
-          f"directories {named}", flush=True)
+    device, card, named, dirs = setup
     native.build()
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(dirs, tmp)
-        forms = {d: {n: form(n, open(os.path.join(d, f"{n}.cu")).read()) for n in ENTRY}
-                 for d in dirs}
+        libs = kv.build("k12_k15_variants", sources(dirs), tmp)
+        forms = {d: {n: form(n, kv.source(d, n)) for n in ENTRY} for d in dirs}
         rng = np.random.default_rng(cs.SEED)
         shapes = [("quota_admit", f"131072 x N={n} x R={r}",
                    cs.to_device(cs.admit_batch(rng, n=n, r=r), device))
@@ -333,27 +260,14 @@ def main(argv: list) -> int:
         results = {"card": card, "dirs": named, "times": [], "splits": []}
         for name, label, t in shapes:
             want = plain(name, t)()
-            row = {"kernel": name, "shape": label, "ms": []}
-            calls = {}
-            for d in dirs:
-                call = caller(libs[d][(name, "whole")], name, forms[d][name], t)
-                try:
-                    cs.compare(f"{name} {label} ({d})", call(), want)
-                    calls[d] = call
-                except RuntimeError as e:
-                    print(f"# {name} {label}: {forms[d][name]} form ({d}) refused: {e}",
-                          flush=True)
-            for d in named:
-                ms = cs.cuda_ms(calls[d]) if d in calls else None
-                row["ms"].append({"dir": d, "form": forms[d][name], "ms": ms})
-                print(f"# {name} {label}: {forms[d][name]} form ({d}): "
-                      + (f"{ms:.4f} ms" if ms is not None else "refused")
-                      + f", exact; card {card}", flush=True)
+            calls = {d: caller(libs[(d, name, "whole")], name, forms[d][name], t) for d in dirs}
+            row = kv.time_row(name, label, calls, want, named,
+                              {d: forms[d][name] for d in dirs}, card)
+            held = row["held"]
             results["times"].append(row)
             for d in dirs:
-                lib = libs[d]
-                if forms[d][name] == "radix" and d in calls:
-                    split = profiled(calls[d])
+                if forms[d][name] == "radix" and d in held:
+                    split = kv.profiled(held[d])
                     print(f"# {name} {label}: radix form's device operations: "
                           + ("; ".join(f"{k} x{n} {ms:.4f} ms" for k, (n, ms) in split.items())
                              or "not measured (the profiler saw none)")
@@ -363,13 +277,13 @@ def main(argv: list) -> int:
                 elif name == "quota_admit" and label.endswith("R=4") and "N=1 " not in label:
                     results["splits"].append({"kernel": name, "shape": label, "dir": d,
                                               "clocks": admit_clock_split(
-                                                  lib[(name, "clocks")], t, card, label)})
-                elif name == "preempt_select" and d in calls:
+                                                  libs[(d, name, "clocks")], t, card, label)})
+                elif name == "preempt_select" and d in held:
                     cut_ms = {}
                     for cut in (1, 2, 3, 4):
-                        fn = caller(lib[(name, f"cut{cut}")], name, "bitonic", t)
+                        fn = caller(libs[(d, name, f"cut{cut}")], name, "bitonic", t)
                         cut_ms[cut] = statistics.median(cs.cuda_ms(fn) for _ in range(3))
-                    cut_ms[0] = statistics.median(cs.cuda_ms(calls[d]) for _ in range(3))
+                    cut_ms[0] = statistics.median(cs.cuda_ms(held[d]) for _ in range(3))
                     prev, groups = 0.0, {}
                     for cut in (1, 2, 3, 4, 0):
                         groups[SELECT_CUT_NAMES[cut]] = cut_ms[cut] - prev
@@ -379,11 +293,10 @@ def main(argv: list) -> int:
                           + f" (whole {cut_ms[0]:.4f}); card {card}", flush=True)
                     results["splits"].append({"kernel": name, "shape": label, "dir": d,
                                               "groups": groups, "whole": cut_ms[0]})
-            del t
+            del t, calls, held
+            row.pop("held")
             torch.cuda.empty_cache()
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "k12_k15_variants.json"), "w") as f:
-        json.dump(results, f, indent=1)
+    kv.write(results, "k12_k15_variants")
     print(card)
     return 0
 

@@ -103,7 +103,7 @@ def explain_pass_ref(aff_ok, taint_ok, api_ok, spread_ok, avail, caps, admitted,
 def explain_pass(aff_ok, taint_ok, api_ok, spread_ok, avail, caps, admitted,
                  dynamic, replicas, assignment, prev, preempted, *, k: int
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K14: ``explain_pass_ref`` as one kernel launch, one block per row.
+    """K14: ``explain_pass_ref`` as one kernel launch (a warp a row).
 
     Inputs: ``aff_ok``, ``taint_ok``, ``api_ok``, ``spread_ok`` bool[B, C]
     (each stage's composed pass mask), ``avail`` int32[B, C] (merged

@@ -31,6 +31,7 @@ from karmada_tpu.models.modeling import estimate_by_models as jax_by_models
 from karmada_tpu.models.modeling import estimate_by_models_np as jax_by_models_np
 from karmada_tpu.utils import features as JF
 
+import chip_smoke
 import karmada_tpu_torch.api.cluster as TC
 import karmada_tpu_torch.api.work as TW
 import karmada_tpu_torch.estimator.accurate as TA
@@ -217,6 +218,26 @@ def test_node_sum_equals_jax(seed, b, n):
         assert (want == 0).any() and (want != 0).any()
     if n == 300:
         assert (want < 0).any() or (want == HI).any()  # the wrap is exercised
+
+
+@pytest.mark.parametrize("case", range(len(chip_smoke.NODE_EDGE_CASES)))
+def test_node_sum_equals_jax_on_edge_batches(case):
+    """K8's plain version (what the kernel is held to on the card) and the
+    numpy mirror against the JAX ``_node_sum_estimate`` on every
+    ``chip_smoke.node_edge_batch`` case: divisors 1, 2, 3, 7, 2^k and 2^k +- 1
+    (k = 31, 32, 62), large primes and 2^63 - 1; dividends 0, q d - 1, q d,
+    q d + 1, 2^62 - 1, 2^63 - 1 and negatives; rows that request nothing,
+    whose nodes all fail the prefilter, whose int64 sum wraps, whose ratios
+    tie across dims; N about a warp and a cluster step, B from 1 to 4096, R
+    from 1 to 41."""
+    b, n, r = chip_smoke.NODE_EDGE_CASES[case]
+    a = chip_smoke.node_edge_batch(np.random.default_rng(chip_smoke.SEED + 800 + case), b, n, r)
+    avail, ok, req = a["node_avail"], a["node_ok"], a["requests"]
+    want = np.asarray(JA._node_sum_estimate(*map(jnp.asarray, (avail, ok, req))))
+    got = TA.node_sum_estimate_ref(*map(torch.from_numpy, (avail, ok, req)))
+    assert got.dtype == torch.int32 and got.shape == (b,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(TA._node_sum_estimate_np(avail, ok, req), want)
 
 
 @pytest.mark.parametrize("extras", [0, 1, 2, 3, 5, 9])

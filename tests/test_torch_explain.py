@@ -104,6 +104,51 @@ def test_plain_equals_jax(c, kind):
     assert topk.shape == (37, k, TX.TOPK_COLS)
 
 
+@pytest.mark.parametrize("case", range(len(chip_smoke.EXPLAIN_EDGE_CASES)))
+def test_plain_equals_jax_on_edge_batches(case):
+    """K14's plain version (what the kernel is held to on the card) against
+    the JAX ``explain_pass`` and the numpy referent on every
+    ``chip_smoke.explain_edge_batch`` case: C about the 16-cell step and a
+    warp's 512 cells, k = 1..8, every key tied, ties on availability alone,
+    MAX_INT32 and INT32_MIN operands (keys that wrap int64), fewer than k
+    non-zero keys, padding rows."""
+    b, c, k = chip_smoke.EXPLAIN_EDGE_CASES[case]
+    inputs = chip_smoke.explain_edge_batch(np.random.default_rng(chip_smoke.SEED + 900 + case),
+                                           b, c)
+    assert list(inputs) == list(ARGS)
+    mask, topk = port(inputs, k)
+    jm, jt = jax_explain_pass(*(inputs[a] for a in ARGS), k=k)
+    np.testing.assert_array_equal(mask, np.asarray(jm))
+    np.testing.assert_array_equal(topk, np.asarray(jt))
+    # the numpy referent ranks by (assigned, availability, index) and does
+    # not model the key's int64 wrap (rows of kind 3, INT32_MIN assigned):
+    # its top-k is held on the other rows
+    nm, nt = explain_batch_np(*(inputs[a] for a in ARGS), k=k)
+    np.testing.assert_array_equal(mask, nm)
+    plain = np.arange(b) % 7 != 3
+    np.testing.assert_array_equal(topk[plain], nt[plain])
+
+
+def test_held_to_plain_keeps_the_wrapper_count():
+    """chip_smoke's stand-in for K14 during an armed pass keeps each call and,
+    after the block, holds it to the plain version; the launches the wrapper
+    counts through its module name land on the wrapper itself; on leaving,
+    the wrapper is back."""
+    original = TX.explain_pass
+    before = original.launches
+    inputs = grid(np.random.default_rng(11), 9, 30)
+    with chip_smoke.held_to_plain("held") as held:
+        assert TX.explain_pass is held
+        TX.explain_pass.launches += 1  # what native.launch does after a launch
+        TX.explain_pass(*(torch.from_numpy(inputs[a]) for a in ARGS), k=8)
+    assert TX.explain_pass is original
+    assert original.launches == before + 1
+    original.launches = before
+    assert held.chunks == 0 and len(held.kept) == 1
+    held.check()
+    assert held.chunks == 1 and not held.kept
+
+
 def test_every_key_tied_keeps_index_order():
     """Every unassigned cluster of equal availability ties: the top-k is the
     k lowest indices, as lax.top_k answers."""

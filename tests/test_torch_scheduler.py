@@ -287,6 +287,41 @@ def test_no_jax_or_karmada_tpu_imports_in_source():
                 assert top not in ("jax", "jaxlib", "karmada_tpu"), f"{path}: {name}"
 
 
+@pytest.mark.parametrize("script", ("k2_variants.py", "k12_k15_variants.py",
+                                    "k8_k14_variants.py", "kernel_variants.py"))
+def test_timing_scripts_import_without_jax_or_karmada_tpu(script):
+    """The card's timing scripts import neither jax nor the JAX package: in
+    their source, and when imported with jax blocked and a finder that
+    refuses karmada_tpu."""
+    path = ROOT / script
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "karmada_tpu"), name
+    code = f"""
+import importlib, importlib.abc, sys
+sys.modules["jax"] = None
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "karmada_tpu" or name.startswith("karmada_tpu."):
+            raise ImportError("must not import " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+importlib.import_module({path.stem!r})
+assert not [m for m in sys.modules if m == "karmada_tpu" or m.startswith("karmada_tpu.")]
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_chip_smoke_refuses_without_cuda():
     """No card: the smoke exits non-zero and prints no result line."""
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
