@@ -15,9 +15,15 @@
    groups and wrapped negative weights) at 512 x 5000, 64 x 16,385, 16 x
    40,000 and 64 x 1 and 2, and prints its phase split (clock64 per block
    and pass, ``k2_phase_split``) at 4096 x 5000; K1's table form
-   ``profile_table`` at U = 8 x 5000, K1's merge form
+   ``profile_table`` at U = 8 x 5000 (beside its launch floor: an empty
+   kernel at its grid), K1's merge form
    ``estimate_merge_table`` at 4096 x 5000 with 0, 1, 2, 5 and 9 extra
-   estimates, K17 ``first_fit_group`` on a seeded ranked chunk (4096 x 3
+   estimates, K1's three forms on their edge batches
+   (``estimate_edge_batch``: divisors 1, 2, 3, 7, 2^k and 2^k +- 1, 2^40,
+   2^63 - 1; capacities at INT64_MIN, -1, 0, UNLIMITED - 1, UNLIMITED,
+   INT64_MAX and beside multiples of the divisors; C 1 to 16,385 and a
+   misaligned view; U 1, 64, 65; negative and out-of-range profile indices;
+   every row at zero replicas; E 0, 1, 4, 5, 32, 33), K17 ``first_fit_group`` on a seeded ranked chunk (4096 x 3
    terms x 5000, also with ``with_base`` off) and on its edge cases
    (``group_edge_batch``: T = 1, 4 and 9, C from 1 to 16,385),
    K8 ``node_sum_estimate`` at 4096 profile rows x 5000 nodes and 8 x 4000
@@ -34,7 +40,11 @@
    out-of-range ids, runs across and along the tiles, 2^17 clamp-sized
    rows, remaining 0 and UNLIMITED, a denied row's place in line, R = 1,
    16, 17 and 40), K13's per-row form ``quota_cluster_caps`` at 4096 x
-   5000, K14 ``explain_pass`` at 4096 x 5000 (a batch full of key ties)
+   5000 and on its edge batches (``caps_edge_batch``: the same divisors;
+   caps at INT64_MIN, -1, 0, UNLIMITED - 1, UNLIMITED, INT64_MAX, beside
+   multiples of the divisors and with quotients below -2^31; C 1 to 16,385
+   and a misaligned view; ids -1, past N, one namespace for every row; R
+   1, 4, 17, 41), K14 ``explain_pass`` at 4096 x 5000 (a batch full of key ties)
    and at C = 5, and on its edge batches (``explain_edge_batch``: C 1 to
    16,385 about the 16-cell step, k 1 to 8, rows at every offset mod 16,
    tied keys, keys that wrap int64, fewer than k non-zero keys, padding
@@ -55,8 +65,8 @@
    exact (integer outputs, tolerance 0). Prints each kernel's median time
    beside the plain version's and its bound (CUDA events behind a device
    spin, so the wrappers' host work is not timed). Then the shapes past
-   the kernels' old limits, served: K1 at 65535 x 128 + 1 rows in its three forms against
-   the plain versions, an engine at 16,385 clusters scheduling 2000
+   the kernels' old limits, served: K1 at 65535 x 128 + 1 rows (past the
+   first slice's one grid) in its three forms against the plain versions, an engine at 16,385 clusters scheduling 2000
    config-5 bindings through the fleet (every row against the numpy
    divider), a 17-dim quota wave (``wide_quota_scene``) whose
    partition equals ``admit_wave_np`` and whose admitted rows equal the
@@ -2135,7 +2145,10 @@ def widen_prev(state: tuple, k_prev: int, c: int, seed: int) -> tuple:
 
 
 def check_profile_table(device, card: str, rng) -> dict:
-    """K1's table form at U = 8 profiles x 5000 clusters."""
+    """K1's table form at U = 8 profiles x 5000 clusters; on the card also
+    its launch floor (an empty kernel at its grid, ``launch_floors.FLOORS``),
+    printed on its own line."""
+    import torch
     from karmada_tpu_torch import ops
 
     arrays = estimate_batch(rng, 1, 5000, u=8)
@@ -2144,11 +2157,20 @@ def check_profile_table(device, card: str, rng) -> dict:
     err = compare("profile_table", ops.profile_table(*args), ops.profile_table_ref(*args))
     u, c = t["profiles"].shape[0], t["available_cap"].shape[0]
     r = t["profiles"].shape[1]
-    return dict(timed(
+    stats = dict(timed(
         "profile_table (K1 table form) 8x5000", lambda: ops.profile_table(*args),
         lambda: ops.profile_table_ref(*args),
         _nbytes(*args) + u * c * 4, u * c * r * 2, card,
     ), max_abs_err=err)
+    if torch.cuda.is_available():
+        import launch_floors
+
+        run = launch_floors.floor_entry("estimate_merge", device)
+        stats["floor_ms"] = cuda_ms(lambda: run(u, c, r))
+        print(f"# launch floor at K1's table-form {u}x{c} grid: {stats['floor_ms']:.4f} ms (an "
+              f"empty kernel at its grid; the table form {stats['ms']:.4f} ms, "
+              f"{stats['ms'] / stats['floor_ms']:.2f}x the floor); card {card}", flush=True)
+    return stats
 
 
 def model_batch(rng, u: int, c: int, g: int = 9, r: int = 4) -> dict:
@@ -2260,18 +2282,14 @@ def node_sum_bound(t: dict, out) -> tuple[int, int]:
 
 
 def launch_floor(n: int, r: int, b: int, device):
-    """A function that launches the empty kernel of ``node_sum.cu`` at K8's
-    grid and cluster shape for B = ``b``, N = ``n``, R = ``r``: K8's launch
-    floor there."""
-    import torch
-    from karmada_tpu_torch import native
+    """A function that launches an empty kernel at K8's grid and cluster
+    shape for B = ``b``, N = ``n``, R = ``r``: K8's launch floor there. The
+    empty kernel is appended to ``node_sum.cu``'s text and built on first
+    use (``launch_floors.floor_entry``)."""
+    import launch_floors
 
-    fn = native.load("node_sum").launch_floor_launch
-
-    def call():
-        native.check_launch("launch_floor_launch",
-                            fn(n, r, b, torch.cuda.current_stream(device).cuda_stream))
-    return call
+    run = launch_floors.floor_entry("node_sum", device)
+    return lambda: run(n, r, b)
 
 
 def check_node_sum(arrays: dict, device, card: str, label: str) -> dict:
@@ -3340,6 +3358,192 @@ def caps_batch(rng, b: int = 4096, c: int = 5000, n: int = 8, r: int = 4) -> dic
     req[2] = 1 << 40
     return {"caps": caps, "ns_rows": rng.integers(-1, n + 2, b).astype(np.int32),
             "requests": req}
+
+
+#: divisors the multiplier-and-shift divisions of K13 and K1 must divide by
+#: exactly: 1, 2, 3, 7, 2^k and 2^k +- 1 (k = 31, 32, 62), 2^40, 2^63 - 1
+DIVISOR_EDGES = (1, 2, 3, 7, 2**31 - 1, 2**31, 2**31 + 1, 2**32 - 1, 2**32, 2**32 + 1,
+                 2**40, 2**62 - 1, 2**62, 2**62 + 1, 2**63 - 1)
+#: caps and capacities at the edges: INT64_MIN, -1, 0, UNLIMITED - 1,
+#: UNLIMITED, INT64_MAX
+CAP_EDGES = (-(2**63), -1, 0, 2**62 - 1, 2**62, 2**63 - 1)
+#: K13 edge batches (B, C, N, R, kind): C about the 4-cell and 512-cell
+#: steps and past 16,384; R = 1, 4, 17, 41; kind "mixed" (ids over
+#: -1..N+1), "one" (every row in one namespace) or "misaligned" (mixed, and
+#: on the card every input a view one element past a fresh allocation)
+CAPS_EDGE_CASES = (
+    (37, 1, 3, 4, "mixed"), (37, 3, 3, 1, "mixed"), (37, 4, 2, 4, "one"),
+    (37, 5, 3, 17, "mixed"), (64, 127, 3, 4, "mixed"), (64, 128, 4, 41, "mixed"),
+    (130, 129, 3, 4, "mixed"), (300, 512, 5, 4, "one"), (130, 513, 3, 1, "mixed"),
+    (64, 5000, 4, 4, "mixed"), (33, 5001, 3, 4, "mixed"), (9, 16_385, 2, 4, "mixed"),
+    (37, 5001, 3, 4, "misaligned"), (257, 1000, 6, 17, "mixed"),
+)
+
+
+def edge_multiples(rng, divisors: np.ndarray, count: int, negative: bool) -> np.ndarray:
+    """``count`` dividends q d - 1, q d and q d + 1 of the given divisors
+    (one each), q drawn over the whole int64 range of d's multiples (with
+    ``negative``, negative q too) or small; kept inside int64."""
+    lo, hi = -(2**63), 2**63 - 1
+    qmax = hi // divisors
+    qmin = lo // divisors if negative else np.zeros_like(divisors)
+    # over the range in floats, a little inside it, so that no cast overflows
+    up = (rng.random(count) * qmax.astype(float) * 0.999).astype(np.int64)
+    down = -(rng.random(count) * -qmin.astype(float) * 0.999).astype(np.int64)
+    wide = np.where(rng.random(count) < 0.5, up, down)
+    q = np.where(rng.random(count) < 0.7, wide,
+                 np.clip(rng.integers(-1000 if negative else 0, 1000, count), qmin, qmax))
+    v = q * divisors
+    step = rng.integers(-1, 2, count)
+    return np.where(((step == 1) & (v == hi)) | ((step == -1) & (v == lo)), v, v + step)
+
+
+def caps_edge_batch(rng, b: int, c: int, n: int, r: int, kind: str) -> dict:
+    """K13 inputs on which it must stay exact. Requests: the divisors of
+    ``DIVISOR_EDGES``, small ones and zeros; row 0 asks nothing, row 1 asks 1
+    of every dim. Caps: ``CAP_EDGES`` (INT64_MIN, -1, 0, UNLIMITED - 1,
+    UNLIMITED, INT64_MAX), UNLIMITED, multiples q d - 1, q d, q d + 1 of a
+    divisor some row asks of that dim (negative q too), caps down to -2^62
+    (with small divisors the quotient falls below -2^31: the int32 wrap) and
+    small values. ns_rows over -1..N+1 (rows 2 and 3 uncapped and past N),
+    or one namespace for every row."""
+    div = np.array(DIVISOR_EDGES, np.int64)
+    req = rng.integers(1, 5000, (b, r)).astype(np.int64)
+    pick = rng.random((b, r))
+    req[pick < 0.5] = rng.choice(div, int((pick < 0.5).sum()))
+    req[pick > 0.85] = 0
+    req[0] = 0
+    if b > 1:
+        req[1] = 1
+    caps = rng.integers(-5000, 1 << 24, (n, c, r)).astype(np.int64)
+    kind_of = rng.integers(0, 8, (n, c, r))
+    caps[kind_of == 0] = 2**62
+    caps[kind_of == 1] = rng.choice(np.array(CAP_EDGES, np.int64), int((kind_of == 1).sum()))
+    caps[kind_of == 2] = rng.integers(-(2**62), -(2**40), int((kind_of == 2).sum()))
+    cells = np.nonzero(kind_of >= 6)
+    d = req[rng.integers(0, b, len(cells[0])), cells[2]]
+    d = np.where(d > 0, d, rng.choice(div, len(cells[0])))
+    caps[cells] = edge_multiples(rng, d, len(cells[0]), negative=True)
+    if kind == "one":
+        ns = np.full(b, int(rng.integers(0, n)), np.int32)
+    else:
+        ns = rng.integers(-1, n + 2, b).astype(np.int32)
+        ns[2:4] = -1, n + 1  # an uncapped row and one past N in every batch
+    return {"caps": caps, "ns_rows": ns, "requests": req}
+
+
+#: K1 edge batches (B, C, U, R, E, kind): C as K13's; U = 1, 64 and 65
+#: (about U_SHARED); E = 0, 1, 4, 5, 32 and 33 extra estimates (about the
+#: merge form's group); kind "mixed", "zero_reps" (every row asks 0
+#: replicas) or "misaligned" (on the card every input a view one element
+#: past a fresh allocation)
+ESTIMATE_EDGE_CASES = (
+    (37, 1, 1, 4, 0, "mixed"), (37, 3, 64, 1, 1, "mixed"), (37, 4, 65, 4, 4, "mixed"),
+    (37, 5, 9, 17, 5, "mixed"), (64, 127, 9, 4, 32, "mixed"), (64, 128, 64, 41, 33, "mixed"),
+    (130, 129, 65, 4, 1, "mixed"), (300, 512, 8, 4, 2, "zero_reps"),
+    (130, 513, 1, 1, 0, "mixed"), (64, 5000, 9, 4, 1, "mixed"), (33, 5001, 64, 4, 5, "mixed"),
+    (9, 16_385, 65, 4, 1, "mixed"), (37, 5001, 9, 4, 4, "misaligned"),
+    (257, 1000, 3, 17, 0, "mixed"),
+)
+
+
+def estimate_edge_batch(rng, b: int, c: int, u: int, r: int, e: int, kind: str) -> dict:
+    """K1 inputs on which its three forms must stay exact. Profiles: the
+    divisors of ``DIVISOR_EDGES``, small ones and zeros; profile 0 asks
+    nothing (when U > 1). Capacities: ``CAP_EDGES``, multiples q d - 1, q d,
+    q d + 1 of a divisor some profile asks of that dim, negatives and small
+    values. prof_idx over -U-2..U+1 (negative indices wrap, then clamp;
+    rows 0-2 take -1, -U-2 and U+1);
+    has_summary 80% true; replicas 0 in a tenth of the rows (every row with
+    ``zero_reps``), MAX_INT32 in some; ``e`` extra estimates over -1..300
+    with MAX_INT32, INT32_MIN and -2 cells; ``table`` is the table form's
+    answer (the merge form's input)."""
+    hi32 = 2**31 - 1
+    div = np.array(DIVISOR_EDGES, np.int64)
+    prof = rng.integers(1, 5000, (u, r)).astype(np.int64)
+    pick = rng.random((u, r))
+    prof[pick < 0.5] = rng.choice(div, int((pick < 0.5).sum()))
+    prof[pick > 0.85] = 0
+    if u > 1:
+        prof[0] = 0
+    cap = rng.integers(-5000, 1 << 40, (c, r)).astype(np.int64)
+    kind_of = rng.integers(0, 8, (c, r))
+    cap[kind_of == 1] = rng.choice(np.array(CAP_EDGES, np.int64), int((kind_of == 1).sum()))
+    cap[kind_of == 2] = rng.integers(0, 64, int((kind_of == 2).sum()))
+    cells = np.nonzero(kind_of >= 6)
+    d = prof[rng.integers(0, u, len(cells[0])), cells[1]]
+    d = np.where(d > 0, d, rng.choice(div, len(cells[0])))
+    cap[cells] = edge_multiples(rng, d, len(cells[0]), negative=False)
+    reps = np.where(rng.random(b) < 0.1, 0, rng.integers(1, 100, b)).astype(np.int32)
+    reps[rng.random(b) < 0.03] = hi32
+    if kind == "zero_reps":
+        reps[:] = 0
+    extras = []
+    for _ in range(e):
+        x = rng.integers(-1, 300, (b, c)).astype(np.int32)
+        roll = rng.random((b, c))
+        x[roll < 0.05] = hi32
+        x[(roll >= 0.05) & (roll < 0.07)] = -(2**31)
+        x[(roll >= 0.07) & (roll < 0.09)] = -2
+        extras.append(x)
+    idx = rng.integers(-u - 2, u + 2, b).astype(np.int32)
+    idx[:3] = -1, -u - 2, u + 1  # wraps; clamps to 0; clamps to U - 1
+    return {"available_cap": cap, "profiles": prof, "prof_idx": idx,
+            "has_summary": rng.random(c) < 0.8, "replicas": reps, "extras": extras}
+
+
+def check_caps_edges(device, card: str) -> None:
+    """K13's per-row form against its plain version on every
+    ``CAPS_EDGE_CASES`` batch; exact."""
+    from karmada_tpu_torch import ops
+
+    t0 = time.perf_counter()
+    for k, (b, c, n, r, kind) in enumerate(CAPS_EDGE_CASES):
+        t = to_device(caps_edge_batch(np.random.default_rng(SEED + 1600 + k), b, c, n, r, kind),
+                      device)
+        if kind == "misaligned":
+            t = misaligned(t)
+        args = (t["caps"], t["ns_rows"], t["requests"])
+        compare(f"quota_cluster_caps edge case {b}x{c} N={n} R={r} {kind}",
+                ops.quota_cluster_caps(*args), ops.cluster_caps_ref(*args))
+    print(f"# K13 per-row edge cases: {len(CAPS_EDGE_CASES)} exact (B x C x N x R: "
+          + ", ".join(f"{b}x{c}x{n}x{r}{'' if kind == 'mixed' else ' ' + kind}"
+                      for b, c, n, r, kind in CAPS_EDGE_CASES)
+          + f"; {time.perf_counter() - t0:.1f} s); card {card}", flush=True)
+
+
+def check_estimate_edges(device, card: str) -> None:
+    """K1's three forms against their plain versions on every
+    ``ESTIMATE_EDGE_CASES`` batch; exact."""
+    import torch
+    from karmada_tpu_torch import ops
+
+    t0 = time.perf_counter()
+    for k, (b, c, u, r, e, kind) in enumerate(ESTIMATE_EDGE_CASES):
+        a = estimate_edge_batch(np.random.default_rng(SEED + 1700 + k), b, c, u, r, e, kind)
+        extras = a.pop("extras")
+        t = to_device(a, device)
+        ex = [torch.from_numpy(x).to(device) for x in extras]
+        if kind == "misaligned":
+            t = misaligned(t)
+            ex = list(misaligned({i: x for i, x in enumerate(ex)}).values())
+        tag = f"{b}x{c} U={u} R={r} E={e} {kind}"
+        args = [t[k2] for k2 in ("available_cap", "profiles", "prof_idx", "has_summary",
+                                 "replicas")]
+        compare(f"estimate_merge edge case {tag}", ops.estimate_merge(*args),
+                ops.estimate_merge_ref(*args))
+        targs = (t["available_cap"], t["profiles"], t["has_summary"])
+        table = ops.profile_table(*targs)
+        compare(f"profile_table edge case {tag}", table, ops.profile_table_ref(*targs))
+        if kind == "misaligned":
+            table = misaligned({"t": table})["t"]
+        margs = (table, t["prof_idx"], tuple(ex), t["replicas"])
+        compare(f"estimate_merge_table edge case {tag}", ops.estimate_merge_table(*margs),
+                ops.estimate_merge_table_ref(*margs))
+    print(f"# K1 edge cases: {len(ESTIMATE_EDGE_CASES)} exact in its three forms (B x C, U, "
+          "R, E: " + ", ".join(f"{b}x{c} U={u} R={r} E={e}{'' if kind == 'mixed' else ' ' + kind}"
+                               for b, c, u, r, e, kind in ESTIMATE_EDGE_CASES)
+          + f"; {time.perf_counter() - t0:.1f} s); card {card}", flush=True)
 
 
 #: K12's edge batches (``admit_edge_batch``)
@@ -5523,9 +5727,10 @@ def run_plane(device, card: str, templates: int = 10_000, clusters: int = 500,
 
 
 def check_shape_limits(device, card: str) -> dict:
-    """The shapes past the kernels' old limits, served: K1 beyond one grid
-    (65535 blocks of 128 rows), each of its three forms at 65535 x 128 + 1
-    rows equal to its plain version; an engine at 16,385 clusters (one past
+    """The shapes past the kernels' old limits, served: K1 beyond the first
+    slice's one grid (65535 blocks of 128 rows; grid.x now takes the rows),
+    each of its three forms at 65535 x 128 + 1 rows equal to its plain
+    version; an engine at 16,385 clusters (one past
     K2's old shared-memory sort) scheduling 2000 config-5 bindings through
     the fleet, every row against the numpy divider; a 17-dim quota
     wave (one past K12's old 16) on the fleet, its partition against
@@ -5641,9 +5846,13 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = card_line()
     print(f"# card: {card}; torch {torch.__version__}; CUDA {torch.version.cuda}", flush=True)
+    import launch_floors
+
     t0 = time.perf_counter()
+    floors = launch_floors.start()  # the launch floors' nvcc beside the kernels'
     built = native.build()
     built["fold.c (g++)"] = fold.build()
+    built.update(launch_floors.finish(floors))
     print(f"# kernels built in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()), flush=True)
 
@@ -5692,6 +5901,8 @@ def main() -> int:
         check_node_sum(node_batch(rng, 8, 4000), device, card, "8x4000 seeded")
         check_node_edges(device, card)
         stats.update(check_quota_kernels(rng, device, card))
+        check_caps_edges(device, card)
+        check_estimate_edges(device, card)
         stats["explain_pass"] = check_explain_kernel(rng, device, card)
         check_explain_edges(device, card)
         t = preempt_batch(rng, device)

@@ -42,8 +42,9 @@ server's batch) at 4096 x 5000 with R = 4, 17 and 41 (two groups of
 dims), at R = 4 with two dims tied (``tied``), and at the estimator phase's
 8 profile rows x 4000 nodes, R = 4; and on the estimator phase's own node
 data (``estimator_nodes``) at 8 x 4000 and 4096 x 5000. Beside K8, the
-launch floor: the empty kernel of a Hopper-form ``node_sum.cu`` at K8's grid
-and cluster shape on each K8 shape, and one block alone. Prints one line a
+launch floor: an empty kernel appended to a Hopper-form ``node_sum.cu``
+(``launch_floors.FLOORS``) at K8's grid and cluster shape on each K8
+shape, and one block alone. Prints one line a
 measurement and writes ``chiprun_out/k8_k14_variants.json``. Builds, calls
 and times through ``kernel_variants``. Imports nothing of JAX.
 """
@@ -58,6 +59,7 @@ import numpy as np
 
 import chip_smoke as cs
 import kernel_variants as kv
+import launch_floors
 
 ENTRY = {"explain_pass": "explain_pass_launch", "node_sum": "node_sum_launch"}
 
@@ -154,6 +156,8 @@ def sources(dirs: list) -> dict:
             for var, text in kv.variants("k8_k14_variants", name, src,
                                          cuts_of(name, src)[1]).items():
                 out[(d, name, var)] = text
+            if name == "node_sum" and form(name, src) == "clusters":
+                out[(d, name, "floor")] = launch_floors.floor_source(name, "clusters", src)
     return out
 
 
@@ -197,13 +201,10 @@ def plain(name: str, t: dict, k: int = 0):
 
 def floor_ms(lib, t: dict, device) -> dict:
     """The launch floor: the empty kernel at K8's grid and cluster shape for
-    ``t``'s sizes, and one block alone."""
-    from karmada_tpu_torch import native
-
+    ``t``'s sizes (``launch_floors.FLOORS``), and one block alone."""
     b, n = t["node_ok"].shape
     r = t["requests"].shape[1]
-    run = kv.entry(lib, "launch_floor_launch", native.SIGNATURES["node_sum"]["launch_floor_launch"],
-                   device)
+    run = kv.entry(lib, "launch_floor_launch", launch_floors.FLOOR_SIGNATURE, device)
     return {"shape": cs.cuda_ms(lambda: run(n, r, b)), "one block": cs.cuda_ms(lambda: run(1, 1, 1))}
 
 
@@ -308,7 +309,7 @@ def main(argv: list) -> int:
             if name == "node_sum":
                 for d in dirs:
                     if forms[d][name] == "clusters":
-                        fl = floor_ms(libs[(d, name, "whole")], t, device)
+                        fl = floor_ms(libs[(d, name, "floor")], t, device)
                         print(f"# launch floor at K8's {label} grid: {fl['shape']:.4f} ms; one "
                               f"block: {fl['one block']:.4f} ms ({d}); card {card}", flush=True)
                         results["floors"].append({"shape": label, "dir": d, **fl})

@@ -26,14 +26,9 @@
 // tens of dependent instructions, and at the estimator's 8 x 4000 the
 // launch and a few dependent memory round trips. The design:
 //
-// - Division by an invariant divisor (Granlund and Montgomery 1994, Thm
-//   4.2 with N = 63). Within a row the divisor of dim r is the same for
-//   every node, so each block computes once per (row, dim) l = ceil(log2 d)
-//   and m = ceil(2^(63+l) / d), which lies in [2^63, 2^64) (a 128 / 64-bit
-//   division, Hacker's Delight divlu). Then floor(a / d) = floor(m a /
-//   2^(63+l)) for every 0 <= a < 2^63, and with the dividend staged doubled
-//   (2a < 2^64) that is umulhi(m, 2a) >> l, exact over the whole ranges (a
-//   in [0, 2^63 - 1], d in [1, 2^63 - 1]; d = 1 is l = 0, m = 2^63). Each
+// - Division by an invariant divisor (Granlund-Montgomery, divmagic.cuh).
+//   Within a row the divisor of dim r is the same for every node, so each
+//   block computes its multiplier and shift once per (row, dim), and each
 //   cell costs one high product, a shift and a min per requested dim,
 //   whatever the data. (A float32 pre-compare of the dims, exact through
 //   this multiplier only where the float could not decide, was faster on
@@ -60,13 +55,12 @@
 // - Inside a block a warp takes a row and walks its 128-node chunks, 4
 //   nodes a lane, so the per-(row, dim) multiplier is one broadcast read
 //   for 4 cells.
-//
-// launch_floor_launch is an empty kernel launched with the same grid and
-// cluster shape: the floor a launch of K8 at that shape cannot go below.
 
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "divmagic.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -82,49 +76,6 @@ constexpr int G_MAX = 40;          // dims a group
 constexpr int TILE_BYTES = 64 * 1024;  // staged avail a block
 constexpr long long MAX_I32 = 2147483647LL;
 constexpr unsigned long long SENTINEL = 1ULL << 62;
-
-// floor((hi * 2^64 + lo) / d) for hi < d (libdivide's
-// libdivide_128_div_64_to_64, after Hacker's Delight divlu): base-2^32
-// long division with the normalised divisor, each digit estimated from the
-// divisor's top digit and corrected at most twice.
-__device__ unsigned long long div128by64(unsigned long long hi, unsigned long long lo,
-                                         unsigned long long d) {
-  const unsigned long long b = 1ULL << 32;
-  const int shift = __clzll((long long)d);
-  d <<= shift;
-  hi <<= shift;
-  hi |= shift ? (lo >> (64 - shift)) : 0ULL;
-  lo <<= shift;
-  const unsigned long long num1 = lo >> 32, num0 = lo & 0xFFFFFFFFULL;
-  const unsigned long long den1 = d >> 32, den0 = d & 0xFFFFFFFFULL;
-  unsigned long long qhat = hi / den1;
-  unsigned long long rhat = hi - qhat * den1;
-  unsigned long long c1 = qhat * den0;
-  unsigned long long c2 = rhat * b + num1;
-  if (c1 > c2) qhat -= (c1 - c2 > d) ? 2 : 1;
-  const unsigned long long q1 = qhat & 0xFFFFFFFFULL;
-  const unsigned long long rem = hi * b + num1 - q1 * d;
-  qhat = rem / den1;
-  rhat = rem - qhat * den1;
-  c1 = qhat * den0;
-  c2 = rhat * b + num0;
-  if (c1 > c2) qhat -= (c1 - c2 > d) ? 2 : 1;
-  return (q1 << 32) | (qhat & 0xFFFFFFFFULL);
-}
-
-// the multiplier and shift of divisor d in [1, 2^63 - 1]: floor(a / d) ==
-// umulhi(m, 2a) >> l for 0 <= a < 2^63
-__device__ void magic(unsigned long long d, unsigned long long& m, int& l) {
-  if (d == 1) {
-    m = 1ULL << 63;
-    l = 0;
-    return;
-  }
-  l = 64 - __clzll((long long)(d - 1));  // ceil(log2 d), 1..63
-  // ceil(2^(63+l) / d) = floor((2^(63+l) - 1) / d) + 1; 2^(63+l) - 1 has
-  // the high word 2^(l-1) - 1 < d and the low word 2^64 - 1
-  m = div128by64((1ULL << (l - 1)) - 1, ~0ULL, d) + 1;
-}
 
 __device__ __forceinline__ unsigned long long umin64(unsigned long long a,
                                                      unsigned long long b) {
@@ -286,8 +237,6 @@ node_sum_kernel(const int64_t* __restrict__ avail, int n_nodes, int r_dims,
   cluster.sync();  // the other blocks' row_part stays alive until read
 }
 
-__global__ void launch_floor_kernel(int) {}
-
 struct Shape {
   int csize, tb, nb, nt, g;
   size_t smem;
@@ -355,17 +304,6 @@ extern "C" int node_sum_launch(const int64_t* avail, int n_nodes, int r_dims,
   const int err = launch_clustered(node_sum_kernel, (b_n + s.tb - 1) / s.tb * s.csize, s.csize,
                                    s.smem, stream, avail, n_nodes, r_dims, node_ok, req, b_n,
                                    s.tb, s.nb, s.nt, s.g, out);
-  if (err) return err;
-  return (int)cudaGetLastError();
-}
-
-// an empty kernel at node_sum_launch's grid and cluster shape for these
-// sizes: K8's launch floor there
-extern "C" int launch_floor_launch(int n_nodes, int r_dims, int b_n, cudaStream_t stream) {
-  if (b_n == 0) return 0;
-  const Shape s = shape_of(n_nodes, r_dims, b_n);
-  const int err = launch_clustered(launch_floor_kernel, (b_n + s.tb - 1) / s.tb * s.csize,
-                                   s.csize, 0, stream, b_n);
   if (err) return err;
   return (int)cudaGetLastError();
 }

@@ -83,7 +83,7 @@ SIGNATURES = {
         "gather_meta_launch": "pipip",
     },
     "model_estimate": {"model_overlay_launch": "pppiiipi" "ppp" "i" "p"},
-    "node_sum": {"node_sum_launch": "piippip", "launch_floor_launch": "iii"},
+    "node_sum": {"node_sum_launch": "piippip"},
     "quota_admit": {"quota_admit_launch": "pppiiipp" "ppppp" "i"},
     "quota_caps": {
         "quota_caps_launch": "piiippip",

@@ -151,8 +151,9 @@ def profile_table(
     profiles: torch.Tensor,
     has_summary: torch.Tensor,
 ) -> torch.Tensor:
-    """K1 table form: ``profile_table_ref`` as one launch of the K1 kernel
-    with its row gather and merge switched off.
+    """K1 table form: ``profile_table_ref`` as one launch of K1's
+    row-streaming kernel in its table form (row u is profile u; no gather,
+    no merge).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise. ``profile_table.launches`` counts kernel launches."""
@@ -178,8 +179,9 @@ profile_table.launches = 0
 
 
 #: extra estimates one launch of K1's merge form takes (MAX_EXTRAS in
-#: ``csrc/estimate_merge.cu``); more take one launch per group
-MERGE_GROUP = 4
+#: ``csrc/estimate_merge.cu``: the pointers of a group travel by value in
+#: the kernel's parameters); more take one launch per group
+MERGE_GROUP = 32
 
 
 def estimate_merge_table_ref(

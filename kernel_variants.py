@@ -1,5 +1,6 @@
 """The shared harness of the port's kernel timing scripts
-(``k12_k15_variants.py``, ``k8_k14_variants.py``): each names its kernels,
+(``k12_k15_variants.py``, ``k8_k14_variants.py``, ``k1_k13_variants.py``):
+each names its kernels,
 their source forms, the text edits that make a form's phase-split copies,
 its shapes and its callers as data, and this module builds, calls and times
 them.
@@ -21,6 +22,9 @@ them.
   in the order named.
 - ``profiled`` sums one call's device time by kernel name under
   torch.profiler.
+
+``launch_floors`` builds the launch floors (an empty kernel appended to a
+kernel's source).
 
 Imports nothing of JAX.
 """

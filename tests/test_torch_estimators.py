@@ -265,10 +265,68 @@ def test_merge_table_ref_equals_jax(extras):
     assert TO.estimate_merge_table.launches == 0
 
 
+@pytest.mark.parametrize("case", range(len(chip_smoke.ESTIMATE_EDGE_CASES)))
+def test_estimate_forms_equal_jax_on_edge_batches(case):
+    """K1's three plain versions (what its kernels are held to on the card)
+    against the JAX programs on every ``chip_smoke.estimate_edge_batch``
+    case: ``estimate_merge_ref`` against ``general_estimate`` -> the
+    no-summary mask -> the row gather -> ``merge_estimates`` (and, its
+    indices wrapped and clamped first, against ``general_estimate_interned``
+    in the same composition); ``profile_table_ref`` against
+    ``_profile_table``'s general branch (``general_estimate`` and the mask);
+    ``estimate_merge_table_ref`` against ``merge_estimates`` over the
+    gathered table and the E extras. Divisors 1, 2, 3, 7, 2^k and 2^k +- 1,
+    2^40 and 2^63 - 1; capacities INT64_MIN, -1, 0, UNLIMITED - 1,
+    UNLIMITED, INT64_MAX and multiples of the divisors with their
+    neighbours; C from 1 to 16,385; U = 1, 64 and 65; negative and
+    out-of-range profile indices; every row at zero replicas; E = 0, 1, 4,
+    5, 32 and 33."""
+    b, c, u, r, e, kind = chip_smoke.ESTIMATE_EDGE_CASES[case]
+    a = chip_smoke.estimate_edge_batch(np.random.default_rng(chip_smoke.SEED + 1700 + case),
+                                       b, c, u, r, e, kind)
+    cap, prof, idx, summ, reps = (a[k] for k in ("available_cap", "profiles", "prof_idx",
+                                                 "has_summary", "replicas"))
+    extras = a["extras"]
+    table = JO.general_estimate(jnp.asarray(cap), jnp.asarray(prof))
+    masked = jnp.where(jnp.asarray(summ)[None, :], table, jnp.int32(-1))
+    gathered = masked[jnp.asarray(idx)]
+    want_merge = np.asarray(JO.merge_estimates(jnp.asarray(reps), (gathered,)))
+    want_extras = np.asarray(JO.merge_estimates(
+        jnp.asarray(reps), (gathered, *map(jnp.asarray, extras))))
+    # the interned estimate on the same rows, indices wrapped and clamped
+    inside = np.clip(np.where(idx < 0, idx + u, idx), 0, u - 1).astype(np.int32)
+    interned = JO.general_estimate_interned(jnp.asarray(cap), jnp.asarray(prof),
+                                            jnp.asarray(inside))
+    interned = jnp.where(jnp.asarray(summ)[None, :], interned, jnp.int32(-1))
+    np.testing.assert_array_equal(
+        np.asarray(JO.merge_estimates(jnp.asarray(reps), (interned,))), want_merge)
+
+    t = {k: torch.from_numpy(a[k]) for k in ("available_cap", "profiles", "prof_idx",
+                                              "has_summary", "replicas")}
+    got = TO.estimate_merge_ref(t["available_cap"], t["profiles"], t["prof_idx"],
+                                t["has_summary"], t["replicas"])
+    assert got.dtype == torch.int32 and got.shape == (b, c)
+    np.testing.assert_array_equal(got.numpy(), want_merge)
+    tab = TO.profile_table_ref(t["available_cap"], t["profiles"], t["has_summary"])
+    assert tab.dtype == torch.int32 and tab.shape == (u, c)
+    np.testing.assert_array_equal(tab.numpy(), np.asarray(masked))
+    merged = TO.estimate_merge_table_ref(tab, t["prof_idx"],
+                                         tuple(map(torch.from_numpy, extras)), t["replicas"])
+    np.testing.assert_array_equal(merged.numpy(), want_extras)
+    assert len(extras) == e
+    if kind == "zero_reps":
+        assert (want_extras == 0).all()
+    else:
+        assert (idx < 0).any() and ((idx < -u) | (idx >= u)).any()
+
+
 def test_merge_group_matches_the_kernel_source():
     """The merge form's wrapper allocates its scratch buffer past
     ``MERGE_GROUP`` extras: the kernel's group size (``MAX_EXTRAS`` in
-    ``csrc/estimate_merge.cu``) must be the same."""
+    ``csrc/estimate_merge.cu``) must be the same, the group's pointers must
+    travel in the kernel's by-value argument struct (one array of
+    ``MAX_EXTRAS`` pointers, filled by the entry point from its host array),
+    and a group must fit the kernel parameters' 4 KB with room to spare."""
     import os
     import re
 
@@ -277,6 +335,10 @@ def test_merge_group_matches_the_kernel_source():
     with open(os.path.join(native.CSRC, "estimate_merge.cu")) as f:
         src = f.read()
     assert re.findall(r"constexpr int MAX_EXTRAS = (\d+);", src) == [str(TO.MERGE_GROUP)]
+    assert re.findall(r"const int32_t\* p\[(\w+)\];", src) == ["MAX_EXTRAS"]
+    assert "a.ex.p[k] = k < a.e_n ? extras[first + k] : nullptr;" in src
+    assert TO.MERGE_GROUP * 8 <= 4096 - 512
+    assert TO.MERGE_GROUP >= 32
 
 
 def test_new_wrappers_raise_off_cpu():

@@ -249,6 +249,32 @@ def test_cluster_caps_rows_at_or_above_n_read_the_last_row():
     np.testing.assert_array_equal(TQ.cluster_caps_np(caps, rows, req), want)
 
 
+@pytest.mark.parametrize("case", range(len(chip_smoke.CAPS_EDGE_CASES)))
+def test_cluster_caps_equal_jax_on_edge_batches(case):
+    """K13's plain version (what its per-row kernel is held to on the card)
+    and the numpy mirror against the JAX ``quota_cluster_caps`` on every
+    ``chip_smoke.caps_edge_batch`` case: divisors 1, 2, 3, 7, 2^k and 2^k +- 1
+    (k = 31, 32, 62), 2^40 and 2^63 - 1; caps INT64_MIN, -1, 0, UNLIMITED - 1,
+    UNLIMITED, INT64_MAX, multiples of the divisors and their neighbours, and
+    quotients below -2^31 (the int32 wrap); C from 1 to 16,385 about the 4-
+    and 512-cell steps; ids -1, past N and one namespace for every row; R =
+    1, 4, 17 and 41."""
+    b, c, n, r, kind = chip_smoke.CAPS_EDGE_CASES[case]
+    a = chip_smoke.caps_edge_batch(np.random.default_rng(chip_smoke.SEED + 1600 + case),
+                                   b, c, n, r, kind)
+    caps, rows, req = a["caps"], a["ns_rows"], a["requests"]
+    want = np.asarray(JQ.quota_cluster_caps(*map(jnp.asarray, (caps, rows, req))))
+    t = tuple(map(torch.from_numpy, (caps, rows, req)))
+    got = TQ.cluster_caps_ref(*t)
+    assert got.dtype == torch.int32 and got.shape == (b, c)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(TQ.cluster_caps_np(caps, rows, req), want)
+    if kind == "one":
+        assert (rows == rows[0]).all() and rows[0] >= 0
+    else:  # uncapped rows and ids past N are posed
+        assert (rows < 0).any() and (rows >= n).any()
+
+
 @pytest.mark.parametrize("case", ["uncapped", "unlimited_huge_request", "min_over_dims"])
 def test_cluster_caps_cases(case):
     if case == "uncapped":

@@ -288,7 +288,8 @@ def test_no_jax_or_karmada_tpu_imports_in_source():
 
 
 @pytest.mark.parametrize("script", ("k2_variants.py", "k12_k15_variants.py",
-                                    "k8_k14_variants.py", "kernel_variants.py"))
+                                    "k8_k14_variants.py", "k1_k13_variants.py",
+                                    "kernel_variants.py", "launch_floors.py"))
 def test_timing_scripts_import_without_jax_or_karmada_tpu(script):
     """The card's timing scripts import neither jax nor the JAX package: in
     their source, and when imported with jax blocked and a finder that
@@ -320,6 +321,44 @@ assert not [m for m in sys.modules if m == "karmada_tpu" or m.startswith("karmad
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_launch_floor_builds_are_named_by_their_sources(tmp_path, monkeypatch):
+    """A launch floor's build is named by a hash of its source text and of
+    the shared headers: the same sources name the same build, which a
+    second run loads without a compiler (``start`` finds nothing to build),
+    and an edited header names another. The smoke imports the floors, not
+    the timing harness."""
+    import shutil
+
+    import launch_floors
+    from karmada_tpu_torch import native
+
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    d = tmp_path / "csrc"
+    shutil.copytree(launch_floors.CSRC, d)
+    names = {n: launch_floors._paths(n, str(d))[2] for n in launch_floors.PORT_FLOORS}
+    assert names == {n: launch_floors._paths(n, launch_floors.CSRC)[2]
+                     for n in launch_floors.PORT_FLOORS}
+    assert len(set(names.values())) == len(names)
+    for n, so in names.items():
+        assert pathlib.Path(so).parent == tmp_path / "build"
+        text = launch_floors._paths(n, str(d))[0]
+        assert text.count("launch_floor_launch") == 1
+        assert text.startswith((d / f"{n}.cu").read_text())
+    (tmp_path / "build").mkdir()
+    for so in names.values():
+        pathlib.Path(so).touch()
+    monkeypatch.setattr(native, "nvcc", lambda: pytest.fail("a built floor was built again"))
+    started = launch_floors.start(d=str(d))
+    assert started["procs"] == {} and launch_floors.finish(started) == {}
+    (d / "divmagic.cuh").write_text((d / "divmagic.cuh").read_text() + "\n// edited\n")
+    for n, so in names.items():
+        assert launch_floors._paths(n, str(d))[2] != so
+    smoke = ast.parse((ROOT / "chip_smoke.py").read_text())
+    imported = {a.name for node in ast.walk(smoke) if isinstance(node, ast.Import)
+                for a in node.names}
+    assert "launch_floors" in imported and "kernel_variants" not in imported
 
 
 def test_chip_smoke_refuses_without_cuda():
