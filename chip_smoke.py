@@ -1682,6 +1682,17 @@ def check_fleet_kernels(table, card: str) -> dict:
         lambda: fk.gather_meta_ref(st_k[1], rows_g),
         _nbytes(rows_g) * 2 + _nbytes(got_g), rows_g.numel() * 3, card,
     ), max_abs_err=compare("gather_meta", got_g, want_g))
+    if torch.cuda.is_available():
+        import launch_floors
+
+        run = launch_floors.floor_entry("scatter_rows", rows_all.device)
+        widest = launch_floors.scatter_floor_arg([v[0].numel() * v.element_size() for v in vals])
+        for name, a, b in (("scatter_rows", k, len(vals)), ("gather_meta", rows_g.numel(), 0)):
+            fl = cuda_ms(lambda: run(a, b, widest))
+            print(f"# launch floor at K6's {name} grid ({a} rows"
+                  + (f" x {b} fields" if b else "") + f"): {fl:.4f} ms (an empty kernel at its "
+                  f"grid; K6 {stats[name]['ms']:.4f} ms, {stats[name]['ms'] / fl:.2f}x the "
+                  f"floor); card {card}", flush=True)
     del st_k, s_k, s_r, s_l
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
@@ -2221,12 +2232,13 @@ def check_model_forms(t: dict, pods_dim: int, card: str, label: str) -> dict:
     mm.model_overlay_ref(t_r, *pack, *rest, pods_dim)
     err = compare("model_overlay", t_k, t_r)
     changed = int((t_k != base).sum().item())
-    # the overlay is idempotent on its table, so repeated launches time it
+    # the overlay is idempotent on its table, so repeated launches time it;
+    # its bound counts the table once, written (the kernel never reads it)
     stats["model_overlay"] = dict(timed(
         f"model_overlay (K7) {label}",
         lambda: mm.model_overlay(t_k, *pack, *rest, pods_dim),
         lambda: mm.model_overlay_ref(t_r, *pack, *rest, pods_dim),
-        _nbytes(*pack, *rest) + 2 * _nbytes(base), _model_ops(u, c, g, r), card,
+        _nbytes(*pack, *rest) + _nbytes(base), _model_ops(u, c, g, r), card,
     ), max_abs_err=err)
     print(f"# K7 {label}: {u} profiles x {c} clusters x {g} grades; overlay changed "
           f"{changed} of {u * c} cells", flush=True)
@@ -2250,9 +2262,241 @@ def check_model_kernels(engine, card: str, rng) -> dict:
          "has_summary": has_summary, "available_cap": cap}
     pods = engine.snapshot.dim_index("pods")
     stats = check_model_forms(t, -1 if pods is None else pods, card, "config-5 table")
+    if torch.cuda.is_available():
+        import launch_floors
+
+        u, (c, g, r) = padded.shape[0], min_bounds.shape
+        run = launch_floors.floor_entry("model_estimate", cap.device)
+        st = stats["model_overlay"]
+        st["floor_ms"] = cuda_ms(lambda: run(u, c, launch_floors.model_floor_arg(g, r)))
+        print(f"# launch floor at K7's {u}x{c}x{g} grid: {st['floor_ms']:.4f} ms (an empty "
+              f"kernel at its grid; K7 {st['ms']:.4f} ms, {st['ms'] / st['floor_ms']:.2f}x the "
+              f"floor); card {card}", flush=True)
     check_model_forms(to_device(model_batch(rng, 64, 5000), cap.device), 2, card,
                       "seeded U=64")
     return stats
+
+
+# --------------------------------------------------------------------------
+# K6 and K7 edge batches
+# --------------------------------------------------------------------------
+
+#: K6 edge batches (``scatter_edge_batch``): the dirty-row form with rows
+#: repeated (the pow2 padding and more), at 0 and cap - 1 with rows past cap
+#: and below 0 dropped, k = 1, one field and eight, row widths 1, 2, 4, 8,
+#: 128 and 544 B, cap = 1, and every input a view one element past a fresh
+#: allocation (on the card); the commit form with no row committed, every
+#: row, about half (the all-rows branch) and a gathered batch
+COMMIT_EDGE_CASES = ("commit_none", "commit_all", "commit_churn", "commit_gathered")
+SCATTER_EDGE_CASES = ("repeated", "ends", "k1", "one_field", "eight_fields", "widths",
+                      "cap1", "misaligned", *COMMIT_EDGE_CASES)
+#: the fleet table's state fields (fleet.py:1113): dtype and row shape
+STATE_FIELD_KINDS = ((np.int32, ()), (np.int32, ()), (np.int32, ()), (np.int32, ()),
+                     (np.int8, ()), (np.bool_, ()), (np.int32, (32,)), (np.int32, (32,)))
+#: the entry-resident row: k_res = 136 int32 (544 B), config 5's width
+K_RES = 136
+
+
+def _field(rng, dtype, shape) -> np.ndarray:
+    if dtype == np.bool_:
+        return rng.random(shape) < 0.5
+    info = np.iinfo(dtype)
+    return rng.integers(info.min, info.max, shape, endpoint=True).astype(dtype)
+
+
+def scatter_edge_batch(case: str) -> dict:
+    """K6 inputs for ``case`` (``SCATTER_EDGE_CASES``), seeded from ``SEED``:
+    ``state`` (arrays of ``cap`` rows), ``rows`` (int64) and ``vals``, as
+    the wrapper takes them; ``meta`` and ``gather_rows`` (int32, -1 where no
+    row, 0 and cap - 1 among them) for the gather. A value row depends only
+    on the row it names, so rows named twice carry identical values. The
+    commit cases also hold the JAX commit's inputs (fleet.py:355-371):
+    ``resident`` (= state[0]), ``entries`` (= vals[0]), ``resident_rows``
+    (``r``), ``valid`` and ``all_rows``; ``rows`` is then the commit index,
+    r where valid and changed, -1 elsewhere. In the all-rows branch the
+    padding rows (not valid) carry their resident row, as JAX writes every
+    row there."""
+    rng = np.random.default_rng(SEED + 1800 + SCATTER_EDGE_CASES.index(case))
+    cap = 1 if case == "cap1" else 640
+    if case in COMMIT_EDGE_CASES:
+        cap = 1000
+        resident = rng.integers(0, 1 << 20, (cap, K_RES)).astype(np.int32)
+        all_rows = case != "commit_gathered"
+        n = 960 if all_rows else 512
+        if all_rows:
+            r = np.arange(n, dtype=np.int32)
+            valid = r < n - 37  # the pass's padding rows
+        else:
+            r = rng.permutation(cap)[:n].astype(np.int32)
+            valid = rng.random(n) < 0.8
+            r[~valid] = -1
+        entries = resident[np.maximum(r, 0)].copy()
+        share = {"commit_none": 0.0, "commit_all": 1.0}.get(case, 0.5)
+        change = (rng.random(n) < share) & (valid if all_rows else True)
+        entries[change, rng.integers(0, K_RES, int(change.sum()))] += 1
+        if not all_rows:
+            entries[~valid] = rng.integers(0, 1 << 20, (int((~valid).sum()), K_RES))
+        changed = (entries != resident[np.maximum(r, 0)]).any(axis=1) & valid
+        state, vals = [resident], [entries]
+        rows = np.where(changed, r, -1).astype(np.int64)
+        out = {"resident": resident, "entries": entries, "resident_rows": r,
+               "valid": valid, "all_rows": all_rows}
+    else:
+        kinds = {"k1": ((np.int32, (32,)),), "one_field": ((np.int32, (K_RES,)),),
+                 "widths": ((np.uint8, ()), (np.int16, ()), (np.int32, ()), (np.int64, ()),
+                            (np.int32, (32,)), (np.int32, (K_RES,)))}.get(case, STATE_FIELD_KINDS)
+        if case == "k1":
+            rows = np.array([cap - 1], np.int64)
+        elif case == "cap1":
+            rows = np.array([0, -1, 1, 0, 7, 0, -(2**40), 0], np.int64)
+        elif case == "ends":
+            rows = rng.permutation(cap)[:200].astype(np.int64)
+            rows[:8] = 0, cap - 1, cap, cap + 5, -1, 2**40, -(2**40), 2**31
+        else:
+            k_u = 300 if case == "repeated" else 200
+            rows = rng.choice(cap, k_u, replace=False).astype(np.int64)
+            if case == "repeated":  # pow2 padding, and rows named twice within
+                rows[10:20] = rows[:10]
+                rows = np.concatenate([rows, np.full(512 - k_u, rows[0])])
+        donor = [_field(rng, d, (cap, *sh)) for d, sh in kinds]
+        state = [_field(rng, d, (cap, *sh)) for d, sh in kinds]
+        ok = (rows >= 0) & (rows < cap)
+        vals = []
+        for (d, sh), a in zip(kinds, donor):
+            v = _field(rng, d, (rows.size, *sh))  # dropped rows: any values
+            v[ok] = a[rows[ok]]
+            vals.append(v)
+        out = {}
+    m = {"k1": 1, "cap1": 33}.get(case, 4096)
+    grows = np.full(m, -1, np.int32)
+    take = rng.random(m) < 0.7
+    grows[take] = rng.integers(0, cap, int(take.sum()))
+    grows[: min(m, 2)] = [0, cap - 1][: min(m, 2)]
+    meta = rng.integers(-(2**31), 2**31, cap, dtype=np.int64).astype(np.int32)
+    return dict(out, state=state, rows=rows, vals=vals, meta=meta, gather_rows=grows)
+
+
+def check_scatter_edges(device, card: str) -> None:
+    """K6 (both entry points) against its plain versions on every
+    ``SCATTER_EDGE_CASES`` batch; exact. In the misaligned case every
+    input is a view one element past a fresh allocation (each version
+    writing its own state)."""
+    import torch
+    from karmada_tpu_torch.scheduler import fleet_kernels as fk
+
+    t0 = time.perf_counter()
+    for case in SCATTER_EDGE_CASES:
+        b = scatter_edge_batch(case)
+
+        def place(arrays):
+            t = to_device(dict(enumerate(arrays)), device)
+            return list((misaligned(t) if case == "misaligned" else t).values())
+
+        rows = place([b["rows"]])[0]
+
+        vals = tuple(place(b["vals"]))
+        s_k, s_r = tuple(place(b["state"])), tuple(place(b["state"]))
+        fk.scatter_rows(s_k, rows, vals)
+        fk.scatter_rows_ref(s_r, rows, vals)
+        compare(f"scatter_rows edge case {case}", s_k, s_r)
+        meta, grows = place([b["meta"], b["gather_rows"]])
+        compare(f"gather_meta edge case {case}", fk.gather_meta(meta, grows),
+                fk.gather_meta_ref(meta, grows))
+    print(f"# K6 edge cases: {len(SCATTER_EDGE_CASES)} exact in both entry points "
+          f"({', '.join(SCATTER_EDGE_CASES)}; {time.perf_counter() - t0:.1f} s); card {card}",
+          flush=True)
+
+
+#: K7 edge batches (U, C, G, R, pods_dim, kind): G = 1, 9, 16; R = 1, 4, 17;
+#: pods_dim -1, 0 and the last dim; C = 1, 127, 129, 5000, 16,385; U = 1, 8,
+#: 1024; kind "mixed" (grades sorted by bound), "unsorted" or "extreme"
+#: (every request row 0, 1, 2 or 2^63 - 1 in its dims; bounds at and past
+#: 2^62 and negative; counts near 2^31); the last two past the kernel's
+#: shared-memory stage (G x R > 380: bounds read from global memory), at
+#: R = 41 and at R = 4 with 100 grades
+MODEL_EDGE_CASES = (
+    (8, 5000, 9, 4, 2, "unsorted"), (1, 1, 1, 1, -1, "mixed"), (8, 127, 16, 17, 16, "mixed"),
+    (1024, 129, 9, 4, 0, "mixed"), (8, 16_385, 9, 4, -1, "mixed"),
+    (1, 5000, 16, 1, 0, "unsorted"), (1024, 127, 1, 17, 3, "extreme"),
+    (8, 5000, 9, 4, 3, "extreme"), (64, 129, 16, 4, -1, "unsorted"),
+    (8, 129, 16, 41, 40, "mixed"), (8, 127, 100, 4, 2, "unsorted"),
+)
+
+
+def model_edge_batch(rng, u: int, c: int, g: int, r: int, kind: str) -> dict:
+    """K7 inputs on which it must stay exact (``model_batch``'s keys plus
+    ``table``, the general table it overlays, -1 on no-summary clusters).
+    Bounds sorted by grade unless ``kind`` is "unsorted", with undefined (-1)
+    and padding grades, bounds past 2^62 (per-node answers at the sentinel
+    for a request of 1) and just under it with counts near 2^31 (int64 sums
+    that wrap); from U = 4 on, request rows 0, 1 and 2^63 - 1 in every dim
+    and 1 in dim 0 alone first; clusters with models and no summary (cluster 0 among
+    them where C > 1)."""
+    mb = rng.integers(0, 64_000, (c, g, r)).astype(np.int64)
+    if kind != "unsorted":
+        mb = np.sort(mb, axis=1)
+    roll = rng.random((c, g, r))
+    hi = 0.3 if kind == "extreme" else 0.1
+    mb[roll < 0.08] = -1
+    big = (roll >= 0.08) & (roll < 0.08 + hi / 2)
+    mb[big] = rng.integers(2**62, 2**63 - 1, int(big.sum()), dtype=np.int64)
+    near = (roll >= 0.08 + hi / 2) & (roll < 0.08 + hi)
+    mb[near] = rng.integers(2**61, 2**62, int(near.sum()), dtype=np.int64)
+    if kind == "extreme":
+        low = roll >= 0.95
+        mb[low] = rng.integers(-(2**63), 0, int(low.sum()), dtype=np.int64)
+    pad = rng.random(c) < 0.3
+    mb[pad, -1] = -1
+    counts = rng.integers(0, 50, (c, g)).astype(np.int32)
+    wide = rng.random((c, g)) < (0.4 if kind == "extreme" else 0.1)
+    counts[wide] = rng.integers(2**30, 2**31 - 1, int(wide.sum()))
+    counts[pad, -1] = 0
+    req = rng.integers(0, 70_000, (u, r)).astype(np.int64)
+    req[rng.random((u, r)) < 0.35] = 0
+    if kind == "extreme":
+        req = rng.choice(np.array([0, 1, 2, 2**63 - 1], np.int64), (u, r))
+    if u >= 4:
+        req[1:4] = 0
+        req[1], req[2], req[3, 0] = 1, 2**63 - 1, 1
+        req[0] = 0
+    has_models = rng.random(c) < 0.8
+    has_summary = rng.random(c) < 0.85
+    if c > 1:
+        has_models[0], has_summary[0] = True, False
+    cap = rng.integers(-50, 1 << 40, (c, r)).astype(np.int64)
+    small = rng.random((c, r)) < 0.2
+    cap[small] = rng.integers(-5, 100, int(small.sum()))
+    table = rng.integers(0, 500, (u, c)).astype(np.int32)
+    table[:, ~has_summary] = -1
+    return {"min_bounds": mb, "counts": counts, "covered": rng.random((c, r)) < 0.85,
+            "requests": req, "has_models": has_models, "has_summary": has_summary,
+            "available_cap": cap, "table": table}
+
+
+def model_edge_case(k: int) -> dict:
+    """``model_edge_batch`` of ``MODEL_EDGE_CASES[k]``, seeded from ``SEED``."""
+    u, c, g, r, _, kind = MODEL_EDGE_CASES[k]
+    return model_edge_batch(np.random.default_rng(SEED + 1900 + k), u, c, g, r, kind)
+
+
+def check_model_edges(device, card: str) -> None:
+    """K7 against its plain version on every ``MODEL_EDGE_CASES`` batch;
+    exact."""
+    from karmada_tpu_torch.models import modeling as mm
+
+    t0 = time.perf_counter()
+    for k, (u, c, g, r, pods_dim, kind) in enumerate(MODEL_EDGE_CASES):
+        t = to_device(model_edge_case(k), device)
+        args = tuple(t[n] for n in ("min_bounds", "counts", "covered", "requests", "has_models",
+                                    "has_summary", "available_cap"))
+        t_k, t_r = t["table"].clone(), t["table"].clone()
+        mm.model_overlay(t_k, *args, pods_dim)
+        mm.model_overlay_ref(t_r, *args, pods_dim)
+        compare(f"model_overlay edge case {u}x{c} G={g} R={r} pods {pods_dim} {kind}", t_k, t_r)
+    print(f"# K7 edge cases: {len(MODEL_EDGE_CASES)} exact (U x C x G x R, pods dim: "
+          + ", ".join(f"{u}x{c}x{g}x{r} {p}{'' if kind == 'mixed' else ' ' + kind}"
+                      for u, c, g, r, p, kind in MODEL_EDGE_CASES)
+          + f"; {time.perf_counter() - t0:.1f} s); card {card}", flush=True)
 
 
 def node_batch(rng, b: int, n: int, r: int = 4) -> dict:
@@ -2741,6 +2985,25 @@ def check_legacy_kernels(table, problems, card: str) -> dict:
     # K5's entry wire on the pass's own entries, the metas in place, as
     # fleet_solve runs it
     diff = legacy_pass_entries(li)
+    # K6's commit form on the pass's own commit rows and entries, as
+    # fleet_solve runs it; index_copy_ of the committed rows alone (their
+    # indices compacted outside the timed window) is the yardstick
+    r_k, r_r, r_l = resident.clone(), resident.clone(), resident.clone()
+    commit_args = (diff.commit, (diff.entries,))
+    fk.scatter_rows((r_k,), *commit_args)
+    fk.scatter_rows_ref((r_r,), *commit_args)
+    err = compare("scatter_rows commit form on the legacy pass", r_k, r_r)
+    done = diff.commit >= 0
+    idx_c, ent_c = diff.commit[done], diff.entries[done]
+    n_c = int(idx_c.numel())
+    w_c = diff.entries.shape[1]
+    timed(f"scatter_rows commit form on the legacy pass ({diff.commit.numel()} rows, {n_c} "
+          f"committed, k_res {w_c}; max abs err {err})",
+          lambda: fk.scatter_rows((r_k,), *commit_args),
+          lambda: fk.scatter_rows_ref((r_r,), *commit_args),
+          _nbytes(diff.commit) + 2 * n_c * w_c * 4, diff.commit.numel(), card,
+          library=lambda: r_l.index_copy_(0, idx_c, ent_c))
+    del r_k, r_r, r_l, idx_c, ent_c
     kw = dict(e_cap=skw["e_cap"], byte_wire=True, pack21=skw["pack21"], meta=diff.meta)
     got = fk.entry_wire(diff.entries, **kw)
     err = compare("entry_wire on the legacy pass's entries", got,
@@ -5903,6 +6166,8 @@ def main() -> int:
         stats.update(check_quota_kernels(rng, device, card))
         check_caps_edges(device, card)
         check_estimate_edges(device, card)
+        check_scatter_edges(device, card)
+        check_model_edges(device, card)
         stats["explain_pass"] = check_explain_kernel(rng, device, card)
         check_explain_edges(device, card)
         t = preempt_batch(rng, device)

@@ -625,8 +625,9 @@ def scatter_rows_ref(state: tuple, rows: torch.Tensor, vals: tuple) -> tuple:
 
 def scatter_rows(state: tuple, rows: torch.Tensor, vals: tuple) -> tuple:
     """K6: one launch writes the dirty rows of every state array in place
-    (one block per dirty row, a byte copy of each field). Repeated rows —
-    the pow2 padding repeats the first — write identical values."""
+    (a warp a group of 32 rows and a field, the kept rows copied in 16-B or
+    narrower units). Repeated rows — the pow2 padding repeats the first —
+    write identical values."""
     if native.on_cpu((*state, rows, *vals)):
         return scatter_rows_ref(state, rows, vals)
     if len(state) != len(vals) or not 0 < len(state) <= 8:

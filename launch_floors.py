@@ -2,7 +2,8 @@
 kernel appended (``FLOORS``), launched by ``launch_floor_launch`` at that
 kernel's grid for given sizes. Its time is the least a launch of the kernel
 at those sizes can take, the yardstick for a kernel whose byte bound lies
-under it (K8 at the estimator's 8 x 4000, K1's table form at 8 x 5000).
+under it (K8 at the estimator's 8 x 4000, K1's table form at 8 x 5000, K7
+at the engine's 8 profiles, K6's dirty upsert and gather).
 The port's own libraries do not carry it.
 
 - ``floor_source`` appends the empty kernel to a source of a known form.
@@ -15,7 +16,7 @@ The port's own libraries do not carry it.
   loads what the first built.
 
 ``chip_smoke`` and the timing scripts (``k8_k14_variants.py``,
-``k1_k13_variants.py``) use it. Imports nothing of JAX.
+``k1_k13_variants.py``, ``k6_k7_variants.py``) use it. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -70,10 +71,81 @@ extern "C" int launch_floor_launch(int u_n, int c_n, int r_dims, cudaStream_t st
   return (int)cudaGetLastError();
 }
 """,
+    ("scatter_rows", "warp groups"): """
+__global__ void launch_floor_kernel(int) {}
+
+// K6's grids: the scatter over a rows x b fields (b > 0) whose widest row
+// is c units, else the gather over a rows
+extern "C" int launch_floor_launch(int k, int n_fields, int widest, cudaStream_t stream) {
+  if (k == 0) return 0;
+  if (n_fields > 0)
+    launch_floor_kernel<<<scatter_grid(k, n_fields, widest).blocks, THREADS, 0, stream>>>(0);
+  else
+    launch_floor_kernel<<<(k + GATHER_THREADS - 1) / GATHER_THREADS, GATHER_THREADS, 0,
+                          stream>>>(0);
+  return (int)cudaGetLastError();
+}
+""",
+    ("scatter_rows", "block a row"): """
+__global__ void launch_floor_kernel(int) {}
+
+// K6's grids: the scatter over a rows x b fields (b > 0), else the gather
+// over a rows (c, the widest row's units, unused)
+extern "C" int launch_floor_launch(int k, int n_fields, int, cudaStream_t stream) {
+  if (k == 0) return 0;
+  if (n_fields > 0)
+    launch_floor_kernel<<<k, THREADS, 0, stream>>>(0);
+  else
+    launch_floor_kernel<<<(k + 255) / 256, 256, 0, stream>>>(0);
+  return (int)cudaGetLastError();
+}
+""",
+    ("model_estimate", "cluster tiles"): """
+__global__ void launch_floor_kernel(int) {}
+
+// K7's grid at U = a, C = b, G = c >> 16, R = c & 0xFFFF
+extern "C" int launch_floor_launch(int u_n, int c_n, int gr, cudaStream_t stream) {
+  if (u_n == 0 || c_n == 0) return 0;
+  const int r_dims = gr & 0xFFFF;
+  const Shape s = shape_of(gr >> 16, r_dims, u_n);
+  const void* kernel = kernel_of(s, r_dims);
+  if (s.smem > 48 * 1024) {  // the occupancy query reads it
+    const int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
+    if (err) return err;
+  }
+  int per_block = 0;
+  launch_floor_kernel<<<grid_of(s, kernel, c_n, u_n, &per_block), THREADS, 0, stream>>>(0);
+  return (int)cudaGetLastError();
+}
+""",
+    ("model_estimate", "thread a cell"): """
+__global__ void launch_floor_kernel(int) {}
+
+// K7's grid at U = a, C = b (c unused)
+extern "C" int launch_floor_launch(int u_n, int c_n, int, cudaStream_t stream) {
+  if (u_n == 0 || c_n == 0) return 0;
+  launch_floor_kernel<<<dim3((c_n + TILE_C - 1) / TILE_C, u_n), TILE_C, 0, stream>>>(0);
+  return (int)cudaGetLastError();
+}
+""",
 }
 FLOOR_SIGNATURE = "iii"
 #: the floors of the port's own sources, by kernel: their source form
-PORT_FLOORS = {"node_sum": "clusters", "estimate_merge": "row streaming"}
+PORT_FLOORS = {"node_sum": "clusters", "estimate_merge": "row streaming",
+               "scatter_rows": "warp groups", "model_estimate": "cluster tiles"}
+
+
+def model_floor_arg(g_n: int, r_dims: int) -> int:
+    """K7's floor takes G and R as one int: ``G << 16 | R``."""
+    return g_n << 16 | r_dims
+
+
+def scatter_floor_arg(widths) -> int:
+    """K6's floor takes the widest row in copy units: a row of w bytes is
+    w / u units of the widest u of 16, 8, 4, 2, 1 that divides w (bases
+    aligned, as fresh tensors are)."""
+    return max(w // next(u for u in (16, 8, 4, 2, 1) if w % u == 0) for w in widths)
 
 _LIBS: dict = {}
 

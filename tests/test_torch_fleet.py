@@ -277,6 +277,45 @@ def test_scatter_rows_equals_jax():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("case", chip_smoke.SCATTER_EDGE_CASES)
+def test_scatter_edge_batch_equals_jax(case):
+    """K6's plain version (both entry points) on every
+    ``chip_smoke.SCATTER_EDGE_CASES`` batch against the JAX programs, exact.
+    The dirty-row form against ``_scatter_rows`` on its rows in [0, cap)
+    alone (JAX wraps a negative index where the port drops it); the commit
+    form against the two branches of ``_fleet_solve``'s commit
+    (fleet.py:355-371: ``dynamic_update_slice`` of every row, or a scatter at
+    ``where(valid, r, cap)`` with ``mode="drop"``), its commit index being
+    r where JAX's ``changed`` holds; the gather against ``_gather_meta``."""
+    b = chip_smoke.scatter_edge_batch(case)
+    got = tuple(T(a.copy()) for a in b["state"])
+    out = fk.scatter_rows(got, T(b["rows"]), tuple(map(T, b["vals"])))
+    assert out is got  # in place
+    if case in chip_smoke.COMMIT_EDGE_CASES:
+        prev, ent = J(b["resident"]), J(b["entries"])
+        r, valid = J(b["resident_rows"]), J(b["valid"])
+        if b["all_rows"]:
+            z32 = jnp.int32(0)
+            pe = jax.lax.dynamic_slice_in_dim(prev, z32, ent.shape[0], 0)
+            changed = (ent != pe).any(axis=1) & valid
+            want = (jax.lax.dynamic_update_slice_in_dim(prev, ent, z32, 0),)
+        else:
+            changed = (ent != prev[r]).any(axis=1) & valid
+            want = (prev.at[jnp.where(valid, r, prev.shape[0])].set(ent, mode="drop"),)
+        np.testing.assert_array_equal(
+            b["rows"], np.where(np.asarray(changed), b["resident_rows"], -1))
+    else:
+        rows = b["rows"]
+        ok = (rows >= 0) & (rows < b["state"][0].shape[0])
+        want = jf._scatter_rows(tuple(map(J, b["state"])), J(rows[ok]),
+                                tuple(J(v[ok]) for v in b["vals"]))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    np.testing.assert_array_equal(
+        fk.gather_meta(T(b["meta"]), T(b["gather_rows"])).numpy(),
+        np.asarray(jf._gather_meta(J(b["meta"]), J(b["gather_rows"]))))
+
+
 # --------------------------------------------------------------------------
 # K5 serialisers
 # --------------------------------------------------------------------------

@@ -9,12 +9,16 @@ name and feasible set. Tolerance: exact equality (integer placements).
 
 import numpy as np
 import pytest
+import torch
+
+import jax.numpy as jnp
 
 import karmada_tpu
 import karmada_tpu.api.cluster as JC
 import karmada_tpu.estimator.accurate as JA
 import karmada_tpu.scheduler as JS
 import karmada_tpu.utils.builders as JB
+from karmada_tpu.models.modeling import estimate_by_models as jax_by_models
 from karmada_tpu.utils import features as JF
 
 import karmada_tpu_torch
@@ -22,6 +26,7 @@ import karmada_tpu_torch.api.cluster as TC
 import karmada_tpu_torch.estimator.accurate as TA
 import karmada_tpu_torch.scheduler as TS
 import karmada_tpu_torch.utils.builders as TB
+from karmada_tpu_torch.models import modeling as TM
 from karmada_tpu_torch.utils import features as TF
 
 import chip_smoke
@@ -320,3 +325,35 @@ def test_estimator_fetch_error_answers_no_answer_in_both_engines():
     assert not runs["t"][1].unanswered
     assert any(name == bad for name, _ in runs["t"][0]._memo)
     assert runs["t"][0]._memo == runs["j"][0]._memo
+
+
+@pytest.mark.parametrize("k", range(len(chip_smoke.MODEL_EDGE_CASES)),
+                         ids=["{}x{}x{}x{}-pods{}-{}".format(*case)
+                              for case in chip_smoke.MODEL_EDGE_CASES])
+def test_model_overlay_edge_batch_equals_jax(k):
+    """K7's plain version on every ``chip_smoke.MODEL_EDGE_CASES`` batch
+    (unsorted grades; G 1, 9, 16; R 1, 4, 17; pods dim -1, 0, last; C 1 to
+    16,385; U 1 to 1024; requests of 0, 1 and 2^63 - 1 in every dim; int64
+    sums that wrap; clusters with models and no summary) against
+    ``estimate_by_models`` composed as the JAX engine's ``_profile_table``
+    composes it (core.py:2263-2293): the pods column zeroed, the model
+    answer capped by allowed pods, taken where the cluster has models and
+    it applies, -1 without a summary. Exact."""
+    pods = chip_smoke.MODEL_EDGE_CASES[k][4]
+    b = chip_smoke.model_edge_case(k)
+    req = b["requests"].copy()
+    if pods >= 0:
+        req[:, pods] = 0
+    model, app = jax_by_models(*map(jnp.asarray, (b["min_bounds"], b["counts"],
+                                                  b["covered"], req)))
+    if pods >= 0:
+        allowed = jnp.minimum(jnp.maximum(jnp.asarray(b["available_cap"][:, pods]), 0),
+                              2**31 - 1).astype(jnp.int32)
+        model = jnp.minimum(model, allowed[None, :])
+    want = jnp.where(jnp.asarray(b["has_models"])[None, :] & app, model, jnp.asarray(b["table"]))
+    want = np.asarray(jnp.where(jnp.asarray(b["has_summary"])[None, :], want, -1))
+    t = torch.from_numpy(b["table"].copy())
+    args = (b["min_bounds"], b["counts"], b["covered"], b["requests"], b["has_models"],
+            b["has_summary"], b["available_cap"])
+    TM.model_overlay(t, *map(torch.from_numpy, args), pods)
+    np.testing.assert_array_equal(t.numpy(), want)

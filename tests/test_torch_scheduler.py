@@ -289,7 +289,8 @@ def test_no_jax_or_karmada_tpu_imports_in_source():
 
 @pytest.mark.parametrize("script", ("k2_variants.py", "k12_k15_variants.py",
                                     "k8_k14_variants.py", "k1_k13_variants.py",
-                                    "kernel_variants.py", "launch_floors.py"))
+                                    "k6_k7_variants.py", "kernel_variants.py",
+                                    "launch_floors.py"))
 def test_timing_scripts_import_without_jax_or_karmada_tpu(script):
     """The card's timing scripts import neither jax nor the JAX package: in
     their source, and when imported with jax blocked and a finder that
