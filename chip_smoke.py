@@ -183,7 +183,22 @@
      Works and member objects gone, nothing else touched); each wave's wall
      split into store apply, detector, scheduler gate, engine pass, binding
      render, execution apply and status collection. K1's table form, K3,
-     K2, K4 and K5 must launch in the cold wave.
+     K2, K4 and K5 must launch in the cold wave. Then the failover path on
+     the same plane (``plane_failover_waves``, injected clock, Failover
+     gate on): 25 of the 500 clusters killed through the chaos seam
+     (``cluster.health=down``, seed 7; one of them among the 10 clusters
+     that host bindings) and every displaced binding re-solved
+     to the numpy divider with its killed clusters evicted (the rows whose
+     eviction task is already done ride the fleet table, the others the
+     general route: K1's table and general forms, K2, K3, K4, K5 and K6
+     must launch), the eviction drain (every eviction task done, the killed
+     clusters' Works and member objects gone), a descheduler round over 200
+     bindings with unschedulable pods (seed 11; each shrunk and re-solved to
+     the numpy divider on the general route, K1 and K2 launched, nothing
+     else moved) and the recovery (every killed
+     cluster Ready and untainted); and a small Pull-mode plane
+     (``run_pull_plane``: agents apply Works and report status, a stopped
+     agent's cluster degrades only past ``lease_grace_seconds``).
    Each path sets the launch counters to 0 just before it and reads them
    just after; every kernel of the path must have launched.
 4. prints one JSON line of per-kernel numbers, the card line again, and last
@@ -477,6 +492,97 @@ def plane_picks(templates: int, scale: int, delete: int) -> tuple[dict, list]:
     scaled = {i: int(r) if int(r) != (i % 40) + 1 else int(r) % 40 + 1
               for i, r in zip(sorted(picked[:scale]), reps)}
     return scaled, sorted(picked[scale:])
+
+
+#: the plane's failover cell: the clusters the chaos seam kills (seed 7),
+#: the bindings the descheduler reclaims from (seed 11), and where the
+#: plane's injected clock starts
+PLANE_KILL, PLANE_DESCHEDULE, PLANE_CLOCK0 = 25, 200, 1_000_000.0
+
+
+class PlaneClock:
+    """The plane's injected clock; the waves advance it by hand."""
+
+    def __init__(self, now: float = PLANE_CLOCK0):
+        self.now = now
+
+    def __call__(self) -> float:
+        return self.now
+
+
+def plane_kills(names, kill: int, hosting) -> list:
+    """``kill`` cluster names picked with seed 7: one among the clusters
+    that host bindings (``hosting``), the others among the rest. Config 4's
+    spread fills its largest prod clusters (10 of 500 hold every binding),
+    so a uniform draw misses them all; an outage the plane must fail over
+    takes down one of them. Only names no other name extends are drawn:
+    the chaos seam's ``match=`` is a substring test (a rule for member-4
+    would fire on member-40 too), so each rule fires on its own cluster
+    alone."""
+    names = sorted(names)
+    own = [n for n in names if not any(o != n and o.startswith(n) for o in names)]
+    rng = np.random.default_rng(7)
+    hit = [n for n in own if n in hosting]
+    picked = [hit[int(rng.integers(len(hit)))]]
+    rest = [n for n in own if n not in hosting]
+    picked += [rest[int(i)] for i in rng.choice(len(rest), kill - 1, replace=False)]
+    return sorted(picked)
+
+
+def kill_spec(killed) -> str:
+    return ";".join(f"cluster.health=down,match={n}" for n in killed)
+
+
+def plane_deschedule_picks(rbs, live, n: int) -> list:
+    """``n`` bindings picked with seed 11 among those placed on a live
+    cluster, each with one of its live clusters (seed 11) and the replicas
+    to mark unschedulable there, min(2, its replicas there): a list of
+    (binding key, workload key, cluster, count)."""
+    cands = [rb for rb in rbs
+             if any(tc.name in live and tc.replicas > 0 for tc in rb.spec.clusters)]
+    rng = np.random.default_rng(11)
+    out = []
+    for i in sorted(int(i) for i in rng.choice(len(cands), n, replace=False)):
+        rb = cands[i]
+        on = sorted(tc.name for tc in rb.spec.clusters if tc.name in live and tc.replicas > 0)
+        c = on[int(rng.integers(len(on)))]
+        reps = next(tc.replicas for tc in rb.spec.clusters if tc.name == c)
+        out.append((rb.meta.namespaced_name, rb.spec.resource.namespaced_key, c, min(2, reps)))
+    return out
+
+
+def mark_unschedulable(cp, picks, since: float) -> None:
+    """Pods of each pick's workload on its cluster, PodScheduled=False
+    (Unschedulable) since ``since``: what the descheduler counts."""
+    for _, wkey, cluster, count in picks:
+        ns, _, name = wkey.partition("/")
+        member = cp.members.get(cluster)
+        for j in range(count):
+            member.add_pod(ns, f"{name}-unsched-{j}", owner_key=wkey)
+            member.mark_pod_unschedulable(ns, f"{name}-unsched-{j}", since=since)
+
+
+def sorted_bindings(store) -> list:
+    """The store's ResourceBindings by key."""
+    return sorted(store.list("ResourceBinding"), key=lambda rb: rb.meta.namespaced_name)
+
+
+def report_ready(cp, skip=()) -> int:
+    """Every member not in ``skip`` reports each of its Deployments whose
+    status is not ready at its replicas ready; returns how many."""
+    n = 0
+    for name in sorted(cp.members.names()):
+        if name in skip:
+            continue
+        member = cp.members.get(name)
+        for obj in member.list("apps/v1/Deployment"):
+            reps = obj.spec["replicas"]
+            if (obj.status or {}).get("readyReplicas") != reps:
+                member.set_workload_status("apps/v1/Deployment", obj.meta.namespace,
+                                           obj.meta.name, {"replicas": reps, "readyReplicas": reps,
+                                                           "updatedReplicas": reps})
+                n += 1
+    return n
 
 
 def node_states(pkg, n: int, seed: int) -> list:
@@ -1239,6 +1345,18 @@ PATH_KERNELS = {
                               "fleet_masks"),
     "plane cold": ("profile_table", "divide_replicas", "fleet_masks", "fleet_diff",
                    "fleet_wire"),
+    # a displaced binding whose surviving clusters all report Healthy loses
+    # its eviction task before the scheduler's drain (the graceful-eviction
+    # worker runs first) and rides the fleet table; one that keeps its task
+    # takes the general route (eviction rows are off the fleet, as in the
+    # JAX engine). So estimate_merge's launch here rests on worker order:
+    # the eviction worker reads the survivors' status as it stood before
+    # the scheduler's drain, and fresher status would put every displaced
+    # row on the fleet table with no fault in the failover path (PERF.md
+    # §7). The descheduler's 200 rows are under fleet_threshold
+    "plane failover": ("profile_table", "estimate_merge", "divide_replicas", "fleet_masks",
+                       "fleet_diff", "fleet_wire", "scatter_rows"),
+    "plane deschedule": ("estimate_merge", "divide_replicas"),
 }
 
 
@@ -3121,8 +3239,11 @@ def run_fleet_storm(device, card: str, bindings=None, clusters=None,
     route, and K16 and the whole single-dispatch pass are checked instead;
     the first churn pass, after the steady passes shrank the entry cap,
     must overflow and rerun. With ``reference`` (the digests another storm
-    on the same problems returned), every pass must give that storm's
-    outcomes. Returns the per-pass outcome digests."""
+    on the same problems returned), the passes run over that storm's drift
+    sequence and every pass must give its outcomes row by row; a pass equal
+    to one that the reference storm held to the numpy divider (its cold
+    pass and its last pass) is not solved by the divider a second time.
+    Returns the per-pass outcome digests."""
     import karmada_tpu_torch
     from karmada_tpu_torch.scheduler import TensorScheduler
 
@@ -3131,9 +3252,13 @@ def run_fleet_storm(device, card: str, bindings=None, clusters=None,
     table_kernels = ("profile_table", "model_overlay") if models else ("profile_table",)
     snap, problems = build_workload(karmada_tpu_torch, 5, bindings, clusters, models)
     traced = device.type == "cuda"  # torch.profiler traces the card only
-    drift = drift_snapshots(karmada_tpu_torch, snap, churn + traced)
+    # a reference storm's drift sequence, so that the last pass here is the
+    # one that storm checked
+    n_drift = churn + traced if reference is None else reference["drift"]
+    drift = drift_snapshots(karmada_tpu_torch, snap, n_drift)
+    last = n_drift - 1 if traced else churn - 1  # the index of the last pass
     engine = TensorScheduler(snap, chunk_size=4096, device=device)
-    digests = {"steady": [], "churn": []}
+    digests = {"steady": [], "churn": [], "drift": n_drift, "checked": last}
 
     def same_as_reference(kind: str, i: int, res) -> None:
         d = outcome_digest(res)
@@ -3174,11 +3299,15 @@ def run_fleet_storm(device, card: str, bindings=None, clusters=None,
             raise AssertionError(f"{tag}: the models barely bind ({share})")
     cold_bd = breakdown_line(engine)
     t0 = time.perf_counter()
-    bad = oracle_check(engine, problems, cold)
+    if reference is None:
+        bad = oracle_check(engine, problems, cold)
+        how = "numpy-divider check"
+    else:  # same_as_reference held every row to the reference's checked pass
+        bad, how = 0, "equal to the reference storm's numpy-checked cold pass"
     check_s = time.perf_counter() - t0
     cold_out = outcomes(cold)
-    print(f"# {tag} cold pass {cold_s:.4f} s [{cold_bd}]; numpy-divider "
-          f"check {len(problems) - bad} ok / {bad} bad ({check_s:.1f} s); card {card}",
+    print(f"# {tag} cold pass {cold_s:.4f} s [{cold_bd}]; {how} "
+          f"{len(problems) - bad} ok / {bad} bad ({check_s:.1f} s); card {card}",
           flush=True)
     if bad:
         raise AssertionError(f"{tag} cold pass: {bad} rows differ")
@@ -3248,7 +3377,7 @@ def run_fleet_storm(device, card: str, bindings=None, clusters=None,
         out = []
         profiles["churn"] = device_profile(lambda: out.append(traced_churn()), device)
         res = out[0]
-        same_as_reference("churn", churn, res)
+        same_as_reference("churn", last, res)
         if not (legacy or models):
             # a cold pass traced on a new engine over the same snapshot: the
             # pass that runs phase B (K4's entry rows) over every row; it
@@ -3267,7 +3396,11 @@ def run_fleet_storm(device, card: str, bindings=None, clusters=None,
               + f"; {traced_kernels(prof)}; card {card}", flush=True)
     launches = read_counts()
     t0 = time.perf_counter()
-    bad = oracle_check(engine, problems, res)
+    if reference is None or last != reference["checked"]:
+        bad = oracle_check(engine, problems, res)
+        how = "numpy-divider check"
+    else:  # same_as_reference held every row to the reference's checked pass
+        bad, how = 0, "equal to the reference storm's numpy-checked last pass"
     check_s = time.perf_counter() - t0
     n = len(problems)
     p50 = {k: statistics.median(v) for k, v in
@@ -3283,7 +3416,7 @@ def run_fleet_storm(device, card: str, bindings=None, clusters=None,
           f"{p50['churn']:.4f} s ({n / p50['churn']:.0f} bindings/s, walls "
           f"{[round(w, 4) for w in churn_s]}); launches "
           f"{ {k: v for k, v in launches.items() if v} }; last churn pass "
-          f"numpy-divider check {n - bad} ok / {bad} bad ({check_s:.1f} s); card {card}",
+          f"{how} {n - bad} ok / {bad} bad ({check_s:.1f} s); card {card}",
           flush=True)
     if bad:
         raise AssertionError(f"{tag} last churn pass: {bad} rows differ")
@@ -5764,7 +5897,8 @@ def plane_recipe_check(pkg, rbs, probs, replicas_of: dict) -> int:
 
 
 def run_plane(device, card: str, templates: int = 10_000, clusters: int = 500,
-              scale: int = 1000, delete: int = 1000) -> dict:
+              scale: int = 1000, delete: int = 1000, kill: int = PLANE_KILL,
+              deschedule: int = PLANE_DESCHEDULE) -> dict:
     """The control plane's propagation path on the card: the port's
     ``ControlPlane`` (detector, binding, execution, work-status,
     binding-status, cluster status and scheduler controllers over one store)
@@ -5792,11 +5926,16 @@ def run_plane(device, card: str, templates: int = 10_000, clusters: int = 500,
        counts; no Work of another binding is written again (its resource
        version and manifests as they were);
     5. delete wave: ``delete`` other templates deleted; their bindings,
-       Works and member objects gone, and nothing else touched.
+       Works and member objects gone, and nothing else touched;
+    6.-9. the failover, eviction drain, descheduler and recovery waves on
+       the same plane (``plane_failover_waves``);
+    10. pull: a small Pull-mode plane on ``device`` (``run_pull_plane``).
 
-    Each wave prints one ``# plane <wave>:`` line (``plane_line``) with its
-    wall, its split (``plane_wave``), its checks and the card. Returns the
-    waves and the cold wave's launch counts."""
+    The plane runs on an injected clock (``PlaneClock``), with the
+    descheduler built and inactive until its wave. Each wave prints one
+    ``# plane <wave>:`` line (``plane_line``) with its wall, its split
+    (``plane_wave``), its checks and the card. Returns the waves and the
+    cold, scale, failover and descheduler waves' launch counts."""
     import karmada_tpu_torch
     from karmada_tpu_torch.controllers.propagation import WORK_BINDING_LABEL, work_manifests
     from karmada_tpu_torch.controlplane import ControlPlane
@@ -5810,13 +5949,12 @@ def run_plane(device, card: str, templates: int = 10_000, clusters: int = 500,
     recipe = {cl.name: (dict(cl.status.resource_summary.allocatable),
                         dict(cl.status.resource_summary.allocated)) for cl in objs["clusters"]}
     region_of = {cl.name: cl.spec.region for cl in objs["clusters"]}
-    cp = ControlPlane(device=device)
+    clock = PlaneClock()
+    cp = ControlPlane(device=device, clock=clock, enable_descheduler=True)
+    cp.descheduler.active = False
     for w in cp.runtime.workers:
         w.MAX_RETRIES = w.POISON_TOLERANCE = 0
     store, ctl = cp.store, cp.scheduler
-
-    def bindings() -> list:
-        return sorted(store.list("ResourceBinding"), key=lambda rb: rb.meta.namespaced_name)
 
     def works_by_ref() -> dict:
         by: dict = {}
@@ -5857,7 +5995,7 @@ def run_plane(device, card: str, templates: int = 10_000, clusters: int = 500,
     out["cold_launches"] = read_counts()
     out["waves"]["cold"] = wave
     engine = ctl._engine
-    rbs = bindings()
+    rbs = sorted_bindings(store)
     probs = [ctl._problem_cache.get(rb.meta.namespaced_name) for rb in rbs]
     if len(rbs) != templates or None in probs or wave["passes"] != [templates] \
             or engine._fleet is None:
@@ -5894,13 +6032,7 @@ def run_plane(device, card: str, templates: int = 10_000, clusters: int = 500,
 
     # -- 3. status round -----------------------------------------------------
     t0 = time.perf_counter()
-    for name in sorted(cp.members.names()):
-        member = cp.members.get(name)
-        for obj in member.list("apps/v1/Deployment"):
-            reps = obj.spec["replicas"]
-            member.set_workload_status("apps/v1/Deployment", obj.meta.namespace, obj.meta.name,
-                                       {"replicas": reps, "readyReplicas": reps,
-                                        "updatedReplicas": reps})
+    report_ready(cp)
     wave = plane_wave("status", cp, device, card, time.perf_counter() - t0)
     out["waves"]["status"] = wave
     tpls = store.list("Resource")
@@ -5936,7 +6068,7 @@ def run_plane(device, card: str, templates: int = 10_000, clusters: int = 500,
     wave = plane_wave("scale", cp, device, card, apply_s)
     out["waves"]["scale"] = wave
     out["scale_launches"] = read_counts()
-    rbs = bindings()
+    rbs = sorted_bindings(store)
     srbs = [rb for rb in rbs if rb.meta.namespaced_name in scaled_keys]
     sprobs = [ctl._problem_cache[rb.meta.namespaced_name] for rb in srbs]
     bad_reps = plane_recipe_check(pkg, srbs, sprobs, scaled_keys)
@@ -5970,7 +6102,7 @@ def run_plane(device, card: str, templates: int = 10_000, clusters: int = 500,
         store.delete("Resource", f"default/d{i}")
     wave = plane_wave("delete", cp, device, card, time.perf_counter() - t0)
     out["waves"]["delete"] = wave
-    rbs = bindings()
+    rbs = sorted_bindings(store)
     left = {rb.meta.namespaced_name: [(tc.name, tc.replicas) for tc in rb.spec.clusters]
             for rb in rbs}
     by_ref = works_by_ref()
@@ -5986,7 +6118,331 @@ def run_plane(device, card: str, templates: int = 10_000, clusters: int = 500,
         raise AssertionError(f"plane delete wave: bindings {'kept' if left == kept else 'off'}"
                              f", {stale} with Works, {touched} other Works touched, "
                              f"{bad_members} member objects wrong")
+    failover = plane_failover_waves(cp, clock, device, card, region_of, kill, deschedule)
+    out["waves"].update(failover.pop("waves"))
+    out.update(failover)
+    out["waves"]["pull"] = run_pull_plane(device, card)
     return out
+
+
+def plane_failover_waves(cp, clock, device, card: str, region_of: dict, kill: int,
+                         deschedule: int) -> dict:
+    """The failover path on a settled config-4 plane (``run_plane``'s, after
+    its delete wave), with the Failover gate on and restored after:
+
+    6. failover: the chaos seam (``utils.faultinject``) armed with
+       ``cluster.health=down`` on ``kill`` clusters (``plane_kills``, seed
+       7: one of the clusters that host bindings, the rest among the
+       others), the clock advanced 60 s and the plane settled. Each killed cluster
+       NotReady with the NoSchedule and NoExecute not-ready taints; no
+       binding keeps a killed cluster; eviction tasks only on displaced
+       bindings, at most one per killed cluster each had (from the taint
+       manager, its replicas there, stamped with the clock). The
+       graceful-eviction controller drops a task as soon as every cluster
+       of the new placement reports applied and Healthy, and it may read
+       the surviving clusters' status as it was before their counts
+       changed, so some tasks are gone by the wave's end, as on the JAX
+       plane (tier-1 holds the two planes' tasks equal); each displaced
+       binding's placement equal to the numpy divider on the plane's own
+       snapshot and the controller's problems (``written_check``), its
+       replicas summing to its template's; every other binding's placement
+       as it was and none of its Works written again;
+    7. eviction drain: every live member reports its new and changed
+       Deployments ready; every graceful-eviction task gone, and with them
+       the displaced bindings' Works and member objects on the killed
+       clusters;
+    8. descheduler: ``deschedule`` bindings placed on a live cluster
+       (``plane_deschedule_picks``, seed 11) get min(2, replicas there)
+       pods marked unschedulable on one of their clusters, the clock
+       advances 120 s and the descheduler runs its round
+       (``deschedule_once``, what its ticker calls); each such binding
+       shrunk on that cluster (its problem's previous placement) and
+       re-solved to the numpy divider; no other binding's placement or Works
+       changed;
+    9. recovery: the seam disarmed, the clock advanced 60 s; every killed
+       cluster Ready with its recipe's taints only; the engine passes and
+       the Works written in the settle printed.
+
+    Returns the waves and the failover and descheduler waves' launches."""
+    from karmada_tpu_torch.api.cluster import NO_EXECUTE, NO_SCHEDULE, TAINT_CLUSTER_NOT_READY
+    from karmada_tpu_torch.controllers.propagation import WORK_BINDING_LABEL
+    from karmada_tpu_torch.utils import faultinject
+    from karmada_tpu_torch.utils.features import FAILOVER, feature_gate
+    from karmada_tpu_torch.utils.metrics import works_rendered
+
+    store, ctl = cp.store, cp.scheduler
+    out = {"waves": {}}
+
+    def placement(rb) -> dict:
+        return {tc.name: tc.replicas for tc in rb.spec.clusters}
+
+    def work_versions() -> dict:
+        """binding key -> {Work key: (resource version, generation)}."""
+        by: dict = {}
+        for w in store.list("Work"):
+            ref = w.meta.labels.get(WORK_BINDING_LABEL)
+            if ref:
+                by.setdefault(ref.partition(":")[2], {})[w.meta.namespaced_name] = (
+                    w.meta.resource_version, w.meta.generation)
+        return by
+
+    names = sorted(c.name for c in store.list("Cluster"))
+    killed = plane_kills(names, kill, {tc.name for rb in store.list("ResourceBinding")
+                                       for tc in rb.spec.clusters})
+    dead = set(killed)
+    live = set(names) - dead
+    recipe_taints = {c.name: [(t.key, t.value, t.effect) for t in c.spec.taints]
+                     for c in store.list("Cluster")}
+    gate_was = feature_gate.enabled(FAILOVER)
+    feature_gate.set(FAILOVER, True)
+    try:
+        # -- 6. failover ----------------------------------------------------
+        rbs = sorted_bindings(store)
+        before = {rb.meta.namespaced_name: placement(rb) for rb in rbs}
+        replicas = {rb.meta.namespaced_name: rb.spec.replicas for rb in rbs}
+        displaced = {k: sorted(set(p) & dead) for k, p in before.items() if set(p) & dead}
+        versions = work_versions()
+        engine0, fleet0 = ctl._engine, ctl._engine._fleet
+        t0 = time.perf_counter()
+        faultinject.arm(kill_spec(killed), seed=7)
+        clock.now += 60
+        apply_s = time.perf_counter() - t0
+        reset_counts()
+        rendered0 = works_rendered.value()
+        wave = plane_wave("failover", cp, device, card, apply_s)
+        out["failover_launches"] = read_counts()
+        out["waves"]["failover"] = wave
+        engine = ctl._engine
+        rbs = sorted_bindings(store)
+        bad_taints = 0
+        for name in killed:
+            c = store.get("Cluster", name)
+            ready = any(x.type == "Ready" and x.status for x in c.status.conditions)
+            keys = {(t.key, t.effect) for t in c.spec.taints}
+            bad_taints += ready or not {(TAINT_CLUSTER_NOT_READY, NO_SCHEDULE),
+                                        (TAINT_CLUSTER_NOT_READY, NO_EXECUTE)} <= keys
+        kept_dead = sum(bool(set(placement(rb)) & dead) for rb in rbs)
+        bad_tasks = carried = 0
+        for rb in rbs:
+            key = rb.meta.namespaced_name
+            tasks = rb.spec.graceful_eviction_tasks
+            carried += bool(tasks)
+            froms = [t.from_cluster for t in tasks]
+            bad_tasks += len(set(froms)) != len(froms) \
+                or not set(froms) <= set(displaced.get(key, ())) or any(
+                t.replicas != before[key][t.from_cluster] or t.producer != "TaintManager"
+                or t.reason != "TaintUntolerated" or t.creation_timestamp != clock.now
+                for t in tasks)
+        drbs = [rb for rb in rbs if rb.meta.namespaced_name in displaced]
+        dprobs = [ctl._problem_cache.get(rb.meta.namespaced_name) for rb in drbs]
+        bad_div = (written_check(engine, dprobs, drbs) if None not in dprobs else len(drbs)) \
+            + unwritten(drbs, placed=True)
+        bad_sum = sum(sum(placement(rb).values()) != replicas[rb.meta.namespaced_name]
+                      for rb in drbs)
+        moved = sum(placement(rb) != before[rb.meta.namespaced_name] for rb in rbs
+                    if rb.meta.namespaced_name not in displaced)
+        after_versions = work_versions()
+        rewritten = sum(after_versions.get(k) != v for k, v in versions.items()
+                        if k not in displaced)
+        rebuilt = engine is not engine0 or engine._fleet is not fleet0
+        launched = {k: v for k, v in out["failover_launches"].items() if v}
+        plane_line("failover", wave, f"{kill} of {len(names)} clusters killed (seed 7; "
+                   f"{sorted(dead & {c for p in before.values() for c in p})} host bindings): "
+                   f"NotReady with both not-ready taints {kill - bad_taints} ok / {bad_taints} "
+                   f"bad; {len(displaced)} bindings displaced, {kept_dead} keep a killed "
+                   f"cluster; {carried} carry eviction tasks, the others' already done, "
+                   f"{bad_tasks} with tasks off; "
+                   f"numpy-divider check {len(drbs) - bad_div} ok / {bad_div} bad, {bad_sum} "
+                   f"off their replicas; other bindings moved {moved}, their Works written "
+                   f"again {rewritten}; rows re-solved by pass {wave['passes']}; "
+                   f"{works_rendered.value() - rendered0:.0f} Works rendered; fleet table "
+                   f"rebuilt {rebuilt}; launches {launched}", card)
+        if bad_taints or kept_dead or bad_tasks or bad_div or bad_sum or moved or rewritten \
+                or not displaced or sum(wave["passes"]) != len(displaced):
+            raise AssertionError(f"plane failover: {bad_taints} killed clusters off, "
+                                 f"{kept_dead} bindings keep a killed cluster, {bad_tasks} "
+                                 f"task sets off, {bad_div} differ from the numpy divider, "
+                                 f"{bad_sum} off their replicas, {moved} others moved, "
+                                 f"{rewritten} others' Works written again; passes "
+                                 f"{wave['passes']} for {len(displaced)} displaced")
+
+        # -- 7. eviction drain ----------------------------------------------
+        t0 = time.perf_counter()
+        reported = report_ready(cp, skip=dead)
+        wave = plane_wave("drain", cp, device, card, time.perf_counter() - t0)
+        out["waves"]["drain"] = wave
+        rbs = sorted_bindings(store)
+        tasks_left = sum(len(rb.spec.graceful_eviction_tasks) for rb in rbs)
+        works_dead = sum(w.meta.namespace[len("karmada-es-"):] in dead
+                         for w in store.list("Work") if w.meta.labels.get(WORK_BINDING_LABEL))
+        objs_dead = sum(len(cp.members.get(n).list("apps/v1/Deployment")) for n in killed)
+        bad_members = plane_members_check(cp, rbs, region_of)
+        plane_line("drain", wave, f"{reported} member Deployments report ready: eviction "
+                   f"tasks left {tasks_left}; Works on killed clusters {works_dead}, their "
+                   f"member Deployments {objs_dead}; members {bad_members} bad; passes "
+                   f"{wave['passes']}", card)
+        if tasks_left or works_dead or objs_dead or bad_members:
+            raise AssertionError(f"plane drain: {tasks_left} tasks, {works_dead} Works and "
+                                 f"{objs_dead} member objects left on killed clusters, "
+                                 f"{bad_members} member objects wrong")
+
+        # -- 8. descheduler -------------------------------------------------
+        rbs = sorted_bindings(store)
+        before = {rb.meta.namespaced_name: placement(rb) for rb in rbs}
+        picks = plane_deschedule_picks(rbs, live, deschedule)
+        picked = {key: (cluster, n) for key, _, cluster, n in picks}
+        versions = work_versions()
+        mark_unschedulable(cp, picks, since=clock.now)
+        clock.now += 120
+        reset_counts()
+        t0 = time.perf_counter()
+        cp.descheduler.active = True
+        try:
+            cp.descheduler.deschedule_once()
+        finally:
+            cp.descheduler.active = False
+        round_s = time.perf_counter() - t0
+        wave = plane_wave("deschedule", cp, device, card, round_s)
+        out["deschedule_launches"] = read_counts()
+        out["waves"]["deschedule"] = wave
+        rbs = sorted_bindings(store)
+        prbs = [rb for rb in rbs if rb.meta.namespaced_name in picked]
+        pprobs = [ctl._problem_cache.get(rb.meta.namespaced_name) for rb in prbs]
+
+        def shrunk(key) -> dict:
+            cluster, n = picked[key]
+            want = dict(before[key])
+            want[cluster] -= n
+            return {c: r for c, r in want.items() if r > 0}
+
+        bad_prev = sum(p is None or dict(p.prev) != shrunk(rb.meta.namespaced_name)
+                       for rb, p in zip(prbs, pprobs))
+        bad_div = (written_check(ctl._engine, pprobs, prbs) if None not in pprobs
+                   else len(prbs)) + unwritten(prbs, placed=True)
+        moved = sum(placement(rb) != before[rb.meta.namespaced_name] for rb in rbs
+                    if rb.meta.namespaced_name not in picked)
+        after_versions = work_versions()
+        rewritten = sum(after_versions.get(k) != v for k, v in versions.items()
+                        if k not in picked)
+        launched = {k: v for k, v in out["deschedule_launches"].items() if v}
+        plane_line("deschedule", wave, f"{len(picks)} bindings (seed 11) with "
+                   f"{sum(n for _, n in picked.values())} replicas unschedulable for 120 s "
+                   f"(descheduler round {round_s:.4f} s in the apply): shrunk on their cluster "
+                   f"{len(prbs) - bad_prev} ok / {bad_prev} bad; numpy-divider check "
+                   f"{len(prbs) - bad_div} ok / {bad_div} bad; other bindings moved {moved}, "
+                   f"their Works written again {rewritten}; launches {launched}", card)
+        if len(prbs) != len(picks) or bad_prev or bad_div or moved or rewritten \
+                or wave["passes"] != [len(picks)]:
+            raise AssertionError(f"plane descheduler: {bad_prev} not shrunk, {bad_div} differ "
+                                 f"from the numpy divider, {moved} others moved, {rewritten} "
+                                 f"others' Works written again; passes {wave['passes']}")
+
+        # -- 9. recovery ----------------------------------------------------
+        rbs = sorted_bindings(store)
+        before = {rb.meta.namespaced_name: placement(rb) for rb in rbs}
+        versions = work_versions()
+        t0 = time.perf_counter()
+        faultinject.disarm()
+        clock.now += 60
+        reset_counts()
+        rendered0 = works_rendered.value()
+        wave = plane_wave("recovery", cp, device, card, time.perf_counter() - t0)
+        out["waves"]["recovery"] = wave
+        bad_ready = 0
+        for name in killed:
+            c = store.get("Cluster", name)
+            ready = any(x.type == "Ready" and x.status for x in c.status.conditions)
+            bad_ready += not ready or [(t.key, t.value, t.effect) for t in c.spec.taints] \
+                != recipe_taints[name]
+        rbs = sorted_bindings(store)
+        moved = sum(placement(rb) != before[rb.meta.namespaced_name] for rb in rbs)
+        after_versions = work_versions()
+        written_works = sum(after_versions.get(k) != v for k, v in versions.items())
+        plane_line("recovery", wave, f"chaos seam disarmed: killed clusters Ready with their "
+                   f"recipe's taints only {kill - bad_ready} ok / {bad_ready} bad; bindings "
+                   f"moved {moved}; engine passes {wave['passes']}; bindings' Works written "
+                   f"{written_works} ({works_rendered.value() - rendered0:.0f} rendered); "
+                   f"launches { {k: v for k, v in read_counts().items() if v} }", card)
+        if bad_ready:
+            raise AssertionError(f"plane recovery: {bad_ready} killed clusters not Ready or "
+                                 "still tainted")
+    finally:
+        faultinject.disarm()
+        feature_gate.set(FAILOVER, gate_was)
+    return out
+
+
+def run_pull_plane(device, card: str) -> dict:
+    """A Pull-mode plane on ``device`` at the size of the JAX package's
+    Pull tests: one Push member and two Pull members registered through
+    the plane's authority (a bootstrap token, a CSR, a Pull join), each
+    with its in-process agent. A Deployment over the three; the agents
+    apply their Works and reflect their members' status back (the
+    template's readyReplicas); one agent stops, and its cluster stays Ready
+    until the lease is ``lease_grace_seconds`` (30 s) old, then degrades and
+    is tainted; the agent comes back and the cluster recovers. The engine
+    runs on ``device``. Returns the wave."""
+    from karmada_tpu_torch.api.core import ObjectMeta
+    from karmada_tpu_torch.api.policy import PropagationPolicy, PropagationSpec, ResourceSelector
+    from karmada_tpu_torch.controlplane import ControlPlane
+    from karmada_tpu_torch.utils.builders import duplicated_placement, new_cluster, new_deployment
+
+    clock = PlaneClock()
+    t0 = time.perf_counter()
+    cp = ControlPlane(device=device, clock=clock, lease_grace_seconds=30.0)
+    for w in cp.runtime.workers:
+        w.MAX_RETRIES = w.POISON_TOLERANCE = 0
+    cp.join_cluster(new_cluster("pusher", cpu="100", memory="200Gi"))
+    for name in ("puller-a", "puller-b"):
+        token = cp.authority.create_token().token
+        if cp.authority.submit_csr(name, token) is None:
+            raise AssertionError(f"pull plane: the authority refused {name}'s CSR")
+        cluster = new_cluster(name, cpu="100", memory="200Gi")
+        cluster.spec.sync_mode = "Pull"
+        cp.join_cluster(cluster)
+    cp.store.apply(new_deployment("app", replicas=2))
+    cp.store.apply(PropagationPolicy(
+        meta=ObjectMeta(name="p", namespace="default"),
+        spec=PropagationSpec(resource_selectors=[ResourceSelector(api_version="apps/v1",
+                                                                  kind="Deployment")],
+                             placement=duplicated_placement())))
+    wave = plane_wave("pull", cp, device, card, time.perf_counter() - t0)
+    names = ("pusher", "puller-a", "puller-b")
+    applied = [cp.members.get(n).get("apps/v1/Deployment", "default", "app") for n in names]
+    report_ready(cp)
+    cp.settle()
+    ready_reps = cp.store.get("Resource", "default/app").status.get("readyReplicas")
+
+    def ready(name):
+        c = cp.store.get("Cluster", name)
+        cond = next(x for x in c.status.conditions if x.type == "Ready")
+        return cond.status, cond.reason, [t.key for t in c.spec.taints]
+
+    cp.members.get("puller-b").reachable = False
+    clock.now += 20
+    cp.settle()
+    within = ready("puller-b")
+    clock.now += 20
+    cp.settle()
+    past = ready("puller-b")
+    cp.members.get("puller-b").reachable = True
+    clock.now += 5
+    cp.settle()
+    back = ready("puller-b")
+    engine = cp.scheduler._engine
+    ok = (all(a is not None and a.spec["replicas"] == 2 for a in applied)
+          and set(cp.agents) == {"puller-a", "puller-b"} and ready_reps == 6
+          and within[0] and not past[0] and past[1] == "AgentLeaseExpired"
+          and "cluster.karmada.io/not-ready" in past[2] and back[:2] == (True, "AgentLeaseRenewed")
+          and not back[2] and engine is not None and engine.device == device)
+    plane_line("pull", wave, f"1 Push + 2 Pull members (tokens and CSRs through the "
+               f"authority): agents applied {sum(a is not None for a in applied)} of 3, "
+               f"template readyReplicas {ready_reps}; a stopped agent's cluster 20 s in "
+               f"{within[:2]}, 40 s in {past[:2]} tainted {past[2]}, back {back[:2]}; "
+               f"engine on {engine.device if engine is not None else None}", card)
+    if not ok:
+        raise AssertionError("pull plane: the agents, the lease or the engine's device are off")
+    return wave
 
 
 def check_shape_limits(device, card: str) -> dict:
@@ -6201,8 +6657,11 @@ def main() -> int:
 
     def legacy():
         # the dense storm's problems and drift sequence at a dense budget of
-        # 0; two steady and two churn passes (three on the dense storm):
-        # depth cut to keep the whole smoke near half its time limit
+        # 0; two steady and two churn passes (three on the dense storm), the
+        # traced pass on the dense storm's last snapshot. Its cold and last
+        # passes equal the dense storm's numpy-checked ones row by row and
+        # are not solved by the divider again: depth cut to keep the whole
+        # smoke near half its time limit
         out = run_fleet_storm(device, card, steady=2, churn=2, legacy=True,
                               reference=paths["storm"]["digests"])
         stats.update(out["stats"])
@@ -6278,6 +6737,8 @@ def main() -> int:
     def plane():
         out = run_plane(device, card)
         require_launched("plane cold", out["cold_launches"])
+        require_launched("plane failover", out["failover_launches"])
+        require_launched("plane deschedule", out["deschedule_launches"])
         paths["plane"] = out
 
     def limits():
@@ -6333,6 +6794,10 @@ def main() -> int:
           + ", ".join(f"{k} {v}" for k, v in plane["cold_launches"].items() if v)
           + "; scale wave "
           + ", ".join(f"{k} {v}" for k, v in plane["scale_launches"].items() if v)
+          + "; failover wave "
+          + ", ".join(f"{k} {v}" for k, v in plane["failover_launches"].items() if v)
+          + "; descheduler wave "
+          + ", ".join(f"{k} {v}" for k, v in plane["deschedule_launches"].items() if v)
           + "; wave walls " + ", ".join(
               f"{k} {w['apply_s'] + w['wall']:.2f} s" for k, w in plane["waves"].items()),
           flush=True)

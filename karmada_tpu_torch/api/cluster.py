@@ -1,6 +1,8 @@
 """Cluster API: member-cluster inventory and capacity status.
 
-The port's own copy of ``karmada_tpu.api.cluster`` (without the Lease).
+The port's own copy of ``karmada_tpu.api.cluster``. Its ``Lease`` serves the
+Pull agent's heartbeat; the JAX type's second use, the leader-election lock,
+waits for leader election (ROADMAP A7d).
 
 Ref: pkg/apis/cluster/v1alpha1/types.go —
 SyncMode (:77-80), Provider/Region/Zones (:119-139), Taints (:141-145),
@@ -185,3 +187,21 @@ class Cluster:
     @property
     def name(self) -> str:
         return self.meta.name
+
+
+@dataclass
+class Lease:
+    """coordination.k8s.io Lease analogue. The Pull agent renews
+    ``renew_time`` (cluster_status_controller.go:210-213 + monitorClusterHealth
+    lease observation); the control plane judges freshness, since it cannot
+    probe a Pull cluster directly. The holder fields are the leader-election
+    resource lock's (client-go leaderelection over LeasesResourceLock)."""
+
+    KIND = "Lease"
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    renew_time: float = 0.0
+    holder_identity: str = ""
+    lease_duration_seconds: float = 0.0
+    acquire_time: float = 0.0
+    lease_transitions: int = 0

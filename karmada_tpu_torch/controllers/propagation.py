@@ -918,6 +918,9 @@ class ExecutionController:
         cluster = cluster_of_execution_namespace(key.split("/", 1)[0])
         if work is None or cluster is None:
             return DONE
+        cluster_obj = self.store.get("Cluster", cluster)
+        if cluster_obj is not None and cluster_obj.spec.sync_mode == "Pull":
+            return DONE  # the in-cluster agent applies Pull-mode works
         if work.spec.suspend_dispatching:
             if set_condition(
                 work.status.conditions,

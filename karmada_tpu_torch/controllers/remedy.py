@@ -1,0 +1,359 @@
+"""Remedy controller + cluster-api discovery + pull-mode agent.
+
+The port's own copy of ``karmada_tpu/controllers/remedy.py``. Ref:
+- remedy-controller (pkg/controllers/remediation/, pkg/apis/remedy):
+  `Remedy` CRs match clusters by decision conditions (cluster condition
+  types) and apply actions (TrafficControl) recorded on the cluster.
+- clusterdiscovery (pkg/clusterdiscovery/clusterapi/): auto-join clusters
+  surfaced by an infrastructure inventory.
+- karmada-agent (cmd/agent): runs inside Pull-mode member clusters — pulls
+  Works destined for its cluster from the control plane, applies them
+  locally, pushes status back. Here the agent is an object bound to one
+  member cluster running the same execution/status logic in pull direction.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+from ..api.cluster import PULL, Cluster
+from ..api.core import Condition, ObjectMeta, is_condition_true, set_condition
+from ..api.work import WORK_APPLIED, ManifestStatus, Work
+from ..utils import DONE, REQUEUE, Runtime, Store
+from ..utils.member import MemberCluster, UnreachableError
+from .propagation import execution_namespace
+
+REMEDY_ACTION_TRAFFIC_CONTROL = "TrafficControl"
+REMEDY_ACTIONS_ANNOTATION = "remedy.karmada.io/traffic-control"
+
+
+@dataclass
+class DecisionMatch:
+    cluster_condition_type: str = "ServiceDomainNameResolutionReady"
+    cluster_condition_status: str = "False"
+
+
+@dataclass
+class RemedySpec:
+    cluster_affinity: Optional[object] = None  # api.policy.ClusterAffinity
+    decision_matches: list[DecisionMatch] = field(default_factory=list)
+    actions: list[str] = field(default_factory=lambda: [REMEDY_ACTION_TRAFFIC_CONTROL])
+
+
+@dataclass
+class Remedy:
+    KIND = "Remedy"
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: RemedySpec = field(default_factory=RemedySpec)
+
+
+class RemedyController:
+    def __init__(self, store: Store, runtime: Runtime) -> None:
+        self.store = store
+        self.worker = runtime.new_worker("remedy", self._reconcile)
+        store.watch("Remedy", lambda e: self._requeue_clusters())
+        store.watch("Cluster", lambda e: self.worker.enqueue(e.key))
+
+    def _requeue_clusters(self) -> None:
+        for cluster in self.store.list("Cluster"):
+            self.worker.enqueue(cluster.name)
+
+    def _matches(self, remedy: Remedy, cluster: Cluster) -> bool:
+        if remedy.spec.cluster_affinity is not None and not (
+            remedy.spec.cluster_affinity.matches(cluster)
+        ):
+            return False
+        if not remedy.spec.decision_matches:
+            return True  # unconditional remedy
+        for match in remedy.spec.decision_matches:
+            for cond in cluster.status.conditions:
+                # statuses are "True"/"False" strings or bools depending on
+                # the producer; normalize without truthiness ("False" is
+                # truthy as a string)
+                status = (
+                    cond.status
+                    if isinstance(cond.status, str)
+                    else ("True" if cond.status else "False")
+                )
+                if (
+                    cond.type == match.cluster_condition_type
+                    and status == match.cluster_condition_status
+                ):
+                    return True
+        return False
+
+    def _reconcile(self, key: str) -> Optional[str]:
+        cluster = self.store.get("Cluster", key)
+        if cluster is None:
+            return DONE
+        actions: set[str] = set()
+        for remedy in self.store.list("Remedy"):
+            if self._matches(remedy, cluster):
+                actions.update(remedy.spec.actions)
+        current = cluster.meta.annotations.get(REMEDY_ACTIONS_ANNOTATION)
+        wanted = ",".join(sorted(actions)) if actions else None
+        if wanted != current:
+            if wanted is None:
+                cluster.meta.annotations.pop(REMEDY_ACTIONS_ANNOTATION, None)
+            else:
+                cluster.meta.annotations[REMEDY_ACTIONS_ANNOTATION] = wanted
+            self.store.apply(cluster)
+        return DONE
+
+
+SERVICE_DNS_CONDITION = "ServiceDomainNameResolutionReady"
+
+
+class ServiceNameResolutionDetector:
+    """In-cluster coredns-failure detector example
+    (pkg/servicenameresolutiondetector/, cmd/service-name-resolution-detector-
+    example): periodically probes service-name resolution inside one member
+    cluster and reports the ServiceDomainNameResolutionReady condition on the
+    Cluster object — the decision condition the Remedy controller matches on.
+
+    The probe is pluggable; the default resolves by checking that the
+    cluster's DNS Service (kube-system/kube-dns) exists and the member is
+    reachable — the in-proc stand-in for an A-record lookup through coredns.
+    """
+
+    def __init__(
+        self,
+        store: Store,
+        runtime: Runtime,
+        member: MemberCluster,
+        probe=None,
+    ) -> None:
+        self.store = store
+        self.member = member
+        self.probe = probe or self._default_probe
+        self.active = True  # cleared on unjoin/replacement (tickers are
+        # permanent, so deactivation is the deregistration mechanism)
+        runtime.add_ticker(self.detect_once)
+
+    def _default_probe(self) -> bool:
+        try:
+            return self.member.get("v1/Service", "kube-system", "kube-dns") is not None
+        except UnreachableError:
+            return False
+
+    def detect_once(self) -> None:
+        if not self.active:
+            return
+        cluster = self.store.get("Cluster", self.member.name)
+        if cluster is None:
+            return
+        healthy = bool(self.probe())
+        changed = set_condition(
+            cluster.status.conditions,
+            Condition(
+                type=SERVICE_DNS_CONDITION,
+                status=healthy,
+                reason="DomainNameResolved" if healthy else "DomainNameResolutionFailed",
+            ),
+        )
+        if changed:
+            self.store.apply(cluster)
+
+
+class ClusterDiscoveryController:
+    """Auto-join clusters from an infrastructure inventory
+    (pkg/clusterdiscovery/clusterapi). The inventory is a callable returning
+    (name, MemberCluster) pairs — the cluster-api informer analogue."""
+
+    def __init__(self, control_plane, inventory) -> None:
+        self.control_plane = control_plane
+        self.inventory = inventory
+        control_plane.runtime.add_ticker(self.discover_once)
+
+    def discover_once(self) -> None:
+        from ..utils.builders import new_cluster
+
+        for name, member in self.inventory():
+            if self.control_plane.store.get("Cluster", name) is None:
+                cluster = new_cluster(name)
+                self.control_plane.join_cluster(cluster, member)
+
+
+class KarmadaAgent:
+    """Pull-mode agent for one member cluster (cmd/agent): pulls Works for
+    its execution namespace, applies them into the local cluster, reflects
+    status into the Work — the same propagation semantics with the member
+    driving. Push-mode controllers skip Pull clusters."""
+
+    def __init__(
+        self,
+        store: Store,
+        runtime: Runtime,
+        member: MemberCluster,
+        interpreter,
+        clock=None,
+    ) -> None:
+        import time as _time
+
+        from .propagation import TemplateRehydrator
+
+        self.store = store
+        self.member = member
+        self.interpreter = interpreter
+        self.clock = clock or _time.time
+        self.ns = execution_namespace(member.name)
+        # template-delta rehydration: Works may carry (digest, patch) instead of a full manifest; the
+        # agent renders them against the mirrored WorkloadTemplate
+        self.rehydrator = TemplateRehydrator(store)
+        self._awaiting_template: dict[str, set] = {}
+        # per-drain write set: status reflections flush as one batched
+        # write-through (one ApplyBatch RPC over the bus facade)
+        self._buffering = False
+        self._pending: list = []
+        self.worker = runtime.new_worker(
+            f"agent-{member.name}", self._reconcile,
+            reconcile_batch=self._reconcile_batch,
+        )
+        store.watch("Work", self._on_work_event)
+        store.watch("WorkloadTemplate", self._on_template_event, replay=False)
+        member.watch(self._on_member_event)
+        runtime.add_ticker(self._renew_lease)
+
+    def _renew_lease(self) -> None:
+        """Heartbeat: the agent renews its cluster Lease while it can reach
+        the control plane; the cluster-status controller derives Pull-mode
+        Ready from this freshness (the plane cannot probe a Pull member)."""
+        if not self.member.reachable:
+            return
+        from ..api.cluster import Lease
+        from ..api.core import ObjectMeta
+
+        lease = self.store.get("Lease", self.member.name) or Lease(
+            meta=ObjectMeta(name=self.member.name)
+        )
+        lease.renew_time = self.clock()
+        self.store.apply(lease)
+
+    def _on_work_event(self, event) -> None:
+        if event.obj.meta.namespace == self.ns:
+            if event.type == "Deleted":
+                self.rehydrator.forget_work(event.key)
+                # drop any parked entry for the deleted Work (its
+                # template may never arrive)
+                for parked in self._awaiting_template.values():
+                    parked.discard(event.key)
+            self.worker.enqueue(event.key)
+
+    def _on_template_event(self, event) -> None:
+        if event.type == "Deleted":
+            self.rehydrator.forget_digest(event.key)
+            return
+        parked = self._awaiting_template.pop(event.key, None)
+        if parked:
+            for key in parked:
+                self.worker.enqueue(key)
+
+    def _on_member_event(self, event) -> None:
+        for work in self.store.list("Work", self.ns):
+            tref = work.spec.workload_template
+            if tref is not None and tref.digest:
+                if (
+                    f"{tref.api_version}/{tref.kind}" == event.gvk
+                    and tref.namespace == event.namespace
+                    and tref.name == event.name
+                ):
+                    self.worker.enqueue(work.meta.namespaced_name)
+                continue
+            for w in work.spec.workload:
+                if (
+                    f"{w.api_version}/{w.kind}" == event.gvk
+                    and w.meta.namespace == event.namespace
+                    and w.meta.name == event.name
+                ):
+                    self.worker.enqueue(work.meta.namespaced_name)
+
+    def _reconcile_batch(self, keys) -> dict:
+        out: dict = {}
+        self._buffering = True
+        try:
+            for key in keys:
+                out[key] = self._reconcile(key)
+        finally:
+            self._buffering = False
+            self._flush()
+        return out
+
+    def _commit(self, work) -> None:
+        if self._buffering:
+            self._pending.append(work)
+        else:
+            self.store.apply(work)
+
+    def _flush(self) -> None:
+        pending, self._pending = self._pending, []
+        if not pending:
+            return
+        apply_many = getattr(self.store, "apply_many", None)
+        if apply_many is not None:
+            for work, _err in apply_many(pending):
+                # rejected status reflection: retry the Work (the
+                # unbatched path raised and the worker requeued)
+                self.worker.enqueue(work.meta.namespaced_name)
+        else:
+            for work in pending:
+                self.store.apply(work)
+
+    def _reconcile(self, key: str) -> Optional[str]:
+        work = self.store.get("Work", key)
+        if work is None or work.spec.suspend_dispatching:
+            return DONE
+        if not self.member.reachable:
+            return DONE  # agent inside the cluster: unreachable means dead
+        manifests = self.rehydrator.manifests(work)
+        if manifests is None:
+            # template not mirrored yet (bus replay can deliver the Work
+            # first): park on the digest, the template watch unparks
+            self._awaiting_template.setdefault(
+                work.spec.workload_template.digest, set()
+            ).add(key)
+            return REQUEUE
+        changed = False
+        for desired in manifests:
+            gvk = f"{desired.api_version}/{desired.kind}"
+            observed = self.member.get(
+                gvk, desired.meta.namespace, desired.meta.name
+            )
+            if observed is None:
+                import copy
+
+                self.member.apply(copy.deepcopy(desired))
+                observed = self.member.get(
+                    gvk, desired.meta.namespace, desired.meta.name
+                )
+            status = self.interpreter.reflect_status(observed)
+            health = (
+                "Unknown"
+                if status is None
+                else (
+                    "Healthy"
+                    if self.interpreter.interpret_health(observed)
+                    else "Unhealthy"
+                )
+            )
+            identifier = observed.object_reference()
+            for ms in work.status.manifest_statuses:
+                if ms.identifier.namespaced_key == identifier.namespaced_key:
+                    if ms.status != status or ms.health != health:
+                        ms.status, ms.health = status, health
+                        changed = True
+                    break
+            else:
+                work.status.manifest_statuses.append(
+                    ManifestStatus(identifier=identifier, status=status, health=health)
+                )
+                changed = True
+        if set_condition(
+            work.status.conditions,
+            Condition(type=WORK_APPLIED, status=True, reason="AppliedSuccessful"),
+        ):
+            changed = True
+        if changed:
+            self._commit(work)
+        return DONE

@@ -9,12 +9,15 @@ replicas changed / reschedule triggered / not yet scheduled), result patching
 The port's batched engine (``karmada_tpu_torch.scheduler``, on ``device``)
 does the work; this controller packs ResourceBindings into BindingProblems,
 keeps the cluster snapshot fresh (cluster events invalidate it), and writes
-results and conditions back. What the JAX controller adds for its
+results and conditions back. The engine options reach every engine it
+builds: ``extra_estimators`` (the plane's accurate estimators),
+``disabled_plugins`` and ``custom_filters``; ``estimator_registry`` is
+invalidated on every cluster event. What the JAX controller adds for its
 out-of-process solver sidecar (the gRPC channel, the per-wave reroutes to
 the in-process engine and the degraded-mode fallback) is not part of this
-copy: ``solver=`` raises ``NotImplementedError``. Nor are the engine options
-no caller of the port sets yet (extra estimators, disabled plugins, custom
-filters, the estimator registry) or the lease write barrier.
+copy: ``solver=`` raises ``NotImplementedError`` (ROADMAP A6). Nor is the
+lease write barrier, which comes with leader election over a shared store
+(ROADMAP A7d).
 """
 
 from __future__ import annotations
@@ -30,14 +33,32 @@ from ..utils import DONE, Runtime, Store
 DEFAULT_SCHEDULER = "default-scheduler"
 
 
+def _takes_dirty_keys(engine) -> bool:
+    """Whether ``engine.schedule`` is the genuine tensor-engine method
+    (which takes the ``dirty_keys`` kwarg) rather than a patched-in double
+    with the narrower legacy signature."""
+    return (
+        isinstance(engine, TensorScheduler)
+        and "schedule" not in vars(engine)
+        and type(engine).schedule is _TENSOR_SCHEDULE
+    )
+
+
+_TENSOR_SCHEDULE = TensorScheduler.schedule
+
+
 class SchedulerController:
     def __init__(
         self,
         store: Store,
         runtime: Runtime,
         scheduler_name: str = DEFAULT_SCHEDULER,
+        extra_estimators=(),
+        disabled_plugins=(),
+        custom_filters=(),
         clock=None,
         solver=None,
+        estimator_registry=None,
         device="cuda",
     ) -> None:
         if solver is not None:
@@ -49,6 +70,10 @@ class SchedulerController:
         self.store = store
         self.runtime = runtime
         self.scheduler_name = scheduler_name
+        # the plane's EstimatorRegistry (when accurate estimators feed
+        # extra_estimators): cluster events invalidate its memoized
+        # estimates so the next pass re-queries live member state
+        self.estimator_registry = estimator_registry
         # every engine this controller builds runs on this device
         self.device = device
         # last_scheduled_time is compared against rescheduleTriggeredAt,
@@ -57,6 +82,12 @@ class SchedulerController:
         self.clock = clock or time.time
         self._snapshot: Optional[ClusterSnapshot] = None
         self._engine: Optional[TensorScheduler] = None
+        self.extra_estimators = list(extra_estimators)
+        # --plugins enable/disable list + out-of-tree filter registry
+        # (scheduler.go:243-247, framework/runtime/registry.go); both reach
+        # the engine on every (re)build so flags apply live
+        self.disabled_plugins = tuple(disabled_plugins)
+        self.custom_filters = list(custom_filters)
         # id()s of binding objects whose writeback WE are applying right
         # now: the store delivers the echo synchronously with the very same
         # object, so identity marks it (one re-gate queue wave per storm
@@ -123,6 +154,10 @@ class SchedulerController:
         # quota caps pack against the cluster columns: rebuild the quota
         # snapshot against the refreshed cluster snapshot too
         self._quota_snap_gen = -1
+        if self.estimator_registry is not None:
+            # member state moved: memoized accurate estimates are stale
+            # (EstimatorRegistry.invalidate staleness contract)
+            self.estimator_registry.invalidate()
         for kind in ("ResourceBinding", "ClusterResourceBinding"):
             for rb in self.store.list(kind):
                 if rb.spec.scheduler_name == self.scheduler_name:
@@ -208,7 +243,13 @@ class SchedulerController:
                 self._snapshot = snap
             else:
                 self._snapshot = snap
-                self._engine = TensorScheduler(self._snapshot, device=self.device)
+                self._engine = TensorScheduler(
+                    self._snapshot,
+                    extra_estimators=self.extra_estimators,
+                    disabled_plugins=self.disabled_plugins,
+                    custom_filters=self.custom_filters,
+                    device=self.device,
+                )
         return self._engine
 
     # -- reconcile ---------------------------------------------------------
@@ -339,7 +380,12 @@ class SchedulerController:
             if armed:
                 engine.set_preemption(self._victim_problems)
             try:
-                results = engine.schedule(problems, dirty_keys=wave_dirty)
+                # dirty keys ride only the genuine tensor engine; a
+                # patched-in test double keeps its narrower contract
+                if _takes_dirty_keys(engine):
+                    results = engine.schedule(problems, dirty_keys=wave_dirty)
+                else:
+                    results = engine.schedule(problems)
                 if armed:
                     preemption = engine.last_preemption
             finally:
@@ -449,7 +495,9 @@ class SchedulerController:
         saved_explain = engine.explain
         engine.set_explain(None)
         try:
-            return engine.schedule(problems, dirty_keys=dirty_keys)
+            if _takes_dirty_keys(engine):
+                return engine.schedule(problems, dirty_keys=dirty_keys)
+            return engine.schedule(problems)
         finally:
             engine.set_explain(saved_explain)
             if q is not None:

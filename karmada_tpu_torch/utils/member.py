@@ -8,11 +8,12 @@ here watch handlers on the member store).
 
 A MemberCluster is an in-process stand-in for one member kube-apiserver:
 resources keyed by (gvk, namespace, name), node state for the cluster's
-resource summary, and a reachability flag for failure injection. A real
-deployment replaces this class with a REST client; the controller code above
-it is transport-agnostic. The JAX module's pod log, exec and proxy seams and
-its metric series serve the search, proxy, metrics-adapter and HPA
-controllers, which the port does not carry yet.
+resource summary, the pods and unschedulable counts the descheduler and the
+estimator refresh read, and a reachability flag for failure injection. A
+real deployment replaces this class with a REST client; the controller code
+above it is transport-agnostic. The JAX module's pod log, exec and proxy
+seams and its metric series serve the search, proxy, metrics-adapter and HPA
+controllers, which the port does not carry yet (ROADMAP A7b).
 """
 
 from __future__ import annotations
@@ -66,6 +67,9 @@ class MemberCluster:
             "v1/ServiceAccount",
         ]
         self.nodes: list[NodeState] = []
+        # workload-key -> unschedulable replica count (descheduler input;
+        # ref: estimator server/replica/replica.go)
+        self.unschedulable_replicas: dict[str, int] = {}
         self._resources: dict[tuple[str, str, str], Resource] = {}
         self._watchers: list[Callable[[MemberEvent], None]] = []
         self._lock = threading.RLock()
@@ -117,6 +121,82 @@ class MemberCluster:
     def _notify(self, event: MemberEvent) -> None:
         for h in list(self._watchers):
             h(event)
+
+    # -- pods and unschedulable counting -----------------------------------
+
+    def add_pod(
+        self,
+        namespace: str,
+        name: str,
+        *,
+        owner_key: str = "",
+        conditions: Optional[list[dict]] = None,
+        labels: Optional[dict[str, str]] = None,
+    ) -> Resource:
+        """Register a pod in the member state. Pods are ordinary "v1/Pod"
+        resources; ``owner_key`` links the pod to its workload (the stand-in
+        for the ownerRef/label-selector match in estimator
+        server/replica/replica.go:43-77)."""
+        from ..api.core import ObjectMeta
+
+        pod = Resource(
+            api_version="v1",
+            kind="Pod",
+            meta=ObjectMeta(namespace=namespace, name=name, labels=dict(labels or {})),
+            spec={"owner_key": owner_key},
+            status={"conditions": list(conditions or [])},
+        )
+        return self.apply(pod)
+
+    def mark_pod_unschedulable(
+        self, namespace: str, name: str, since: float
+    ) -> None:
+        """Set the PodScheduled=False/Unschedulable condition (the signal
+        GetUnschedulableReplicas counts)."""
+        pod = self.get("v1/Pod", namespace, name)
+        if pod is None:
+            return
+        conds = [
+            c
+            for c in pod.status.setdefault("conditions", [])
+            if c.get("type") != "PodScheduled"
+        ]
+        conds.append(
+            {
+                "type": "PodScheduled",
+                "status": "False",
+                "reason": "Unschedulable",
+                "last_transition": since,
+            }
+        )
+        pod.status["conditions"] = conds
+        self.apply(pod)
+
+    def count_unschedulable(
+        self, now: float, threshold_seconds: float = 60.0
+    ) -> dict[str, int]:
+        """workload-key -> replicas stuck PodScheduled=False/Unschedulable
+        for longer than the threshold (ref: server/replica/replica.go:43-77;
+        the threshold mirrors --unschedulable-threshold). Explicit
+        ``unschedulable_replicas`` entries (simulation overrides) are merged
+        in, taking the max per workload."""
+        counts: dict[str, int] = {}
+        for pod in self.list("v1/Pod"):
+            owner = (pod.spec or {}).get("owner_key", "")
+            if not owner:
+                continue
+            for cond in (pod.status or {}).get("conditions", []):
+                if (
+                    cond.get("type") == "PodScheduled"
+                    and cond.get("status") == "False"
+                    and cond.get("reason") == "Unschedulable"
+                    and now - cond.get("last_transition", now) >= threshold_seconds
+                ):
+                    counts[owner] = counts.get(owner, 0) + 1
+                    break
+        for key, n in self.unschedulable_replicas.items():
+            counts[key] = max(counts.get(key, 0), n)
+        return counts
 
     # -- member-side simulation helpers (tests / failure injection) --------
 

@@ -1,7 +1,8 @@
 """Observability: counters, gauges and histograms with a Prometheus registry.
 
 The port's own copy of the metric types of ``karmada_tpu/utils/metrics.py``
-and of the families the scheduler process and the propagation path move. Ref:
+and of the families the scheduler process, the propagation path and the FRQ
+status controller move. Ref:
 pkg/scheduler/metrics/metrics.go:61-115 (schedule_attempts_total,
 e2e_scheduling_duration_seconds) and pkg/metrics (controller metrics). Text
 exposition follows the Prometheus format (``Registry.render``). The JAX
@@ -113,6 +114,15 @@ class Gauge:
         """Label-set -> value snapshot."""
         with self._lock:
             return dict(self._values)
+
+    def remove_matching(self, **labels) -> None:
+        """Drop every sample whose label set CONTAINS these pairs — the
+        cleanup hook for gauges keyed by a deleted object (e.g. a removed
+        FederatedResourceQuota's per-resource limit/used samples)."""
+        match = set(labels.items())
+        with self._lock:
+            for key in [k for k in self._values if match <= set(k)]:
+                del self._values[key]
 
     def render(self) -> Iterable[str]:
         if self.help:
@@ -280,4 +290,14 @@ quota_denied = registry.counter(
     "enforcement, by namespace (incremented when the QuotaExceeded "
     "condition lands on the binding; a denied binding retries on the "
     "next quota generation, not every pass)",
+)
+quota_limit = registry.gauge(
+    "karmada_tpu_quota_limit",
+    "FederatedResourceQuota spec.overall limit by namespace and resource "
+    "(canonical integer units; set by the FRQ status controller)",
+)
+quota_used = registry.gauge(
+    "karmada_tpu_quota_used",
+    "FederatedResourceQuota status.overall_used by namespace and "
+    "resource, recomputed live from bound ResourceBindings",
 )

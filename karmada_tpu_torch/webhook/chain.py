@@ -1,12 +1,13 @@
 """Admission chain: per-kind mutators then validators, run on store.apply.
 
 The port's own copy of ``karmada_tpu/webhook/chain.py`` for the kinds the
-propagation path stores: propagation and override policies (both scopes),
-ResourceBinding and ClusterResourceBinding, Work and Cluster, and deletion
-protection on every kind. The validators of the JAX chain's other kinds
-(FederatedResourceQuota, FederatedHPA and CronFederatedHPA,
-MultiClusterService and MultiClusterIngress, WorkloadRebalancer and the
-interpreter configurations) come with the controllers of those kinds.
+port's plane stores: propagation and override policies (both scopes),
+ResourceBinding and ClusterResourceBinding, Work and Cluster,
+FederatedResourceQuota and WorkloadRebalancer, and deletion protection on
+every kind. The validators of the JAX chain's other kinds (FederatedHPA and
+CronFederatedHPA, MultiClusterService and MultiClusterIngress, and the
+interpreter configurations) come with the controllers of those kinds
+(ROADMAP A7b, A7d).
 """
 
 from __future__ import annotations
@@ -256,6 +257,43 @@ def validate_override_policy(policy) -> None:
                     )
 
 
+def validate_federated_resource_quota(frq) -> None:
+    for assignment in frq.spec.static_assignments:
+        for res, v in assignment.hard.items():
+            if v < 0:
+                raise ValidationError("quota values must be >= 0")
+            if res not in frq.spec.overall:
+                raise ValidationError(
+                    f"static assignment resource {res!r} missing from overall"
+                )
+    totals: dict[str, int] = {}
+    for assignment in frq.spec.static_assignments:
+        for res, v in assignment.hard.items():
+            totals[res] = totals.get(res, 0) + v
+    for res, total in totals.items():
+        if total > frq.spec.overall.get(res, 0):
+            raise ValidationError(
+                f"static assignments for {res!r} exceed the overall quota"
+            )
+    # quota-shrink guard (the reference validates spec updates against
+    # live usage): an update that CHANGES overall — spec.overall differs
+    # from the last-reconciled status.overall — must not drop any tracked
+    # resource below current status.overall_used. The status controller's
+    # own writes always carry status.overall == spec.overall (it syncs
+    # them in the same reconcile), so recording over-usage that predates a
+    # quota (bindings bound before the FRQ existed) is never blocked.
+    used = frq.status.overall_used or {}
+    for res, limit in frq.spec.overall.items():
+        if (
+            frq.status.overall.get(res) != limit
+            and used.get(res, 0) > limit
+        ):
+            raise ValidationError(
+                f"cannot shrink overall[{res!r}] to {limit} below current "
+                f"usage {used[res]}"
+            )
+
+
 def validate_resource_binding(rb) -> None:
     if rb.spec.replicas < 0:
         raise ValidationError("replicas must be >= 0")
@@ -271,6 +309,11 @@ def validate_deletion_protection(obj) -> None:
             "this resource is protected, remove the label "
             f"{DELETION_PROTECTION_LABEL} to delete it"
         )
+
+
+def validate_workload_rebalancer(rebalancer) -> None:
+    if not rebalancer.spec.workloads:
+        raise ValidationError("workloads must not be empty")
 
 
 def validate_work(work) -> None:
@@ -353,9 +396,11 @@ def default_admission_chain() -> AdmissionChain:
     chain.register_mutator("OverridePolicy", mutate_override_policy)
     for kind in ("OverridePolicy", "ClusterOverridePolicy"):
         chain.register_validator(kind, validate_override_policy)
+    chain.register_validator("FederatedResourceQuota", validate_federated_resource_quota)
     for kind in ("ResourceBinding", "ClusterResourceBinding"):
         chain.register_mutator(kind, mutate_binding_permanent_id)
         chain.register_validator(kind, validate_resource_binding)
+    chain.register_validator("WorkloadRebalancer", validate_workload_rebalancer)
     chain.register_mutator("Work", mutate_work)
     chain.register_validator("Work", validate_work)
     chain.register_delete_validator("*", validate_deletion_protection)

@@ -6,20 +6,26 @@ injected clock, the admission chain's ``uuid.uuid4`` (the permanent IDs it
 stamps) replaced by one counter for each run. After every settle the two
 planes' states are compared: every ResourceBinding and
 ClusterResourceBinding (labels, generation, ``spec.clusters``, conditions,
-aggregated status, the observed affinity), every Work (name, namespace,
-labels, its manifests through ``work_manifests``, its template reference,
-flags, conditions and manifest statuses), every member's objects (gvk,
-namespace, name, labels, annotations, spec, status), the templates (labels,
-spec, status), the Clusters' status and the policies' permanent IDs.
-Condition times, uids and creation stamps come from the wall clock and
-per-package counters and are left out. Tolerance: exact equality.
+aggregated status, the observed affinity, graceful-eviction tasks, RequiredBy
+snapshots, the reschedule trigger and last schedule time), every Work (name,
+namespace, labels, its manifests through ``work_manifests``, its template
+reference, flags, conditions and manifest statuses), every member's objects
+(gvk, namespace, name, labels, annotations, spec, status), the templates
+(labels, spec, status), the Clusters (labels, annotations, taints, status),
+the policies' permanent IDs, the Leases, the WorkloadRebalancers' and the
+FederatedResourceQuotas' status. Condition times, uids and creation stamps
+come from the wall clock and per-package counters and are left out.
+Tolerance: exact equality.
 
 The scenarios are those of ``tests/test_e2e_propagation.py`` that the
 propagation path covers, each run on both planes with the same checks; then
 BASELINE config 4 at 60 clusters and 400 templates (``chip_smoke.
 plane_objects``: at least ``fleet_threshold`` bindings, so the fleet route
-runs) through join, cold, status, scale and delete waves in both render
-modes; then a CPU rehearsal of ``chip_smoke.run_plane``."""
+runs) through join, cold, status, scale and delete waves and the failover,
+eviction drain, descheduler and recovery waves, in both render modes; then
+a CPU rehearsal of ``chip_smoke.run_plane``. The failover, extras and Pull
+scenarios are in ``test_torch_failover.py``, ``test_torch_plane_extras.py``
+and ``test_torch_pull.py``, on ``run_both`` from here."""
 
 import copy
 import importlib
@@ -82,14 +88,15 @@ class Pkg:
     def torch(self) -> bool:
         return self.pkg is karmada_tpu_torch
 
-    def plane(self):
-        kw = {"device": "cpu"} if self.torch else {}
+    def plane(self, **kw):
+        if self.torch:
+            kw["device"] = "cpu"
         return mod(self.pkg, "controlplane").ControlPlane(clock=self.clock, **kw)
 
     def scheduler(self, cp, name):
         kw = {"device": "cpu"} if self.torch else {}
         return mod(self.pkg, "controllers.scheduler_controller").SchedulerController(
-            cp.store, cp.runtime, scheduler_name=name, **kw)
+            cp.store, cp.runtime, scheduler_name=name, clock=self.clock, **kw)
 
     def make_plane(self, n_clusters=3, **cluster_kw):
         cp = self.plane()
@@ -153,6 +160,12 @@ def _obj(r) -> tuple:
             m.generation, r.spec, r.status)
 
 
+def _task(t) -> tuple:
+    return (t.from_cluster, t.replicas, t.reason, t.message, t.producer, t.purge_mode,
+            t.grace_period_seconds, t.suppress_deletion, t.creation_timestamp,
+            dict(t.preserved_label_state), list(t.clusters_before_failover))
+
+
 def state(p: Pkg, cp) -> dict:
     store = cp.store
     by_key = lambda o: o.meta.namespaced_name  # noqa: E731
@@ -168,6 +181,10 @@ def state(p: Pkg, cp) -> dict:
                  for i in rb.status.aggregated_status],
                 rb.status.scheduler_observed_affinity_name,
                 rb.status.scheduler_observed_generation,
+                [_task(t) for t in rb.spec.graceful_eviction_tasks],
+                [(s.namespace, s.name, [(tc.name, tc.replicas) for tc in s.clusters])
+                 for s in rb.spec.required_by],
+                rb.spec.reschedule_triggered_at, rb.status.last_scheduled_time,
             ))
     for w in sorted(store.list("Work"), key=by_key):
         ref = w.spec.workload_template
@@ -184,15 +201,18 @@ def state(p: Pkg, cp) -> dict:
         ))
     for name in sorted(cp.members.names()):
         member = cp.members.get(name)
-        objs = sorted(member.list(), key=lambda o: (o.api_version, o.kind, o.meta.namespace,
-                                                    o.meta.name))
+        # an unreachable member's client refuses to list; its state is read
+        # as it stands
+        objs = sorted(member._resources.values(), key=lambda o: (
+            o.api_version, o.kind, o.meta.namespace, o.meta.name))
         out["members"][name] = [_obj(o) + (o.meta.resource_version,) for o in objs]
     out["templates"] = [
         (t.meta.namespaced_name, t.api_version, t.kind, dict(t.meta.labels), t.meta.generation,
          t.spec, t.status)
         for t in sorted(store.list("Resource"), key=by_key)]
     out["clusters"] = [
-        (c.name, dict(c.meta.labels), list(c.spec.taints), len(c.spec.resource_models),
+        (c.name, dict(c.meta.labels), dict(c.meta.annotations),
+         [(t.key, t.value, t.effect) for t in c.spec.taints], len(c.spec.resource_models),
          [_cond(x) for x in c.status.conditions], c.status.resource_summary.allocatable,
          c.status.resource_summary.allocated, c.status.api_enablements,
          c.status.kubernetes_version)
@@ -203,6 +223,14 @@ def state(p: Pkg, cp) -> dict:
                      "ClusterOverridePolicy")
         for pol in sorted(store.list(kind), key=by_key)]
     out["workload_templates"] = sorted(t.meta.name for t in store.list("WorkloadTemplate"))
+    out["leases"] = [(ls.meta.name, ls.renew_time, ls.holder_identity)
+                     for ls in sorted(store.list("Lease"), key=by_key)]
+    out["rebalancers"] = [
+        (r.meta.namespaced_name, [(t.kind, t.namespace, t.name) for t in r.spec.workloads],
+         r.status.observed_workloads, r.status.observed_generation, r.status.finish_time)
+        for r in sorted(store.list("WorkloadRebalancer"), key=by_key)]
+    out["quotas"] = [(q.meta.namespaced_name, q.status.overall, q.status.overall_used)
+                     for q in sorted(store.list("FederatedResourceQuota"), key=by_key)]
     # a copy: the plane goes on mutating the live dicts recorded here
     return copy.deepcopy(out)
 
@@ -769,26 +797,24 @@ def test_field_overrider_no_ops_equal_jax():
     assert out[0] == out[1] == {"data": {"cfg.json": '{"a": 1}'}}
 
 
-def test_pull_join_is_not_ported():
-    cp = Pkg(karmada_tpu_torch).plane()
-    cluster = karmada_tpu_torch.utils.builders.new_cluster("agent1")
-    cluster.spec.sync_mode = "Pull"
-    with pytest.raises(NotImplementedError, match="agent"):
-        cp.join_cluster(cluster)
-
-
 # --------------------------------------------------------------------------
 # config 4 through the plane, both render modes
 # --------------------------------------------------------------------------
 
 CONFIG4_CLUSTERS, CONFIG4_TEMPLATES, CONFIG4_SCALE = 60, 400, 40
+CONFIG4_KILL, CONFIG4_DESCHEDULE = 3, 40
 
 
 def config4_waves(p, record):
     """chip_smoke.run_plane's waves at a small size: join, cold wave, status
-    round, a scale wave (seed 99) and a delete wave."""
+    round, a scale wave (seed 99) and a delete wave; then its failover path
+    (``plane_failover_waves``): 3 clusters killed through the package's own
+    chaos seam (seed 7), the eviction drain, a descheduler round over 40
+    bindings (seed 11) and the recovery. The Failover gate is the caller's
+    to set."""
     objs = chip_smoke.plane_objects(p.pkg, CONFIG4_TEMPLATES, CONFIG4_CLUSTERS)
-    cp = p.plane()
+    cp = p.plane(enable_descheduler=True)
+    cp.descheduler.active = False
     for cl, m in zip(objs["clusters"], objs["members"]):
         cp.join_cluster(cl, m)
     cp.settle()
@@ -802,13 +828,7 @@ def config4_waves(p, record):
     engine = cp.scheduler._engine
     assert engine._fleet is not None
     assert not engine.snapshot.model_pack.has_models.any()
-    for name in sorted(cp.members.names()):
-        member = cp.members.get(name)
-        for obj in member.list("apps/v1/Deployment"):
-            reps = obj.spec["replicas"]
-            member.set_workload_status("apps/v1/Deployment", obj.meta.namespace,
-                                       obj.meta.name, {"replicas": reps, "readyReplicas": reps,
-                                                       "updatedReplicas": reps})
+    chip_smoke.report_ready(cp)
     cp.settle()
     record(cp)
     scaled, deleted = chip_smoke.plane_picks(CONFIG4_TEMPLATES, CONFIG4_SCALE, CONFIG4_SCALE)
@@ -823,11 +843,40 @@ def config4_waves(p, record):
         cp.store.delete("Resource", f"default/d{i}")
     cp.settle()
     record(cp)
+    faults = mod(p.pkg, "utils.faultinject")
+    names = sorted(c.name for c in cp.store.list("Cluster"))
+    killed = chip_smoke.plane_kills(names, CONFIG4_KILL, {
+        tc.name for rb in cp.store.list("ResourceBinding") for tc in rb.spec.clusters})
+    try:
+        faults.arm(chip_smoke.kill_spec(killed), seed=7)
+        p.clock.now += 60
+        cp.settle()
+        record(cp)
+        chip_smoke.report_ready(cp, skip=set(killed))
+        cp.settle()
+        record(cp)
+        rbs = chip_smoke.sorted_bindings(cp.store)
+        picks = chip_smoke.plane_deschedule_picks(rbs, set(names) - set(killed),
+                                                  CONFIG4_DESCHEDULE)
+        chip_smoke.mark_unschedulable(cp, picks, since=p.clock.now)
+        p.clock.now += 120
+        cp.descheduler.active = True
+        cp.descheduler.deschedule_once()
+        cp.descheduler.active = False
+        cp.settle()
+        record(cp)
+        faults.disarm()
+        p.clock.now += 60
+        cp.settle()
+        record(cp)
+    finally:
+        faults.disarm()
 
 
 @pytest.mark.parametrize("delta", ["1", "0"])
-def test_config4_plane_equals_jax_plane(delta, monkeypatch):
+def test_config4_plane_equals_jax_plane(delta, monkeypatch, gates):
     monkeypatch.setenv(DELTA_ENV, delta)
+    gates(mod(karmada_tpu_torch, "utils.features").FAILOVER, True)
     states = run_both(config4_waves, monkeypatch)
     cold = states[1]
     assert len(cold["bindings"]) == CONFIG4_TEMPLATES
@@ -843,16 +892,40 @@ def test_config4_plane_equals_jax_plane(delta, monkeypatch):
     assert 0 < mirrored < n_works
     assert all(t[6].get("readyReplicas") == t[5]["replicas"] for t in states[2]["templates"])
     assert len(states[4]["bindings"]) == CONFIG4_TEMPLATES - CONFIG4_SCALE
+    # failover: the killed clusters tainted and left by every binding, some
+    # displaced ones still holding their eviction tasks; the drain empties
+    # them; the descheduler moves its 40; the recovery clears the taints
+    killed = {c[0] for c in states[5]["clusters"]
+              if ("cluster.karmada.io/not-ready", "", "NoExecute") in c[3]}
+    assert len(killed) == CONFIG4_KILL
+    assert not any(killed & {n for n, _ in b[4]} for b in states[5]["bindings"])
+    assert any(b[12] for b in states[5]["bindings"])
+    assert not any(b[12] for b in states[6]["bindings"])
+    moved = sum(a[4] != b[4] for a, b in zip(states[6]["bindings"], states[7]["bindings"]))
+    assert 0 < moved <= CONFIG4_DESCHEDULE
+    assert not any(("cluster.karmada.io/not-ready", "", "NoExecute") in c[3]
+                   for c in states[8]["clusters"])
+
+
+PLANE_WAVES = ("join", "cold", "status", "scale", "delete", "failover", "drain",
+               "deschedule", "recovery", "pull")
 
 
 def test_plane_phase_rehearsal(capsys):
-    """chip_smoke's plane phase at a small size on the CPU: every wave's
-    check raises on any difference."""
+    """chip_smoke's plane phase at a small size on the CPU, its failover
+    path and Pull plane included: every wave's check raises on any
+    difference."""
+    gate = mod(karmada_tpu_torch, "utils.features")
+    was = gate.feature_gate.enabled(gate.FAILOVER)
     out = chip_smoke.run_plane(torch.device("cpu"), "cpu", templates=500, clusters=60,
-                               scale=40, delete=40)
-    assert set(out["waves"]) == {"join", "cold", "status", "scale", "delete"}
+                               scale=40, delete=40, kill=3, deschedule=40)
+    assert gate.feature_gate.enabled(gate.FAILOVER) == was
+    assert mod(karmada_tpu_torch, "utils.faultinject").injector() is None
+    assert set(out["waves"]) == set(PLANE_WAVES)
+    assert sum(out["waves"]["failover"]["passes"]) > 0
+    assert out["waves"]["deschedule"]["passes"] == [40]
     printed = capsys.readouterr().out
-    for wave in ("join", "cold", "status", "scale", "delete"):
+    for wave in PLANE_WAVES:
         assert f"# plane {wave}:" in printed
     assert "500 ok / 0 bad" in printed
     assert "problems off the recipe (placement, replicas, requests) 0;" in printed

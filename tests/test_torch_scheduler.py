@@ -246,7 +246,12 @@ def test_port_imports_without_jax_or_karmada_tpu():
             "karmada_tpu_torch.utils.worker", "karmada_tpu_torch.utils.metrics",
             "karmada_tpu_torch.controlplane", "karmada_tpu_torch.controllers.propagation",
             "karmada_tpu_torch.controllers.detector", "karmada_tpu_torch.interpreter.native",
-            "karmada_tpu_torch.utils.member", "karmada_tpu_torch.webhook.chain"} <= set(mods)
+            "karmada_tpu_torch.utils.member", "karmada_tpu_torch.webhook.chain",
+            "karmada_tpu_torch.utils.faultinject", "karmada_tpu_torch.utils.register",
+            "karmada_tpu_torch.controllers.cluster", "karmada_tpu_torch.controllers.failover",
+            "karmada_tpu_torch.controllers.dependencies",
+            "karmada_tpu_torch.controllers.extras", "karmada_tpu_torch.controllers.remedy",
+            "karmada_tpu_torch.controllers.hpa_sync"} <= set(mods)
     code = f"""
 import importlib, importlib.abc, sys
 sys.modules["jax"] = None
@@ -290,7 +295,7 @@ def test_no_jax_or_karmada_tpu_imports_in_source():
 @pytest.mark.parametrize("script", ("k2_variants.py", "k12_k15_variants.py",
                                     "k8_k14_variants.py", "k1_k13_variants.py",
                                     "k6_k7_variants.py", "kernel_variants.py",
-                                    "launch_floors.py"))
+                                    "launch_floors.py", "plane_waves.py"))
 def test_timing_scripts_import_without_jax_or_karmada_tpu(script):
     """The card's timing scripts import neither jax nor the JAX package: in
     their source, and when imported with jax blocked and a finder that
