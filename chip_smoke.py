@@ -169,6 +169,28 @@
      gate and problem build, engine pass and write-back, and the
      controller's share. K3, K2, K4 and K5 must launch in the cold wave,
      K12 in the quota wave and K15 in the preemption surge.
+   - the solver sidecar's in-process seams (the card's machine has neither
+     grpc nor protobuf; tier-1 holds the wire): ``run_sidecar`` drives
+     config 5 through a port ``SolverService``'s protobuf-free core
+     (``InProcessSolver``: placements as canonical JSON, rows as records):
+     sync, a cold request, the same request, a request at a stale version
+     (must raise ``StaleSnapshotError``), a re-sync and the same request,
+     bench.py's drift synced and the same request; every row equal to the
+     config-5 fleet phase's numpy-checked cold or last pass (that phase,
+     the general pass and the estimator phase run in name order, the
+     sidecar's), each request's wall split into the client's encode, the
+     sidecar's decode, engine and encode, the client's decode. K1's table
+     form, K2, K3 and K4 must launch. ``run_sidecar_estimator`` serves the
+     estimator phase's own node caches from 4 ``MultiClusterEstimatorService``s
+     of 32 clusters behind ``EstimatorConnection``s to the estimator-aware
+     sidecar (``solver.__main__.estimator_service``): cold, quiet and
+     pod-event passes with batch RPCs 4 / 0 / 4, pings 0 / 4 / 4, K8
+     launches 128 / 0 / 4, every cluster answered and memoized, every row
+     equal to the estimator phase's. ``run_sidecar_controller``: config 4
+     under ``SchedulerController(solver=...)``, a cold wave on the
+     sidecar, a scale wave while it is down (the in-process fallback on
+     the card, one degraded pass) and one after (a re-sync first), every
+     wave's placements held by ``written_check``.
    - the control plane's propagation path (``run_plane``): the port's
      ``ControlPlane`` on BASELINE config 4 (10k Deployments x 500 member
      clusters whose NodeStates sum to the recipe's summaries, config 4's
@@ -1346,17 +1368,30 @@ PATH_KERNELS = {
     "plane cold": ("profile_table", "divide_replicas", "fleet_masks", "fleet_diff",
                    "fleet_wire"),
     # a displaced binding whose surviving clusters all report Healthy loses
-    # its eviction task before the scheduler's drain (the graceful-eviction
-    # worker runs first) and rides the fleet table; one that keeps its task
-    # takes the general route (eviction rows are off the fleet, as in the
-    # JAX engine). So estimate_merge's launch here rests on worker order:
-    # the eviction worker reads the survivors' status as it stood before
-    # the scheduler's drain, and fresher status would put every displaced
-    # row on the fleet table with no fault in the failover path (PERF.md
-    # §7). The descheduler's 200 rows are under fleet_threshold
+    # its eviction task before the scheduler's drain and rides the fleet
+    # table; one that keeps its task takes the general route (eviction rows
+    # are off the fleet, as in the JAX engine). estimate_merge is required
+    # here only because the graceful-eviction worker drains BEFORE the
+    # scheduler's worker in a settle: it reads the survivors' status as it
+    # stood before the scheduler's drain, so some rows keep their tasks.
+    # Were the scheduler to drain first, or the status fresher, every
+    # displaced row would ride the fleet table and estimate_merge would not
+    # launch, with no fault in the failover path (PERF.md §7). The
+    # descheduler's 200 rows are under fleet_threshold
     "plane failover": ("profile_table", "estimate_merge", "divide_replicas", "fleet_masks",
                        "fleet_diff", "fleet_wire", "scatter_rows"),
     "plane deschedule": ("estimate_merge", "divide_replicas"),
+    # the solver sidecar's config-5 requests: the cold request's table, the
+    # repeated and re-synced requests' diff route, the drift request's rebuild
+    "sidecar": ("profile_table", "divide_replicas", "fleet_masks", "fleet_diff"),
+    # the estimator-aware sidecar: the estimator servers' node sums (K8),
+    # their answers folded by K1's merge form on the general route
+    "sidecar estimator": ("profile_table", "estimate_merge_table", "divide_replicas",
+                          "node_sum_estimate"),
+    # SchedulerController(solver=...): the cold wave on the sidecar's engine,
+    # the fallback wave on the controller's own engine, both on the card
+    "sidecar controller": ("profile_table", "divide_replicas", "fleet_masks", "fleet_diff",
+                           "fleet_wire"),
 }
 
 
@@ -3143,9 +3178,22 @@ def check_legacy_kernels(table, problems, card: str) -> dict:
     return stats
 
 
-def drift_snapshots(pkg, snap, count: int, seed: int = 99) -> list:
+def by_name(pkg, snap):
+    """``snap``'s clusters in name order, the order a scheduler process and
+    a solver sidecar build their snapshots in (``_sorted_clusters``,
+    ``SolverService.sync_clusters``). Cluster order is part of a pass's
+    input: ties in the division break by column, so the phases that hold
+    one another's rows run in this order."""
+    s = importlib.import_module(f"{pkg.__name__}.scheduler")
+    return s.ClusterSnapshot(sorted(snap.clusters, key=lambda c: c.name))
+
+
+def drift_snapshots(pkg, snap, count: int, seed: int = 99, order=None) -> list:
     """bench.py's churn recipe (bench.py:942-980): every cluster's
-    allocation drifts by a few 1/200ths of its allocatable per pass."""
+    allocation drifts by a few 1/200ths of its allocatable per pass.
+    ``order`` (default ``snap``'s) is the cluster order of the draws
+    (bench.py draws in its build order); each snapshot keeps ``snap``'s
+    order."""
     import importlib
 
     s = importlib.import_module(f"{pkg.__name__}.scheduler")
@@ -3153,7 +3201,7 @@ def drift_snapshots(pkg, snap, count: int, seed: int = 99) -> list:
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(count):
-        for cl in clusters:
+        for cl in (clusters if order is None else order):
             rs = cl.status.resource_summary
             for dim, q in list(rs.allocated.items()):
                 alloc = rs.allocatable.get(dim, 0)
@@ -3251,11 +3299,16 @@ def run_fleet_storm(device, card: str, bindings=None, clusters=None,
         " (default models)" if models else "")
     table_kernels = ("profile_table", "model_overlay") if models else ("profile_table",)
     snap, problems = build_workload(karmada_tpu_torch, 5, bindings, clusters, models)
+    # the clusters in name order (a sidecar's and a scheduler process's
+    # order, so the sidecar phase holds its rows to this storm's), drifted
+    # in bench.py's build order
+    build_order = list(snap.clusters)
+    snap = by_name(karmada_tpu_torch, snap)
     traced = device.type == "cuda"  # torch.profiler traces the card only
     # a reference storm's drift sequence, so that the last pass here is the
     # one that storm checked
     n_drift = churn + traced if reference is None else reference["drift"]
-    drift = drift_snapshots(karmada_tpu_torch, snap, n_drift)
+    drift = drift_snapshots(karmada_tpu_torch, snap, n_drift, order=build_order)
     last = n_drift - 1 if traced else churn - 1  # the index of the last pass
     engine = TensorScheduler(snap, chunk_size=4096, device=device)
     digests = {"steady": [], "churn": [], "drift": n_drift, "checked": last}
@@ -3542,6 +3595,7 @@ def run_general(device, card: str, reference: list, bindings=None, clusters=None
     from karmada_tpu_torch.scheduler import TensorScheduler
 
     snap, problems = build_workload(karmada_tpu_torch, 5, bindings, clusters)
+    snap = by_name(karmada_tpu_torch, snap)  # the storm's cluster order
     problems = problems[:rows]
     engine = TensorScheduler(snap, chunk_size=4096, device=device)
     engine.fleet_threshold = len(problems) + 1
@@ -3637,7 +3691,10 @@ def run_estimator(device, card: str, clusters: int = 128, nodes: int = 4000,
     (4). Every row after the cold pass and after the pod events equals the
     numpy divider over merge(general, node-sum numpy mirror); no
     registered cluster may go unanswered or unmemoized (a fetch that
-    raises answers -1 for its cluster, as in the JAX registry)."""
+    raises answers -1 for its cluster, as in the JAX registry). The clusters
+    are in name order (a solver sidecar's). Returns, for the sidecar
+    estimator phase, the node caches, snapshot, problems, pod events and
+    the cold and pod-event passes' outcome digests."""
     import karmada_tpu_torch
     from karmada_tpu_torch.estimator import AccurateEstimator, EstimatorRegistry, NodeCache
     from karmada_tpu_torch.scheduler import TensorScheduler
@@ -3645,6 +3702,7 @@ def run_estimator(device, card: str, clusters: int = 128, nodes: int = 4000,
     t0 = time.perf_counter()
     snap, per_cluster, problems = estimator_workload(karmada_tpu_torch, clusters, nodes,
                                                      bindings)
+    snap = by_name(karmada_tpu_torch, snap)
     caches = {name: NodeCache(snap.dims, per_cluster[name]) for name in snap.names}
     registry = EstimatorRegistry()
     for name in snap.names:
@@ -3655,15 +3713,17 @@ def run_estimator(device, card: str, clusters: int = 128, nodes: int = 4000,
     referent = node_sum_referent(snap, caches)
     on_card = device.type == "cuda"
     want_k8 = {"cold": clusters, "steady": 0, "hard refresh": clusters, "pod events": 4}
-    out = {"walls": {}, "k8": {}}
+    events = [(name, f"n{k}", {"cpu": 2000, "memory": 4 << 30})
+              for name in snap.names[:: clusters // 4][:4] for k in range(3)]
+    out = {"walls": {}, "k8": {}, "digests": {}, "caches": caches, "snap": snap,
+           "problems": problems, "pod_events": events}
     first = None
     for kind in ("cold", "steady", "hard refresh", "pod events"):
         if kind == "hard refresh":
             registry.invalidate(drop=True)
         elif kind == "pod events":
-            for name in snap.names[:: clusters // 4][:4]:
-                for k in range(3):
-                    caches[name].add_pod(f"n{k}", {"cpu": 2000, "memory": 4 << 30})
+            for name, node, req in events:
+                caches[name].add_pod(node, req)
             registry.invalidate()
         reset_counts()
         t0 = time.perf_counter()
@@ -3675,6 +3735,8 @@ def run_estimator(device, card: str, clusters: int = 128, nodes: int = 4000,
         if kind == "cold":
             out["launches"] = counts
             first = outcomes(res)
+        if kind in ("cold", "pod events"):
+            out["digests"][kind] = outcome_digest(res)
         # a fetch that raises (a kernel that fails to build or launch)
         # answers -1 for its cluster, unmemoized: every cluster must have
         # answered and be memoized
@@ -5285,7 +5347,7 @@ class ReconcileFaults(logging.Handler):
 
 
 def settle_wave(tag: str, rt, ctl, device, card: str, apply_s: float = 0.0,
-                max_steps: int = 100_000) -> dict:
+                max_steps: int = 100_000, engine_of=None) -> dict:
     """One ``run_until_settled`` of the plane, timed and split from its
     spans: the store apply that enqueued it (``apply_s``, measured by the
     caller), gate and problem build (the scheduler drain's start to its
@@ -5293,7 +5355,9 @@ def settle_wave(tag: str, rt, ctl, device, card: str, apply_s: float = 0.0,
     spans, with the engine's ``last_breakdown``) and write-back (the last
     pass's end to the drain's end). The controller's share is everything
     but the engine passes. Raises when a reconcile raised (the worker
-    logs it and requeues the key) or a key is left waiting for a retry."""
+    logs it and requeues the key) or a key is left waiting for a retry.
+    ``engine_of`` (default: the controller's in-process engine) returns the
+    engine whose breakdown the line names, read after the wave."""
     from karmada_tpu_torch.utils.tracing import tracer
 
     faults = ReconcileFaults()
@@ -5329,7 +5393,7 @@ def settle_wave(tag: str, rt, ctl, device, card: str, apply_s: float = 0.0,
         print(f"# {tag}: {sum(out['passes'])} bindings in {len(passes)} engine pass(es) "
               f"{out['passes']}; apply {apply_s:.4f} s + settle {wall:.4f} s = "
               f"{apply_s + wall:.4f} s: gate and problem build {gate_s:.4f} s, engine "
-              f"pass {engine_s:.4f} s [{breakdown_line(ctl._engine)}], write-back "
+              f"pass {engine_s:.4f} s [{breakdown_line(ctl._engine if engine_of is None else engine_of())}], write-back "
               f"{write_s:.4f} s; controller {ctl_s:.4f} s, {share:.3f} of the wave, "
               f"{ctl_s / engine_s:.2f}x the engine pass; card {card}", flush=True)
     else:
@@ -5794,6 +5858,353 @@ def run_controller(device, card: str, bindings=None, clusters=None, scale: int =
         raise AssertionError(f"controller preemption: {bad_victims} victims, {bad_tasks} "
                              f"tasks, {bad_placed} placements and {bad_rest} victims' "
                              f"reschedules differ; victims' passes {rest['passes']}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# the solver sidecar's in-process seams
+# --------------------------------------------------------------------------
+
+
+class InProcessSolver:
+    """A solver client that calls a ``SolverService``'s protobuf-free core in
+    this process: what ``RemoteSolver`` does over gRPC, less protobuf's own
+    bytes. Problems travel as the wire carries them (placements as
+    canonical JSON, interned by content; rows as ``ProblemRecord``s) and
+    results come back as ``ResultRecord``s, decoded to
+    ``RemoteScheduleResult``s; a ``StaleSnapshotError`` re-syncs from
+    ``_cluster_source`` once and retries through ``call_with_resync``, the
+    policy ``RemoteSolver`` applies to FAILED_PRECONDITION. With ``down``
+    set every call raises ``ConnectionError`` (a dead sidecar). ``split``
+    holds the last request's wall in seconds: the client's encode, the
+    sidecar's decode, engine pass and encode (the results' lazy decode
+    included), the client's decode."""
+
+    def __init__(self, service):
+        self.service = service
+        self._version = 0
+        self._cluster_source = None
+        self.down = False
+        self.syncs = 0
+        self.requests = 0
+        self.split: dict = {}
+
+    def sync_clusters(self, clusters) -> int:
+        if self.down:
+            raise ConnectionError("solver sidecar unreachable")
+        self._version += 1
+        self.syncs += 1
+        return self.service.sync_clusters(list(clusters), self._version)
+
+    def schedule(self, problems) -> list:
+        from karmada_tpu_torch.solver import RemoteScheduleResult, StaleSnapshotError
+        from karmada_tpu_torch.solver.client import call_with_resync
+        from karmada_tpu_torch.solver.service import encode_records, result_records
+
+        if self.down:
+            raise ConnectionError("solver sidecar unreachable")
+        self.requests += 1
+        t0 = time.perf_counter()
+        jsons, records = encode_records(problems)
+        t1 = time.perf_counter()
+        results = call_with_resync(
+            self, lambda _: self.service.solve(self._version, jsons, records),
+            lambda exc: isinstance(exc, StaleSnapshotError), self.sync_clusters)
+        t2 = time.perf_counter()
+        recs = result_records(results)
+        t3 = time.perf_counter()
+        out = [RemoteScheduleResult(key=r.key, clusters=dict(r.clusters), feasible=r.feasible,
+                                    affinity_name=r.affinity_name, error=r.error)
+               for r in recs]
+        split = self.service.last_split
+        self.split = {"client encode": t1 - t0, "decode": split["decode"],
+                      "engine": split["engine"], "encode": t3 - t2,
+                      "client decode": time.perf_counter() - t3}
+        return out
+
+
+def split_line(split: dict) -> str:
+    return ", ".join(f"{k} {v:.4f} s" for k, v in split.items())
+
+
+def run_sidecar(device, card: str, reference: dict, bindings=None, clusters=None) -> dict:
+    """Config 5 through the solver sidecar's in-process seam: a port
+    ``SolverService`` on ``device`` driven by ``InProcessSolver``. Steps:
+    ``sync_clusters`` at version 1, a cold request, the same request again
+    (new problem objects, so the engine's batch-identity replay misses and
+    the fleet's diff route runs, as on the wire), a request at version 0
+    (must raise ``StaleSnapshotError``), a re-sync at version 2 and the same
+    request, then bench.py's drift (seed 99, the storm's drift count) synced
+    at version 3 and the same request. ``reference`` is the config-5 fleet
+    phase's digests (``run_fleet_storm``): every row (key, placements,
+    error, affinity, feasible set) equals that phase's numpy-checked cold
+    pass, and the drift request its numpy-checked last pass; no row is
+    solved by the divider again. Each request prints its wall split and the
+    engine's ``last_breakdown``."""
+    import karmada_tpu_torch
+    from karmada_tpu_torch.solver import SolverService, StaleSnapshotError
+    from karmada_tpu_torch.solver.service import encode_records
+
+    t0 = time.perf_counter()
+    snap, problems = build_workload(karmada_tpu_torch, 5, bindings, clusters)
+    fleet = list(snap.clusters)
+    n = len(problems)
+    build_s = time.perf_counter() - t0
+    service = SolverService(device=device)
+    client = InProcessSolver(service)
+    out = {"walls": {}, "splits": {}}
+    reset_counts()
+    t0 = time.perf_counter()
+    client.sync_clusters(fleet)
+    sync_s = time.perf_counter() - t0
+
+    def request(tag: str, want, which: str) -> None:
+        t = time.perf_counter()
+        res = client.schedule(problems)
+        sync(device)
+        wall = time.perf_counter() - t
+        bad = int((outcome_digest(res) != want).sum())
+        out["walls"][tag] = wall
+        out["splits"][tag] = dict(client.split)
+        print(f"# sidecar {tag} request (version {service.snapshot_version}): {wall:.4f} s "
+              f"= {split_line(client.split)} [{breakdown_line(service._engine)}]; equal to "
+              f"the config-5 fleet phase's numpy-checked {which} pass: {n - bad} ok / "
+              f"{bad} bad; card {card}", flush=True)
+        if bad:
+            raise AssertionError(f"sidecar {tag} request: {bad} rows differ from the "
+                                 f"config-5 fleet phase's {which} pass")
+
+    request("cold", reference["cold"], "cold")
+    request("repeat", reference["cold"], "cold")
+    jsons, records = encode_records(problems)
+    try:
+        service.solve(0, jsons, records)
+    except StaleSnapshotError as exc:
+        stale = str(exc)
+    else:
+        raise AssertionError("sidecar: a request at version 0 was answered")
+    client.sync_clusters(fleet)
+    request("re-synced", reference["cold"], "cold")
+    t0 = time.perf_counter()
+    drift_snapshots(karmada_tpu_torch, snap, reference["drift"])
+    client.sync_clusters(fleet)
+    drift_sync_s = time.perf_counter() - t0
+    request("drift", reference["churn"][reference["checked"]], "last churn")
+    launches = read_counts()
+    print(f"# sidecar: {n} bindings x {len(fleet)} clusters (build {build_s:.1f} s); sync "
+          f"{sync_s:.4f} s, drift and re-sync {drift_sync_s:.4f} s; the version-0 request "
+          f"raised StaleSnapshotError ({stale}); launches "
+          f"{ {k: v for k, v in launches.items() if v} }; card {card}", flush=True)
+    out["launches"] = launches
+    return out
+
+
+def run_sidecar_estimator(device, card: str, est: dict, servers: int = 4) -> dict:
+    """The estimator-aware sidecar over the estimator phase's own state
+    (``run_estimator``'s node caches, snapshot and problems: 128 clusters x
+    4000 nodes, 10k bindings): the clusters' ``EstimatorService``s hosted on
+    ``servers`` ``MultiClusterEstimatorService``s of 32, each behind one
+    in-process ``EstimatorConnection``; ``solver.__main__.
+    estimator_service`` registers a ``RemoteAccurateEstimator`` a cluster
+    and revalidates the registry (``invalidate()``) before each solve.
+    The estimator phase's pod events are undone first, so the passes see
+    its state: cold, the same request (one ping a server, no re-fetch), and
+    the pod events again then the same request. Checks: the registry's RPC
+    counts (a batch RPC a server cold, none quiet, one for each server
+    hosting a moved cluster; a ping a server on the later passes), K8
+    launches (a cluster cold, none quiet, one a moved cluster), every
+    cluster answered and memoized, and every row equal to the estimator
+    phase's numpy-checked cold and pod-event passes."""
+    from karmada_tpu_torch.estimator import AccurateEstimator
+    from karmada_tpu_torch.estimator.service import (
+        EstimatorConnection,
+        EstimatorService,
+        MultiClusterEstimatorService,
+    )
+    from karmada_tpu_torch.solver.__main__ import estimator_service
+
+    snap, caches, problems, events = (est[k] for k in ("snap", "caches", "problems",
+                                                       "pod_events"))
+    for name, node, req in reversed(events):
+        caches[name].remove_pod(node, req)
+    names = snap.names
+    per = -(-len(names) // servers)
+    conns = {}
+    for k in range(servers):
+        hosted = names[k * per:(k + 1) * per]
+        conn = EstimatorConnection("multi", MultiClusterEstimatorService({
+            n: EstimatorService(AccurateEstimator(n, caches[n], device=device))
+            for n in hosted}))
+        conns.update(dict.fromkeys(hosted, conn))
+    service, registry = estimator_service(conns, device=device)
+    client = InProcessSolver(service)
+    client.sync_clusters(list(snap.clusters))
+    moved = sorted({name for name, _, _ in events})
+    hit = len({id(conns[name]) for name in moved})
+    want_rpcs = {"cold": {"batch": servers, "unary": 0, "ping": 0},
+                 "quiet": {"batch": 0, "unary": 0, "ping": servers},
+                 "pod events": {"batch": hit, "unary": 0, "ping": servers}}
+    want_k8 = {"cold": len(names), "quiet": 0, "pod events": len(moved)}
+    on_card = device.type == "cuda"
+    out = {"walls": {}, "splits": {}, "k8": {}, "rpcs": {},
+           "launches": dict.fromkeys(KERNELS, 0)}
+    for kind in ("cold", "quiet", "pod events"):
+        if kind == "pod events":
+            for name, node, req in events:
+                caches[name].add_pod(node, req)
+        before = dict(registry.rpc_counts)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = client.schedule(problems)
+        sync(device)
+        out["walls"][kind] = time.perf_counter() - t0
+        out["splits"][kind] = dict(client.split)
+        counts = read_counts()
+        for k, v in counts.items():
+            out["launches"][k] += v
+        out["k8"][kind] = counts["node_sum_estimate"]
+        rpcs = {k: registry.rpc_counts[k] - before[k] for k in before}
+        out["rpcs"][kind] = rpcs
+        unanswered = service._engine.extra_estimators[0].unanswered
+        memoized = {name for name, _ in registry._memo}
+        want = est["digests"]["cold" if kind == "quiet" else kind]
+        bad = int((outcome_digest(res) != want).sum())
+        print(f"# sidecar estimator {kind} pass {out['walls'][kind]:.4f} s = "
+              f"{split_line(client.split)}; RPCs {rpcs}; K8 launches {out['k8'][kind]}; "
+              f"unanswered {len(unanswered)}, memoized {len(memoized)} of {len(names)}; "
+              f"equal to the estimator phase's numpy-checked "
+              f"{'cold' if kind == 'quiet' else kind} pass: {len(problems) - bad} ok / "
+              f"{bad} bad; card {card}", flush=True)
+        if unanswered or memoized != set(names):
+            raise AssertionError(f"sidecar estimator {kind} pass: unanswered "
+                                 f"{sorted(unanswered)[:5]}, memoized {len(memoized)}")
+        if rpcs != want_rpcs[kind]:
+            raise AssertionError(f"sidecar estimator {kind} pass: RPCs {rpcs}, expected "
+                                 f"{want_rpcs[kind]}")
+        if on_card and out["k8"][kind] != want_k8[kind]:
+            raise AssertionError(f"sidecar estimator {kind} pass: {out['k8'][kind]} K8 "
+                                 f"launches, expected {want_k8[kind]}")
+        if bad:
+            raise AssertionError(f"sidecar estimator {kind} pass: {bad} rows differ")
+    print(f"# sidecar estimator: {len(names)} clusters on {servers} servers, "
+          f"{len(problems)} bindings; K8 launches by pass {out['k8']}; launches "
+          f"{ {k: v for k, v in out['launches'].items() if v} }; card {card}", flush=True)
+    return out
+
+
+def run_sidecar_controller(device, card: str, bindings=None, clusters=None,
+                           scale: int = 1000) -> dict:
+    """``SchedulerController(solver=...)`` over config 4 (10k bindings x 500
+    clusters), its client an ``InProcessSolver`` on a port
+    ``SolverService``: a cold wave through the sidecar; a scale wave of
+    ``scale`` bindings while the client raises ``ConnectionError`` (the
+    controller serves it on its in-process engine on ``device``, counts
+    one ``degraded_passes{channel="solver"}`` and drops its sync mark); a
+    second scale wave with the sidecar back, which re-syncs before it is
+    answered; a cluster event (one cluster's status refreshed) with a third
+    scale wave, which re-syncs through the controller's cluster-event
+    handler and moves no unscaled row. Every wave's scaled placements pass
+    ``written_check`` (the numpy divider) on the engine that solved it."""
+    import karmada_tpu_torch
+    from karmada_tpu_torch.controllers import SchedulerController
+    from karmada_tpu_torch.scheduler import BindingProblem
+    from karmada_tpu_torch.solver import SolverService
+    from karmada_tpu_torch.utils import Runtime, Store
+    from karmada_tpu_torch.utils.metrics import degraded_passes
+
+    snap, problems = build_workload(karmada_tpu_torch, 4, bindings, clusters)
+    cluster_objs, rbs, _ = binding_objects(karmada_tpu_torch, snap, problems)
+    n = len(problems)
+    service = SolverService(device=device)
+    client = InProcessSolver(service)
+    store, rt = Store(), Runtime()
+    ctl = SchedulerController(store, rt, solver=client, device=device)
+    ctl.worker.MAX_RETRIES = ctl.worker.POISON_TOLERANCE = 0
+    store.apply_many(cluster_objs)
+    out = {"waves": {}, "launches": {}}
+    rng = np.random.default_rng(5)
+
+    def apply(objs) -> float:
+        t0 = time.perf_counter()
+        if store.apply_many(objs):
+            raise AssertionError("sidecar controller: the store refused objects")
+        return time.perf_counter() - t0
+
+    def scaled_wave():
+        idx = sorted(map(int, rng.choice(n, min(scale, n), replace=False)))
+        objs, want = [], []
+        for i in idx:
+            rb, p = rbs[i], problems[i]
+            rb.spec.replicas = rb.spec.replicas % 40 + 1
+            rb.meta.generation += 1
+            objs.append(rb)
+            want.append(BindingProblem(
+                key=p.key, placement=p.placement, replicas=rb.spec.replicas,
+                requests=p.requests, gvk=p.gvk,
+                prev={tc.name: tc.replicas for tc in rb.spec.clusters}))
+        return objs, want
+
+    def wave(tag, objs, want, engine_of, rows=None):
+        reset_counts()
+        w = settle_wave(f"sidecar controller {tag}", rt, ctl, device, card, apply(objs),
+                        engine_of=engine_of)
+        out["launches"][tag] = read_counts()
+        bad = written_check(engine_of(), want, objs) + unwritten(objs)
+        print(f"# sidecar controller {tag}: {len(objs)} bindings, engine passes "
+              f"{w['passes']}; written and held to the numpy divider {len(objs) - bad} ok / "
+              f"{bad} bad; client syncs {client.syncs}, requests {client.requests}; "
+              f"launches { {k: v for k, v in out['launches'][tag].items() if v} }; "
+              f"card {card}", flush=True)
+        if w["passes"] != [len(objs) if rows is None else rows] or bad:
+            raise AssertionError(f"sidecar controller {tag}: passes {w['passes']}, {bad} "
+                                 f"rows unwritten or differ from the numpy divider")
+        out["waves"][tag] = w
+
+    wave("cold wave", rbs, problems, lambda: service._engine)
+    if (client.syncs, client.requests) != (1, 1) or ctl._engine is not None:
+        raise AssertionError(f"sidecar controller cold wave: {client.syncs} syncs, "
+                             f"{client.requests} requests, in-process engine "
+                             f"{ctl._engine is not None}")
+    degraded0 = degraded_passes.value(channel="solver")
+    client.down = True
+    objs, want = scaled_wave()
+    wave("fallback wave", objs, want, lambda: ctl._engine)
+    degraded = degraded_passes.value(channel="solver") - degraded0
+    if degraded != 1 or ctl._solver_synced or client.requests != 1:
+        raise AssertionError(f"sidecar controller fallback wave: degraded passes "
+                             f"{degraded}, synced {ctl._solver_synced}, requests "
+                             f"{client.requests}")
+    client.down = False
+    objs, want = scaled_wave()
+    wave("recovery wave", objs, want, lambda: service._engine)
+    if (client.syncs, client.requests) != (2, 2) or not ctl._solver_synced:
+        raise AssertionError(f"sidecar controller recovery wave: {client.syncs} syncs, "
+                             f"{client.requests} requests")
+    # a cluster event (one cluster's status refreshed, nothing changed)
+    # drops the sync mark through _on_cluster_event and re-enqueues every
+    # binding: the next wave re-syncs before its one request, schedules the
+    # scaled rows and those the gate always passes, and moves no other row
+    objs, want = scaled_wave()
+    scaled = {rb.meta.namespaced_name for rb in objs}
+    steady = {rb.meta.namespaced_name: written(rb) for rb in rbs
+              if rb.meta.namespaced_name not in scaled}
+    t0 = time.perf_counter()
+    store.apply(cluster_objs[0])
+    event_s = time.perf_counter() - t0
+    if ctl._solver_synced:
+        raise AssertionError("sidecar controller: a cluster event left the sync mark set")
+    rows = sum(ctl._needs_scheduling(rb)[0] for rb in rbs)
+    wave("cluster-event wave", objs, want, lambda: service._engine, rows=rows)
+    out["waves"]["cluster-event wave"]["apply_s"] += event_s
+    moved = sum(written(rb) != steady[rb.meta.namespaced_name] for rb in rbs
+                if rb.meta.namespaced_name in steady)
+    if (client.syncs, client.requests) != (3, 3) or not ctl._solver_synced or moved:
+        raise AssertionError(f"sidecar controller cluster-event wave: {client.syncs} syncs, "
+                             f"{client.requests} requests, {moved} unscaled rows moved")
+    print(f"# sidecar controller: {n} bindings x {snap.num_clusters} clusters; degraded "
+          f"passes {degraded}; the recovery wave re-synced first, and the cluster-event "
+          f"wave's {rows} rows after a re-sync (syncs {client.syncs}), {moved} unscaled "
+          f"rows moved; card {card}", flush=True)
     return out
 
 
@@ -6577,11 +6988,13 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     stats, paths = {}, {}
+    phase_walls = {}
 
     def phase(name, fn):
         t = time.perf_counter()
         out = fn()
-        print(f"# phase {name}: {time.perf_counter() - t:.1f} s", flush=True)
+        phase_walls[name] = time.perf_counter() - t
+        print(f"# phase {name}: {phase_walls[name]:.1f} s", flush=True)
         return out
 
     def kernels():
@@ -6691,6 +7104,27 @@ def main() -> int:
         require_launched("config 5 general", out["launches"])
         paths["general"] = out
 
+    def sidecar():
+        out = run_sidecar(device, card, paths["storm"]["digests"])
+        require_launched("sidecar", out["launches"])
+        paths["sidecar"] = out
+
+    def sidecar_estimator():
+        est = paths["estimator"]
+        try:
+            out = run_sidecar_estimator(device, card, est)
+        finally:
+            for k in ("caches", "snap", "problems", "pod_events"):
+                est.pop(k)
+        require_launched("sidecar estimator", out["launches"])
+        paths["sidecar estimator"] = out
+
+    def sidecar_controller():
+        out = run_sidecar_controller(device, card)
+        for wave in ("cold wave", "fallback wave"):
+            require_launched("sidecar controller", out["launches"][wave])
+        paths["sidecar controller"] = out
+
     def models():
         # two steady and two churn passes (three on the plain storm): depth cut
         # to keep the whole smoke near half its time limit
@@ -6752,7 +7186,9 @@ def main() -> int:
                      ("configs", configs), ("storm", storm),
                      ("explain fleet", explain_fleet), ("legacy", legacy), ("mixed", mixed),
                      ("mixed legacy", mixed_legacy), ("general", general),
-                     ("models", models), ("estimator", estimator),
+                     ("sidecar", sidecar), ("models", models), ("estimator", estimator),
+                     ("sidecar estimator", sidecar_estimator),
+                     ("sidecar controller", sidecar_controller),
                      ("quota", quota), ("ranked", ranked), ("preemption", preemption),
                      ("controller", controller), ("plane", plane)):
         phase(name, fn)
@@ -6783,6 +7219,22 @@ def main() -> int:
           f"; K17 launches: ranked pass {paths['ranked']['launches']['first_fit_group']}, "
           f"preemption surge {paths['preemption']['launches']['first_fit_group']}",
           flush=True)
+    print("# phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_walls.items()),
+          flush=True)
+    side, side_est = paths["sidecar"], paths["sidecar estimator"]
+    print("# sidecar request splits (s): " + "; ".join(
+        f"{tag} {side['walls'][tag]:.4f} = {split_line(split)}"
+        for tag, split in side["splits"].items())
+        + "; sidecar estimator passes: " + "; ".join(
+        f"{kind} {side_est['walls'][kind]:.4f} = {split_line(split)}"
+        for kind, split in side_est["splits"].items()), flush=True)
+    print("# sidecar launches (config 5 through SolverService's core): "
+          + ", ".join(f"{k} {v}" for k, v in side["launches"].items() if v)
+          + "; request walls " + ", ".join(f"{k} {w:.4f} s" for k, w in side["walls"].items())
+          + f"; sidecar estimator K8 by pass {paths['sidecar estimator']['k8']}, RPCs by "
+          f"pass {paths['sidecar estimator']['rpcs']}; sidecar controller waves "
+          + ", ".join(f"{k} {w['apply_s'] + w['wall']:.2f} s"
+                      for k, w in paths["sidecar controller"]["waves"].items()), flush=True)
     ctl = paths["controller"]
     print("# controller launches (through SchedulerController): cold wave "
           + ", ".join(f"{k} {ctl['cold_launches'][k]}"

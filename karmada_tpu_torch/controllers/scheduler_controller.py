@@ -12,12 +12,20 @@ keeps the cluster snapshot fresh (cluster events invalidate it), and writes
 results and conditions back. The engine options reach every engine it
 builds: ``extra_estimators`` (the plane's accurate estimators),
 ``disabled_plugins`` and ``custom_filters``; ``estimator_registry`` is
-invalidated on every cluster event. What the JAX controller adds for its
-out-of-process solver sidecar (the gRPC channel, the per-wave reroutes to
-the in-process engine and the degraded-mode fallback) is not part of this
-copy: ``solver=`` raises ``NotImplementedError`` (ROADMAP A6). Nor is the
-lease write barrier, which comes with leader election over a shared store
-(ROADMAP A7d).
+invalidated on every cluster event.
+
+``solver=`` routes scheduling to an out-of-process solver sidecar (either
+package's ``RemoteSolver``/``HASolver``, or any object with
+``sync_clusters(clusters)`` and ``schedule(problems)``): cluster state is
+pushed before the first pass after every cluster event, waves with
+bindings in a FederatedResourceQuota'd namespace or with priority > 0
+reroute to the in-process engine (the sidecar carries neither channel), and
+a transport failure serves that pass on the in-process engine on
+``device`` (``karmada_tpu_degraded_passes_total{channel="solver"}``) and
+re-syncs the sidecar before its next pass. Still to come: the lease write
+barrier, which comes with leader election over a shared store (``store=``,
+ROADMAP A7d), the metrics server and the tracer's peers (A17), prewarm
+(A14) and a device mesh (A15).
 """
 
 from __future__ import annotations
@@ -35,8 +43,8 @@ DEFAULT_SCHEDULER = "default-scheduler"
 
 def _takes_dirty_keys(engine) -> bool:
     """Whether ``engine.schedule`` is the genuine tensor-engine method
-    (which takes the ``dirty_keys`` kwarg) rather than a patched-in double
-    with the narrower legacy signature."""
+    (which takes the ``dirty_keys`` kwarg) rather than a sidecar proxy or a
+    patched-in double with the narrower legacy signature."""
     return (
         isinstance(engine, TensorScheduler)
         and "schedule" not in vars(engine)
@@ -45,6 +53,24 @@ def _takes_dirty_keys(engine) -> bool:
 
 
 _TENSOR_SCHEDULE = TensorScheduler.schedule
+
+
+def _is_transport_error(exc: Exception) -> bool:
+    """Solver-channel failures that trigger the in-process fallback (grpc
+    is imported lazily, and absent it no exception is a grpc error)."""
+    from ..utils.backoff import CircuitBreakerOpen, DeadlineExceeded
+    from ..utils.faultinject import FaultError
+
+    if isinstance(
+        exc, (CircuitBreakerOpen, DeadlineExceeded, FaultError,
+              ConnectionError, TimeoutError)
+    ):
+        return True
+    try:
+        import grpc
+    except ImportError:
+        return False
+    return isinstance(exc, grpc.RpcError)
 
 
 class SchedulerController:
@@ -61,12 +87,6 @@ class SchedulerController:
         estimator_registry=None,
         device="cuda",
     ) -> None:
-        if solver is not None:
-            raise NotImplementedError(
-                "the solver sidecar is not ported to karmada_tpu_torch yet; "
-                "the JAX controller (karmada_tpu.controllers."
-                "SchedulerController) serves it"
-            )
         self.store = store
         self.runtime = runtime
         self.scheduler_name = scheduler_name
@@ -74,7 +94,15 @@ class SchedulerController:
         # extra_estimators): cluster events invalidate its memoized
         # estimates so the next pass re-queries live member state
         self.estimator_registry = estimator_registry
-        # every engine this controller builds runs on this device
+        # out-of-process solver sidecar: when set, scheduling goes over its
+        # channel instead of the in-process engine, with cluster state
+        # pushed after cluster events
+        self.solver = solver
+        self._solver_synced = False
+        if solver is not None:
+            solver._cluster_source = self._sorted_clusters
+        # every engine this controller builds (the in-process engine and
+        # the sidecar's fallback) runs on this device
         self.device = device
         # last_scheduled_time is compared against rescheduleTriggeredAt,
         # which other controllers stamp from the plane clock — both sides
@@ -151,6 +179,7 @@ class SchedulerController:
 
     def _on_cluster_event(self, event) -> None:
         self._snapshot = None  # invalidate; rebuild lazily
+        self._solver_synced = False  # sidecar re-sync before next schedule
         # quota caps pack against the cluster columns: rebuild the quota
         # snapshot against the refreshed cluster snapshot too
         self._quota_snap_gen = -1
@@ -167,6 +196,14 @@ class SchedulerController:
 
     def _sorted_clusters(self):
         return sorted(self.store.list("Cluster"), key=lambda c: c.name)
+
+    def _get_engine(self):
+        if self.solver is not None:
+            if not self._solver_synced:
+                self.solver.sync_clusters(self._sorted_clusters())
+                self._solver_synced = True
+            return self.solver
+        return self._inproc_engine()
 
     @staticmethod
     def _quota_enforcement_enabled() -> bool:
@@ -185,6 +222,60 @@ class SchedulerController:
         return os.environ.get(
             "KARMADA_TPU_PREEMPTION", "1"
         ).lower() not in ("0", "false", "")
+
+    def _quota_namespaces(self) -> set:
+        """Namespaces carrying an FRQ when enforcement is on (empty = the
+        quota plane is inert for routing purposes)."""
+        if not self._quota_enforcement_enabled():
+            return set()
+        return {
+            frq.meta.namespace
+            for frq in self.store.list("FederatedResourceQuota")
+        }
+
+    def _route_engine_for_quota(self, engine, problems=()):
+        """The solver sidecar has no quota channel: a wave that must
+        enforce quota falls back to the in-process engine (the same
+        degraded-mode seam transport failures use) instead of silently
+        scheduling quota'd bindings unbounded. Scoped to the WAVE: only
+        waves that actually contain bindings in quota'd namespaces
+        reroute."""
+        if hasattr(engine, "set_quota"):
+            return engine
+        quota_ns = self._quota_namespaces()
+        if not quota_ns or not any(p.namespace in quota_ns for p in problems):
+            return engine
+        if not getattr(self, "_quota_solver_warned", False):
+            self._quota_solver_warned = True
+            print(
+                "# scheduler: FederatedResourceQuota enforcement is not "
+                "supported over the solver sidecar; quota waves take the "
+                "in-proc engine (set KARMADA_TPU_QUOTA_ENFORCEMENT=0 to "
+                "route them to the sidecar unenforced)",
+                flush=True,
+            )
+        return self._inproc_engine()
+
+    def _route_engine_for_scarcity(self, engine, problems=()):
+        """The solver sidecar has no preemption channel either: a wave
+        carrying priority>0 bindings reroutes in-process while preemption
+        is armed, scoped exactly like the quota reroute."""
+        if hasattr(engine, "set_preemption"):
+            return engine
+        if not self._preemption_enabled() or not any(
+            p.priority > 0 for p in problems
+        ):
+            return engine
+        if not getattr(self, "_preempt_solver_warned", False):
+            self._preempt_solver_warned = True
+            print(
+                "# scheduler: priority preemption is not supported over "
+                "the solver sidecar; priority waves take the in-proc "
+                "engine (set KARMADA_TPU_PREEMPTION=0 to route them to "
+                "the sidecar without preemption)",
+                flush=True,
+            )
+        return self._inproc_engine()
 
     def _victim_problems(self, exclude_keys):
         """The resident victim pool the engine's preemption pass selects
@@ -210,7 +301,11 @@ class SchedulerController:
 
     def _ensure_engine_quota(self, engine) -> None:
         """Hand the engine a current QuotaSnapshot (None = no FRQs or
-        enforcement disabled)."""
+        enforcement disabled). In-process engines only: the solver sidecar
+        has no quota channel — _route_engine_for_quota sends quota waves
+        to the in-process path before this runs."""
+        if not hasattr(engine, "set_quota"):
+            return
         if not self._quota_enforcement_enabled():
             # live kill switch: the engine's quota hook disarms this pass
             # (the packed snapshot cache survives for a re-enable)
@@ -232,7 +327,10 @@ class SchedulerController:
 
     def _inproc_engine(self) -> TensorScheduler:
         """The snapshot-backed engine on ``device``, rebuilt lazily after a
-        cluster event."""
+        cluster event: the default when no sidecar is configured, and the
+        degraded-mode fallback when the sidecar channel is down (its
+        breaker open or the RPC failing) — scheduling never stalls on a
+        dead solver."""
         if self._snapshot is None:
             clusters = self._sorted_clusters()
             snap = ClusterSnapshot(clusters)
@@ -368,29 +466,57 @@ class SchedulerController:
             wave_dirty = self._dirty_problem_keys
             self._dirty_problem_keys = set()
             sp.attrs["dirty_rows"] = len(wave_dirty)
-            engine = self._inproc_engine()
-            self._ensure_engine_quota(engine)
-            # the scarcity plane is armed for this pass only (dry solves and
-            # other callers of the same engine must never inherit an armed
-            # victim source)
-            armed = self._preemption_enabled() and any(
-                p.priority > 0 for p in problems
-            )
-            preemption = None
-            if armed:
-                engine.set_preemption(self._victim_problems)
+
+            def _solve_on(engine):
+                """One engine pass with the scarcity plane armed for its
+                duration only (dry solves and other callers of the same
+                engine must never inherit an armed victim source)."""
+                self._ensure_engine_quota(engine)
+                armed = (
+                    hasattr(engine, "set_preemption")
+                    and self._preemption_enabled()
+                    and any(p.priority > 0 for p in problems)
+                )
+                if armed:
+                    engine.set_preemption(self._victim_problems)
+                try:
+                    # dirty keys ride only the genuine tensor engine; a
+                    # sidecar proxy or a patched-in test double keeps its
+                    # narrower contract
+                    if _takes_dirty_keys(engine):
+                        results = engine.schedule(problems, dirty_keys=wave_dirty)
+                    else:
+                        results = engine.schedule(problems)
+                    return results, (engine.last_preemption if armed else None)
+                finally:
+                    if armed:
+                        engine.set_preemption(None)
+
             try:
-                # dirty keys ride only the genuine tensor engine; a
-                # patched-in test double keeps its narrower contract
-                if _takes_dirty_keys(engine):
-                    results = engine.schedule(problems, dirty_keys=wave_dirty)
-                else:
-                    results = engine.schedule(problems)
-                if armed:
-                    preemption = engine.last_preemption
-            finally:
-                if armed:
-                    engine.set_preemption(None)
+                engine = self._route_engine_for_scarcity(
+                    self._route_engine_for_quota(self._get_engine(), problems),
+                    problems,
+                )
+                results, preemption = _solve_on(engine)
+            except Exception as exc:  # noqa: BLE001 — transport triage below
+                if self.solver is None or not _is_transport_error(exc):
+                    raise
+                # degraded mode: a broken solver sidecar fails over to the
+                # in-process engine for this pass — the breaker's half-open
+                # probe re-admits the sidecar without operator action, and
+                # _solver_synced stays False so recovery re-pushes the
+                # snapshot first
+                from ..utils.metrics import degraded_passes
+
+                degraded_passes.inc(channel="solver")
+                self._solver_synced = False
+                sp.attrs["degraded"] = "solver-fallback"
+                print(
+                    "# scheduler: solver sidecar unavailable "
+                    f"({type(exc).__name__}); in-proc solve for this pass",
+                    flush=True,
+                )
+                results, preemption = _solve_on(self._inproc_engine())
             sp.attrs["bindings"] = len(todo)
             if preemption is not None and preemption.victims:
                 sp.attrs["preempted"] = len(preemption.victims)
@@ -487,19 +613,23 @@ class SchedulerController:
         admission would deny). A dry pass leaves NO trace on the live
         plane: the quota working ``remaining`` is restored and the
         provenance store is disarmed for its duration. ``dirty_keys``
-        threads the caller's known-churn set into the engine."""
-        engine = self._inproc_engine()
+        threads the caller's known-churn set into the engine. Over a solver
+        sidecar the pass goes to the sidecar, unless it must enforce
+        quota."""
+        engine = self._route_engine_for_quota(self._get_engine(), problems)
         self._ensure_engine_quota(engine)
-        q = engine.quota
+        q = getattr(engine, "quota", None)
         saved_remaining = q.remaining.copy() if q is not None else None
-        saved_explain = engine.explain
-        engine.set_explain(None)
+        saved_explain = getattr(engine, "explain", None)
+        if hasattr(engine, "set_explain"):
+            engine.set_explain(None)
         try:
             if _takes_dirty_keys(engine):
                 return engine.schedule(problems, dirty_keys=dirty_keys)
             return engine.schedule(problems)
         finally:
-            engine.set_explain(saved_explain)
+            if hasattr(engine, "set_explain"):
+                engine.set_explain(saved_explain)
             if q is not None:
                 q.remaining = saved_remaining
 

@@ -22,9 +22,15 @@ Usage:
     cp.store.apply(template); cp.store.apply(policy)
     cp.settle()          # -> works applied into member clusters
 
-Not ported yet, so absent here: the solver sidecar (``solver=`` raises
-``NotImplementedError``, ROADMAP A6); an external store (``store=``, which
+``solver=`` routes scheduling through an out-of-process solver sidecar
+(either package's ``RemoteSolver`` or ``HASolver``; the scheduler reroutes
+quota and priority waves, and passes whose sidecar is down, to its
+in-process engine on ``device``).
+
+Not ported yet, so absent here: an external store (``store=``, which
 needs the store bus, and leader election over it, ROADMAP A7d); the
+metrics server and the tracer's peers (ROADMAP A17), prewarm (A14), a
+device mesh (A15); the
 search cache and proxy, the metrics adapter and the declarative and webhook
 interpreters' configuration managers (ROADMAP A7b); FederatedHPA and
 CronFederatedHPA, multi-cluster services and ingress (ROADMAP A7d); and an
@@ -92,7 +98,8 @@ class ControlPlane:
         # (cmd/scheduler/app/options/options.go:130-165 analogue)
         disabled_scheduler_plugins=(),
         scheduler_filter_plugins=(),
-        # the out-of-process solver sidecar: not ported (raises)
+        # out-of-process solver sidecar (a RemoteSolver of either package):
+        # routes Score/Assign over gRPC instead of the in-process engine
         solver=None,
         # external admission hooks: every store write goes through these
         # instead of the in-process chain

@@ -20,11 +20,12 @@ Spec grammar (semicolon-separated rules)::
 
 Actions: ``error``, ``drop``, ``delay``, ``sever`` (the transport seams'
 actions) and ``down`` (the cluster model reads the member as unreachable;
-``cluster.health`` only). The port's one injection point is
-``cluster.health`` in ``ClusterStatusController.collect``. The JAX module's
-RPC seams (``estimator.rpc``, ``solver.rpc``, ``bus.rpc``, ``bus.watch``)
-and their action interpreter (``injected_error``, ``apply_fault``) come
-with the gRPC transports and the store bus (ROADMAP A6, A7b).
+``cluster.health`` only). The port's injection points are
+``cluster.health`` in ``ClusterStatusController.collect`` and the RPC seams
+of the gRPC transports, ``estimator.rpc`` (``GrpcEstimatorConnection``) and
+``solver.rpc`` (``RemoteSolver``), which ``apply_fault`` interprets. The
+JAX module's store-bus seams (``bus.rpc``, ``bus.watch``) come with the
+store bus (ROADMAP A7b).
 """
 
 from __future__ import annotations
@@ -43,7 +44,34 @@ _ACTIONS = ("error", "drop", "delay", "sever", "down")
 
 
 class FaultError(Exception):
-    """Base of every injected failure."""
+    """Base of every injected failure (seams re-dress it as the channel's
+    natural error type via ``injected_error`` so retry paths engage)."""
+
+
+_grpc_fault_cls = None
+
+
+def injected_error(point: str, key: str = "") -> Exception:
+    """An exception that is BOTH ``FaultError`` and ``grpc.RpcError`` with
+    ``code() == UNAVAILABLE`` — the gRPC seams raise this so their callers'
+    ``except grpc.RpcError`` retry/failover paths treat an injected fault
+    exactly like a real channel failure."""
+    global _grpc_fault_cls
+    if _grpc_fault_cls is None:
+        import grpc  # lazy: the module imports without grpc
+
+        class _InjectedRpcError(FaultError, grpc.RpcError):
+            def __init__(self, message: str):
+                super().__init__(message)
+
+            def code(self):
+                return grpc.StatusCode.UNAVAILABLE
+
+            def details(self):
+                return str(self)
+
+        _grpc_fault_cls = _InjectedRpcError
+    return _grpc_fault_cls(f"injected fault at {point} ({key})")
 
 
 @dataclass
@@ -193,3 +221,26 @@ def fault_point(point: str, key: str = "") -> Optional[FaultRule]:
     if _INJECTOR is None:
         return None
     return _INJECTOR.fire(point, key)
+
+
+def apply_fault(
+    rule: Optional[FaultRule], point: str, key: str = "", *, channel=None
+) -> None:
+    """Standard action interpreter for RPC seams: sleep for delay/drop,
+    close the channel for sever, raise the injected transport error for
+    error/drop/sever. ``delay`` returns normally (the call proceeds)."""
+    if rule is None:
+        return
+    import time as _time
+
+    if rule.action == "delay":
+        _time.sleep(rule.delay_s)
+        return
+    if rule.action == "drop":
+        _time.sleep(rule.delay_s)
+    if rule.action == "sever" and channel is not None:
+        try:
+            channel.close()
+        except Exception:  # noqa: BLE001 — sever teardown is best-effort
+            pass
+    raise injected_error(point, key)

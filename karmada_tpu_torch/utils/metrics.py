@@ -1,8 +1,10 @@
 """Observability: counters, gauges and histograms with a Prometheus registry.
 
 The port's own copy of the metric types of ``karmada_tpu/utils/metrics.py``
-and of the families the scheduler process, the propagation path and the FRQ
-status controller move. Ref:
+and of the families the scheduler process, the propagation path, the FRQ
+status controller, the estimator and solver channels (their servers, the
+registry's wire traffic) and the unified channel resilience
+(``utils.backoff``) move. Ref:
 pkg/scheduler/metrics/metrics.go:61-115 (schedule_attempts_total,
 e2e_scheduling_duration_seconds) and pkg/metrics (controller metrics). Text
 exposition follows the Prometheus format (``Registry.render``). The JAX
@@ -300,4 +302,44 @@ quota_used = registry.gauge(
     "karmada_tpu_quota_used",
     "FederatedResourceQuota status.overall_used by namespace and "
     "resource, recomputed live from bound ResourceBindings",
+)
+estimator_rpcs = registry.counter(
+    "karmada_tpu_estimator_rpcs_total",
+    "scheduler-side estimator wire traffic by kind (batch matrix RPCs, "
+    "per-profile unary fallback calls, generation pings)",
+)
+estimator_delta_requeries = registry.counter(
+    "karmada_tpu_estimator_delta_requery_total",
+    "clusters whose availability was re-fetched after a generation "
+    "movement (the delta half of the generation-gated refresh)",
+)
+estimator_refresh_seconds = registry.histogram(
+    "karmada_tpu_estimator_refresh_seconds",
+    "wall time of one registry refresh (pings + grouped fan-out)",
+)
+estimator_server_requests = registry.counter(
+    "karmada_tpu_estimator_server_requests_total",
+    "estimator-server RPCs served, by method",
+)
+solver_requests = registry.counter(
+    "karmada_tpu_solver_requests_total",
+    "solver-sidecar RPCs served, by method",
+)
+circuit_state = registry.gauge(
+    "karmada_tpu_circuit_state",
+    "per-channel circuit-breaker state (0 closed, 1 open, 2 half-open) — "
+    "the unified resilience policy of utils.backoff; an open estimator or "
+    "solver breaker marks every pass it shadows as degraded",
+)
+channel_retries = registry.counter(
+    "karmada_tpu_channel_retries_total",
+    "RPC attempts retried under the unified backoff policy, by channel "
+    "(each is one decorrelated-jitter sleep inside one deadline budget)",
+)
+degraded_passes = registry.counter(
+    "karmada_tpu_degraded_passes_total",
+    "passes served on a channel's degraded path, by channel: solver = "
+    "in-proc fallback solve, estimator = at least one registered cluster "
+    "answered UnauthenticReplica (such a pass never arms batch-identity "
+    "replay)",
 )

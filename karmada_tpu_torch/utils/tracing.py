@@ -12,10 +12,18 @@ one ``scheduler.pass`` span per engine pass under it (attrs ``bindings``,
 ``tracer.current_context().wave`` to stamp its provenance captures and
 records ``scheduler.explain`` and ``scheduler.preempt`` spans.
 
+Across processes, the trace context rides gRPC invocation metadata
+(``trace_metadata`` on the client, ``decode_trace_metadata`` in the server
+handler) and a handler records its span under the caller's wave with
+``server_span``; ``activate`` and ``ContextPropagatingExecutor`` carry the
+context onto fan-out threads, and ``open_manual``/``close_manual`` time a
+window that closes on another thread. The solver sidecar and the estimator
+servers record their ``solver.*`` and ``estimator.*`` spans this way.
+
 What the JAX module adds on top (the wave-history sampler and the slow-wave
-flight recorder that ``end_wave`` runs, cross-process peers, stitching and
+flight recorder that ``end_wave`` runs, the peer registry, stitching and
 flight files) belongs to the control plane's observability and is not part
-of this copy.
+of this copy (ROADMAP A17).
 
 Thread-safety: the ring and the wave bookkeeping mutate under one lock; the
 open-span parent chain is thread-local.
@@ -82,6 +90,58 @@ class Span:
         }
 
 
+#: gRPC metadata keys carrying the context (lowercase per gRPC rules)
+MD_WAVE = "karmada-tpu-wave"
+MD_TRACE = "karmada-tpu-trace"
+MD_SPAN = "karmada-tpu-span"
+MD_PROC = "karmada-tpu-proc"
+
+
+def trace_metadata(ctx: Optional[TraceContext]) -> tuple:
+    """``ctx`` as gRPC invocation metadata pairs (empty when no context —
+    callers splice this into the stub call unconditionally)."""
+    if ctx is None or not ctx.trace_id:
+        return ()
+    return (
+        (MD_WAVE, str(ctx.wave)),
+        (MD_TRACE, ctx.trace_id),
+        (MD_SPAN, "" if ctx.span_id is None else str(ctx.span_id)),
+        (MD_PROC, ctx.proc),
+    )
+
+
+def decode_trace_metadata(pairs) -> Optional[TraceContext]:
+    """Decode a server handler's invocation metadata back to a context.
+    Tolerant: absent or malformed values answer None (an untraced caller
+    must never fail the RPC)."""
+    if not pairs:
+        return None
+    md = {}
+    try:
+        for k, v in pairs:
+            md[str(k).lower()] = v
+    except (TypeError, ValueError):
+        return None
+    trace_id = md.get(MD_TRACE, "")
+    if not trace_id:
+        return None
+    try:
+        wave = int(md.get(MD_WAVE, "0") or 0)
+    except ValueError:
+        return None
+    raw_span = md.get(MD_SPAN, "")
+    span_id: Optional[int] = None
+    if raw_span:
+        try:
+            span_id = int(raw_span)
+        except ValueError:
+            return None
+    return TraceContext(
+        wave=wave, trace_id=str(trace_id), span_id=span_id,
+        proc=str(md.get(MD_PROC, "") or "peer"),
+    )
+
+
 def _env_capacity() -> int:
     raw = os.environ.get(TRACE_CAPACITY_ENV, "").strip()
     if not raw:
@@ -112,6 +172,12 @@ class WaveTracer:
         self.proc = "plane"
         self._trace_ids: dict[int, str] = {}
         self._dropped_total = 0
+
+    def set_process(self, name: str) -> None:
+        """The process name spans propagate as their caller (``solver``,
+        ``estimator``); set once at an entry point's boot."""
+        with self._lock:
+            self.proc = name
 
     # -- waves -------------------------------------------------------------
 
@@ -158,19 +224,40 @@ class WaveTracer:
 
     def _open_ctx(self) -> tuple[int, str, Optional[int]]:
         """(wave, trace id, parent span id) for a span opening now on this
-        thread: the innermost open span, else the process-wide current
+        thread: the innermost open span, then the thread's ambient context
+        (executor tasks, server handlers), else the process-wide current
         wave."""
         stack = self._stack()
         if stack:
             top = stack[-1]
             return top.wave, top.trace_id, top.span_id
+        amb = getattr(self._local, "ambient", None)
+        if amb is not None:
+            return amb.wave, amb.trace_id, amb.span_id
         with self._lock:
             return self.current_wave, self._trace_ids.get(self.current_wave, ""), None
 
     def current_context(self) -> TraceContext:
-        """The innermost open span of this thread, else the current wave."""
+        """The context a client seam propagates: the innermost open span
+        (or ambient context) of this thread, else the current wave."""
         wave, trace_id, parent = self._open_ctx()
         return TraceContext(wave=wave, trace_id=trace_id, span_id=parent, proc=self.proc)
+
+    @contextmanager
+    def activate(self, ctx: Optional[TraceContext]):
+        """Install ``ctx`` as this thread's ambient context: spans opened
+        with no local parent nest under ``ctx.span_id``'s wave and trace.
+        Fan-out executors capture ``current_context()`` before submit and
+        activate it in the task."""
+        if ctx is None:
+            yield
+            return
+        prev = getattr(self._local, "ambient", None)
+        self._local.ambient = ctx
+        try:
+            yield
+        finally:
+            self._local.ambient = prev
 
     def _append(self, sp: Span) -> None:
         with self._lock:
@@ -194,7 +281,30 @@ class WaveTracer:
         attrs. A span whose attrs hold ``_discard=True`` at close never
         reaches the ring."""
         wave, trace_id, parent = self._open_ctx()
-        sp = self._new_span(name, wave, trace_id, parent, dict(attrs))
+        with self._span_at(name, wave, trace_id, parent, dict(attrs)) as sp:
+            yield sp
+
+    @contextmanager
+    def server_span(self, name: str, ctx: Optional[TraceContext], **attrs):
+        """The server half of context propagation: record a handler span
+        under the CALLER's wave and trace. A remote caller's span id cannot
+        be a local parent (ids are per process), so it lands in
+        ``remote_parent`` (with ``caller``); an in-process caller (same
+        ``proc``) nests naturally."""
+        if ctx is None or ctx.proc == self.proc:
+            with self.span(name, **attrs) as sp:
+                yield sp
+            return
+        attrs = dict(attrs)
+        attrs["remote_parent"] = ctx.span_id
+        attrs["caller"] = ctx.proc
+        with self._span_at(name, ctx.wave, ctx.trace_id, None, attrs) as sp:
+            yield sp
+
+    @contextmanager
+    def _span_at(self, name: str, wave: int, trace_id: str, parent: Optional[int],
+                 attrs: dict):
+        sp = self._new_span(name, wave, trace_id, parent, attrs)
         stack = self._stack()
         stack.append(sp)
         try:
@@ -215,6 +325,23 @@ class WaveTracer:
         self._append(sp)
         return sp
 
+    def open_manual(self, name: str, ctx: Optional[TraceContext] = None,
+                    **attrs) -> Span:
+        """Allocate an OPEN span without pushing it on this thread's stack,
+        for an in-flight window that closes on another thread (the
+        pipelined ``call_future`` seam closes its client span from the grpc
+        done callback). Close with ``close_manual``; until then the span is
+        not in the ring."""
+        if ctx is None:
+            wave, trace_id, parent = self._open_ctx()
+        else:
+            wave, trace_id, parent = ctx.wave, ctx.trace_id, ctx.span_id
+        return self._new_span(name, wave, trace_id, parent, dict(attrs))
+
+    def close_manual(self, sp: Span) -> None:
+        sp.end = time.perf_counter()
+        self._append(sp)
+
     # -- export ------------------------------------------------------------
 
     def dump(self, wave: Optional[int] = None) -> list[dict]:
@@ -233,3 +360,31 @@ class WaveTracer:
 
 #: the process-wide tracer
 tracer = WaveTracer()
+
+
+class ContextPropagatingExecutor:
+    """Submit-side context propagation over any executor: each task runs
+    under the SUBMITTER's trace context (innermost open span at submit
+    time), so fan-out RPC spans land in the wave that fanned them out.
+    Wraps only ``submit`` (the estimator fan-out pools use nothing else)
+    and delegates the rest."""
+
+    def __init__(self, executor, tracer_obj: Optional[WaveTracer] = None):
+        self._executor = executor
+        self._tracer = tracer_obj or tracer
+
+    def submit(self, fn, *args, **kwargs):
+        tr = self._tracer
+        ctx = tr.current_context()
+
+        def run():
+            with tr.activate(ctx):
+                return fn(*args, **kwargs)
+
+        return self._executor.submit(run)
+
+    def shutdown(self, wait: bool = True) -> None:
+        self._executor.shutdown(wait=wait)
+
+    def __getattr__(self, name):
+        return getattr(self._executor, name)

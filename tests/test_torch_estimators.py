@@ -568,7 +568,7 @@ def test_invalidate_reconfirms_every_cluster():
     reqs = torch.tensor([[500, 1 << 30, 1, 0]], dtype=torch.int64)
     fn(reqs, torch.tensor([3], dtype=torch.int32))
     tok = fn.refresh_token()
-    assert tok is not None and reg._confirmed == set(names)
+    assert tok is not None and set(reg._confirmed) == set(names)
     reg.invalidate()
     assert not reg._confirmed and fn.refresh_token() == tok  # nothing moved
     ests["b"].snapshot.add_pod("n0", {"cpu": 1000, "memory": 1 << 30})

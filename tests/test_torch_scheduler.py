@@ -26,7 +26,6 @@ import karmada_tpu.utils.builders  # noqa: F401  (build_workload imports it by n
 import karmada_tpu_torch
 import karmada_tpu_torch.scheduler as TS
 import karmada_tpu_torch.utils.builders as TB
-import karmada_tpu_torch.estimator.accurate as TA
 from karmada_tpu_torch.api import ClusterAffinityTerm, Placement
 
 import chip_smoke
@@ -135,23 +134,19 @@ def _engine():
     return snap, TS.TensorScheduler(snap, device="cpu")
 
 
-@pytest.mark.parametrize("branch", ["mesh", "remote_estimator"])
+@pytest.mark.parametrize("branch", ["mesh"])
 def test_unported_branches_raise(branch):
-    """Where the JAX engine would take a branch this slice does not port,
-    the port raises instead of answering differently. (The provenance and
-    preemption planes are served: tests/test_torch_explain.py and
-    tests/test_torch_preempt.py.)"""
+    """Where the JAX engine would take a branch the port does not carry (a
+    device mesh), the port raises instead of answering differently. (The
+    provenance and preemption planes are served: tests/test_torch_explain.py
+    and tests/test_torch_preempt.py; remote estimators and the solver
+    sidecar: tests/test_torch_estimator_wire.py and
+    tests/test_torch_solver.py.)"""
     snap, eng = _engine()
     prob = TS.BindingProblem(key="b", placement=TB.dynamic_weight_placement(),
                              replicas=3, requests={"cpu": 100})
     with pytest.raises(NotImplementedError):
-        if branch == "mesh":
-            TS.TensorScheduler(snap, mesh=object(), device="cpu")
-        else:
-            # an estimator behind the gRPC transport (RemoteAccurateEstimator)
-            est = TA.AccurateEstimator("m0", TA.NodeSnapshot([], snap.dims), device="cpu")
-            est.conn = object()
-            TA.EstimatorRegistry().register(est)
+        TS.TensorScheduler(snap, mesh=object(), device="cpu")
     # the disarmed settings stay accepted
     eng.set_quota(None)
     eng.set_explain(None)
@@ -251,7 +246,16 @@ def test_port_imports_without_jax_or_karmada_tpu():
             "karmada_tpu_torch.controllers.cluster", "karmada_tpu_torch.controllers.failover",
             "karmada_tpu_torch.controllers.dependencies",
             "karmada_tpu_torch.controllers.extras", "karmada_tpu_torch.controllers.remedy",
-            "karmada_tpu_torch.controllers.hpa_sync"} <= set(mods)
+            "karmada_tpu_torch.controllers.hpa_sync", "karmada_tpu_torch.utils.backoff",
+            "karmada_tpu_torch.utils.net", "karmada_tpu_torch.localup",
+            "karmada_tpu_torch.estimator.service",
+            "karmada_tpu_torch.estimator.grpc_transport",
+            "karmada_tpu_torch.estimator.fleet", "karmada_tpu_torch.estimator.__main__",
+            "karmada_tpu_torch.estimator.proto.estimator_pb2",
+            "karmada_tpu_torch.estimator.proto.estimator_batch_pb2",
+            "karmada_tpu_torch.solver", "karmada_tpu_torch.solver.service",
+            "karmada_tpu_torch.solver.client", "karmada_tpu_torch.solver.__main__",
+            "karmada_tpu_torch.solver.proto.solver_pb2"} <= set(mods)
     code = f"""
 import importlib, importlib.abc, sys
 sys.modules["jax"] = None
@@ -275,6 +279,72 @@ print(len({mods!r}))
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) == len(mods) > 20
+
+
+#: the port's modules that chip_smoke.py imports: the card's machine has
+#: neither grpc nor protobuf
+NO_WIRE_MODULES = (
+    "karmada_tpu_torch.estimator.service", "karmada_tpu_torch.estimator.accurate",
+    "karmada_tpu_torch.estimator.grpc_transport", "karmada_tpu_torch.solver",
+    "karmada_tpu_torch.solver.service", "karmada_tpu_torch.solver.client",
+    "karmada_tpu_torch.solver.__main__", "karmada_tpu_torch.controllers.scheduler_controller",
+    "karmada_tpu_torch.controlplane", "karmada_tpu_torch.utils.backoff",
+    "karmada_tpu_torch.utils.faultinject", "karmada_tpu_torch.utils.tracing",
+)
+
+
+def test_chip_smoke_imports_without_grpc_or_protobuf():
+    """``chip_smoke`` and every module of the port it imports load with
+    grpc blocked and a finder that refuses google.protobuf, and the
+    in-process seams it drives (the solver core, the estimator service
+    behind ``EstimatorConnection``, ``RemoteAccurateEstimator``, the
+    controller's sidecar branch) run there: none of them imports the
+    wire."""
+    code = f"""
+import importlib, importlib.abc, sys
+sys.modules["grpc"] = None
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "google.protobuf" or name.startswith("google.protobuf."):
+            raise ImportError("must not import " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+for m in {NO_WIRE_MODULES!r}:
+    importlib.import_module(m)
+import chip_smoke
+import karmada_tpu_torch.solver as sol
+from karmada_tpu_torch.estimator import service as es
+from karmada_tpu_torch.estimator.accurate import AccurateEstimator, NodeCache, NodeState
+from karmada_tpu_torch.solver.__main__ import estimator_service
+from karmada_tpu_torch.solver.service import encode_records, result_records
+from karmada_tpu_torch.utils.builders import synthetic_fleet, dynamic_weight_placement
+from karmada_tpu_torch.scheduler import BindingProblem, ClusterSnapshot
+clusters = synthetic_fleet(6, seed=1)
+snap = ClusterSnapshot(clusters)
+conn = es.EstimatorConnection("multi", es.MultiClusterEstimatorService({{
+    n: es.EstimatorService(AccurateEstimator(n, NodeCache(snap.dims, [NodeState(
+        name="n0", allocatable={{"cpu": 64000, "memory": 1 << 36, "pods": 110}})]),
+        device="cpu")) for n in snap.names}}))
+svc, reg = estimator_service({{n: conn for n in snap.names}}, device="cpu")
+assert isinstance(svc, sol.SolverService)
+svc.sync_clusters(clusters, 1)
+probs = [BindingProblem(key=f"b{{i}}", placement=dynamic_weight_placement(), replicas=3,
+                        requests={{"cpu": 500}}) for i in range(5)]
+jsons, recs = encode_records(probs)
+res = result_records(svc.solve(1, jsons, recs))
+assert all(sum(n for _, n in r.clusters) == 3 for r in res), res
+assert reg.rpc_counts == {{"batch": 1, "unary": 0, "ping": 0}}, reg.rpc_counts
+bad = [m for m in sys.modules if (m == "grpc" and sys.modules[m] is not None)
+       or m.startswith("google.protobuf")]
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
 
 
 def test_no_jax_or_karmada_tpu_imports_in_source():

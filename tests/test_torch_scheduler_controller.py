@@ -566,13 +566,6 @@ def test_metric_exposition_equals_jax():
     assert texts[0] == texts[1]
 
 
-def test_solver_sidecar_raises():
-    u = karmada_tpu_torch.utils
-    with pytest.raises(NotImplementedError, match="solver sidecar"):
-        karmada_tpu_torch.controllers.SchedulerController(
-            u.Store(), u.Runtime(), solver=object(), device="cpu")
-
-
 def test_controller_phase_rehearsal(capsys):
     """chip_smoke's controller phase at a small size on the CPU: every
     wave's check raises on any difference."""
