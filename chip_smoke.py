@@ -75,7 +75,8 @@
    that launches K15 once and whose victims and placements equal
    ``preempt_and_place_np``;
 3. end-to-end phase, every row checked against the port's numpy divider on
-   the same packed inputs (``oracle_check``):
+   the same packed inputs (``oracle_check``, solved by forked worker
+   processes, one a core):
    - BASELINE configs 1 and 2 (host-small numpy path), 3 (resource models
      on the host-small numpy path; no kernel may launch) and 4 (10k x 500,
      spread rows riding the fleet through derived selections);
@@ -218,7 +219,21 @@
      bindings with unschedulable pods (seed 11; each shrunk and re-solved to
      the numpy divider on the general route, K1 and K2 launched, nothing
      else moved) and the recovery (every killed
-     cluster Ready and untainted); and a small Pull-mode plane
+     cluster Ready and untainted); then the autoscaling, networking and
+     resume waves on the same plane (``plane_autoscale_waves``): 1000
+     FederatedHPAs (seed 7) on aggregate member samples, each template at
+     the HPA rule and the 800 rescaled rows in one pass to the numpy
+     divider (the fleet route: K1's table form, K2-K5), 200 more held by
+     their 300 s window and then scaled down in one general-route pass (K1,
+     K2), 500 CronFederatedHPAs firing at 09:00 UTC in one fleet pass, 50
+     exported services with MultiClusterServices to 4 consumers each and
+     20 MultiClusterIngresses (seed 13) dispatched and torn down with no
+     engine pass, and the store checkpointed and resumed into a new plane
+     over the same members built with the drift rebalancer (every binding
+     and member object kept; its first drift round dry-solves every
+     binding on the resumed scheduler's new engine, K1's table form and
+     K2-K5, each row to the numpy divider, and the settle re-places the
+     rows it stamps); and a small Pull-mode plane
      (``run_pull_plane``: agents apply Works and report status, a stopped
      agent's cluster degrades only past ``lease_grace_seconds``).
    Each path sets the launch counters to 0 just before it and reads them
@@ -236,10 +251,12 @@ import contextlib
 import importlib
 import json
 import logging
+import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -605,6 +622,253 @@ def report_ready(cp, skip=()) -> int:
                                                            "updatedReplicas": reps})
                 n += 1
     return n
+
+
+#: the plane's autoscaling, networking and resume cell (``run_plane`` after
+#: its recovery wave): FederatedHPAs with a cpu utilization target of
+#: ``HPA_TARGET`` % on templates the scale and delete waves did not pick
+#: (seed 7): ``PLANE_AUTOSCALE`` = (at 80 %, inside the 0.1 tolerance, at
+#: 400 %); ``PLANE_AUTOSCALE_DOWN`` more at 20 % behind a 300 s window;
+#: ``PLANE_CRON`` CronFederatedHPAs at 09:00 UTC; ``PLANE_SERVICES``
+#: exported services with a MultiClusterService each and
+#: ``PLANE_INGRESSES`` MultiClusterIngresses over them (seed 13)
+HPA_TARGET = 50
+PLANE_AUTOSCALE, PLANE_AUTOSCALE_DOWN, PLANE_CRON = (600, 200, 200), 200, 500
+PLANE_SERVICES, PLANE_INGRESSES, PLANE_CONSUMERS = 50, 20, 4
+
+
+def autoscale_picks(templates: int, skip, up: tuple, down: int, cron: int,
+                    seed: int = 7) -> tuple[dict, list, dict]:
+    """The autoscaling waves' templates, drawn with ``seed`` among the
+    indices not in ``skip`` (whose replicas are still ``(i % 40) + 1``),
+    disjoint: ``up`` = (n80, ntol, n400) FederatedHPA targets with their
+    utilization (80, an integer in [45, 50], 400: integers, so the
+    pod-weighted mean the controller takes is exact); ``down`` templates of
+    at least 2 replicas (their 20 % proposal lies below their size);
+    ``cron`` templates of at least 2 replicas with a new size each, the
+    first half up by 1-20, the second half down to a size in [1, replicas).
+    Returns ({index: utilization}, [index], {index: new replicas})."""
+    rng = np.random.default_rng(seed)
+    free = [i for i in range(templates) if i not in skip]
+    order = [free[int(k)] for k in rng.permutation(len(free))]
+    n80, ntol, n400 = up
+    ups = order[:n80 + ntol + n400]
+    utils = [80] * n80 + [int(u) for u in rng.integers(45, 51, ntol)] + [400] * n400
+    rest = [i for i in order[len(ups):] if i % 40 >= 1]
+    downs, crons = sorted(rest[:down]), rest[down:down + cron]
+    new = {}
+    for k, i in enumerate(crons):
+        reps = (i % 40) + 1
+        new[i] = (reps + int(rng.integers(1, 21)) if k < len(crons) // 2
+                  else int(rng.integers(1, reps)))
+    return dict(zip(ups, utils)), downs, dict(sorted(new.items()))
+
+
+def hpa_max(replicas: int) -> int:
+    """A FederatedHPA's ``max_replicas`` for a template of ``replicas``: 4x,
+    under the 400 % group's proposal of 8x."""
+    return 4 * replicas
+
+
+def hpa_rule(current: int, util: float, lo: int, hi: int, held: bool = True) -> int:
+    """The kube HPA rule for an aggregate sample of ready pods at ``util`` %
+    of ``HPA_TARGET``, as the FederatedHPA controller applies it
+    (``controllers/autoscaling.py``, the aggregate path): ceil(current x
+    util / target), clamped to [lo, hi]. That path applies no tolerance
+    band: a proposal under the current size is a scale-down, which the
+    stabilization window holds at the current size while the size it was
+    seeded with (the current one, on a first evaluation) is inside the
+    window (``held``)."""
+    want = min(max(math.ceil(current * (util / HPA_TARGET)), lo), hi)
+    return current if held and want < current else want
+
+
+def hpa_objects(pkg, indices, replicas_of: dict, window: int) -> list:
+    """One FederatedHPA ``d{i}-hpa`` a template: cpu at ``HPA_TARGET`` %,
+    min 1, max ``hpa_max``, the scale-down window ``window`` s."""
+    a = importlib.import_module(f"{pkg.__name__}.api.autoscaling")
+    core = importlib.import_module(f"{pkg.__name__}.api.core")
+    return [a.FederatedHPA(
+        meta=core.ObjectMeta(name=f"d{i}-hpa", namespace="default"),
+        spec=a.FederatedHPASpec(
+            scale_target_ref=a.ScaleTargetRef(kind="Deployment", name=f"d{i}"),
+            min_replicas=1, max_replicas=hpa_max(replicas_of[i]),
+            metrics=[a.MetricSpec(resource_name="cpu", target_average_utilization=HPA_TARGET)],
+            stabilization_window_seconds=window)) for i in indices]
+
+
+def cron_objects(pkg, new: dict) -> list:
+    """One CronFederatedHPA ``d{i}-cron`` a template, one rule ``0 9 * * *``
+    setting its replicas to ``new[i]``."""
+    a = importlib.import_module(f"{pkg.__name__}.api.autoscaling")
+    core = importlib.import_module(f"{pkg.__name__}.api.core")
+    return [a.CronFederatedHPA(
+        meta=core.ObjectMeta(name=f"d{i}-cron", namespace="default"),
+        spec=a.CronFederatedHPASpec(
+            scale_target_ref=a.ScaleTargetRef(kind="Deployment", name=f"d{i}"),
+            rules=[a.CronFederatedHPARule(name="morning", schedule="0 9 * * *",
+                                          target_replicas=reps)]))
+        for i, reps in new.items()]
+
+
+def set_samples(cp, utils: dict) -> None:
+    """Each member of each template's binding gets an aggregate sample
+    (``pod_metrics``) for the replicas placed on it: every pod ready, at
+    the template's utilization ``utils[i]``."""
+    for i, util in utils.items():
+        rb = cp.store.get("ResourceBinding", f"default/d{i}-deployment")
+        for tc in rb.spec.clusters:
+            cp.members.get(tc.name).pod_metrics[f"default/d{i}"] = {
+                "pods": tc.replicas, "ready_pods": tc.replicas, "cpu_utilization": float(util)}
+
+
+def next_utc(now: float, hour: int, minute: int, second: int) -> float:
+    """The first time after ``now`` at ``hour:minute:second`` UTC."""
+    t = now - now % 86400 + hour * 3600 + minute * 60 + second
+    return t if t > now else t + 86400
+
+
+SLICE_GVK, INGRESS_GVK = "discovery.k8s.io/v1/EndpointSlice", "networking.k8s.io/v1/Ingress"
+
+
+def network_picks(rbs, names, services: int, ingresses: int, consumers: int,
+                  seed: int = 13) -> tuple[dict, dict, dict]:
+    """The networking wave's objects, drawn with ``seed``: ``services``
+    bindings placed on at least 2 clusters, each exported from 2-4 of them
+    (its providers) to ``consumers`` other clusters; ``ingresses`` ingresses
+    over 1-3 of those services each. Returns ({template name: providers},
+    {template name: consumers}, {ingress name: [template names]})."""
+    rng = np.random.default_rng(seed)
+    cands = [rb for rb in rbs if len(rb.spec.clusters) >= 2]
+    picked = sorted(int(k) for k in rng.choice(len(cands), services, replace=False))
+    providers, to = {}, {}
+    for k in picked:
+        rb = cands[k]
+        on = sorted(tc.name for tc in rb.spec.clusters)
+        n = int(rng.integers(2, min(4, len(on)) + 1))
+        name = rb.spec.resource.name
+        providers[name] = sorted(on[int(j)] for j in rng.choice(len(on), n, replace=False))
+        others = [c for c in sorted(names) if c not in providers[name]]
+        to[name] = sorted(others[int(j)] for j in rng.choice(len(others), consumers,
+                                                             replace=False))
+    svc = sorted(providers)
+    ing = {f"ing{j}": sorted(svc[int(k)] for k in rng.choice(
+        len(svc), int(rng.integers(1, min(3, len(svc)) + 1)), replace=False))
+        for j in range(ingresses)}
+    return providers, to, ing
+
+
+def network_objects(pkg, cp, providers: dict, consumers: dict, ingresses: dict) -> None:
+    """The networking wave's writes: each service's Service and one seeded
+    EndpointSlice on each of its providers, its ServiceExport and its
+    MultiClusterService (providers and consumers named) in the store; each
+    ingress as a MultiClusterIngress, one Prefix path a backend."""
+    core = importlib.import_module(f"{pkg.__name__}.api.core")
+    n = importlib.import_module(f"{pkg.__name__}.api.networking")
+    for name, provs in providers.items():
+        for k, c in enumerate(provs):
+            m = cp.members.get(c)
+            m.apply(core.Resource(api_version="v1", kind="Service",
+                                  meta=core.ObjectMeta(name=name, namespace="default"),
+                                  spec={"ports": [{"port": 80}], "clusterIP": f"10.96.{k}.1"}))
+            m.apply(core.Resource(
+                api_version="discovery.k8s.io/v1", kind="EndpointSlice",
+                meta=core.ObjectMeta(name=f"{name}-{c}", namespace="default",
+                                     labels={"kubernetes.io/service-name": name}),
+                spec={"endpoints": [{"addresses": [f"10.{k}.{len(name)}.{j}"]}
+                                    for j in range(1 + k)]}))
+        cp.store.apply(n.ServiceExport(meta=core.ObjectMeta(name=name, namespace="default")))
+        cp.store.apply(n.MultiClusterService(
+            meta=core.ObjectMeta(name=name, namespace="default"),
+            spec=n.MultiClusterServiceSpec(
+                provider_clusters=[n.ExposureRange(cluster_names=list(provs))],
+                consumer_clusters=[n.ExposureRange(cluster_names=list(consumers[name]))])))
+    for ing, backends in ingresses.items():
+        cp.store.apply(n.MultiClusterIngress(
+            meta=core.ObjectMeta(name=ing, namespace="default"),
+            spec=n.MultiClusterIngressSpec(rules=[{
+                "host": f"{ing}.example.com",
+                "http": {"paths": [{"path": f"/{b}", "pathType": "Prefix",
+                                    "backend": {"service": {"name": b}}} for b in backends]}}])))
+
+
+def network_teardown(cp, providers: dict, ingresses: dict) -> None:
+    """Delete the networking wave's objects: the ServiceExports,
+    MultiClusterServices and MultiClusterIngresses, the Works their
+    controllers dispatched (which own none of them), and the providers'
+    Services and EndpointSlices."""
+    for name in providers:
+        cp.store.delete("ServiceExport", f"default/{name}")
+        cp.store.delete("MultiClusterService", f"default/{name}")
+    for ing in ingresses:
+        cp.store.delete("MultiClusterIngress", f"default/{ing}")
+    for w in cp.store.list("Work"):
+        if w.meta.name.startswith(("mcs-", "mci-")):
+            cp.store.delete("Work", w.meta.namespaced_name)
+    for name, provs in providers.items():
+        for c in provs:
+            cp.members.get(c).delete("v1/Service", "default", name)
+            cp.members.get(c).delete(SLICE_GVK, "default", f"{name}-{c}")
+
+
+def network_check(cp, providers: dict, consumers: dict, ingresses: dict) -> tuple[int, int]:
+    """(consumers missing the derived Service or a provider's slice, or
+    holding their own back; ingresses whose status or members differ from
+    the clusters that serve their backends: the providers and the
+    consumers)."""
+    bad_mcs = 0
+    for name, provs in providers.items():
+        for c in consumers[name]:
+            m = cp.members.get(c)
+            bad_mcs += m.get("v1/Service", "default", f"derived-{name}") is None
+            bad_mcs += sum(m.get(SLICE_GVK, "default", f"{p}-{name}-{p}") is None
+                           for p in provs if p != c)
+    bad_mci = 0
+    for ing, backends in ingresses.items():
+        want = sorted({c for b in backends for c in providers[b] + consumers[b]})
+        obj = cp.store.get("MultiClusterIngress", f"default/{ing}")
+        have = sorted(n for n in cp.members.names()
+                      if cp.members.get(n).get(INGRESS_GVK, "default", ing) is not None)
+        bad_mci += obj.status.get("clusters") != want or have != want
+    return bad_mcs, bad_mci
+
+
+def member_state(cp) -> dict:
+    """(member, gvk, namespace, name) -> (resource version, a copy of the
+    spec) of every member object."""
+    from karmada_tpu_torch.utils.clone import clone_json
+
+    return {(name, f"{o.api_version}/{o.kind}", o.meta.namespace, o.meta.name):
+            (o.meta.resource_version, clone_json(o.spec))
+            for name in sorted(cp.members.names()) for o in cp.members.get(name).list()}
+
+
+def resume_plane(pkg, cp, path: str, **plane_kw):
+    """Checkpoint ``cp``'s store to ``path`` and resume it into a new
+    ``ControlPlane(**plane_kw)``: the old plane's member watches dropped (a
+    member event must not reach two planes), the checkpoint restored, then
+    the same member states joined with their restored Clusters, in
+    ``localup.py``'s order. Returns (the new plane, objects written,
+    objects restored, the walls of the checkpoint, the new plane's
+    construction, the restore and the joins)."""
+    walls = {}
+    t0 = time.perf_counter()
+    written = cp.store.checkpoint(path)
+    walls["checkpoint"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cp2 = importlib.import_module(f"{pkg.__name__}.controlplane").ControlPlane(**plane_kw)
+    members = [cp.members.get(n) for n in sorted(cp.members.names())]
+    for m in members:
+        m._watchers.clear()
+    walls["new plane"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = cp2.store.restore(path)
+    walls["restore"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for m in members:
+        cp2.join_cluster(cp2.store.get("Cluster", m.name), m)
+    walls["join"] = time.perf_counter() - t0
+    return cp2, written, restored, walls
 
 
 def node_states(pkg, n: int, seed: int) -> list:
@@ -1131,57 +1395,91 @@ def referent_caps(engine, problems, requests):
     return out.astype(np.int32)
 
 
-def referent_results(engine, problems, extra=None) -> list:
-    """Re-solve every row on the host from the same packed inputs: the
+#: worker processes that solve the numpy referent (``referent_mismatches``);
+#: at most 1, the referent runs in this process. ``main`` sets it to the
+#: host's cores
+REFERENT_PROCESSES = 1
+#: rows a referent worker solves at a time
+REFERENT_PIECE = 1024
+#: what the forked referent workers read: (engine, problems, compiled
+#: placements, extra, view, got)
+_REFERENT: tuple | None = None
+
+
+def _referent_piece(start: int) -> int:
+    """The rows of ``_REFERENT`` from ``start`` re-solved on the host: the
     engine's packing, the numpy estimate (the engine's tiny-batch mirror
     ``_availability_np``, merged with the rows' static-assignment quota caps
     from ``referent_caps`` when the engine has any and with ``extra``'s
     answer when given), the host spread selection and the numpy divider.
-    Returns the referent's results in row order. Rows are solved
-    independently, so ``problems`` may be any sub-list of a wave. Chunks
-    are solved on a pool of threads (numpy releases the GIL in its array
-    work); the placements are compiled first, on this thread."""
-    import os
-    from concurrent.futures import ThreadPoolExecutor
-
+    Returns how many rows' ``view(problem, result)`` differ from ``got``."""
     from karmada_tpu_torch.refimpl import assign_batch_np
     from karmada_tpu_torch.scheduler.spread import select_clusters_batch
 
-    snap = engine.snapshot
+    engine, problems, compiled_all, extra, view, got = _REFERENT
+    end = start + REFERENT_PIECE
+    chunk, compiled = problems[start:end], compiled_all[start:end]
+    feasible, strategy, replicas, static_w, requests, prev, fresh = (
+        engine._pack_chunk(chunk, compiled, 0)
+    )
+    caps = referent_caps(engine, chunk, requests)
+    extras = (() if caps is None else (caps,)) + (
+        () if extra is None else (extra(requests, replicas),))
+    avail = engine._availability_np(requests, replicas, extras=extras)
+    cand = select_clusters_batch(engine.snapshot, chunk, compiled, 0, feasible, avail, prev)
+    assignment, unsched = assign_batch_np(
+        strategy, replicas, cand, static_w, avail, prev, fresh
+    )
+    want = engine._unpack(chunk, compiled, 0, cand, assignment, unsched)
+    return sum(view(p, r) != g for p, r, g in zip(chunk, want, got[start:end]))
+
+
+def referent_mismatches(engine, problems, got, view, extra=None) -> int:
+    """Every row of ``problems`` re-solved by the numpy referent
+    (``_referent_piece``), each result read through ``view(problem,
+    result)`` and compared with the same row of ``got``. Returns the rows
+    that differ. Rows are solved independently, so ``problems`` may be any
+    sub-list of a wave. The placements are compiled first, in this process;
+    with ``REFERENT_PROCESSES`` above 1 the pieces are solved by that many
+    forked processes, which inherit the inputs and send back only their
+    counts (none of them touches the card). The collector's generations are
+    frozen across the fork, so that no child's collection copies the
+    parent's heap."""
+    import gc
+    import multiprocessing
+
+    global _REFERENT
     compiled_all = [engine._compiled(p.placement) for p in problems]
+    starts = range(0, len(problems), REFERENT_PIECE)
+    _REFERENT = (engine, problems, compiled_all, extra, view, got)
+    try:
+        workers = min(REFERENT_PROCESSES, len(starts))
+        if workers <= 1:
+            return sum(map(_referent_piece, starts))
+        gc.freeze()
+        pool = multiprocessing.get_context("fork").Pool(workers)
+        try:
+            return sum(pool.map(_referent_piece, starts, chunksize=1))
+        finally:
+            pool.terminate()
+            pool.join()
+            gc.unfreeze()
+    finally:
+        _REFERENT = None
 
-    def chunk_want(start: int) -> list:
-        chunk = problems[start : start + engine.chunk_size]
-        compiled = compiled_all[start : start + engine.chunk_size]
-        feasible, strategy, replicas, static_w, requests, prev, fresh = (
-            engine._pack_chunk(chunk, compiled, 0)
-        )
-        caps = referent_caps(engine, chunk, requests)
-        extras = (() if caps is None else (caps,)) + (
-            () if extra is None else (extra(requests, replicas),))
-        avail = engine._availability_np(requests, replicas, extras=extras)
-        cand = select_clusters_batch(snap, chunk, compiled, 0, feasible, avail, prev)
-        assignment, unsched = assign_batch_np(
-            strategy, replicas, cand, static_w, avail, prev, fresh
-        )
-        return engine._unpack(chunk, compiled, 0, cand, assignment, unsched)
 
-    starts = range(0, len(problems), engine.chunk_size)
-    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
-        return [r for want in pool.map(chunk_want, starts) for r in want]
+def result_view(problem, r) -> tuple:
+    """What ``oracle_check`` compares of a result."""
+    return r.key, r.clusters, r.error, r.feasible
 
 
 def oracle_check(engine, problems, results, extra=None) -> int:
-    """Every row against ``referent_results`` (key, placements, error and
+    """Every row against the numpy referent (key, placements, error and
     feasible set); ``problems`` may be any sub-list of a wave with its
     results (a quota'd wave checks its admitted rows). Returns the number
     of rows that differ."""
-    want = referent_results(engine, problems, extra)
-    return sum(
-        (got.key, got.clusters, got.error, got.feasible)
-        != (exp.key, exp.clusters, exp.error, exp.feasible)
-        for got, exp in zip(results, want)
-    )
+    got = [result_view(p, r) for p, r in zip(problems, results)]
+    return referent_mismatches(engine, problems, got, result_view, extra)
 
 
 def sync(device) -> None:
@@ -1381,6 +1679,23 @@ PATH_KERNELS = {
     "plane failover": ("profile_table", "estimate_merge", "divide_replicas", "fleet_masks",
                        "fleet_diff", "fleet_wire", "scatter_rows"),
     "plane deschedule": ("estimate_merge", "divide_replicas"),
+    # the FederatedHPA scale-up (800 rows) and the cron (500 rows) passes
+    # ride the fleet table like the scale wave: the changed rows upserted
+    # (K6), phase A and the wire; K1's table form runs only when Cluster
+    # updates since the last pass give the engine a new snapshot (the
+    # recovery wave's reach the scale-up pass), which these waves do not
+    # cause themselves. The 200-row scale-down is under fleet_threshold: the
+    # general route. The resumed plane's first drift round dry-solves every
+    # binding on the resumed scheduler's new engine: a cold fleet pass,
+    # phase B over every row (the re-placement of its budget of 64 rows is a
+    # chunk the numpy divider answers on the host)
+    "plane autoscale up": ("divide_replicas", "fleet_masks", "fleet_diff", "fleet_wire",
+                           "scatter_rows"),
+    "plane autoscale down": ("estimate_merge", "divide_replicas"),
+    "plane cron": ("divide_replicas", "fleet_masks", "fleet_diff", "fleet_wire",
+                   "scatter_rows"),
+    "plane resume drift round": ("profile_table", "divide_replicas", "fleet_masks",
+                                 "fleet_diff", "fleet_entry_rows", "fleet_wire", "entry_wire"),
     # the solver sidecar's config-5 requests: the cold request's table, the
     # repeated and re-synced requests' diff route, the drift request's rebuild
     "sidecar": ("profile_table", "divide_replicas", "fleet_masks", "fleet_diff"),
@@ -4279,13 +4594,14 @@ def run_quota(device, card: str, bindings=None, clusters=None, general_rows: int
         raise AssertionError("the quota cold pass did not ride the fleet table")
     if out["denied"]["cold"]:
         raise AssertionError("quota cold pass: generous limits denied rows")
+    cold_out = outcomes(cold)  # decoded before the next pass rewrites the table
     rows, secs = check_admitted("quota cold pass", engine, problems, cold)
     print(f"# quota cold pass: numpy-divider check over cap-folded availability "
           f"{rows} ok / 0 bad ({secs:.1f} s)", flush=True)
     with uncounted():
         out["fold_stats"] = check_caps_fold(engine, card)
     steady = one_pass("steady", problems, replay=True)
-    if outcomes(steady) != outcomes(cold):
+    if outcomes(steady) != cold_out:
         raise AssertionError("quota steady pass disagrees with the cold pass")
 
     # the surge: the even rows grow by 3 replicas over their cold placement
@@ -5298,20 +5614,21 @@ def unwritten(rbs, placed: bool = False) -> int:
     return sum(not done(rb) for rb in rbs)
 
 
-def expected_written(problems, results) -> list:
-    """``written`` as the write-back derives it from engine results: a
+def expected_row(p, r) -> tuple:
+    """``written`` as the write-back derives it from an engine result: a
     placed row its placements (every feasible cluster at 0 replicas for a
     zero-replica row); a row that failed its previous placement and the
     error."""
-    out = []
-    for p, r in zip(problems, results):
-        if not r.success:
-            out.append((p.key, tuple(sorted(p.prev.items())), r.error))
-        elif p.replicas > 0:
-            out.append((p.key, tuple(sorted(r.clusters.items())), ""))
-        else:
-            out.append((p.key, tuple((n, 0) for n in sorted(r.feasible)), ""))
-    return out
+    if not r.success:
+        return p.key, tuple(sorted(p.prev.items())), r.error
+    if p.replicas > 0:
+        return p.key, tuple(sorted(r.clusters.items())), ""
+    return p.key, tuple((n, 0) for n in sorted(r.feasible)), ""
+
+
+def expected_written(problems, results) -> list:
+    """``expected_row`` of every row."""
+    return [expected_row(p, r) for p, r in zip(problems, results)]
 
 
 def written_digest(rows) -> np.ndarray:
@@ -5320,10 +5637,11 @@ def written_digest(rows) -> np.ndarray:
 
 
 def written_check(engine, problems, bindings) -> int:
-    """Every binding's written placement and error against
-    ``referent_results`` on its problem. Returns the rows that differ."""
-    want = expected_written(problems, referent_results(engine, problems))
-    return sum(written(rb) != w for rb, w in zip(bindings, want))
+    """Every binding's written placement and error against the numpy
+    referent on its problem (``referent_mismatches``). Returns the rows
+    that differ."""
+    return referent_mismatches(engine, problems, [written(rb) for rb in bindings],
+                               expected_row)
 
 
 class Written:
@@ -5479,7 +5797,7 @@ def run_controller(device, card: str, bindings=None, clusters=None, scale: int =
        clusters) applied to the store and settled; every binding's written
        placement and error equal those of the storm's cold pass run on the
        controller's cluster order (a new engine over the controller's
-       snapshot, which sorts the clusters by name) and ``referent_results``
+       snapshot, which sorts the clusters by name) and the numpy referent
        row for row;
     2. a settle with nothing to do: the write-back's echoes enqueued
        nothing, and a resync of every binding gates them all out (no
@@ -6309,7 +6627,9 @@ def plane_recipe_check(pkg, rbs, probs, replicas_of: dict) -> int:
 
 def run_plane(device, card: str, templates: int = 10_000, clusters: int = 500,
               scale: int = 1000, delete: int = 1000, kill: int = PLANE_KILL,
-              deschedule: int = PLANE_DESCHEDULE) -> dict:
+              deschedule: int = PLANE_DESCHEDULE, autoscale: tuple = PLANE_AUTOSCALE,
+              autoscale_down: int = PLANE_AUTOSCALE_DOWN, cron: int = PLANE_CRON,
+              services: int = PLANE_SERVICES, ingresses: int = PLANE_INGRESSES) -> dict:
     """The control plane's propagation path on the card: the port's
     ``ControlPlane`` (detector, binding, execution, work-status,
     binding-status, cluster status and scheduler controllers over one store)
@@ -6340,13 +6660,18 @@ def run_plane(device, card: str, templates: int = 10_000, clusters: int = 500,
        Works and member objects gone, and nothing else touched;
     6.-9. the failover, eviction drain, descheduler and recovery waves on
        the same plane (``plane_failover_waves``);
-    10. pull: a small Pull-mode plane on ``device`` (``run_pull_plane``).
+    10.-15. the autoscale up, hold and down, cron, networking (and its
+       teardown), resume and resume drift round waves on the same plane,
+       templates drawn among those the scale and delete waves did not pick
+       (``plane_autoscale_waves``);
+    16. pull: a small Pull-mode plane on ``device`` (``run_pull_plane``).
 
     The plane runs on an injected clock (``PlaneClock``), with the
     descheduler built and inactive until its wave. Each wave prints one
     ``# plane <wave>:`` line (``plane_line``) with its wall, its split
     (``plane_wave``), its checks and the card. Returns the waves and the
-    cold, scale, failover and descheduler waves' launch counts."""
+    cold, scale, failover, descheduler, autoscale up and down, cron and
+    resume drift round waves' launch counts."""
     import karmada_tpu_torch
     from karmada_tpu_torch.controllers.propagation import WORK_BINDING_LABEL, work_manifests
     from karmada_tpu_torch.controlplane import ControlPlane
@@ -6532,6 +6857,11 @@ def run_plane(device, card: str, templates: int = 10_000, clusters: int = 500,
     failover = plane_failover_waves(cp, clock, device, card, region_of, kill, deschedule)
     out["waves"].update(failover.pop("waves"))
     out.update(failover)
+    autoscaled = plane_autoscale_waves(cp, clock, device, card, region_of,
+                                       set(scaled) | set(deleted), templates, autoscale,
+                                       autoscale_down, cron, services, ingresses)
+    out["waves"].update(autoscaled.pop("waves"))
+    out.update(autoscaled)
     out["waves"]["pull"] = run_pull_plane(device, card)
     return out
 
@@ -6783,6 +7113,359 @@ def plane_failover_waves(cp, clock, device, card: str, region_of: dict, kill: in
     return out
 
 
+def plane_autoscale_waves(cp, clock, device, card: str, region_of: dict, skip,
+                          templates: int, autoscale: tuple = PLANE_AUTOSCALE,
+                          autoscale_down: int = PLANE_AUTOSCALE_DOWN, cron: int = PLANE_CRON,
+                          services: int = PLANE_SERVICES,
+                          ingresses: int = PLANE_INGRESSES) -> dict:
+    """The autoscaling, networking and resume waves on a settled config-4
+    plane (``run_plane``'s, after its recovery wave), templates drawn with
+    seed 7 among those not in ``skip`` (``autoscale_picks``):
+
+    10. autoscale up: FederatedHPAs (cpu at ``HPA_TARGET`` %, min 1, max
+        4x) on ``sum(autoscale)`` templates whose members report aggregate
+        samples at 80 %, inside the tolerance (45-50 %) and at 400 %; the
+        clock past the sync period. Every template at ``hpa_rule``; one
+        engine pass over exactly the rescaled rows, each to the numpy
+        divider; no other binding's Works written again. The samples then
+        sit at the target;
+    11. autoscale hold and down: ``autoscale_down`` more at 20 % behind a
+        300 s window: the first settle changes no template and runs no pass;
+        301 s later one pass over them (under ``fleet_threshold``: the
+        general route), each to the numpy divider and ``hpa_rule``;
+    12. cron: ``cron`` CronFederatedHPAs (``0 9 * * *``, half up, half
+        down); the clock at the next 08:59:30 UTC (nothing fires), then
+        09:00:30: one pass over exactly them, each to the numpy divider, one
+        execution history entry each; a settle later in the minute fires
+        nothing;
+    13. networking and its teardown: ``services`` services exported from 2-4
+        of their binding's clusters with a MultiClusterService each to 4
+        named consumers, ``ingresses`` MultiClusterIngresses over them
+        (``network_picks``, seed 13): every consumer holds the derived
+        Service and every other provider's slice, every ingress stands on
+        exactly the clusters that serve its backends, no engine pass; then
+        everything deleted with the Works dispatched for it, and nothing
+        derived left on any member or in the store;
+    14. resume: the store checkpointed and restored into a new plane on the
+        same clock, the same members joined (``resume_plane``). The settle
+        keeps every binding's clusters and replicas and every member
+        object's spec (members written again counted); the gate holds every
+        binding (observed generation, Scheduled, replicas assigned), so the
+        settle runs no engine pass, as on the JAX plane;
+    15. resume drift round: the resumed plane is built with the drift
+        rebalancer (its ticker off), and its first round
+        (``rebalance_once``) dry-solves every binding on the resumed
+        scheduler's new engine, a cold fleet pass: every row held to the
+        numpy divider, the stamped set to ``drift_referent``
+        (``rebalance_np``); the settle after it re-places the stamped rows
+        at the numpy divider's fresh ideal and moves no other binding.
+
+    Returns the waves and the launches of the up, down, cron and resume
+    drift round waves."""
+    import karmada_tpu_torch
+    from karmada_tpu_torch.controllers.propagation import WORK_BINDING_LABEL
+    from karmada_tpu_torch.controllers.rebalance import disruption_budget
+    from karmada_tpu_torch.utils.metrics import works_rendered
+
+    pkg = karmada_tpu_torch
+    store, ctl = cp.store, cp.scheduler
+    out = {"waves": {}}
+
+    def work_versions() -> dict:
+        by: dict = {}
+        for w in store.list("Work"):
+            ref = w.meta.labels.get(WORK_BINDING_LABEL)
+            if ref:
+                by.setdefault(ref.partition(":")[2], {})[w.meta.namespaced_name] = (
+                    w.meta.resource_version, w.meta.generation)
+        return by
+
+    def replicas(i) -> int:
+        return store.get("Resource", f"default/d{i}").spec["replicas"]
+
+    def solved(tag, keys: dict) -> tuple[int, int]:
+        """(rows off the numpy divider or unwritten, problems off the
+        recipe or their new replicas) for ``keys``: {binding key:
+        replicas}."""
+        rbs = [rb for rb in sorted_bindings(store) if rb.meta.namespaced_name in keys]
+        probs = [ctl._problem_cache.get(rb.meta.namespaced_name) for rb in rbs]
+        if len(rbs) != len(keys) or None in probs:
+            raise AssertionError(f"plane {tag}: {len(rbs)} bindings of {len(keys)}, "
+                                 f"{probs.count(None)} without a problem")
+        bad_div = written_check(ctl._engine, probs, rbs) + unwritten(rbs, placed=True)
+        return bad_div, plane_recipe_check(pkg, rbs, probs, keys)
+
+    up, down, crons = autoscale_picks(templates, skip, autoscale, autoscale_down, cron)
+    rep0 = {i: replicas(i) for i in (*up, *down, *crons)}
+    if any(r != (i % 40) + 1 for i, r in rep0.items()):
+        raise AssertionError("plane autoscale: a picked template left its recipe's replicas")
+
+    # -- 10. autoscale up -----------------------------------------------------
+    want = {i: hpa_rule(rep0[i], u, 1, hpa_max(rep0[i])) for i, u in up.items()}
+    moved = {f"default/d{i}-deployment": r for i, r in want.items() if r != rep0[i]}
+    versions = work_versions()
+    t0 = time.perf_counter()
+    set_samples(cp, up)
+    for hpa in hpa_objects(pkg, sorted(up), rep0, window=300):
+        store.apply(hpa)
+    clock.now += 16  # past the controller's 15 s sync period
+    apply_s = time.perf_counter() - t0
+    reset_counts()
+    rendered0 = works_rendered.value()
+    wave = plane_wave("autoscale up", cp, device, card, apply_s)
+    out["up_launches"] = read_counts()
+    out["waves"]["autoscale up"] = wave
+    bad_rule = sum(replicas(i) != r for i, r in want.items())
+    bad_status = sum((h.status.current_replicas, h.status.desired_replicas)
+                     != (rep0[i], want[i]) for i in up
+                     for h in [store.get("FederatedHPA", f"default/d{i}-hpa")])
+    bad_div, bad_reps = solved("autoscale up", moved)
+    after = work_versions()
+    rewritten = sum(after.get(k) != v for k, v in versions.items() if k not in moved)
+    bad_members = plane_members_check(cp, sorted_bindings(store), region_of)
+    n80, ntol, n400 = autoscale
+    plane_line("autoscale up", wave, f"{len(up)} FederatedHPAs ({n80} at 80 %, {ntol} inside "
+               f"the tolerance, {n400} at 400 % of {HPA_TARGET} %; seed 7): templates at the "
+               f"HPA rule {len(up) - bad_rule} ok / {bad_rule} bad, HPA status {bad_status} "
+               f"bad; {len(moved)} rescaled, numpy-divider check {len(moved) - bad_div} ok / "
+               f"{bad_div} bad ({bad_reps} problems off the recipe or the new replicas); "
+               f"{works_rendered.value() - rendered0:.0f} Works rendered; other bindings' "
+               f"Works written again {rewritten}; members {bad_members} bad; launches "
+               f"{ {k: v for k, v in out['up_launches'].items() if v} }", card)
+    if bad_rule or bad_status or bad_div or bad_reps or rewritten or bad_members \
+            or wave["passes"] != [len(moved)] or len(moved) != n80 + n400:
+        raise AssertionError(f"plane autoscale up: {bad_rule} templates off the HPA rule, "
+                             f"{bad_status} statuses off, {bad_div} rows off the numpy "
+                             f"divider, {rewritten} other Works written again, passes "
+                             f"{wave['passes']} for {len(moved)} rescaled")
+    set_samples(cp, {i: HPA_TARGET for i in up})
+
+    # -- 11. autoscale hold, autoscale down -----------------------------------
+    held = {i: hpa_rule(rep0[i], 20, 1, hpa_max(rep0[i])) for i in down}
+    want = {i: hpa_rule(rep0[i], 20, 1, hpa_max(rep0[i]), held=False) for i in down}
+    t0 = time.perf_counter()
+    set_samples(cp, {i: 20 for i in down})
+    for hpa in hpa_objects(pkg, down, rep0, window=300):
+        store.apply(hpa)
+    wave = plane_wave("autoscale hold", cp, device, card, time.perf_counter() - t0)
+    out["waves"]["autoscale hold"] = wave
+    bad_hold = sum(replicas(i) != held[i] for i in down)
+    plane_line("autoscale hold", wave, f"{len(down)} FederatedHPAs at 20 % behind a 300 s "
+               f"window: templates held {len(down) - bad_hold} ok / {bad_hold} bad; passes "
+               f"{wave['passes']}", card)
+    if bad_hold or wave["passes"] or any(held[i] != rep0[i] for i in down):
+        raise AssertionError(f"plane autoscale hold: {bad_hold} templates moved, passes "
+                             f"{wave['passes']}")
+    moved = {f"default/d{i}-deployment": r for i, r in want.items()}
+    versions = work_versions()
+    clock.now += 301
+    reset_counts()
+    wave = plane_wave("autoscale down", cp, device, card)
+    out["down_launches"] = read_counts()
+    out["waves"]["autoscale down"] = wave
+    bad_rule = sum(replicas(i) != r for i, r in want.items())
+    bad_div, bad_reps = solved("autoscale down", moved)
+    after = work_versions()
+    rewritten = sum(after.get(k) != v for k, v in versions.items() if k not in moved)
+    plane_line("autoscale down", wave, f"the window passed (301 s): templates at the HPA rule "
+               f"{len(down) - bad_rule} ok / {bad_rule} bad; numpy-divider check "
+               f"{len(moved) - bad_div} ok / {bad_div} bad ({bad_reps} problems off); other "
+               f"bindings' Works written again {rewritten}; launches "
+               f"{ {k: v for k, v in out['down_launches'].items() if v} }", card)
+    if bad_rule or bad_div or bad_reps or rewritten or wave["passes"] != [len(moved)] \
+            or any(want[i] >= rep0[i] for i in down):
+        raise AssertionError(f"plane autoscale down: {bad_rule} templates off the HPA rule, "
+                             f"{bad_div} rows off the numpy divider, {rewritten} other Works "
+                             f"written again, passes {wave['passes']}")
+    set_samples(cp, {i: HPA_TARGET for i in down})
+
+    # -- 12. cron -------------------------------------------------------------
+    t0 = time.perf_counter()
+    for obj in cron_objects(pkg, crons):
+        store.apply(obj)
+    clock.now = next_utc(clock.now, 8, 59, 30)
+    arm = plane_wave("cron arm", cp, device, card, time.perf_counter() - t0)
+    fired_early = sum(bool(store.get("CronFederatedHPA", f"default/d{i}-cron").status
+                           .execution_histories) for i in crons)
+    moved = {f"default/d{i}-deployment": r for i, r in crons.items()}
+    versions = work_versions()
+    clock.now += 60
+    fired_at = clock.now
+    reset_counts()
+    wave = plane_wave("cron", cp, device, card)
+    out["cron_launches"] = read_counts()
+    out["waves"]["cron"] = wave
+    bad_reps_t = sum(replicas(i) != r for i, r in crons.items())
+    bad_div, bad_reps = solved("cron", moved)
+    after = work_versions()
+    rewritten = sum(after.get(k) != v for k, v in versions.items() if k not in moved)
+
+    def histories() -> int:
+        return sum(
+            [(h.rule_name, h.execution_time, h.applied_replicas, h.message)
+             for h in store.get("CronFederatedHPA", f"default/d{i}-cron").status
+             .execution_histories] != [("morning", fired_at, r, "")]
+            for i, r in crons.items())
+
+    bad_hist = histories()
+    clock.now += 5
+    again = plane_wave("cron again", cp, device, card)
+    bad_again = histories()
+    plane_line("cron", wave, f"{len(crons)} CronFederatedHPAs at 09:00 UTC (armed at 08:59:30 "
+               f"in {arm['wall']:.4f} s, {fired_early} fired early, passes {arm['passes']}): "
+               f"templates at their new sizes {len(crons) - bad_reps_t} ok / {bad_reps_t} bad; "
+               f"numpy-divider check {len(moved) - bad_div} ok / {bad_div} bad ({bad_reps} "
+               f"problems off); execution histories {len(crons) - bad_hist} ok / {bad_hist} "
+               f"bad; a settle 5 s later ({again['wall']:.4f} s) fired {bad_again} again, "
+               f"passes {again['passes']}; other bindings' Works written again {rewritten}; "
+               f"launches { {k: v for k, v in out['cron_launches'].items() if v} }", card)
+    if fired_early or arm["passes"] or bad_reps_t or bad_div or bad_reps or bad_hist \
+            or bad_again or again["passes"] or rewritten or wave["passes"] != [len(moved)]:
+        raise AssertionError(f"plane cron: {fired_early} fired early, {bad_reps_t} templates "
+                             f"off, {bad_div} rows off the numpy divider, {bad_hist} "
+                             f"histories off, {bad_again} after a second settle, passes "
+                             f"{wave['passes']}")
+
+    # -- 13. networking -------------------------------------------------------
+    clock.now += 60  # out of the cron's minute
+    rbs = sorted_bindings(store)
+    names = sorted(cp.members.names())
+    providers, consumers, ings = network_picks(rbs, names, services, ingresses,
+                                               PLANE_CONSUMERS)
+    t0 = time.perf_counter()
+    network_objects(pkg, cp, providers, consumers, ings)
+    wave = plane_wave("networking", cp, device, card, time.perf_counter() - t0)
+    out["waves"]["networking"] = wave
+    bad_mcs, bad_mci = network_check(cp, providers, consumers, ings)
+    collected = sum(r.kind == "EndpointSlice" for r in store.list("Resource"))
+    n_slices = sum(map(len, providers.values()))
+    plane_line("networking", wave, f"{len(providers)} services exported from "
+               f"{n_slices} provider clusters (seed 13), {collected} slices collected; "
+               f"{len(providers)} MultiClusterServices to {PLANE_CONSUMERS} consumers each "
+               f"{len(providers) - bad_mcs} ok / {bad_mcs} missing; {len(ings)} ingresses on "
+               f"their backends' clusters {len(ings) - bad_mci} ok / {bad_mci} bad; passes "
+               f"{wave['passes']}", card)
+    if bad_mcs or bad_mci or collected != n_slices or wave["passes"]:
+        raise AssertionError(f"plane networking: {bad_mcs} consumers off, {bad_mci} ingresses "
+                             f"off, {collected} slices collected of {n_slices}, passes "
+                             f"{wave['passes']}")
+    t0 = time.perf_counter()
+    network_teardown(cp, providers, ings)
+    wave = plane_wave("networking teardown", cp, device, card, time.perf_counter() - t0)
+    out["waves"]["networking teardown"] = wave
+    left = sum(r.kind == "EndpointSlice" for r in store.list("Resource"))
+    left += sum(w.meta.name.startswith(("mcs-", "mci-")) for w in store.list("Work"))
+    derived = sum(o.kind in ("Service", "EndpointSlice", "Ingress")
+                  for n in names for o in cp.members.get(n).list())
+    plane_line("networking teardown", wave, f"exports, services, ingresses and their Works "
+               f"deleted: {left} collected slices and Works left, {derived} derived member "
+               f"objects left; passes {wave['passes']}", card)
+    if left or derived or wave["passes"]:
+        raise AssertionError(f"plane networking teardown: {left} objects left in the store, "
+                             f"{derived} on members")
+
+    # -- 14. resume -----------------------------------------------------------
+    rbs = sorted_bindings(store)
+    before = {rb.meta.namespaced_name: written(rb) for rb in rbs}
+    objs_before = member_state(cp)
+    path = os.path.join(tempfile.gettempdir(), f"plane-{os.getpid()}.ckpt")
+    t0 = time.perf_counter()
+    try:
+        cp2, n_written, n_restored, walls = resume_plane(
+            pkg, cp, path, device=device, clock=clock, enable_descheduler=True,
+            enable_drift_rebalancer=True)
+        size_mb = os.path.getsize(path) / 2**20
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    restore_s = time.perf_counter() - t0
+    cp2.descheduler.active = False
+    cp2.drift_rebalancer.active = False  # its round is run by hand below
+    for w in cp2.runtime.workers:
+        w.MAX_RETRIES = w.POISON_TOLERANCE = 0
+    reset_counts()
+    wave = plane_wave("resume", cp2, device, card, restore_s)
+    settle_launches = read_counts()
+    out["waves"]["resume"] = wave
+    store2, ctl2 = cp2.store, cp2.scheduler
+    rbs2 = sorted_bindings(store2)
+    moved = sum(written(rb) != before.get(rb.meta.namespaced_name) for rb in rbs2)
+    objs_after = member_state(cp2)
+    bad_objs = sum(objs_after.get(k, (None, None))[1] != spec
+                   for k, (_, spec) in objs_before.items()) + len(
+        set(objs_after) - set(objs_before))
+    rewritten = sum(objs_after[k][0] != rv for k, (rv, _) in objs_before.items()
+                    if k in objs_after)
+    plane_line("resume", wave, f"{n_written} objects checkpointed ({size_mb:.1f} MB) and "
+               f"{n_restored} restored into a new plane with the same {len(names)} members "
+               f"(in the apply: " + ", ".join(f"{k} {v:.4f} s" for k, v in walls.items())
+               + f"); bindings "
+               f"moved {moved} of {len(rbs2)}; member objects off their specs {bad_objs}, "
+               f"written again {rewritten} of {len(objs_before)}; settle launches "
+               f"{ {k: v for k, v in settle_launches.items() if v} }", card)
+    if moved or bad_objs or len(rbs2) != len(rbs) or n_restored != n_written:
+        raise AssertionError(f"plane resume: {moved} bindings moved, {bad_objs} member "
+                             f"objects off, {n_restored} of {n_written} objects restored")
+
+    # -- 15. the resumed plane's first drift round ------------------------------
+    dry = []
+    dry_solve = ctl2.dry_solve
+
+    def seen(problems, dirty_keys=None):
+        results = dry_solve(problems, dirty_keys)
+        dry.append((problems, results))
+        return results
+
+    ctl2.dry_solve = seen
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        stats = cp2.drift_rebalancer.rebalance_once()
+        sync(device)
+    finally:
+        del ctl2.dry_solve
+    round_s = time.perf_counter() - t0
+    out["resume_launches"] = read_counts()
+    if len(dry) != 1:
+        raise AssertionError(f"plane resume drift round: {len(dry)} dry solves")
+    (probs, results), = dry
+    engine = ctl2._engine
+    t0 = time.perf_counter()
+    bad_div = oracle_check(engine, probs, results)
+    check_s = time.perf_counter() - t0
+    budget = disruption_budget()
+    t0 = time.perf_counter()
+    want_keys = drift_referent(engine, probs, {p.key: p.prev for p in probs}, budget)
+    ref_s = time.perf_counter() - t0
+    trig = stats["triggered"]
+    kept = {rb.meta.namespaced_name: written(rb) for rb in rbs2}
+    wave = plane_wave("resume drift round", cp2, device, card, round_s)
+    out["waves"]["resume drift round"] = wave
+    fresh = [ctl2._problem_cache[k] for k in trig]
+    moved = [store2.get("ResourceBinding", k) for k in trig]
+    bad = written_check(engine, fresh, moved) + unwritten(moved, placed=True)
+    off = sum(written(rb) != kept[rb.meta.namespaced_name] for rb in sorted_bindings(store2)
+              if rb.meta.namespaced_name not in trig)
+    plane_line("resume drift round", wave, f"the round's dry solve of {stats['scored']} of "
+               f"{len(rbs2)} bindings ({round_s:.4f} s with the round's scoring and stamps, "
+               f"fleet table {engine._fleet is not None}): numpy-divider check "
+               f"{len(probs) - bad_div} ok / {bad_div} bad ({check_s:.1f} s); drifted "
+               f"{stats['drifted']}, {len(trig)} of budget {budget} triggered, rebalance_np's "
+               f"set {'equal' if trig == want_keys else 'DIFFERENT'} ({ref_s:.1f} s); the "
+               f"settle re-placed {len(trig) - bad} at the numpy divider's fresh ideal / {bad} "
+               f"bad, {off} other bindings moved; launches "
+               f"{ {k: v for k, v in out['resume_launches'].items() if v} }", card)
+    if bad_div or engine._fleet is None or stats["scored"] != len(probs) or trig != want_keys \
+            or len(trig) != min(budget, stats["drifted"]) or bad or off \
+            or wave["passes"] != ([len(trig)] if trig else []):
+        raise AssertionError(f"plane resume drift round: {bad_div} rows off the numpy "
+                             f"divider, triggered {len(trig)}, referent {len(want_keys)}, "
+                             f"{bad} re-placed rows bad, {off} others moved, engine passes "
+                             f"{wave['passes']}")
+    out["resume_walls"] = walls
+    return out
+
+
 def run_pull_plane(device, card: str) -> dict:
     """A Pull-mode plane on ``device`` at the size of the JAX package's
     Pull tests: one Push member and two Pull members registered through
@@ -6972,9 +7655,11 @@ def main() -> int:
     from karmada_tpu_torch import native
     from karmada_tpu_torch.native import fold
 
+    global REFERENT_PROCESSES
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     card = card_line()
+    REFERENT_PROCESSES = min(8, len(os.sched_getaffinity(0)))
     print(f"# card: {card}; torch {torch.__version__}; CUDA {torch.version.cuda}", flush=True)
     import launch_floors
 
@@ -7173,6 +7858,10 @@ def main() -> int:
         require_launched("plane cold", out["cold_launches"])
         require_launched("plane failover", out["failover_launches"])
         require_launched("plane deschedule", out["deschedule_launches"])
+        require_launched("plane autoscale up", out["up_launches"])
+        require_launched("plane autoscale down", out["down_launches"])
+        require_launched("plane cron", out["cron_launches"])
+        require_launched("plane resume drift round", out["resume_launches"])
         paths["plane"] = out
 
     def limits():
@@ -7250,6 +7939,11 @@ def main() -> int:
           + ", ".join(f"{k} {v}" for k, v in plane["failover_launches"].items() if v)
           + "; descheduler wave "
           + ", ".join(f"{k} {v}" for k, v in plane["deschedule_launches"].items() if v)
+          + "".join(f"; {tag} " + ", ".join(f"{k} {v}" for k, v in plane[key].items() if v)
+                    for tag, key in (("autoscale up", "up_launches"),
+                                     ("autoscale down", "down_launches"),
+                                     ("cron", "cron_launches"),
+                                     ("resume drift round", "resume_launches")))
           + "; wave walls " + ", ".join(
               f"{k} {w['apply_s'] + w['wall']:.2f} s" for k, w in plane["waves"].items()),
           flush=True)

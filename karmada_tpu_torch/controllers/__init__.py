@@ -3,9 +3,12 @@ pkg/scheduler, pkg/descheduler): the propagation path from a template and
 its policy to objects in member clusters and status back, the cluster
 status loop and taint manager, the failover controllers (graceful eviction,
 application failover, the descheduler), dependencies, namespace sync, the
-workload rebalancer, FRQ status, remedy and the Pull agent, the scheduler
-process and the drift descheduler that scores through it."""
+workload rebalancer, FRQ status, FederatedHPA and CronFederatedHPA (with the
+replica calculator), multi-cluster services and ingress, remedy and the Pull
+agent, the scheduler process and the drift descheduler that scores through
+it."""
 
+from .autoscaling import CronFederatedHPAController, FederatedHPAController  # noqa: F401
 from .cluster import (  # noqa: F401
     ClusterController,
     ClusterStatusController,
@@ -28,6 +31,12 @@ from .failover import (  # noqa: F401
     GracefulEvictionController,
 )
 from .hpa_sync import UnifiedAuthController  # noqa: F401
+from .mci import MultiClusterIngressController  # noqa: F401
+from .mcs import (  # noqa: F401
+    MultiClusterServiceController,
+    ServiceExportController,
+    derived_service_name,
+)
 from .overridemanager import OverrideManager  # noqa: F401
 from .propagation import (  # noqa: F401
     BindingController,

@@ -1,8 +1,8 @@
 """HPA scale-target marking + member-decided replica sync + unified auth.
 
 The port's own copy of ``karmada_tpu/controllers/hpa_sync.py``. The marker
-reads FederatedHPA objects, whose controller comes with the autoscaling
-controllers (ROADMAP A7d). Ref:
+reads FederatedHPA objects (``controllers/autoscaling.py`` scales their
+targets). Ref:
 - hpaScaleTargetMarker (pkg/controllers/hpascaletargetmarker, 316 LoC):
   labels workloads targeted by a FederatedHPA so other controllers know the
   replica field is HPA-owned.

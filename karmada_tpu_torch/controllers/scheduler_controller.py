@@ -24,7 +24,7 @@ a transport failure serves that pass on the in-process engine on
 ``device`` (``karmada_tpu_degraded_passes_total{channel="solver"}``) and
 re-syncs the sidecar before its next pass. Still to come: the lease write
 barrier, which comes with leader election over a shared store (``store=``,
-ROADMAP A7d), the metrics server and the tracer's peers (A17), prewarm
+ROADMAP A7b), the metrics server and the tracer's peers (A17), prewarm
 (A14) and a device mesh (A15).
 """
 

@@ -12,9 +12,12 @@ controller and the NoExecute taint manager; graceful eviction and
 application failover; the estimator refresh ticker; the scheduler; the
 descheduler and the drift rebalancer (both opt-in); the dependencies
 distributor, namespace sync, the workload rebalancer and the FRQ status
-controller; remedy; the member HPA syncers (opt-in); unified auth; the
-registration authority with its certificate-rotation ticker; and, per
-member, Pull agents and service-name-resolution detectors.
+controller; FederatedHPA and CronFederatedHPA; the ServiceExport,
+MultiClusterService and MultiClusterIngress controllers; remedy; the
+metrics adapter, which the FederatedHPA controller reads through; the
+member HPA syncers (opt-in); unified auth; the registration authority with
+its certificate-rotation ticker; and, per member, Pull agents and
+service-name-resolution detectors.
 
 Usage:
     cp = ControlPlane(device="cuda")
@@ -27,16 +30,14 @@ Usage:
 quota and priority waves, and passes whose sidecar is down, to its
 in-process engine on ``device``).
 
-Not ported yet, so absent here: an external store (``store=``, which
-needs the store bus, and leader election over it, ROADMAP A7d); the
+Not ported yet, so absent here: an external store (``store=``) and
+leader election over it, which need the store bus (ROADMAP A7b); the
 metrics server and the tracer's peers (ROADMAP A17), prewarm (A14), a
-device mesh (A15); the
-search cache and proxy, the metrics adapter and the declarative and webhook
-interpreters' configuration managers (ROADMAP A7b); FederatedHPA and
-CronFederatedHPA, multi-cluster services and ingress (ROADMAP A7d); and an
-agent running out of process (``join_cluster(remote_agent=True)`` registers
-only the inventory shell, as in the JAX plane; the agent process comes with
-the store bus, ROADMAP A7b).
+device mesh (A15); the search cache and proxy and the declarative and
+webhook interpreters' configuration managers (ROADMAP A7b); and an agent
+running out of process (``join_cluster(remote_agent=True)`` registers only
+the inventory shell, as in the JAX plane; the agent process comes with the
+store bus, ROADMAP A7b).
 """
 
 from __future__ import annotations
@@ -53,14 +54,19 @@ from .controllers import (
     BindingStatusController,
     ClusterController,
     ClusterStatusController,
+    CronFederatedHPAController,
     DependenciesDistributor,
     Descheduler,
     ExecutionController,
+    FederatedHPAController,
     FederatedResourceQuotaController,
     GracefulEvictionController,
+    MultiClusterIngressController,
+    MultiClusterServiceController,
     NamespaceSyncController,
     ResourceDetector,
     SchedulerController,
+    ServiceExportController,
     TaintManager,
     UnifiedAuthController,
     WorkIndex,
@@ -69,6 +75,7 @@ from .controllers import (
 )
 from .estimator import AccurateEstimator, EstimatorRegistry, NodeSnapshot
 from .interpreter import default_interpreter
+from .metricsadapter import MetricsAdapter
 from .utils import Runtime, Store
 from .utils.member import MemberClientRegistry, MemberCluster
 from .webhook import default_admission_chain
@@ -195,9 +202,28 @@ class ControlPlane:
         self.frq_controller = FederatedResourceQuotaController(
             self.store, self.runtime, self.members
         )
+        self.federated_hpa = FederatedHPAController(
+            self.store, self.runtime, self.members, clock=self.clock
+        )
+        self.cron_federated_hpa = CronFederatedHPAController(
+            self.store, self.runtime, clock=self.clock
+        )
+        self.service_export = ServiceExportController(
+            self.store, self.runtime, self.members
+        )
+        self.multicluster_service = MultiClusterServiceController(
+            self.store, self.runtime, self.members
+        )
+        self.multicluster_ingress = MultiClusterIngressController(
+            self.store, self.runtime, self.members
+        )
         from .controllers.remedy import RemedyController
 
         self.remedy_controller = RemedyController(self.store, self.runtime)
+        self.metrics_adapter = MetricsAdapter(self.members)
+        # the HPA controller consumes the SAME adapter facade (one cache/
+        # state surface), not a private duplicate over the registry
+        self.federated_hpa._metrics_adapter = self.metrics_adapter
         if enable_member_hpa_sync:
             from .controllers.hpa_sync import (
                 DeploymentReplicasSyncer,

@@ -8,7 +8,7 @@ multi-process fleet of them (``fleet``).
 
 Still to come: the estimator server's ``/metrics`` endpoint and the
 tracer's cross-process peers (ROADMAP A17), prewarm (A14), a device mesh
-(A15) and an external store (``store=``, A7d)."""
+(A15) and an external store (``store=``, A7b)."""
 
 from .accurate import (  # noqa: F401
     AccurateEstimator,

@@ -9,11 +9,13 @@ here watch handlers on the member store).
 A MemberCluster is an in-process stand-in for one member kube-apiserver:
 resources keyed by (gvk, namespace, name), node state for the cluster's
 resource summary, the pods and unschedulable counts the descheduler and the
-estimator refresh read, and a reachability flag for failure injection. A
-real deployment replaces this class with a REST client; the controller code
-above it is transport-agnostic. The JAX module's pod log, exec and proxy
-seams and its metric series serve the search, proxy, metrics-adapter and HPA
-controllers, which the port does not carry yet (ROADMAP A7b).
+estimator refresh read, the metric surfaces the metrics adapter and the
+FederatedHPA controller read (aggregate and per-pod workload samples, pod and
+node metrics, custom and external metric series), and a reachability flag
+for failure injection. A real deployment replaces this class with a REST
+client; the controller code above it is transport-agnostic. The JAX module's
+pod log, exec and proxy seams serve the search cache and the proxy, which
+the port does not carry yet (ROADMAP A7b).
 """
 
 from __future__ import annotations
@@ -70,6 +72,27 @@ class MemberCluster:
         # workload-key -> unschedulable replica count (descheduler input;
         # ref: estimator server/replica/replica.go)
         self.unschedulable_replicas: dict[str, int] = {}
+        # workload-key -> metric sample {"pods", "ready_pods",
+        # "cpu_utilization"} (metrics.k8s.io stand-in for the metrics adapter)
+        self.pod_metrics: dict[str, dict] = {}
+        # workload-key -> PER-POD sample set (the federated podList the
+        # FederatedHPA replica calculator groups by readiness; field names
+        # are controllers.replica_calculator.PodSample kwargs — request/
+        # value in milli-units): [{"name", "phase", "ready", "request",
+        # "value", ...}, ...]
+        self.workload_pods: dict[str, list[dict]] = {}
+        # metrics.k8s.io per-object surfaces (metricsadapter ResourceMetrics):
+        # "namespace/pod" -> {"cpu": milli, "memory": bytes, "labels": {...}}
+        self.pod_metrics_detail: dict[str, dict] = {}
+        # node name -> {"cpu": milli, "memory": bytes, "labels": {...}}
+        self.node_metrics: dict[str, dict] = {}
+        # custom.metrics.k8s.io series (metricsadapter CustomMetrics): each
+        # {"resource": "pods", "namespaced": bool, "namespace": str,
+        #  "object": str, "metric": str, "value": float, "labels": {...}}
+        self.custom_metric_series: list[dict] = []
+        # external.metrics.k8s.io series: each {"namespace": str,
+        #  "metric": str, "value": float, "labels": {...}}
+        self.external_metric_series: list[dict] = []
         self._resources: dict[tuple[str, str, str], Resource] = {}
         self._watchers: list[Callable[[MemberEvent], None]] = []
         self._lock = threading.RLock()

@@ -5,7 +5,8 @@ pkg/util/worker.go:33-140 (util.AsyncWorker — workqueue + reconcile loop).
 The same enqueue/reconcile contract, driven cooperatively by
 ``Runtime.run_until_settled`` so the plane runs in-process without sleeping
 threads. What the JAX module adds for its serve deployments (wall-clock
-backoff of failing keys) is not part of this copy: a REQUEUE here
+backoff of failing keys, under ``runtime.realtime``, which only the
+localup processes set) comes with them (ROADMAP A7c): a REQUEUE here
 re-enqueues at once, up to ``Worker.MAX_RETRIES``.
 """
 

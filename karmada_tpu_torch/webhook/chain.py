@@ -3,11 +3,10 @@
 The port's own copy of ``karmada_tpu/webhook/chain.py`` for the kinds the
 port's plane stores: propagation and override policies (both scopes),
 ResourceBinding and ClusterResourceBinding, Work and Cluster,
-FederatedResourceQuota and WorkloadRebalancer, and deletion protection on
-every kind. The validators of the JAX chain's other kinds (FederatedHPA and
-CronFederatedHPA, MultiClusterService and MultiClusterIngress, and the
-interpreter configurations) come with the controllers of those kinds
-(ROADMAP A7b, A7d).
+FederatedResourceQuota and WorkloadRebalancer, FederatedHPA and
+CronFederatedHPA, MultiClusterService and MultiClusterIngress, and deletion
+protection on every kind. The validators of the interpreter configurations
+come with the interpreter's configuration managers (ROADMAP A7b).
 """
 
 from __future__ import annotations
@@ -25,6 +24,7 @@ from ..api.policy import (
     PropagationPolicy,
 )
 from ..utils.clone import clone_resource
+from ..utils.cron import _parse_field
 from ..utils.features import CUSTOMIZED_CLUSTER_RESOURCE_MODELING, feature_gate
 
 PERMANENT_ID_ANNOTATION = "policy.karmada.io/permanent-id"
@@ -129,6 +129,21 @@ def mutate_binding_permanent_id(rb) -> None:
     """resourcebinding/clusterresourcebinding mutating.go."""
     if not rb.meta.labels.get(PERMANENT_ID_LABEL):
         rb.meta.labels[PERMANENT_ID_LABEL] = str(uuid.uuid4())
+
+
+def mutate_multicluster_service(mcs) -> None:
+    """multiclusterservice/mutating.go: permanent-ID label."""
+    if not mcs.meta.labels.get(PERMANENT_ID_LABEL):
+        mcs.meta.labels[PERMANENT_ID_LABEL] = str(uuid.uuid4())
+
+
+def mutate_federated_hpa(hpa) -> None:
+    """federatedhpa/mutating.go → lifted.SetDefaultsFederatedHPA: default
+    only nil fields — an explicit invalid 0 must reach the validator."""
+    if hpa.spec.min_replicas is None:
+        hpa.spec.min_replicas = 1
+    if hpa.spec.stabilization_window_seconds is None:
+        hpa.spec.stabilization_window_seconds = 300
 
 
 # --- validators (ref: pkg/webhook/*/validating.go) ---------------------------
@@ -300,6 +315,68 @@ def validate_resource_binding(rb) -> None:
     validate_placement(rb.spec.placement)
 
 
+def validate_federated_hpa(hpa) -> None:
+    if hpa.spec.min_replicas < 1:
+        raise ValidationError("minReplicas must be >= 1")
+    if hpa.spec.max_replicas < hpa.spec.min_replicas:
+        raise ValidationError("maxReplicas must be >= minReplicas")
+    if not hpa.spec.scale_target_ref.name:
+        raise ValidationError("scaleTargetRef.name is required")
+    for m in hpa.spec.metrics:
+        if (
+            m.target_average_utilization is not None
+            and not 1 <= m.target_average_utilization <= 100
+        ):
+            raise ValidationError("targetAverageUtilization must be in [1, 100]")
+
+
+def validate_cron_federated_hpa(cron) -> None:
+    names = [r.name for r in cron.spec.rules]
+    if len(names) != len(set(names)):
+        raise ValidationError("rule names must be unique")
+    for rule in cron.spec.rules:
+        fields = rule.schedule.split()
+        if len(fields) != 5:
+            raise ValidationError(f"invalid cron schedule {rule.schedule!r}")
+        try:
+            for f, lo, hi in zip(fields, (0, 0, 1, 1, 0), (59, 23, 31, 12, 6)):
+                _parse_field(f, lo, hi)
+        except (ValueError, IndexError) as e:
+            raise ValidationError(f"invalid cron schedule {rule.schedule!r}: {e}")
+        if (
+            rule.target_replicas is None
+            and rule.target_min_replicas is None
+            and rule.target_max_replicas is None
+        ):
+            raise ValidationError(
+                f"rule {rule.name!r} must set targetReplicas or min/max bounds"
+            )
+
+
+def validate_multicluster_service(mcs) -> None:
+    valid_types = {"CrossCluster", "LoadBalancer"}
+    for t in mcs.spec.types:
+        if t not in valid_types:
+            raise ValidationError(f"invalid exposure type {t!r}")
+
+
+def validate_multicluster_ingress(mci) -> None:
+    """multiclusteringress/validating.go: ingress rule sanity."""
+    for rule in mci.spec.rules:
+        for path in (rule.get("http") or {}).get("paths", []):
+            # unset pathType defaults to ImplementationSpecific (k8s default)
+            ptype = path.get("pathType") or "ImplementationSpecific"
+            if ptype not in ("Exact", "Prefix", "ImplementationSpecific"):
+                raise ValidationError(f"invalid pathType {ptype!r}")
+            if ptype in ("Exact", "Prefix") and not str(
+                path.get("path", "")
+            ).startswith("/"):
+                raise ValidationError("ingress path must be absolute")
+            backend = path.get("backend") or {}
+            if not (backend.get("service") or {}).get("name"):
+                raise ValidationError("ingress backend service name required")
+
+
 def validate_deletion_protection(obj) -> None:
     """resourcedeletionprotection/validating.go: deny Delete while the
     protection label is Always."""
@@ -400,6 +477,12 @@ def default_admission_chain() -> AdmissionChain:
     for kind in ("ResourceBinding", "ClusterResourceBinding"):
         chain.register_mutator(kind, mutate_binding_permanent_id)
         chain.register_validator(kind, validate_resource_binding)
+    chain.register_mutator("FederatedHPA", mutate_federated_hpa)
+    chain.register_validator("FederatedHPA", validate_federated_hpa)
+    chain.register_validator("CronFederatedHPA", validate_cron_federated_hpa)
+    chain.register_mutator("MultiClusterService", mutate_multicluster_service)
+    chain.register_validator("MultiClusterService", validate_multicluster_service)
+    chain.register_validator("MultiClusterIngress", validate_multicluster_ingress)
     chain.register_validator("WorkloadRebalancer", validate_workload_rebalancer)
     chain.register_mutator("Work", mutate_work)
     chain.register_validator("Work", validate_work)

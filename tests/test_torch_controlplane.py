@@ -13,7 +13,9 @@ reference, flags, conditions and manifest statuses), every member's objects
 (gvk, namespace, name, labels, annotations, spec, status), the templates
 (labels, spec, status), the Clusters (labels, annotations, taints, status),
 the policies' permanent IDs, the Leases, the WorkloadRebalancers' and the
-FederatedResourceQuotas' status. Condition times, uids and creation stamps
+FederatedResourceQuotas' status, and the FederatedHPAs, CronFederatedHPAs,
+ServiceExports, MultiClusterServices and MultiClusterIngresses (labels,
+spec and status). Condition times, uids and creation stamps
 come from the wall clock and per-package counters and are left out.
 Tolerance: exact equality.
 
@@ -28,6 +30,7 @@ scenarios are in ``test_torch_failover.py``, ``test_torch_plane_extras.py``
 and ``test_torch_pull.py``, on ``run_both`` from here."""
 
 import copy
+import dataclasses
 import importlib
 import itertools
 import types
@@ -166,6 +169,11 @@ def _task(t) -> tuple:
             dict(t.preserved_label_state), list(t.clusters_before_failover))
 
 
+def _plain(x):
+    """A dataclass as a dict (each package has its own classes)."""
+    return dataclasses.asdict(x) if dataclasses.is_dataclass(x) else x
+
+
 def state(p: Pkg, cp) -> dict:
     store = cp.store
     by_key = lambda o: o.meta.namespaced_name  # noqa: E731
@@ -231,6 +239,17 @@ def state(p: Pkg, cp) -> dict:
         for r in sorted(store.list("WorkloadRebalancer"), key=by_key)]
     out["quotas"] = [(q.meta.namespaced_name, q.status.overall, q.status.overall_used)
                      for q in sorted(store.list("FederatedResourceQuota"), key=by_key)]
+    # the autoscalers and the networking kinds, spec and status as plain
+    # dicts (each package has its own dataclasses): FederatedHPA,
+    # CronFederatedHPA (execution histories included), ServiceExport,
+    # MultiClusterService and MultiClusterIngress; the members' Services,
+    # EndpointSlices and Ingresses are among their objects above
+    out["autoscaling_networking"] = [
+        (kind, o.meta.namespaced_name, dict(o.meta.labels), o.meta.generation,
+         _plain(getattr(o, "spec", None)), _plain(getattr(o, "status", None)))
+        for kind in ("FederatedHPA", "CronFederatedHPA", "ServiceExport",
+                     "MultiClusterService", "MultiClusterIngress")
+        for o in sorted(store.list(kind), key=by_key)]
     # a copy: the plane goes on mutating the live dicts recorded here
     return copy.deepcopy(out)
 
@@ -908,22 +927,29 @@ def test_config4_plane_equals_jax_plane(delta, monkeypatch, gates):
 
 
 PLANE_WAVES = ("join", "cold", "status", "scale", "delete", "failover", "drain",
-               "deschedule", "recovery", "pull")
+               "deschedule", "recovery", "autoscale up", "autoscale hold", "autoscale down",
+               "cron", "networking", "networking teardown", "resume", "resume drift round",
+               "pull")
 
 
 def test_plane_phase_rehearsal(capsys):
     """chip_smoke's plane phase at a small size on the CPU, its failover
-    path and Pull plane included: every wave's check raises on any
-    difference."""
+    path, its autoscaling, networking and resume waves and its Pull plane
+    included: every wave's check raises on any difference."""
     gate = mod(karmada_tpu_torch, "utils.features")
     was = gate.feature_gate.enabled(gate.FAILOVER)
     out = chip_smoke.run_plane(torch.device("cpu"), "cpu", templates=500, clusters=60,
-                               scale=40, delete=40, kill=3, deschedule=40)
+                               scale=40, delete=40, kill=3, deschedule=40,
+                               autoscale=(30, 10, 10), autoscale_down=10, cron=30,
+                               services=5, ingresses=2)
     assert gate.feature_gate.enabled(gate.FAILOVER) == was
     assert mod(karmada_tpu_torch, "utils.faultinject").injector() is None
     assert set(out["waves"]) == set(PLANE_WAVES)
     assert sum(out["waves"]["failover"]["passes"]) > 0
     assert out["waves"]["deschedule"]["passes"] == [40]
+    assert out["waves"]["autoscale up"]["passes"] == [40]
+    assert out["waves"]["autoscale down"]["passes"] == [10]
+    assert out["waves"]["cron"]["passes"] == [30]
     printed = capsys.readouterr().out
     for wave in PLANE_WAVES:
         assert f"# plane {wave}:" in printed

@@ -255,7 +255,13 @@ def test_port_imports_without_jax_or_karmada_tpu():
             "karmada_tpu_torch.estimator.proto.estimator_batch_pb2",
             "karmada_tpu_torch.solver", "karmada_tpu_torch.solver.service",
             "karmada_tpu_torch.solver.client", "karmada_tpu_torch.solver.__main__",
-            "karmada_tpu_torch.solver.proto.solver_pb2"} <= set(mods)
+            "karmada_tpu_torch.solver.proto.solver_pb2",
+            "karmada_tpu_torch.api.autoscaling", "karmada_tpu_torch.api.networking",
+            "karmada_tpu_torch.utils.cron",
+            "karmada_tpu_torch.controllers.replica_calculator",
+            "karmada_tpu_torch.controllers.autoscaling", "karmada_tpu_torch.controllers.mcs",
+            "karmada_tpu_torch.controllers.mci", "karmada_tpu_torch.metricsadapter",
+            "karmada_tpu_torch.metricsadapter.provider"} <= set(mods)
     code = f"""
 import importlib, importlib.abc, sys
 sys.modules["jax"] = None
@@ -290,6 +296,8 @@ NO_WIRE_MODULES = (
     "karmada_tpu_torch.solver.__main__", "karmada_tpu_torch.controllers.scheduler_controller",
     "karmada_tpu_torch.controlplane", "karmada_tpu_torch.utils.backoff",
     "karmada_tpu_torch.utils.faultinject", "karmada_tpu_torch.utils.tracing",
+    "karmada_tpu_torch.metricsadapter", "karmada_tpu_torch.controllers.autoscaling",
+    "karmada_tpu_torch.controllers.mcs",
 )
 
 
@@ -444,3 +452,38 @@ def test_chip_smoke_refuses_without_cuda():
                          env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_referent_processes_equal_one_process():
+    """``chip_smoke.referent_mismatches`` on forked workers (as ``main``
+    runs it: the pieces solved by ``REFERENT_PROCESSES`` processes) counts
+    what it counts in this process: no row off a pass of the engine, and
+    exactly the rows a result or a written tuple was changed in. Run in a
+    fresh interpreter, which has no JAX threads to fork."""
+    code = """
+import torch, chip_smoke as cs
+import karmada_tpu_torch
+from karmada_tpu_torch.scheduler import TensorScheduler
+from karmada_tpu_torch.scheduler.core import ScheduleResult
+snap, problems = cs.build_workload(karmada_tpu_torch, 5, 1200, 60, False)
+engine = TensorScheduler(snap, chunk_size=256, device=torch.device("cpu"))
+res = list(engine.schedule(problems))
+bent = [res[i] if i % 97 else ScheduleResult(res[i].key, dict(res[i].clusters, zz=1),
+                                            res[i].feasible, error=res[i].error)
+        for i in range(len(res))]
+cs.REFERENT_PIECE = 100
+counts = []
+for procs in (1, 3):
+    cs.REFERENT_PROCESSES = procs
+    counts.append((cs.oracle_check(engine, problems, res),
+                   cs.oracle_check(engine, problems, bent),
+                   cs.referent_mismatches(engine, problems[:500], [
+                       cs.expected_row(p, r) for p, r in zip(problems[:500], bent)],
+                       cs.expected_row)))
+print(counts)
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    bent = len(range(0, 1200, 97))
+    assert out.stdout.strip() == str([(0, bent, len(range(0, 500, 97)))] * 2)
