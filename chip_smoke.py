@@ -871,6 +871,311 @@ def resume_plane(pkg, cp, path: str, **plane_kw):
     return cp2, written, restored, walls
 
 
+#: the plane's interpret cell (``run_plane`` after its resume drift round):
+#: ``PLANE_CLONESETS`` Kruise CloneSets (the embedded third-party corpus),
+#: ``PLANE_CUSTOM`` objects of ``CUSTOM_GVK``, a kind no tier knows until a
+#: ResourceInterpreterCustomization carries its scripts, and
+#: ``PLANE_HOOKED`` objects of ``HOOKED_GVK``, served by an interpreter
+#: webhook on plain HTTP; ``PLANE_CUSTOM_SCALE`` custom-kind templates then
+#: rescale (seed 21)
+PLANE_CLONESETS, PLANE_CUSTOM, PLANE_HOOKED, PLANE_CUSTOM_SCALE = 1000, 200, 50, 100
+CLONESET_GVK = "apps.kruise.io/v1alpha1/CloneSet"
+CUSTOM_GVK = "example.io/v1/Trainer"
+HOOKED_GVK = "example.io/v1/Sweep"
+INTERPRET_SEED = 21
+
+#: the custom kind's GetReplicas and ReviseReplica (exprlang scripts): the
+#: count is ``spec.workers``, each worker requests ``spec.workerCpu`` and
+#: ``spec.workerMemory``; a revision also derives ``spec.shards`` from the
+#: count (``shardsPerWorker`` a worker), which only a full render writes
+CUSTOM_GET_REPLICAS = """
+def GetReplicas(obj):
+    spec = obj.spec
+    return spec.workers, {"resourceRequest": {"cpu": spec.workerCpu,
+                                              "memory": spec.workerMemory}}
+"""
+CUSTOM_REVISE_REPLICA = """
+def ReviseReplica(obj, replica):
+    obj["spec"]["workers"] = replica
+    obj["spec"]["shards"] = replica * obj.spec.shardsPerWorker
+    return obj
+"""
+
+
+def _gv_kind(gvk: str) -> tuple[str, str]:
+    api_version, _, kind = gvk.rpartition("/")
+    return api_version, kind
+
+
+def hooked_handlers() -> dict:
+    """The webhook author's handlers for ``HOOKED_GVK``: the count is
+    ``spec.workers`` with ``spec.cpu`` and ``spec.memory`` a worker, a
+    revision is a JSONPatch of ``/spec/workers``, and an object is healthy
+    when ``status.readyWorkers`` reaches its workers."""
+
+    def interpret_replica(req):
+        spec = req["object"]["spec"]
+        return {"replicas": spec["workers"], "replicaRequirements": {
+            "resourceRequest": {"cpu": spec["cpu"], "memory": spec["memory"]}}}
+
+    def revise_replica(req):
+        return {"patch": [{"op": "replace", "path": "/spec/workers",
+                           "value": req["replicas"]}], "patchType": "JSONPatch"}
+
+    def interpret_health(req):
+        obj = req["object"]
+        return {"healthy": (obj.get("status") or {}).get("readyWorkers")
+                == obj["spec"]["workers"]}
+
+    return {"InterpretReplica": interpret_replica, "ReviseReplica": revise_replica,
+            "InterpretHealth": interpret_health}
+
+
+def interpret_objects(pkg, clonesets: int, custom: int, hooked: int, url: str,
+                      placement=None) -> dict:
+    """The interpret cell's objects, built with the modules of ``pkg``
+    (seeded with numpy from ``INTERPRET_SEED``, the same in every package):
+    ``clonesets`` CloneSets ``cs{i}`` of 1-40 replicas whose pods hold one or
+    two containers with cpu and memory requests; ``custom`` objects
+    ``tr{i}`` of ``CUSTOM_GVK`` (1-40 workers, a request each, 1-4 shards a
+    worker) and the ResourceInterpreterCustomization that gives them
+    ``CUSTOM_GET_REPLICAS`` and ``CUSTOM_REVISE_REPLICA``; ``hooked``
+    objects ``sw{i}`` of ``HOOKED_GVK`` and a
+    ResourceInterpreterWebhookConfiguration naming ``url`` for the
+    operations of ``hooked_handlers``; one PropagationPolicy over the three
+    kinds with ``placement`` (config 4's when None)."""
+    core = importlib.import_module(f"{pkg.__name__}.api.core")
+    pol = importlib.import_module(f"{pkg.__name__}.api.policy")
+    decl = importlib.import_module(f"{pkg.__name__}.interpreter.declarative")
+    hook = importlib.import_module(f"{pkg.__name__}.interpreter.webhook")
+    rng = np.random.default_rng(INTERPRET_SEED)
+
+    def cpu() -> str:
+        return f"{int(rng.integers(1, 21)) * 50}m"
+
+    def memory() -> str:
+        return f"{int(rng.integers(1, 17)) * 64}Mi"
+
+    def template(name, gvk, spec):
+        api_version, kind = _gv_kind(gvk)
+        return core.Resource(api_version=api_version, kind=kind,
+                             meta=core.ObjectMeta(name=name, namespace="default"),
+                             spec=spec, status={})
+
+    sets = []
+    for i in range(clonesets):
+        containers = [{"name": f"c{j}", "image": "nginx:1.25",
+                       "resources": {"requests": {"cpu": cpu(), "memory": memory()}}}
+                      for j in range(int(rng.integers(1, 3)))]
+        sets.append(template(f"cs{i}", CLONESET_GVK, {
+            "replicas": int(rng.integers(1, 41)),
+            "template": {"spec": {"containers": containers}}}))
+    trainers = [template(f"tr{i}", CUSTOM_GVK, {
+        "workers": int(rng.integers(1, 41)), "workerCpu": cpu(), "workerMemory": memory(),
+        "shardsPerWorker": int(rng.integers(1, 5))}) for i in range(custom)]
+    sweeps = [template(f"sw{i}", HOOKED_GVK, {
+        "workers": int(rng.integers(1, 41)), "cpu": cpu(), "memory": memory()})
+        for i in range(hooked)]
+    custom_api, custom_kind = _gv_kind(CUSTOM_GVK)
+    hooked_api, hooked_kind = _gv_kind(HOOKED_GVK)
+    customization = decl.ResourceInterpreterCustomization(
+        meta=core.ObjectMeta(name="trainer"), target_api_version=custom_api,
+        target_kind=custom_kind, rules=decl.CustomizationRules(
+            replica_resource_script=CUSTOM_GET_REPLICAS,
+            replica_revision_script=CUSTOM_REVISE_REPLICA))
+    webhook = hook.ResourceInterpreterWebhookConfiguration(
+        meta=core.ObjectMeta(name="sweep"), webhooks=[hook.InterpreterWebhook(
+            name="sweep.example.io", client_config=hook.WebhookClientConfig(url=url),
+            rules=[hook.RuleWithOperations(operations=list(hooked_handlers()),
+                                           api_versions=[hooked_api], kinds=[hooked_kind])],
+            timeout_seconds=30.0)])
+    policy = pol.PropagationPolicy(
+        meta=core.ObjectMeta(name="interpret", namespace="default"),
+        spec=pol.PropagationSpec(
+            resource_selectors=[pol.ResourceSelector(api_version=_gv_kind(g)[0],
+                                                     kind=_gv_kind(g)[1])
+                                for g in (CLONESET_GVK, CUSTOM_GVK, HOOKED_GVK)],
+            placement=placement if placement is not None else config4_placement(pkg)))
+    return {"clonesets": sets, "custom": trainers, "hooked": sweeps,
+            "customization": customization, "webhook": webhook, "policy": policy}
+
+
+def install_interpret_apis(cp) -> None:
+    """Every member serves the interpret cell's three kinds (their CRDs
+    installed): the cluster status controller's next tick lists them in the
+    Cluster's API enablements, which the scheduler's API filter reads."""
+    for name in sorted(cp.members.names()):
+        member = cp.members.get(name)
+        member.api_enablements += [g for g in INTERPRET_COUNT
+                                   if g not in member.api_enablements]
+
+
+def _milli_cpu(q: str) -> int:
+    return int(q[:-1]) if q.endswith("m") else int(q) * 1000
+
+
+def _bytes(q: str) -> int:
+    return int(q[:-2]) << 20 if q.endswith("Mi") else int(q)
+
+
+def interpret_expected(t) -> tuple[int, dict]:
+    """(replicas, per-replica requests in canonical units) of an interpret
+    cell's template, worked out here from its spec: a CloneSet's count and
+    the sum of its containers' requests (the corpus's pod-template rule), the
+    custom kind's workers and worker request, the hooked kind's."""
+    gvk = f"{t.api_version}/{t.kind}"
+    spec = t.spec
+    if gvk == CLONESET_GVK:
+        req = {"cpu": 0, "memory": 0}
+        for c in spec["template"]["spec"]["containers"]:
+            req["cpu"] += _milli_cpu(c["resources"]["requests"]["cpu"])
+            req["memory"] += _bytes(c["resources"]["requests"]["memory"])
+        return spec["replicas"], req
+    if gvk == CUSTOM_GVK:
+        return spec["workers"], {"cpu": _milli_cpu(spec["workerCpu"]),
+                                 "memory": _bytes(spec["workerMemory"])}
+    return spec["workers"], {"cpu": _milli_cpu(spec["cpu"]), "memory": _bytes(spec["memory"])}
+
+
+#: the member field each interpret kind's divided count lands in
+INTERPRET_COUNT = {CLONESET_GVK: "replicas", CUSTOM_GVK: "workers", HOOKED_GVK: "workers"}
+
+
+def interpret_members_check(cp, rbs) -> int:
+    """(member, object) entries that differ from the interpret cell's
+    bindings: every member holds exactly the objects of the three kinds its
+    bindings name, each with its divided count, and each custom-kind object
+    ``shards`` = ``workers`` x ``shardsPerWorker`` (what only the customized
+    ReviseReplica writes: a full render). Returns the count."""
+    want = {name: set() for name in cp.members.names()}
+    for rb in rbs:
+        gvk = f"{rb.spec.resource.api_version}/{rb.spec.resource.kind}"
+        for tc in rb.spec.clusters:
+            want[tc.name].add((gvk, rb.spec.resource.name, tc.replicas))
+    bad = 0
+    for name, objs in want.items():
+        member = cp.members.get(name)
+        got = set()
+        for gvk, field in INTERPRET_COUNT.items():
+            for o in member.list(gvk):
+                got.add((gvk, o.meta.name, o.spec[field]))
+                if gvk == CUSTOM_GVK:
+                    bad += o.spec.get("shards") != o.spec["workers"] * o.spec["shardsPerWorker"]
+        bad += len(got ^ objs)
+    return bad
+
+
+def interpret_report(cp) -> tuple[int, int]:
+    """Members report the status of their CloneSets and hooked objects: a
+    CloneSet at its replicas, updated and observed, ready at its replicas
+    except one replica short on a seeded tenth of them; a hooked object's
+    ``readyWorkers`` at its workers on the same draw. Returns (CloneSets,
+    hooked objects) reported."""
+    rng = np.random.default_rng(INTERPRET_SEED + 1)
+    n_sets = n_hooked = 0
+    for name in sorted(cp.members.names()):
+        member = cp.members.get(name)
+        for o in member.list(CLONESET_GVK):
+            reps = o.spec["replicas"]
+            ready = reps - int(rng.random() < 0.1 and reps > 0)
+            member.set_workload_status(CLONESET_GVK, o.meta.namespace, o.meta.name, {
+                "replicas": reps, "readyReplicas": ready, "updatedReplicas": reps,
+                "availableReplicas": ready, "observedGeneration": o.meta.generation})
+            n_sets += 1
+        for o in member.list(HOOKED_GVK):
+            workers = o.spec["workers"] - int(rng.random() < 0.1)
+            member.set_workload_status(HOOKED_GVK, o.meta.namespace, o.meta.name,
+                                       {"readyWorkers": workers})
+            n_hooked += 1
+    return n_sets, n_hooked
+
+
+def interpret_status_check(cp, rbs) -> tuple[int, int]:
+    """(bindings whose aggregated items' health is off the kind's rule,
+    CloneSet templates whose status is off the corpus's sum rule). A
+    CloneSet member object is healthy when it observed its generation, its
+    updated replicas equal its spec's and its ready replicas its status's;
+    a hooked one when ``readyWorkers`` equals its workers. The template's
+    replicas, ready, updated and available replicas are the sums over its
+    members, and its observed generation its own generation once every
+    member observed its own."""
+    bad_health = bad_status = 0
+    for rb in rbs:
+        gvk = f"{rb.spec.resource.api_version}/{rb.spec.resource.kind}"
+        if gvk == CUSTOM_GVK:
+            continue
+        name = rb.spec.resource.name
+        sums = {"replicas": 0, "readyReplicas": 0, "updatedReplicas": 0,
+                "availableReplicas": 0}
+        want_items = {}
+        for tc in rb.spec.clusters:
+            o = cp.members.get(tc.name).get(gvk, "default", name)
+            st = o.status or {}
+            if gvk == CLONESET_GVK:
+                healthy = (st.get("observedGeneration", 0) >= o.meta.generation
+                           and st.get("updatedReplicas") == o.spec["replicas"]
+                           and st.get("readyReplicas") == st.get("replicas"))
+                for k in sums:
+                    sums[k] += st.get(k, 0)
+            else:
+                healthy = st.get("readyWorkers") == o.spec["workers"]
+            want_items[tc.name] = "Healthy" if healthy else "Unhealthy"
+        got_items = {i.cluster_name: i.health for i in rb.status.aggregated_status}
+        bad_health += got_items != want_items
+        if gvk == CLONESET_GVK:
+            t = cp.store.get("Resource", f"default/{name}")
+            got = {k: t.status.get(k) for k in sums}
+            bad_status += (got != sums or sums["replicas"] != t.spec["replicas"]
+                           or t.status.get("observedGeneration") != t.meta.generation)
+    return bad_health, bad_status
+
+
+def interpret_scale_picks(custom: int, n: int) -> list:
+    """``n`` of the ``custom`` custom-kind templates' indices, drawn with
+    seed ``INTERPRET_SEED + 2``."""
+    rng = np.random.default_rng(INTERPRET_SEED + 2)
+    return sorted(int(i) for i in rng.choice(custom, n, replace=False))
+
+
+def interpret_scale(store, picks) -> dict:
+    """Give each picked custom-kind template a new count in [1, 40] other
+    than its own (seed ``INTERPRET_SEED + 3``); returns {binding key: new
+    count}."""
+    rng = np.random.default_rng(INTERPRET_SEED + 3)
+    out = {}
+    for i in picks:
+        t = store.get("Resource", f"default/tr{i}")
+        new = int(rng.integers(1, 41))
+        if new == t.spec["workers"]:
+            new = new % 40 + 1
+        t.spec["workers"] = new
+        t.meta.generation += 1
+        store.apply(t)
+        out[f"default/tr{i}-trainer"] = new
+    return out
+
+
+def registry_object(pkg):
+    """A ResourceRegistry over every cluster's CloneSets, for the search
+    cache."""
+    core = importlib.import_module(f"{pkg.__name__}.api.core")
+    reg = importlib.import_module(f"{pkg.__name__}.search.registry")
+    api_version, kind = _gv_kind(CLONESET_GVK)
+    return reg.ResourceRegistry(
+        meta=core.ObjectMeta(name="clonesets"),
+        spec=reg.ResourceRegistrySpec(
+            resource_selectors=[{"apiVersion": api_version, "kind": kind}]))
+
+
+def registry_check(cp) -> tuple[int, int]:
+    """(entries of ``cp.search.cache``'s CloneSets that no member holds, or
+    that a member holds and the cache lacks; the cache's CloneSets)."""
+    cached = {(c, o.meta.namespace, o.meta.name) for c, o in cp.search.cache.list(CLONESET_GVK)}
+    held = {(name, o.meta.namespace, o.meta.name) for name in cp.members.names()
+            for o in cp.members.get(name).list(CLONESET_GVK)}
+    return len(cached ^ held), len(cached)
+
+
 def node_states(pkg, n: int, seed: int) -> list:
     """Seeded member nodes of ``pkg``'s estimator: 8-64 cores, 32-256 GiB
     and 110 pods each, 0-90% of cpu, memory and pods requested."""
@@ -1696,6 +2001,14 @@ PATH_KERNELS = {
                    "scatter_rows"),
     "plane resume drift round": ("profile_table", "divide_replicas", "fleet_masks",
                                  "fleet_diff", "fleet_entry_rows", "fleet_wire", "entry_wire"),
+    # the interpret wave's 1250 new rows (CloneSets, the customized and the
+    # webhook-served kinds) ride the fleet table like the autoscale-up pass:
+    # the new rows upserted (K6), the table rebuilt for their new request
+    # profiles (K1's table form), phase A and the wire. The 100-row
+    # custom-kind scale (padded to 128 rows x 500 clusters, within the JAX
+    # engine's 2^16 cells) is solved on the host tiny-batch path: no launch
+    "plane interpret": ("profile_table", "divide_replicas", "fleet_masks", "fleet_diff",
+                        "fleet_wire", "scatter_rows"),
     # the solver sidecar's config-5 requests: the cold request's table, the
     # repeated and re-synced requests' diff route, the drift request's rebuild
     "sidecar": ("profile_table", "divide_replicas", "fleet_masks", "fleet_diff"),
@@ -6629,7 +6942,9 @@ def run_plane(device, card: str, templates: int = 10_000, clusters: int = 500,
               scale: int = 1000, delete: int = 1000, kill: int = PLANE_KILL,
               deschedule: int = PLANE_DESCHEDULE, autoscale: tuple = PLANE_AUTOSCALE,
               autoscale_down: int = PLANE_AUTOSCALE_DOWN, cron: int = PLANE_CRON,
-              services: int = PLANE_SERVICES, ingresses: int = PLANE_INGRESSES) -> dict:
+              services: int = PLANE_SERVICES, ingresses: int = PLANE_INGRESSES,
+              clonesets: int = PLANE_CLONESETS, custom: int = PLANE_CUSTOM,
+              hooked: int = PLANE_HOOKED, custom_scale: int = PLANE_CUSTOM_SCALE) -> dict:
     """The control plane's propagation path on the card: the port's
     ``ControlPlane`` (detector, binding, execution, work-status,
     binding-status, cluster status and scheduler controllers over one store)
@@ -6664,14 +6979,17 @@ def run_plane(device, card: str, templates: int = 10_000, clusters: int = 500,
        teardown), resume and resume drift round waves on the same plane,
        templates drawn among those the scale and delete waves did not pick
        (``plane_autoscale_waves``);
-    16. pull: a small Pull-mode plane on ``device`` (``run_pull_plane``).
+    16.-19. the interpret, interpret status, interpret scale and interpret
+       registry waves on the resumed plane: CloneSets, a customized kind
+       and a webhook-served kind (``plane_interpret_waves``);
+    20. pull: a small Pull-mode plane on ``device`` (``run_pull_plane``).
 
     The plane runs on an injected clock (``PlaneClock``), with the
     descheduler built and inactive until its wave. Each wave prints one
     ``# plane <wave>:`` line (``plane_line``) with its wall, its split
     (``plane_wave``), its checks and the card. Returns the waves and the
-    cold, scale, failover, descheduler, autoscale up and down, cron and
-    resume drift round waves' launch counts."""
+    cold, scale, failover, descheduler, autoscale up and down, cron, resume
+    drift round, interpret and interpret scale waves' launch counts."""
     import karmada_tpu_torch
     from karmada_tpu_torch.controllers.propagation import WORK_BINDING_LABEL, work_manifests
     from karmada_tpu_torch.controlplane import ControlPlane
@@ -6861,7 +7179,12 @@ def run_plane(device, card: str, templates: int = 10_000, clusters: int = 500,
                                        set(scaled) | set(deleted), templates, autoscale,
                                        autoscale_down, cron, services, ingresses)
     out["waves"].update(autoscaled.pop("waves"))
+    resumed = autoscaled.pop("resumed")
     out.update(autoscaled)
+    interpreted = plane_interpret_waves(resumed, device, card, clonesets, custom, hooked,
+                                        custom_scale)
+    out["waves"].update(interpreted.pop("waves"))
+    out.update(interpreted)
     out["waves"]["pull"] = run_pull_plane(device, card)
     return out
 
@@ -7160,8 +7483,8 @@ def plane_autoscale_waves(cp, clock, device, card: str, region_of: dict, skip,
         (``rebalance_np``); the settle after it re-places the stamped rows
         at the numpy divider's fresh ideal and moves no other binding.
 
-    Returns the waves and the launches of the up, down, cron and resume
-    drift round waves."""
+    Returns the waves, the launches of the up, down, cron and resume drift
+    round waves, and the resumed plane (``resumed``)."""
     import karmada_tpu_torch
     from karmada_tpu_torch.controllers.propagation import WORK_BINDING_LABEL
     from karmada_tpu_torch.controllers.rebalance import disruption_budget
@@ -7463,6 +7786,198 @@ def plane_autoscale_waves(cp, clock, device, card: str, region_of: dict, skip,
                              f"{bad} re-placed rows bad, {off} others moved, engine passes "
                              f"{wave['passes']}")
     out["resume_walls"] = walls
+    out["resumed"] = cp2
+    return out
+
+
+def plane_interpret_waves(cp, device, card: str, clonesets: int = PLANE_CLONESETS,
+                          custom: int = PLANE_CUSTOM, hooked: int = PLANE_HOOKED,
+                          custom_scale: int = PLANE_CUSTOM_SCALE) -> dict:
+    """The interpreter's tiers on a settled config-4 plane (``run_plane``'s
+    resumed plane, after its drift round), under config 4's placement
+    (``interpret_objects``, seed 21):
+
+    16. interpret: an ``InterpreterWebhookServer`` on plain HTTP at
+        127.0.0.1 (``hooked_handlers``), the three kinds' APIs installed on
+        every member (``install_interpret_apis``), the customization and
+        the webhook configuration applied and settled (no engine pass; the
+        configuration
+        managers drain after the detector, so a kind's templates applied in
+        the same settle as its customization would first bind with no
+        replicas), then ``clonesets`` CloneSets (the embedded
+        corpus), ``custom`` custom-kind and ``hooked`` hooked objects and
+        their policy. Every binding's replicas and requirements (and its
+        problem's) equal ``interpret_expected`` of its template; every row
+        to the numpy divider; one Work a placed cluster; every member holds
+        exactly its objects with their divided counts and each custom-kind
+        object its derived ``shards`` (``interpret_members_check``);
+    17. interpret status: members report their CloneSets' and hooked
+        objects' status (``interpret_report``, a tenth short): every
+        binding's items healthy by the kind's rule and every CloneSet
+        template's status the corpus's sums (``interpret_status_check``);
+    18. interpret scale: ``custom_scale`` custom-kind templates rescale
+        (``interpret_scale``): one engine pass over exactly their rows, each
+        to the numpy divider; no other binding's Works written again; the
+        members hold the new counts and shards;
+    19. interpret registry: a ResourceRegistry over the CloneSets fills
+        ``cp.search.cache`` with exactly the members' CloneSets
+        (``registry_check``); then it is deleted.
+
+    Returns the waves and the interpret and interpret scale waves'
+    launches."""
+    import karmada_tpu_torch
+    from karmada_tpu_torch.controllers.propagation import WORK_BINDING_LABEL
+    from karmada_tpu_torch.interpreter.webhook import InterpreterWebhookServer
+
+    pkg = karmada_tpu_torch
+    store, ctl = cp.store, cp.scheduler
+    out = {"waves": {}}
+
+    def works() -> dict:
+        by: dict = {}
+        for w in store.list("Work"):
+            ref = w.meta.labels.get(WORK_BINDING_LABEL)
+            if ref:
+                by.setdefault(ref.partition(":")[2], {})[w.meta.namespaced_name] = (
+                    w.meta.resource_version, w.meta.generation)
+        return by
+
+    server = InterpreterWebhookServer(hooked_handlers())
+    server.start()
+    try:
+        objs = interpret_objects(pkg, clonesets, custom, hooked, server.url)
+        kinds = [*objs["clonesets"], *objs["custom"], *objs["hooked"]]
+        keys = {f"default/{t.meta.name}-{t.kind.lower()}": t for t in kinds}
+        versions = works()
+
+        # -- 16. interpret ------------------------------------------------------
+        t0 = time.perf_counter()
+        install_interpret_apis(cp)
+        store.apply(objs["customization"])
+        store.apply(objs["webhook"])
+        configure = plane_wave("interpret configure", cp, device, card,
+                               time.perf_counter() - t0)
+        out["waves"]["interpret configure"] = configure
+        plane_line("interpret configure", configure, f"{len(cp.members.names())} members "
+                   f"serve {len(INTERPRET_COUNT)} more kinds; the customization and the "
+                   f"webhook configuration registered; passes {configure['passes']}", card)
+        if configure["passes"]:
+            raise AssertionError(f"plane interpret: the configurations ran engine passes "
+                                 f"{configure['passes']}")
+        t0 = time.perf_counter()
+        store.apply(objs["policy"])
+        if store.apply_many(kinds):
+            raise AssertionError("plane interpret: the store refused templates")
+        apply_s = time.perf_counter() - t0
+        reset_counts()
+        wave = plane_wave("interpret", cp, device, card, apply_s)
+        out["interpret_launches"] = read_counts()
+        out["waves"]["interpret"] = wave
+        rbs = [rb for rb in sorted_bindings(store) if rb.meta.namespaced_name in keys]
+        probs = [ctl._problem_cache.get(rb.meta.namespaced_name) for rb in rbs]
+        if len(rbs) != len(keys) or None in probs:
+            raise AssertionError(f"plane interpret: {len(rbs)} bindings of {len(keys)}, "
+                                 f"{probs.count(None)} without a problem")
+        t0 = time.perf_counter()
+        bad_reqs = 0
+        for rb, p in zip(rbs, probs):
+            reps, req = interpret_expected(keys[rb.meta.namespaced_name])
+            rr = rb.spec.replica_requirements
+            bad_reqs += (rb.spec.replicas != reps or rr is None or rr.resource_request != req
+                         or p.replicas != reps or p.requests != req
+                         or p.placement != config4_placement(pkg))
+        bad_div = written_check(ctl._engine, probs, rbs) + unwritten(rbs, placed=True)
+        after = works()
+        bad_works = sum(sorted(w.partition("/")[0][len("karmada-es-"):]
+                               for w in after.get(rb.meta.namespaced_name, {}))
+                        != sorted(tc.name for tc in rb.spec.clusters) for rb in rbs)
+        rewritten = sum(after.get(k) != v for k, v in versions.items())
+        bad_members = interpret_members_check(cp, rbs)
+        check_s = time.perf_counter() - t0
+        plane_line("interpret", wave, f"{clonesets} CloneSets (thirdparty), {custom} "
+                   f"{CUSTOM_GVK} (customization scripts), {hooked} {HOOKED_GVK} (webhook on "
+                   f"{server.url}): bindings or problems off the template's replicas and "
+                   f"requests {bad_reqs}; numpy-divider check {len(rbs) - bad_div} ok / "
+                   f"{bad_div} bad; {bad_works} bindings' Works off their clusters; other "
+                   f"bindings' Works written again {rewritten}; members' objects, counts and "
+                   f"derived shards {bad_members} bad; checks {check_s:.1f} s; launches "
+                   f"{ {k: v for k, v in out['interpret_launches'].items() if v} }", card)
+        if bad_reqs or bad_div or bad_works or rewritten or bad_members \
+                or wave["passes"] != [len(keys)]:
+            raise AssertionError(f"plane interpret: {bad_reqs} bindings off their templates, "
+                                 f"{bad_div} rows off the numpy divider, {bad_works} bindings' "
+                                 f"Works and {bad_members} member objects wrong, {rewritten} "
+                                 f"other Works written again, passes {wave['passes']}")
+
+        # -- 17. interpret status -----------------------------------------------
+        t0 = time.perf_counter()
+        n_sets, n_hooked = interpret_report(cp)
+        wave = plane_wave("interpret status", cp, device, card, time.perf_counter() - t0)
+        out["waves"]["interpret status"] = wave
+        rbs = [rb for rb in sorted_bindings(store) if rb.meta.namespaced_name in keys]
+        bad_health, bad_status = interpret_status_check(cp, rbs)
+        plane_line("interpret status", wave, f"{n_sets} member CloneSets and {n_hooked} hooked "
+                   f"objects report (a tenth short): bindings' item health off the kind's "
+                   f"rule {bad_health}; CloneSet templates off the corpus's sums and "
+                   f"observed generation {bad_status}; passes {wave['passes']}", card)
+        if bad_health or bad_status or wave["passes"]:
+            raise AssertionError(f"plane interpret status: {bad_health} bindings' health and "
+                                 f"{bad_status} CloneSet templates' status off")
+
+        # -- 18. interpret scale ------------------------------------------------
+        versions = works()
+        t0 = time.perf_counter()
+        moved = interpret_scale(store, interpret_scale_picks(custom, custom_scale))
+        apply_s = time.perf_counter() - t0
+        reset_counts()
+        wave = plane_wave("interpret scale", cp, device, card, apply_s)
+        out["interpret_scale_launches"] = read_counts()
+        out["waves"]["interpret scale"] = wave
+        srbs = [store.get("ResourceBinding", k) for k in sorted(moved)]
+        sprobs = [ctl._problem_cache.get(k) for k in sorted(moved)]
+        bad_reps = sum(p is None or p.replicas != moved[rb.meta.namespaced_name]
+                       or rb.spec.replicas != moved[rb.meta.namespaced_name]
+                       for rb, p in zip(srbs, sprobs))
+        bad_div = written_check(ctl._engine, sprobs, srbs) + unwritten(srbs, placed=True)
+        after = works()
+        rewritten = sum(after.get(k) != v for k, v in versions.items() if k not in moved)
+        untouched = sum(after.get(k) == versions.get(k) for k in moved)
+        rbs = [rb for rb in sorted_bindings(store) if rb.meta.namespaced_name in keys]
+        bad_members = interpret_members_check(cp, rbs)
+        plane_line("interpret scale", wave, f"{len(moved)} {CUSTOM_GVK} templates rescaled "
+                   f"(seed {INTERPRET_SEED + 2}): numpy-divider check {len(moved) - bad_div} "
+                   f"ok / {bad_div} bad ({bad_reps} off the new counts); their bindings with "
+                   f"no Work written again {untouched}; other bindings' Works written again "
+                   f"{rewritten}; members' objects, counts and derived shards {bad_members} "
+                   f"bad; launches "
+                   f"{ {k: v for k, v in out['interpret_scale_launches'].items() if v} }", card)
+        if bad_reps or bad_div or rewritten or untouched or bad_members \
+                or wave["passes"] != [len(moved)]:
+            raise AssertionError(f"plane interpret scale: {bad_reps} off the new counts, "
+                                 f"{bad_div} rows off the numpy divider, {rewritten} other "
+                                 f"Works written again, {untouched} rescaled bindings' Works "
+                                 f"untouched, {bad_members} member objects wrong, passes "
+                                 f"{wave['passes']}")
+    finally:
+        server.stop()
+
+    # -- 19. interpret registry ---------------------------------------------------
+    t0 = time.perf_counter()
+    store.apply(registry_object(pkg))
+    wave = plane_wave("interpret registry", cp, device, card, time.perf_counter() - t0)
+    out["waves"]["interpret registry"] = wave
+    bad_cache, cached = registry_check(cp)
+    t0 = time.perf_counter()
+    store.delete("ResourceRegistry", "clonesets")
+    gone = plane_wave("interpret registry delete", cp, device, card, time.perf_counter() - t0)
+    plane_line("interpret registry", wave, f"a ResourceRegistry over the CloneSets: the "
+               f"search cache holds {cached} CloneSets, {bad_cache} off the members'; "
+               f"deleted in {gone['apply_s'] + gone['wall']:.4f} s; passes "
+               f"{wave['passes'] + gone['passes']}", card)
+    if bad_cache or cached == 0 or wave["passes"] or gone["passes"] \
+            or store.get("ResourceRegistry", "clonesets") is not None:
+        raise AssertionError(f"plane interpret registry: {bad_cache} cache entries off the "
+                             f"members' CloneSets ({cached} cached)")
     return out
 
 
@@ -7862,6 +8377,7 @@ def main() -> int:
         require_launched("plane autoscale down", out["down_launches"])
         require_launched("plane cron", out["cron_launches"])
         require_launched("plane resume drift round", out["resume_launches"])
+        require_launched("plane interpret", out["interpret_launches"])
         paths["plane"] = out
 
     def limits():
@@ -7943,7 +8459,9 @@ def main() -> int:
                     for tag, key in (("autoscale up", "up_launches"),
                                      ("autoscale down", "down_launches"),
                                      ("cron", "cron_launches"),
-                                     ("resume drift round", "resume_launches")))
+                                     ("resume drift round", "resume_launches"),
+                                     ("interpret", "interpret_launches"),
+                                     ("interpret scale", "interpret_scale_launches")))
           + "; wave walls " + ", ".join(
               f"{k} {w['apply_s'] + w['wall']:.2f} s" for k, w in plane["waves"].items()),
           flush=True)

@@ -508,11 +508,15 @@ class BindingController:
     def _template_patch(
         self, template: Resource, rb: ResourceBinding, divided: bool,
         replicas: int,
-    ) -> dict:
-        """The per-cluster spec patch for template-delta rendering."""
+    ) -> Optional[dict]:
+        """The per-cluster spec patch for template-delta rendering, or
+        None when this target is not templatable (custom revise hook —
+        the hook may derive arbitrary fields from the count)."""
         if not divided or rb.spec.replicas <= 0:
             return {}
         patch = self.interpreter.revise_patch(template, replicas)
+        if patch is None:
+            return None
         if template.kind == "Job" and "completions" in template.spec:
             total = int(template.spec["completions"])
             patch["completions"] = math.ceil(
@@ -713,11 +717,13 @@ class BindingController:
         manifest-shaping fields (spec + labels + annotations) rather than
         the generation: metadata-only edits don't bump generation, and
         resource_version bumps on status-only writes — neither is a valid
-        cache key alone. For divided bindings the top-level replica fields
-        are excluded (the native ReviseReplica writes only those), so a
+        cache key alone. For divided bindings whose kind has no custom
+        ReviseReplica hook the top-level replica fields are excluded, so a
         fleet-wide scale storm (only replica counts change) keeps unchanged
-        targets cached."""
-        exclude = divided
+        targets cached; custom-revise kinds hash the full spec (their hooks
+        may derive arbitrary fields from the template's replica count)."""
+        gvk = f"{template.api_version}/{template.kind}"
+        exclude = divided and not self.interpreter.has_custom_revise(gvk)
         key = (template.meta.uid, exclude)
         ver = (template.meta.generation, template.meta.resource_version)
         cached = self._template_hashes.get(key)

@@ -14,9 +14,12 @@ descheduler and the drift rebalancer (both opt-in); the dependencies
 distributor, namespace sync, the workload rebalancer and the FRQ status
 controller; FederatedHPA and CronFederatedHPA; the ServiceExport,
 MultiClusterService and MultiClusterIngress controllers; remedy; the
-metrics adapter, which the FederatedHPA controller reads through; the
-member HPA syncers (opt-in); unified auth; the registration authority with
-its certificate-rotation ticker; and, per member, Pull agents and
+search controller (its ResourceRegistry watch and ticker, and the
+multi-cluster cache) and the proxy over that cache; the metrics adapter,
+which the FederatedHPA controller reads through; the member HPA syncers
+(opt-in); unified auth; the configuration managers of the declarative and
+webhook interpreters; the registration authority with its
+certificate-rotation ticker; and, per member, Pull agents and
 service-name-resolution detectors.
 
 Usage:
@@ -31,13 +34,12 @@ quota and priority waves, and passes whose sidecar is down, to its
 in-process engine on ``device``).
 
 Not ported yet, so absent here: an external store (``store=``) and
-leader election over it, which need the store bus (ROADMAP A7b); the
-metrics server and the tracer's peers (ROADMAP A17), prewarm (A14), a
-device mesh (A15); the search cache and proxy and the declarative and
-webhook interpreters' configuration managers (ROADMAP A7b); and an agent
-running out of process (``join_cluster(remote_agent=True)`` registers only
-the inventory shell, as in the JAX plane; the agent process comes with the
-store bus, ROADMAP A7b).
+leader election over it, which need the store bus, and the search indexer
+that ships documents over the bus (ROADMAP A7b); the metrics server and the
+tracer's peers (ROADMAP A17), prewarm (A14), a device mesh (A15); and an
+agent running out of process (``join_cluster(remote_agent=True)`` registers
+only the inventory shell, as in the JAX plane; the agent process comes with
+the store bus, ROADMAP A7b).
 """
 
 from __future__ import annotations
@@ -75,7 +77,10 @@ from .controllers import (
 )
 from .estimator import AccurateEstimator, EstimatorRegistry, NodeSnapshot
 from .interpreter import default_interpreter
+from .interpreter.declarative import CustomizationConfigManager
+from .interpreter.webhook import WebhookConfigManager
 from .metricsadapter import MetricsAdapter
+from .search import Proxy, SearchController
 from .utils import Runtime, Store
 from .utils.member import MemberClientRegistry, MemberCluster
 from .webhook import default_admission_chain
@@ -220,6 +225,8 @@ class ControlPlane:
         from .controllers.remedy import RemedyController
 
         self.remedy_controller = RemedyController(self.store, self.runtime)
+        self.search = SearchController(self.store, self.runtime, self.members)
+        self.proxy = Proxy(self.store, self.members, self.search.cache)
         self.metrics_adapter = MetricsAdapter(self.members)
         # the HPA controller consumes the SAME adapter facade (one cache/
         # state surface), not a private duplicate over the registry
@@ -238,6 +245,12 @@ class ControlPlane:
             self.hpa_marker = None
             self.replicas_syncer = None
         self.unified_auth = UnifiedAuthController(self.store, self.runtime)
+        self.interpreter_config = CustomizationConfigManager(
+            self.store, self.runtime, self.interpreter
+        )
+        self.interpreter_webhooks = WebhookConfigManager(
+            self.store, self.runtime, self.interpreter
+        )
         self.agents: dict[str, object] = {}
         from .utils.register import RegistrationAuthority
 

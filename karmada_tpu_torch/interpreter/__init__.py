@@ -1,11 +1,12 @@
 """Resource interpreter: pluggable semantics for arbitrary resource kinds.
 
-The port's own copy of ``karmada_tpu/interpreter``: the facade and the
-native interpreters. Ref: pkg/resourceinterpreter/interpreter.go:39-143 —
-the interpreter operations, registered as Python callables per (kind,
-operation). The embedded third-party corpus, the declarative
-customizations and the interpreter webhooks, the tiers that the JAX
-package resolves ahead of the native one, are not ported yet.
+The port's own copy of ``karmada_tpu/interpreter``. Ref:
+pkg/resourceinterpreter/interpreter.go:39-143 — the interpreter operations,
+registered as Python callables per (kind, operation) and resolved through a
+chain of responsibility: user customizations (declarative rules and
+expression scripts, ``declarative``), interpreter webhooks (``webhook``),
+the embedded third-party corpus (``thirdparty``), then the native defaults
+(``native``).
 """
 
 from .facade import (  # noqa: F401
@@ -19,9 +20,14 @@ from .facade import (  # noqa: F401
     ResourceInterpreter,
 )
 from .native import register_native_interpreters  # noqa: F401
+from .thirdparty import (  # noqa: F401
+    THIRDPARTY_CUSTOMIZATIONS,
+    register_thirdparty_interpreters,
+)
 
 
 def default_interpreter() -> ResourceInterpreter:
     interp = ResourceInterpreter()
     register_native_interpreters(interp)
+    register_thirdparty_interpreters(interp)
     return interp

@@ -3,8 +3,8 @@
 The port's own copy of ``karmada_tpu/interpreter/facade.py``. Ref:
 pkg/resourceinterpreter/interpreter.go:39-143. Operations: GetReplicas /
 ReviseReplica / Retain / AggregateStatus / GetDependencies / ReflectStatus /
-InterpretHealth (+ HookEnabled), resolved per kind and operation over the
-native defaults.
+InterpretHealth (+ HookEnabled), resolved per kind and operation through the
+customized, webhook, thirdparty and native tiers, in that order.
 """
 
 from __future__ import annotations
@@ -46,37 +46,85 @@ class DependentObjectReference:
 
 
 class ResourceInterpreter:
-    """Interpreter registry of the native tier.
+    """Chain-of-responsibility interpreter registry.
 
-    Handlers are keyed (gvk, operation) with "*" as the kind wildcard. The
-    JAX facade's customized, webhook and thirdparty tiers, which take
-    precedence over the native one (interpreter.go:120-143), come with the
-    interpreters that register into them."""
+    Handlers are keyed (gvk, operation) with "*" as the kind wildcard
+    inside each tier; the customized tier takes precedence over the webhook
+    tier, which takes precedence over the thirdparty corpus, which takes
+    precedence over the native defaults (interpreter.go:120-143)."""
 
     def __init__(self) -> None:
         self._native: dict[tuple[str, str], Callable] = {}
+        self._thirdparty: dict[tuple[str, str], Callable] = {}
+        self._webhook: dict[tuple[str, str], Callable] = {}
+        self._customized: dict[tuple[str, str], Callable] = {}
 
     def register_native(self, gvk: str, operation: str, fn: Callable) -> None:
         self._native[(gvk, operation)] = fn
 
+    def register_thirdparty(self, gvk: str, operation: str, fn: Callable) -> None:
+        """Built-in customizations for third-party CRDs — override the native
+        defaults but yield to user-supplied customizations
+        (interpreter.go:120-143: declarative/webhook > thirdparty > native)."""
+        self._thirdparty[(gvk, operation)] = fn
+
+    def register_webhook(self, gvk: str, operation: str, fn: Callable) -> None:
+        """Remote interpreter webhooks — between in-process customizations
+        and the thirdparty corpus (interpreter.go chain order)."""
+        self._webhook[(gvk, operation)] = fn
+
+    def deregister_webhook(self, gvk: str, operation: str, fn: Callable = None) -> None:
+        """When ``fn`` is given, remove only if it is still the registered
+        handler — a stale owner must not clobber a newer registration."""
+        if fn is not None and self._webhook.get((gvk, operation)) is not fn:
+            return
+        self._webhook.pop((gvk, operation), None)
+
+    def register_customized(self, gvk: str, operation: str, fn: Callable) -> None:
+        self._customized[(gvk, operation)] = fn
+
+    def deregister_customized(self, gvk: str, operation: str) -> None:
+        self._customized.pop((gvk, operation), None)
+
     def _resolve(self, gvk: str, operation: str) -> Optional[Callable]:
-        return self._native.get((gvk, operation)) or self._native.get(
-            ("*", operation)
-        )
+        for table in (self._customized, self._webhook, self._thirdparty, self._native):
+            fn = table.get((gvk, operation)) or table.get(("*", operation))
+            if fn is not None:
+                return fn
+        return None
 
     def hook_enabled(self, gvk: str, operation: str) -> bool:
         return self._resolve(gvk, operation) is not None
 
-    def revise_patch(self, obj: Resource, replicas: int) -> dict:
-        """Template-delta seam: the top-level spec fields the native
-        ReviseReplica pass would write for this kind, as a patch dict. An
-        empty dict means the kind has no revise hook at all (the manifest
-        is replica-invariant)."""
-        if self._resolve(_gvk(obj), REVISE_REPLICA) is None:
+    def has_custom_revise(self, gvk: str) -> bool:
+        """True when a non-native tier owns ReviseReplica for this kind —
+        such hooks may derive arbitrary manifest fields from the replica
+        count, so callers must not assume the native replicas-only write."""
+        for table in (self._customized, self._webhook, self._thirdparty):
+            if (gvk, REVISE_REPLICA) in table or ("*", REVISE_REPLICA) in table:
+                return True
+        return False
+
+    def revise_patch(
+        self, obj: Resource, replicas: int
+    ) -> Optional[dict]:
+        """Template-delta seam: the top-level spec fields the NATIVE
+        ReviseReplica pass would write for this kind, as a patch dict —
+        or None when a non-native tier owns the revision (such hooks may
+        derive arbitrary fields, so the caller must fall back to full
+        rendering). An empty dict means the kind has no revise hook at
+        all (the manifest is replica-invariant)."""
+        gvk = _gvk(obj)
+        if self.has_custom_revise(gvk):
+            return None
+        fn = self._native.get((gvk, REVISE_REPLICA)) or self._native.get(
+            ("*", REVISE_REPLICA)
+        )
+        if fn is None:
             return {}
         # native._revise_replica semantics, without the clone: Jobs with
         # parallelism revise that field, everything else spec.replicas
-        if _gvk(obj) == "batch/v1/Job" and "parallelism" in obj.spec:
+        if gvk == "batch/v1/Job" and "parallelism" in obj.spec:
             return {"parallelism": int(replicas)}
         return {"replicas": int(replicas)}
 

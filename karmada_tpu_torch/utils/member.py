@@ -11,16 +11,16 @@ resources keyed by (gvk, namespace, name), node state for the cluster's
 resource summary, the pods and unschedulable counts the descheduler and the
 estimator refresh read, the metric surfaces the metrics adapter and the
 FederatedHPA controller read (aggregate and per-pod workload samples, pod and
-node metrics, custom and external metric series), and a reachability flag
-for failure injection. A real deployment replaces this class with a REST
-client; the controller code above it is transport-agnostic. The JAX module's
-pod log, exec and proxy seams serve the search cache and the proxy, which
-the port does not carry yet (ROADMAP A7b).
+node metrics, custom and external metric series), the pod log, exec and
+proxy-audit seams the search proxy serves, and a reachability flag for
+failure injection. A real deployment replaces this class with a REST client;
+the controller code above it is transport-agnostic.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass
 from typing import Callable, Iterable, Optional
 
@@ -96,6 +96,15 @@ class MemberCluster:
         self._resources: dict[tuple[str, str, str], Resource] = {}
         self._watchers: list[Callable[[MemberEvent], None]] = []
         self._lock = threading.RLock()
+        # pod runtime seam: log buffers + pluggable exec handler
+        self._pod_logs: dict[tuple[str, str], list[str]] = {}
+        self._log_arrived = threading.Condition(self._lock)
+        self.exec_handler: Optional[Callable[[Resource, list], dict]] = None
+        # streaming runtime seam: iterator[str] of live output lines
+        # (SubprocessExecRuntime = a real OS subprocess end-to-end)
+        self.exec_stream_handler: Optional[Callable] = None
+        # proxy-passthrough audit: (path, impersonated user/groups) records
+        self.proxy_audit: list[dict] = []
 
     # -- client surface ----------------------------------------------------
 
@@ -145,7 +154,7 @@ class MemberCluster:
         for h in list(self._watchers):
             h(event)
 
-    # -- pods and unschedulable counting -----------------------------------
+    # -- pod runtime seam (logs / exec / attach + unschedulable counting) --
 
     def add_pod(
         self,
@@ -221,6 +230,98 @@ class MemberCluster:
             counts[key] = max(counts.get(key, 0), n)
         return counts
 
+    def append_pod_log(self, namespace: str, name: str, line: str) -> None:
+        self._check()
+        with self._lock:
+            self._pod_logs.setdefault((namespace, name), []).append(line)
+            self._log_arrived.notify_all()
+
+    def wait_pod_logs(
+        self, namespace: str, name: str, after: int, timeout: float = 1.0
+    ) -> list[str]:
+        """Block up to ``timeout`` for log lines beyond index ``after``
+        (the log-follow seam the proxy passthrough streams from)."""
+        self._check()
+        deadline = time.monotonic() + timeout
+        with self._lock:
+            while True:
+                lines = self._pod_logs.get((namespace, name), [])
+                if len(lines) > after:
+                    return list(lines[after:])
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return []
+                self._log_arrived.wait(remaining)
+
+    def record_proxy_request(self, path: str, headers: dict) -> None:
+        """Audit seam: the unified-auth tests assert the member saw the
+        impersonated identity, not the plane's own credentials."""
+        self.proxy_audit.append(
+            {
+                "path": path,
+                "user": headers.get("Impersonate-User", ""),
+                "groups": list(headers.get("Impersonate-Group", []) or []),
+            }
+        )
+
+    def pod_logs(
+        self, namespace: str, name: str, tail: Optional[int] = None
+    ) -> list[str]:
+        """kubectl logs analogue (karmadactl logs reaches this through the
+        clusters/{name}/proxy passthrough)."""
+        self._check()
+        if self.get("v1/Pod", namespace, name) is None:
+            raise KeyError(f"pod {namespace}/{name} not found in {self.name}")
+        with self._lock:
+            lines = list(self._pod_logs.get((namespace, name), []))
+        if tail is None:
+            return lines
+        return lines[-tail:] if tail > 0 else []
+
+    def pod_exec(self, namespace: str, name: str, command: list[str]) -> dict:
+        """kubectl exec/attach analogue. The runtime is pluggable via
+        ``exec_handler(pod, command) -> {"stdout", "rc"}``; the default echoes
+        (there is no container runtime in-proc)."""
+        self._check()
+        pod = self.get("v1/Pod", namespace, name)
+        if pod is None:
+            raise KeyError(f"pod {namespace}/{name} not found in {self.name}")
+        if self.exec_handler is not None:
+            return self.exec_handler(pod, command)
+        if self.exec_stream_handler is not None:
+            # collect the streaming runtime's lines (kubectl's exit-code
+            # trailer becomes the rc)
+            lines, rc = split_exec_trailer(
+                list(self.exec_stream_handler(pod, command))
+            )
+            return {"stdout": "\n".join(lines), "rc": rc}
+        return {"stdout": " ".join(command), "rc": 0}
+
+    def pod_exec_stream(self, namespace: str, name: str, command: list[str]):
+        """Streaming exec: yields output lines AS THEY APPEAR (the SPDY
+        session the reference's karmadactl exec holds open through the
+        proxy, pkg/karmadactl/exec/exec.go). Pluggable via
+        ``exec_stream_handler(pod, command) -> iterator[str]`` —
+        ``SubprocessExecRuntime`` wires a real OS subprocess; the default
+        falls back to the one-shot ``pod_exec`` result."""
+        self._check()
+        pod = self.get("v1/Pod", namespace, name)
+        if pod is None:
+            raise KeyError(f"pod {namespace}/{name} not found in {self.name}")
+        if self.exec_stream_handler is not None:
+            yield from self.exec_stream_handler(pod, command)
+            return
+        res = (
+            self.exec_handler(pod, command)
+            if self.exec_handler is not None
+            else {"stdout": " ".join(command), "rc": 0}
+        )
+        for line in str(res.get("stdout", "")).splitlines():
+            yield line
+        rc = int(res.get("rc", 0))
+        if rc:
+            yield f"{EXEC_EXIT_TRAILER}{rc}"
+
     # -- member-side simulation helpers (tests / failure injection) --------
 
     def set_workload_status(
@@ -244,6 +345,62 @@ class MemberCluster:
             for k, v in n.requested.items():
                 total[k] = total.get(k, 0) + v
         return total
+
+
+#: kubectl's exec failure trailer — the ONE definition every producer
+#: (pod_exec, SubprocessExecRuntime) and parser (split_exec_trailer,
+#: the remote CLI chain) shares, so the wire format cannot drift
+EXEC_EXIT_TRAILER = "command terminated with exit code "
+
+
+def split_exec_trailer(lines: list[str]) -> tuple[list[str], int]:
+    """(output lines without the trailer, exit code) — rc 0 when no
+    trailer is present."""
+    if lines and lines[-1].startswith(EXEC_EXIT_TRAILER):
+        return lines[:-1], int(lines[-1].rsplit(" ", 1)[1])
+    return lines, 0
+
+
+class SubprocessExecRuntime:
+    """A real-process exec runtime for the streaming seam: runs the
+    command as an OS subprocess and yields stdout lines as they appear —
+    the end-to-end analogue of the reference's SPDY exec session
+    (pkg/karmadactl/exec/exec.go streams a real container's TTY through
+    the proxy; here the "container" is a subprocess, which is as real as
+    an in-proc member gets). Wire it per member:
+    ``member.exec_stream_handler = SubprocessExecRuntime()``. Intended
+    for tests/e2e harnesses — it executes whatever command the caller
+    sends, exactly like a kubectl-exec-able container would."""
+
+    def __init__(self, timeout: float = 30.0):
+        self.timeout = timeout
+
+    def __call__(self, pod, command):
+        import subprocess
+
+        proc = subprocess.Popen(
+            list(command), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+        )
+        try:
+            assert proc.stdout is not None
+            for line in proc.stdout:
+                yield line.rstrip("\n")
+            try:
+                rc = proc.wait(timeout=self.timeout)
+            except subprocess.TimeoutExpired:
+                # stdout closed but the process lingers: kill and report
+                # (raising here would leave a chunked response
+                # unterminated mid-stream)
+                proc.kill()
+                proc.wait(timeout=5)
+                rc = proc.returncode
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=5)
+        if rc:
+            yield f"{EXEC_EXIT_TRAILER}{rc}"
 
 
 class MemberClientRegistry:

@@ -4,9 +4,10 @@ The port's own copy of ``karmada_tpu/webhook/chain.py`` for the kinds the
 port's plane stores: propagation and override policies (both scopes),
 ResourceBinding and ClusterResourceBinding, Work and Cluster,
 FederatedResourceQuota and WorkloadRebalancer, FederatedHPA and
-CronFederatedHPA, MultiClusterService and MultiClusterIngress, and deletion
-protection on every kind. The validators of the interpreter configurations
-come with the interpreter's configuration managers (ROADMAP A7b).
+CronFederatedHPA, MultiClusterService and MultiClusterIngress, the
+interpreter configurations (ResourceInterpreterCustomization and
+ResourceInterpreterWebhookConfiguration), and deletion protection on every
+kind.
 """
 
 from __future__ import annotations
@@ -360,6 +361,61 @@ def validate_multicluster_service(mcs) -> None:
             raise ValidationError(f"invalid exposure type {t!r}")
 
 
+def _validate_health_predicate(pred: dict) -> None:
+    if "any" in pred:
+        for sub in pred["any"]:
+            _validate_health_predicate(sub)
+        return
+    if "condition" in pred or pred.get("observed_generation"):
+        return
+    if "path" not in pred:
+        raise ValidationError(f"health predicate needs a path: {pred!r}")
+    if pred.get("op", "==") not in ("==", "!=", ">=", "<=", "in", "exists"):
+        raise ValidationError(f"invalid health op {pred.get('op')!r}")
+
+
+def validate_interpreter_customization(cr) -> None:
+    if not cr.target_api_version or not cr.target_kind:
+        raise ValidationError("customization target apiVersion/kind required")
+    for pred in cr.rules.health:
+        _validate_health_predicate(pred)
+    for fname, how in cr.rules.status_aggregation.items():
+        if how not in ("sum", "max", "min", "last", "and", "or"):
+            raise ValidationError(f"invalid aggregation {how!r} for {fname!r}")
+
+
+SUPPORTED_INTERPRETER_OPERATIONS = {
+    "*", "InterpretReplica", "ReviseReplica", "Retain", "AggregateStatus",
+    "InterpretDependency", "InterpretStatus", "InterpretHealth",
+}
+
+
+def validate_interpreter_webhook_configuration(config) -> None:
+    """configuration/validating.go: unique hook names, resolvable client
+    config, known operations."""
+    seen = set()
+    for hook in config.webhooks:
+        if not hook.name:
+            raise ValidationError("webhook name is required")
+        if hook.name in seen:
+            raise ValidationError(f"duplicate webhook name {hook.name!r}")
+        seen.add(hook.name)
+        if not hook.client_config.url:
+            raise ValidationError(f"webhook {hook.name!r} needs clientConfig.url")
+        if not hook.rules:
+            raise ValidationError(f"webhook {hook.name!r} needs at least one rule")
+        for rule in hook.rules:
+            bad = set(rule.operations) - SUPPORTED_INTERPRETER_OPERATIONS
+            if bad:
+                raise ValidationError(
+                    f"webhook {hook.name!r}: unsupported operations {sorted(bad)}"
+                )
+            if not rule.api_versions or not rule.kinds:
+                raise ValidationError(
+                    f"webhook {hook.name!r}: rules need apiVersions and kinds"
+                )
+
+
 def validate_multicluster_ingress(mci) -> None:
     """multiclusteringress/validating.go: ingress rule sanity."""
     for rule in mci.spec.rules:
@@ -462,8 +518,8 @@ def validate_cluster(cluster) -> None:
 
 
 def default_admission_chain() -> AdmissionChain:
-    """The reference handler set for the ported kinds
-    (cmd/webhook/app/webhook.go:161-183)."""
+    """The full reference handler set (cmd/webhook/app/webhook.go:161-183;
+    /convert is N/A — no CRD versioning in-proc)."""
     chain = AdmissionChain()
     chain.register_mutator("Cluster", mutate_cluster)
     chain.register_validator("Cluster", validate_cluster)
@@ -483,6 +539,13 @@ def default_admission_chain() -> AdmissionChain:
     chain.register_mutator("MultiClusterService", mutate_multicluster_service)
     chain.register_validator("MultiClusterService", validate_multicluster_service)
     chain.register_validator("MultiClusterIngress", validate_multicluster_ingress)
+    chain.register_validator(
+        "ResourceInterpreterCustomization", validate_interpreter_customization
+    )
+    chain.register_validator(
+        "ResourceInterpreterWebhookConfiguration",
+        validate_interpreter_webhook_configuration,
+    )
     chain.register_validator("WorkloadRebalancer", validate_workload_rebalancer)
     chain.register_mutator("Work", mutate_work)
     chain.register_validator("Work", validate_work)

@@ -929,19 +929,21 @@ def test_config4_plane_equals_jax_plane(delta, monkeypatch, gates):
 PLANE_WAVES = ("join", "cold", "status", "scale", "delete", "failover", "drain",
                "deschedule", "recovery", "autoscale up", "autoscale hold", "autoscale down",
                "cron", "networking", "networking teardown", "resume", "resume drift round",
-               "pull")
+               "interpret configure", "interpret", "interpret status", "interpret scale",
+               "interpret registry", "pull")
 
 
 def test_plane_phase_rehearsal(capsys):
     """chip_smoke's plane phase at a small size on the CPU, its failover
-    path, its autoscaling, networking and resume waves and its Pull plane
-    included: every wave's check raises on any difference."""
+    path, its autoscaling, networking, resume and interpret waves and its
+    Pull plane included: every wave's check raises on any difference."""
     gate = mod(karmada_tpu_torch, "utils.features")
     was = gate.feature_gate.enabled(gate.FAILOVER)
     out = chip_smoke.run_plane(torch.device("cpu"), "cpu", templates=500, clusters=60,
                                scale=40, delete=40, kill=3, deschedule=40,
                                autoscale=(30, 10, 10), autoscale_down=10, cron=30,
-                               services=5, ingresses=2)
+                               services=5, ingresses=2, clonesets=60, custom=20, hooked=5,
+                               custom_scale=10)
     assert gate.feature_gate.enabled(gate.FAILOVER) == was
     assert mod(karmada_tpu_torch, "utils.faultinject").injector() is None
     assert set(out["waves"]) == set(PLANE_WAVES)
@@ -950,6 +952,8 @@ def test_plane_phase_rehearsal(capsys):
     assert out["waves"]["autoscale up"]["passes"] == [40]
     assert out["waves"]["autoscale down"]["passes"] == [10]
     assert out["waves"]["cron"]["passes"] == [30]
+    assert out["waves"]["interpret"]["passes"] == [85]
+    assert out["waves"]["interpret scale"]["passes"] == [10]
     printed = capsys.readouterr().out
     for wave in PLANE_WAVES:
         assert f"# plane {wave}:" in printed

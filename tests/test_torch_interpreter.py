@@ -1,9 +1,9 @@
 """The port's resource interpreter and override functions against the JAX
 package's, on seeded resources.
 
-``karmada_tpu_torch.interpreter.default_interpreter()`` against a JAX
-``ResourceInterpreter`` holding ``register_native_interpreters``, on
-resources of every gvk the native interpreters name (made from a seed with
+``karmada_tpu_torch.interpreter.default_interpreter()`` against the JAX
+package's ``default_interpreter()``, on resources of every gvk the native
+interpreters name (made from a seed with
 numpy, the same in both packages): replicas and requirements, revise
 replica (and the template-delta ``revise_patch``), retain against an
 observed member object, reflect status, aggregate status over seeded member
@@ -43,11 +43,8 @@ def mod(pkg, name):
 
 
 def interpreters():
-    """(JAX native-only interpreter, the port's default_interpreter())."""
-    jax_facade = mod(karmada_tpu, "interpreter.facade")
-    jax = jax_facade.ResourceInterpreter()
-    mod(karmada_tpu, "interpreter.native").register_native_interpreters(jax)
-    return jax, mod(karmada_tpu_torch, "interpreter").default_interpreter()
+    """(the JAX package's default_interpreter(), the port's)."""
+    return tuple(mod(pkg, "interpreter").default_interpreter() for pkg in PKGS)
 
 
 def plain(x):

@@ -261,7 +261,14 @@ def test_port_imports_without_jax_or_karmada_tpu():
             "karmada_tpu_torch.controllers.replica_calculator",
             "karmada_tpu_torch.controllers.autoscaling", "karmada_tpu_torch.controllers.mcs",
             "karmada_tpu_torch.controllers.mci", "karmada_tpu_torch.metricsadapter",
-            "karmada_tpu_torch.metricsadapter.provider"} <= set(mods)
+            "karmada_tpu_torch.metricsadapter.provider",
+            "karmada_tpu_torch.interpreter.facade", "karmada_tpu_torch.interpreter.exprlang",
+            "karmada_tpu_torch.interpreter.declarative",
+            "karmada_tpu_torch.interpreter.thirdparty",
+            "karmada_tpu_torch.interpreter.webhook", "karmada_tpu_torch.search",
+            "karmada_tpu_torch.search.backend", "karmada_tpu_torch.search.registry",
+            "karmada_tpu_torch.search.proxy", "karmada_tpu_torch.search.opensearch",
+            "karmada_tpu_torch.search.proxyserver"} <= set(mods)
     code = f"""
 import importlib, importlib.abc, sys
 sys.modules["jax"] = None
@@ -297,7 +304,8 @@ NO_WIRE_MODULES = (
     "karmada_tpu_torch.controlplane", "karmada_tpu_torch.utils.backoff",
     "karmada_tpu_torch.utils.faultinject", "karmada_tpu_torch.utils.tracing",
     "karmada_tpu_torch.metricsadapter", "karmada_tpu_torch.controllers.autoscaling",
-    "karmada_tpu_torch.controllers.mcs",
+    "karmada_tpu_torch.controllers.mcs", "karmada_tpu_torch.interpreter.webhook",
+    "karmada_tpu_torch.interpreter.declarative", "karmada_tpu_torch.search",
 )
 
 
