@@ -2009,6 +2009,13 @@ PATH_KERNELS = {
     # engine's 2^16 cells) is solved on the host tiny-batch path: no launch
     "plane interpret": ("profile_table", "divide_replicas", "fleet_masks", "fleet_diff",
                         "fleet_wire", "scatter_rows"),
+    # the HA plane: each replica's first pass is its new engine's cold pass
+    # (pa's over the first half of the templates, pb's over the half the
+    # deposed pa discarded)
+    "ha cold": ("profile_table", "divide_replicas", "fleet_masks", "fleet_diff",
+                "fleet_wire"),
+    "ha takeover": ("profile_table", "divide_replicas", "fleet_masks", "fleet_diff",
+                    "fleet_wire"),
     # the solver sidecar's config-5 requests: the cold request's table, the
     # repeated and re-synced requests' diff route, the drift request's rebuild
     "sidecar": ("profile_table", "divide_replicas", "fleet_masks", "fleet_diff"),
@@ -8054,6 +8061,485 @@ def run_pull_plane(device, card: str) -> dict:
     return wave
 
 
+# --------------------------------------------------------------------------
+# the HA plane: two replicas over one store bus, leader election on a lease
+# --------------------------------------------------------------------------
+
+#: the leader election's lease and renew deadline (the JAX defaults), and
+#: the lease both replicas elect on
+HA_LEASE, HA_RENEW, HA_LEASE_NAME = 15.0, 10.0, "karmada-plane"
+
+
+def mirror_wait(replica, rv: int, timeout: float = 120.0) -> None:
+    """Wait until ``replica``'s mirror has applied the primary's write at
+    ``rv`` (its echo), handlers included where the replica reports it
+    (``wait_rv``); else poll the mirror's resource version."""
+    wait_rv = getattr(replica, "wait_rv", None)
+    if wait_rv is not None:
+        ok = wait_rv(rv, timeout)
+    else:
+        deadline = time.monotonic() + timeout
+        while replica.store.rv < rv and time.monotonic() < deadline:
+            time.sleep(0.002)
+        ok = replica.store.rv >= rv
+    if not ok:
+        raise AssertionError(f"mirror at rv {replica.store.rv}, the primary's echo {rv} "
+                             f"never came within {timeout} s")
+
+
+class HaReplica:
+    """One HA plane replica of ``pkg`` over ``replica`` (a ``StoreReplica``
+    of the primary): ``ControlPlane(store=ReplicaStoreFacade(replica))`` on
+    the injected ``clock``, a ``LeaderElector`` on ``HA_LEASE_NAME`` as
+    ``ident`` and ``runtime.heartbeat = heartbeat_of(elector)``, the
+    throttled renew that answers False once leadership is lost (the port's
+    ``localup.plane_heartbeat``). ``tick_s`` sums the time spent in the
+    heartbeat's elector ticks."""
+
+    def __init__(self, pkg, ident: str, replica, clock, plane_kw: dict, heartbeat_of):
+        facade = importlib.import_module(f"{pkg.__name__}.bus.agent").ReplicaStoreFacade(replica)
+        ControlPlane = importlib.import_module(f"{pkg.__name__}.controlplane").ControlPlane
+        LeaderElector = importlib.import_module(
+            f"{pkg.__name__}.utils.leaderelect").LeaderElector
+        self.ident, self.replica = ident, replica
+        self.cp = ControlPlane(store=facade, clock=clock, **plane_kw)
+        self.elector = LeaderElector(facade, HA_LEASE_NAME, ident, lease_duration=HA_LEASE,
+                                     renew_deadline=HA_RENEW, clock=clock)
+        beat = heartbeat_of(self.elector)
+        self.tick_s = 0.0
+
+        def timed() -> bool:
+            t = time.perf_counter()
+            try:
+                return beat()
+            finally:
+                self.tick_s += time.perf_counter() - t
+
+        self.cp.runtime.heartbeat = self.heartbeat = timed
+
+
+def echo_settle(plane: HaReplica, replicas, primary, max_rounds: int = 200) -> dict:
+    """Settle ``plane`` through its echoes, as a leader's serve loop does:
+    while its heartbeat holds leadership, wait until every mirror in
+    ``replicas`` has applied the primary's writes, then settle; done when a
+    settle does nothing and wrote nothing. A write is visible to the
+    mirror's controllers only once its echo comes back, so a settle can end
+    before its own writes have been reconciled. Returns the steps, the
+    settles and the seconds spent waiting for echoes."""
+    steps = settles = 0
+    echo_s = 0.0
+    for _ in range(max_rounds):
+        if not plane.heartbeat():
+            break  # only the leader settles
+        target = primary.rv
+        t = time.perf_counter()
+        for r in replicas:
+            mirror_wait(r, target)
+        echo_s += time.perf_counter() - t
+        n = plane.cp.settle()
+        steps, settles = steps + n, settles + 1
+        if n == 0 and primary.rv == target:
+            break
+    else:
+        raise AssertionError(f"plane {plane.ident} did not settle through its echoes in "
+                             f"{max_rounds} rounds")
+    return {"steps": steps, "settles": settles, "echo_s": echo_s}
+
+
+def ha_placements(primary, keys=None) -> dict:
+    """Every binding's (or ``keys``') placements and observed generation on
+    the primary."""
+    return {rb.meta.namespaced_name: (tuple(sorted((tc.name, tc.replicas)
+                                                   for tc in rb.spec.clusters)),
+                                      rb.status.scheduler_observed_generation)
+            for rb in primary.list("ResourceBinding")
+            if keys is None or rb.meta.namespaced_name in keys}
+
+
+def ha_works(primary) -> dict:
+    """Every Work's (resource version, template reference or manifests) on
+    the primary, by key."""
+    out = {}
+    for w in primary.list("Work"):
+        ref = w.spec.workload_template
+        out[w.meta.namespaced_name] = (
+            w.meta.resource_version,
+            None if ref is None else (ref.digest, ref.name, json.dumps(ref.patch, sort_keys=True)),
+            len(w.spec.workload))
+    return out
+
+
+def ha_plane_waves(pkg, primary, make_replica, plane_kw: dict, heartbeat_of,
+                   templates: int, clusters: int, writes_of, on_wave=None,
+                   strict: bool = False, beat_every: int | None = None) -> dict:
+    """The HA scenario on config 4 (``plane_objects(pkg, templates,
+    clusters)``), for either package: two replicas "pa" and "pb" of the
+    primary Store ``primary`` (``make_replica()`` gives a started, synced
+    ``StoreReplica``; ``writes_of(replica)`` counts the writes it carried
+    to the primary), each an ``HaReplica``, both registering every member
+    cluster on one injected clock (``PlaneClock``).
+
+    - join: pa ticks first and leads, pb stands by; pa joins the fleet in
+      Push mode (pb registers the same members and watches them) and
+      settles through its echoes;
+    - HA cold: the policies and the first half of the templates applied
+      to the primary; pa settles;
+    - takeover: the other half applied; during pa's first engine pass the
+      clock passes pa's lease and pb's elector takes it (a hook on pa's
+      engine's ``schedule``, not a thread race); pa's write barrier must
+      discard that pass, and pa stops; then pb settles.
+
+    ``on_wave(tag, plane, info)`` is called before each wave's apply with
+    ``info`` None and after its settle with the settle's numbers (apply,
+    echo and tick seconds, the settle wall, the wave's start). ``strict``
+    sets every worker's ``MAX_RETRIES`` and ``POISON_TOLERANCE`` to 0, as
+    the smoke's planes do; ``beat_every`` sets both runtimes'
+    ``HEARTBEAT_EVERY``. Returns the placements after the cold wave and at
+    the end, the cold wave's Works, pa's writes after it was deposed, the
+    lease and the two planes."""
+    objs = plane_objects(pkg, templates, clusters)
+    clock = PlaneClock()
+    reps = [make_replica(), make_replica()]
+    pa, pb = (HaReplica(pkg, ident, r, clock, plane_kw, heartbeat_of)
+              for ident, r in zip(("pa", "pb"), reps))
+    out = {"objs": objs, "pa": pa, "pb": pb}
+    if strict:
+        for w in pa.cp.runtime.workers + pb.cp.runtime.workers:
+            w.MAX_RETRIES = w.POISON_TOLERANCE = 0
+    if beat_every is not None:
+        pa.cp.runtime.HEARTBEAT_EVERY = pb.cp.runtime.HEARTBEAT_EVERY = beat_every
+
+    def before(tag, plane):
+        if on_wave is not None:
+            on_wave(tag, plane, None)
+
+    def wave(tag, plane, apply_s):
+        tick0 = plane.tick_s
+        t0 = time.perf_counter()
+        info = echo_settle(plane, reps, primary)
+        info.update(apply_s=apply_s, wall=time.perf_counter() - t0, start=t0,
+                    tick_s=plane.tick_s - tick0)
+        if on_wave is not None:
+            on_wave(tag, plane, info)
+        return info
+
+    # -- join ------------------------------------------------------------------
+    before("join", pa)
+    t0 = time.perf_counter()
+    if not pa.heartbeat():
+        raise AssertionError("HA join: pa did not take the free lease")
+    mirror_wait(pb.replica, primary.rv)
+    if pb.heartbeat():
+        raise AssertionError("HA join: pb took a lease pa holds")
+    for cl, m in zip(objs["clusters"], objs["members"]):
+        pa.cp.join_cluster(cl, m)
+        pb.cp.members.register(m)
+        pb.cp.work_status_controller.watch_member(m)
+    out["join"] = wave("join", pa, time.perf_counter() - t0)
+
+    # -- HA cold ---------------------------------------------------------------
+    half = templates // 2
+    before("cold", pa)
+    t0 = time.perf_counter()
+    primary.apply(objs["policy"])
+    primary.apply(objs["override"])
+    if primary.apply_many(objs["deployments"][:half]):
+        raise AssertionError("HA cold: the primary refused templates")
+    out["cold"] = wave("cold", pa, time.perf_counter() - t0)
+    out["cold_placements"] = ha_placements(primary)
+    out["cold_works"] = ha_works(primary)
+
+    # -- takeover --------------------------------------------------------------
+    deposed = {}
+    ctl = pa.cp.scheduler
+    get_engine = ctl._get_engine
+
+    def depose() -> None:
+        # the clock passes pa's lease; pb, its mirror holding pa's last
+        # renewal, takes the lease by CAS; pa's mirror then holds pb's claim
+        clock.now += HA_LEASE + 1.0
+        mirror_wait(pb.replica, primary.rv)
+        t = time.perf_counter()
+        took = pb.elector.tick()
+        pb.tick_s += time.perf_counter() - t
+        if not took:
+            raise AssertionError("HA takeover: pb did not take pa's expired lease")
+        mirror_wait(pa.replica, primary.rv)
+        deposed["writes"] = writes_of(pa.replica)
+
+    def hooked_engine():
+        engine = get_engine()
+        if not getattr(engine, "_ha_hooked", False):
+            schedule = engine.schedule
+
+            def schedule_hooked(problems, *a, **kw):
+                if not deposed:
+                    depose()
+                return schedule(problems, *a, **kw)
+
+            engine.schedule = schedule_hooked
+            engine._ha_hooked = True
+        return engine
+
+    ctl._get_engine = hooked_engine
+    before("takeover pa", pa)
+    t0 = time.perf_counter()
+    if primary.apply_many(objs["deployments"][half:]):
+        raise AssertionError("HA takeover: the primary refused templates")
+    out["takeover_pa"] = wave("takeover pa", pa, time.perf_counter() - t0)
+    ctl._get_engine = get_engine
+    if not deposed or pa.elector.is_leader:
+        raise AssertionError(f"HA takeover: pa was {'not ' if not deposed else ''}deposed "
+                             f"in its engine pass, leader {pa.elector.is_leader}")
+    new_keys = {f"default/d{i}-deployment" for i in range(half, templates)}
+    out["pa_placed"] = sum(bool(p[0]) for p in ha_placements(primary, new_keys).values())
+    before("takeover pb", pb)
+    out["takeover"] = wave("takeover pb", pb, 0.0)
+    out["pa_writes_after"] = writes_of(pa.replica) - deposed["writes"]
+    out["final_placements"] = ha_placements(primary)
+    out["new_keys"] = new_keys
+    out["lease"] = primary.get("Lease", HA_LEASE_NAME)
+    return out
+
+
+def ha_line(tag: str, info: dict, events: int, checks: str, card: str) -> None:
+    split = ", ".join(f"{k} {v:.4f} s" for k, v in info["split"].items())
+    print(f"# ha {tag}: apply {info['apply_s']:.4f} s + settle {info['wall']:.4f} s = "
+          f"{info['apply_s'] + info['wall']:.4f} s ({info['steps']} reconcile steps in "
+          f"{info['settles']} settles, engine passes {info['passes']}, {events} events "
+          f"applied by the mirrors): {split}; {checks}; card {card}", flush=True)
+
+
+#: the HA phase's Deployments: config 4's width (500 clusters, its policy),
+#: its depth cut from 10k to 2000. Every write crosses the bus's codec and
+#: both mirrors apply its echo, so a wave costs about 7x the in-process
+#: plane's per template (the phase took 324 s for the 10k and 177 s for
+#: 4000 on an H100): the cut keeps the whole smoke inside its time limit
+HA_TEMPLATES = 2000
+
+
+def run_ha_plane(device, card: str, templates: int = HA_TEMPLATES,
+                 clusters: int = 500) -> dict:
+    """The HA plane on the card (``ha_plane_waves`` on the port): a primary
+    ``Store`` behind the port's admission chain, as ``python -m
+    karmada_tpu_torch.bus`` builds it, served by a ``StoreBusCore``; two
+    replicas "pa" and "pb", each ``ControlPlane(store=ReplicaStoreFacade(
+    StoreReplica(InProcessChannel(core))), device=device)`` with its
+    ``LeaderElector`` (lease 15 s, renew 10 s) on the injected clock and
+    ``localup.plane_heartbeat`` as its ``runtime.heartbeat``; config 4 at
+    ``templates`` Deployments x ``clusters`` clusters. The card has no grpc:
+    every object crosses the in-process channel as the wire's canonical
+    JSON, and every event as the wire's records.
+
+    1. join: pa leads; every Cluster Ready with its recipe's summary;
+    2. HA cold: half the templates; pa's engine places them: every binding
+       to the numpy divider on pa's engine snapshot, one Work a placed
+       cluster, every member holding exactly its Deployments; K1's table
+       form, K3, K2, K4 and K5 launch;
+    3. takeover: the other half; pa is deposed inside its engine pass (the
+       clock passes its lease, pb's elector takes it); pa's write barrier
+       discards the pass: none of the new bindings placed by pa, and no
+       write of pa reaches the primary after it was deposed; pb settles:
+       one engine pass over exactly the new rows on pb's new engine (K1's
+       table form, K3, K2, K4 and K5 launch), each row to the numpy
+       divider; every first-wave binding's placement and every first-wave
+       Work as they were (no Work written again); the lease held by pb
+       after one transition.
+
+    Each wave prints a ``# ha <wave>:`` line: its wall split into apply,
+    echo wait, elector ticks and the settles' spans (detector, engine pass,
+    render, execution, status), the events the mirrors applied and the
+    kernels launched. Returns the waves and the cold and takeover waves'
+    launch counts."""
+    import gc
+
+    import karmada_tpu_torch
+    from karmada_tpu_torch.bus import InProcessChannel, StoreBusCore, StoreReplica
+    from karmada_tpu_torch.controllers.propagation import WORK_BINDING_LABEL
+    from karmada_tpu_torch.localup import plane_heartbeat
+    from karmada_tpu_torch.utils import Store
+    from karmada_tpu_torch.utils.tracing import tracer
+    from karmada_tpu_torch.webhook import default_admission_chain
+
+    pkg = karmada_tpu_torch
+    chain = default_admission_chain()
+    primary = Store(admission=chain.admit, delete_admission=chain.admit_delete)
+    core = StoreBusCore(primary)
+    replicas: list = []
+
+    def make_replica():
+        replica = StoreReplica(InProcessChannel(core, f"in-process-{len(replicas)}"))
+        replica.start()
+        if not replica.wait_synced(60):
+            raise AssertionError("HA plane: a replica never synced")
+        replicas.append(replica)
+        return replica
+
+    def works_by_ref() -> dict:
+        by: dict = {}
+        for w in primary.list("Work"):
+            ref = w.meta.labels.get(WORK_BINDING_LABEL)
+            if ref:
+                by.setdefault(ref.partition(":")[2], []).append(w)
+        return by
+
+    def placement_checks(plane, rbs, all_rbs) -> tuple[int, int, int]:
+        """(rows off the numpy divider on the plane's engine or unwritten,
+        bindings whose Works are off their clusters, member objects off
+        every binding)."""
+        ctl = plane.cp.scheduler
+        probs = [ctl._problem_cache.get(rb.meta.namespaced_name) for rb in rbs]
+        if None in probs:
+            raise AssertionError(f"ha: {probs.count(None)} bindings without a problem")
+        bad_div = written_check(ctl._engine, probs, rbs) + unwritten(rbs, placed=True)
+        by_ref = works_by_ref()
+        bad_works = sum(sorted(w.meta.namespace[len("karmada-es-"):]
+                               for w in by_ref.get(rb.meta.namespaced_name, ()))
+                        != sorted(tc.name for tc in rb.spec.clusters) for rb in all_rbs)
+        return bad_div, bad_works, plane_members_check(plane.cp, all_rbs, region_of)
+
+    faults = ReconcileFaults()
+    log = logging.getLogger("karmada_tpu_torch")
+    out = {"waves": {}}
+    events0 = [0]
+    region_of: dict = {}
+    recipe: dict = {}
+    half = templates // 2
+
+    def on_wave(tag, plane, info):
+        if info is None:
+            events0[0] = sum(r.events for r in replicas)
+            reset_counts()
+            return
+        sync(device)
+        retries = sum(len(w._retries) for w in plane.cp.runtime.workers)
+        pending = plane.cp.runtime.pending() if plane.elector.is_leader else 0
+        if faults.records or retries or pending:
+            raise AssertionError(f"ha {tag}: {len(faults.records)} reconcile errors, {retries} "
+                                 f"keys awaiting a retry, {pending} queued; first:\n"
+                                 + (faults.records[0] if faults.records else ""))
+        spans = [s for s in tracer.dump() if s["start"] >= info["start"] - 1e-6]
+
+        def drained(worker: str) -> float:
+            return sum(s["duration_s"] for s in spans if s["name"] == f"controller.{worker}")
+
+        passes = [s for s in spans if s["name"] == "scheduler.pass"]
+        engine_s = sum(s["duration_s"] for s in passes)
+        controllers = sum(s["duration_s"] for s in spans if s["name"].startswith("controller."))
+        info["split"] = {
+            "store apply": info["apply_s"], "echo wait": info["echo_s"],
+            "elector ticks": info["tick_s"], "detector": drained("detector"),
+            "scheduler gate and build": drained("scheduler") - engine_s,
+            "engine pass": engine_s, "binding render": drained("binding"),
+            "execution apply": drained("execution"),
+            "status collection": drained("work-status") + drained("binding-status"),
+            "other": info["wall"] - info["echo_s"] - controllers,
+        }
+        info["passes"] = [s["attrs"].get("bindings", 0) for s in passes]
+        events = sum(r.events for r in replicas) - events0[0]
+        launches = read_counts()
+        launched = {k: v for k, v in launches.items() if v}
+        out["waves"][tag] = {k: v for k, v in info.items() if k != "start"}
+        t0 = time.perf_counter()
+        if tag == "join":
+            bad = 0
+            for cl in primary.list("Cluster"):
+                ready = any(c.type == "Ready" and c.status for c in cl.status.conditions)
+                rs = cl.status.resource_summary
+                bad += not ready or (rs.allocatable, rs.allocated) != recipe[cl.name]
+            lease = primary.get("Lease", HA_LEASE_NAME)
+            holder = lease.holder_identity if lease is not None else None
+            ha_line(tag, info, events, f"{clusters} clusters Ready with the recipe's summary "
+                    f"{clusters - bad} ok / {bad} bad; lease held by {holder}", card)
+            if bad or len(primary.list("Cluster")) != clusters or holder != "pa":
+                raise AssertionError(f"ha join: {bad} clusters off, lease held by {holder}")
+        elif tag == "cold":
+            rbs = sorted_bindings(primary)
+            bad_div, bad_works, bad_members = placement_checks(plane, rbs, rbs)
+            n_works = sum(map(len, works_by_ref().values()))
+            placed = sum(len(rb.spec.clusters) for rb in rbs)
+            out["cold_launches"] = launches
+            ha_line(tag, info, events, f"{len(rbs)} bindings placed by pa: numpy-divider check "
+                    f"{len(rbs) - bad_div} ok / {bad_div} bad; {n_works} Works for {placed} "
+                    f"placed clusters ({bad_works} bindings' Works off their clusters); "
+                    f"members {bad_members} bad; checks {time.perf_counter() - t0:.1f} s; "
+                    f"launches {launched}", card)
+            if len(rbs) != half or bad_div or bad_works or bad_members or n_works != placed \
+                    or sum(info["passes"]) < half:
+                raise AssertionError(f"ha cold: {len(rbs)} bindings, passes {info['passes']}, "
+                                     f"{bad_div} off the numpy divider, {bad_works} bindings' "
+                                     f"Works and {bad_members} member objects wrong")
+        elif tag == "takeover pa":
+            new = [rb for rb in sorted_bindings(primary)
+                   if rb.meta.namespaced_name in takeover_keys]
+            placed = sum(bool(rb.spec.clusters) for rb in new)
+            ha_line(tag, info, events, f"pa deposed inside its engine pass (leader "
+                    f"{plane.elector.is_leader}): {len(new)} new bindings, {placed} placed by "
+                    f"pa; launches of the discarded pass {launched}", card)
+            if len(new) != templates - half or placed:
+                raise AssertionError(f"ha takeover: {len(new)} new bindings, {placed} placed "
+                                     "by the deposed pa")
+        else:
+            rbs = sorted_bindings(primary)
+            new = [rb for rb in rbs if rb.meta.namespaced_name in takeover_keys]
+            bad_div, bad_works, bad_members = placement_checks(plane, new, rbs)
+            n_works = sum(map(len, works_by_ref().values()))
+            placed = sum(len(rb.spec.clusters) for rb in rbs)
+            out["takeover_launches"] = launches
+            ha_line(tag, info, events, f"pb's engine pass over the {len(new)} new rows: "
+                    f"numpy-divider check {len(new) - bad_div} ok / {bad_div} bad; {n_works} "
+                    f"Works for {placed} placed clusters ({bad_works} bindings' Works off "
+                    f"their clusters); members {bad_members} bad; checks "
+                    f"{time.perf_counter() - t0:.1f} s; launches {launched}", card)
+            if info["passes"] != [len(new)] or len(new) != templates - half or bad_div \
+                    or bad_works or bad_members or n_works != placed:
+                raise AssertionError(f"ha takeover: passes {info['passes']} for {len(new)} new "
+                                     f"bindings, {bad_div} off the numpy divider, {bad_works} "
+                                     f"bindings' Works and {bad_members} member objects wrong")
+
+    takeover_keys = {f"default/d{i}-deployment" for i in range(half, templates)}
+    # set-up: the earlier phases' garbage (the plane phase's cycles) is
+    # collected here, not inside the first wave
+    t0 = time.perf_counter()
+    gc.collect()
+    print(f"# ha set-up: garbage collected in {time.perf_counter() - t0:.2f} s; card {card}",
+          flush=True)
+    log.addHandler(faults)
+    # every bus write records a client and a server span: hold a whole
+    # wave's spans for its split
+    capacity, tracer.capacity = tracer.capacity, max(tracer.capacity, 1 << 21)
+    try:
+        objs_peek = plane_objects(pkg, 0, clusters)
+        recipe.update({cl.name: (dict(cl.status.resource_summary.allocatable),
+                                 dict(cl.status.resource_summary.allocated))
+                       for cl in objs_peek["clusters"]})
+        region_of.update({cl.name: cl.spec.region for cl in objs_peek["clusters"]})
+        res = ha_plane_waves(pkg, primary, make_replica, {"device": device},
+                             lambda elector: plane_heartbeat(elector, HA_LEASE, elector.clock),
+                             templates, clusters, lambda r: r._channel.writes, on_wave,
+                             strict=True)
+    finally:
+        tracer.capacity = capacity
+        log.removeHandler(faults)
+        for r in replicas:
+            r.close()
+        core.close()
+    first = {k: v for k, v in res["final_placements"].items() if k not in takeover_keys}
+    works = ha_works(primary)
+    rewritten = sum(works.get(k) != v for k, v in res["cold_works"].items())
+    lease = res["lease"]
+    print(f"# ha takeover: first-wave bindings "
+          f"{'as' if first == res['cold_placements'] else 'NOT as'} they were; first-wave "
+          f"Works written again {rewritten} of {len(res['cold_works'])}; pa's writes after it "
+          f"was deposed {res['pa_writes_after']}; lease held by {lease.holder_identity} after "
+          f"{lease.lease_transitions} transition(s); card {card}", flush=True)
+    if first != res["cold_placements"] or rewritten or res["pa_writes_after"] \
+            or lease.holder_identity != "pb" or lease.lease_transitions != 1:
+        raise AssertionError("ha takeover: the first wave moved, pa wrote after it was deposed "
+                             "or the lease is off")
+    return out
+
+
 def check_shape_limits(device, card: str) -> dict:
     """The shapes past the kernels' old limits, served: K1 beyond the first
     slice's one grid (65535 blocks of 128 rows; grid.x now takes the rows),
@@ -8380,6 +8866,12 @@ def main() -> int:
         require_launched("plane interpret", out["interpret_launches"])
         paths["plane"] = out
 
+    def ha_plane():
+        out = run_ha_plane(device, card)
+        require_launched("ha cold", out["cold_launches"])
+        require_launched("ha takeover", out["takeover_launches"])
+        paths["ha plane"] = out
+
     def limits():
         out = check_shape_limits(device, card)
         require_launched("wide fleet", out["wide fleet"]["launches"])
@@ -8395,7 +8887,7 @@ def main() -> int:
                      ("sidecar estimator", sidecar_estimator),
                      ("sidecar controller", sidecar_controller),
                      ("quota", quota), ("ranked", ranked), ("preemption", preemption),
-                     ("controller", controller), ("plane", plane)):
+                     ("controller", controller), ("plane", plane), ("ha plane", ha_plane)):
         phase(name, fn)
 
     # launches: each kernel's count on the path that drives it
@@ -8464,6 +8956,14 @@ def main() -> int:
                                      ("interpret scale", "interpret_scale_launches")))
           + "; wave walls " + ", ".join(
               f"{k} {w['apply_s'] + w['wall']:.2f} s" for k, w in plane["waves"].items()),
+          flush=True)
+    ha = paths["ha plane"]
+    print("# ha plane launches (through two ControlPlanes over the store bus): pa's cold "
+          "wave " + ", ".join(f"{k} {v}" for k, v in ha["cold_launches"].items() if v)
+          + "; pb's takeover " + ", ".join(f"{k} {v}" for k, v in
+                                           ha["takeover_launches"].items() if v)
+          + "; wave walls " + ", ".join(
+              f"{k} {w['apply_s'] + w['wall']:.2f} s" for k, w in ha["waves"].items()),
           flush=True)
     entries = []
     for name in KERNELS:

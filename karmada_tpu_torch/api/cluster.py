@@ -1,8 +1,8 @@
 """Cluster API: member-cluster inventory and capacity status.
 
 The port's own copy of ``karmada_tpu.api.cluster``. Its ``Lease`` serves the
-Pull agent's heartbeat; the JAX type's second use, the leader-election lock,
-waits for leader election (ROADMAP A7b).
+Pull agent's heartbeat and is the lock of leader election
+(``utils/leaderelect.py``).
 
 Ref: pkg/apis/cluster/v1alpha1/types.go —
 SyncMode (:77-80), Provider/Region/Zones (:119-139), Taints (:141-145),

@@ -22,10 +22,12 @@ bindings in a FederatedResourceQuota'd namespace or with priority > 0
 reroute to the in-process engine (the sidecar carries neither channel), and
 a transport failure serves that pass on the in-process engine on
 ``device`` (``karmada_tpu_degraded_passes_total{channel="solver"}``) and
-re-syncs the sidecar before its next pass. Still to come: the lease write
-barrier, which comes with leader election over a shared store (``store=``,
-ROADMAP A7b), the metrics server and the tracer's peers (A17), prewarm
-(A14) and a device mesh (A15).
+re-syncs the sidecar before its next pass. The lease write barrier: after
+each engine pass the controller asks ``runtime.beat()``; a plane deposed
+during the pass (its heartbeat answers False) writes nothing of it and
+puts every key of the batch back on its queue. Still to come: the metrics
+server and the tracer's peers (ROADMAP A17), prewarm (A14) and a device
+mesh (A15).
 """
 
 from __future__ import annotations
@@ -522,6 +524,17 @@ class SchedulerController:
                 sp.attrs["preempted"] = len(preemption.victims)
         scheduler_pass_seconds.observe(sp.duration)
         per_item = (time.perf_counter() - start) / len(todo)
+        # leadership check at the write barrier: a batched engine pass can
+        # outlast a lease, and the heartbeat seam only fires BETWEEN work
+        # items — one storm batch is one item. A plane deposed during the
+        # pass discards its results unwritten (the standby owns the storm
+        # now); the keys park for the next leadership. In-process planes
+        # have no heartbeat and pass.
+        if not self.runtime.beat():
+            for kind_key, _, _, _ in todo:
+                self.worker.enqueue(kind_key)
+                out[kind_key] = DONE
+            return out
         changed_rbs = []
         for (kind_key, rb, _, fresh), result in zip(todo, results):
             if result.error == QUOTA_EXCEEDED_ERROR:

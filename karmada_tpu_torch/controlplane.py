@@ -33,13 +33,16 @@ Usage:
 quota and priority waves, and passes whose sidecar is down, to its
 in-process engine on ``device``).
 
-Not ported yet, so absent here: an external store (``store=``) and
-leader election over it, which need the store bus, and the search indexer
-that ships documents over the bus (ROADMAP A7b); the metrics server and the
-tracer's peers (ROADMAP A17), prewarm (A14), a device mesh (A15); and an
-agent running out of process (``join_cluster(remote_agent=True)`` registers
-only the inventory shell, as in the JAX plane; the agent process comes with
-the store bus, ROADMAP A7b).
+``store=`` runs the whole fleet over an external store: a bus
+``ReplicaStoreFacade`` (reads hit the local mirror, writes round-trip the
+primary, which owns admission). Two planes over one store with Lease
+leader election are the active-standby replica
+(``localup.serve_plane_replica``); ``join_cluster(remote_agent=True)``
+registers only the inventory shell of a Pull member whose agent runs out
+of process (``python -m karmada_tpu_torch.bus.agent``).
+
+Not ported yet, so absent here: the metrics server and the tracer's peers
+(ROADMAP A17), prewarm (A14) and a device mesh (A15).
 """
 
 from __future__ import annotations
@@ -117,15 +120,22 @@ class ControlPlane:
         # instead of the in-process chain
         admission_override=None,
         delete_admission_override=None,
+        # HA replica mode: run the controller fleet over an EXTERNAL store
+        # (a bus ReplicaStoreFacade) — reads hit the local mirror, writes
+        # round-trip the primary which owns admission
+        store=None,
         device="cuda",
     ) -> None:
         self.clock = clock or time.time
         self.device = device
         self.admission = default_admission_chain()
-        self.store = Store(
-            admission=admission_override or self.admission.admit,
-            delete_admission=delete_admission_override or self.admission.admit_delete,
-        )
+        if store is not None:
+            self.store = store
+        else:
+            self.store = Store(
+                admission=admission_override or self.admission.admit,
+                delete_admission=delete_admission_override or self.admission.admit_delete,
+            )
         self.runtime = Runtime()
         self.members = MemberClientRegistry()
         self.interpreter = default_interpreter()
@@ -388,6 +398,6 @@ class ControlPlane:
         for _ in range(16):  # tickers can cascade new work
             steps = self.runtime.run_until_settled(max_steps)
             total += steps
-            if self.runtime.pending() == 0 and steps == 0:
-                break
+            if self.runtime.deposed or (self.runtime.pending() == 0 and steps == 0):
+                break  # quiescent, or deposed mid-drain (it stops writing)
         return total

@@ -162,9 +162,8 @@ class SearchController:
         self.cache = MultiClusterCache()
         # registries with spec.backend == "opensearch" additionally index
         # into the document backend (backendstore/opensearch.go analogue).
-        # An injected backend (the JAX package's HttpIndexerBackend,
-        # search/indexer.py, which comes to the port with the store bus)
-        # ships the documents to an EXTERNAL indexer process instead.
+        # Inject an HttpIndexerBackend (search/indexer.py) to ship the
+        # documents to an EXTERNAL indexer process over the wire instead.
         self.indexer = indexer if indexer is not None else InvertedIndexBackend()
         # registry key -> doc keys it indexed last pass; the diff drives
         # deletions so member-side removals and backend switches don't

@@ -22,10 +22,11 @@ Actions: ``error``, ``drop``, ``delay``, ``sever`` (the transport seams'
 actions) and ``down`` (the cluster model reads the member as unreachable;
 ``cluster.health`` only). The port's injection points are
 ``cluster.health`` in ``ClusterStatusController.collect`` and the RPC seams
-of the gRPC transports, ``estimator.rpc`` (``GrpcEstimatorConnection``) and
-``solver.rpc`` (``RemoteSolver``), which ``apply_fault`` interprets. The
-JAX module's store-bus seams (``bus.rpc``, ``bus.watch``) come with the
-store bus (ROADMAP A7b).
+of the transports, ``estimator.rpc`` (``GrpcEstimatorConnection``),
+``solver.rpc`` (``RemoteSolver``), ``bus.rpc`` (a ``StoreReplica``'s
+Apply, Delete and ApplyBatch, once per wire attempt) and ``bus.watch`` (a
+``StoreReplica``'s watch stream, once per connect), which ``apply_fault``
+interprets.
 """
 
 from __future__ import annotations

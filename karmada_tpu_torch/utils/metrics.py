@@ -3,7 +3,8 @@
 The port's own copy of the metric types of ``karmada_tpu/utils/metrics.py``
 and of the families the scheduler process, the propagation path, the FRQ
 status controller, the estimator and solver channels (their servers, the
-registry's wire traffic) and the unified channel resilience
+registry's wire traffic), the store bus (``bus_*``: fan-out, subscribers,
+queue depth and age, batch sizes) and the unified channel resilience
 (``utils.backoff``) move. Ref:
 pkg/scheduler/metrics/metrics.go:61-115 (schedule_attempts_total,
 e2e_scheduling_duration_seconds) and pkg/metrics (controller metrics). Text
@@ -342,4 +343,30 @@ degraded_passes = registry.counter(
     "in-proc fallback solve, estimator = at least one registered cluster "
     "answered UnauthenticReplica (such a pass never arms batch-identity "
     "replay)",
+)
+bus_events = registry.counter(
+    "karmada_tpu_bus_events_total",
+    "store-bus watch events fanned out to subscribers (dropped = a slow "
+    "subscriber's stream was closed for re-list)",
+)
+bus_subscribers = registry.gauge(
+    "karmada_tpu_bus_subscribers",
+    "live store-bus watch subscribers",
+)
+bus_queue_depth = registry.gauge(
+    "karmada_tpu_bus_queue_depth",
+    "deepest subscriber queue at the last fan-out (backpressure signal)",
+)
+bus_event_age_seconds = registry.histogram(
+    "karmada_tpu_bus_event_age_seconds",
+    "time a watch event waited in a subscriber queue before the stream "
+    "picked it up (recorded PER EVENT even under frame coalescing, so "
+    "batching cannot fake a low queue age)",
+)
+bus_batch_size = registry.histogram(
+    "karmada_tpu_bus_batch_size",
+    "items per batched bus message: ops per ApplyBatch RPC served and "
+    "events per WatchBatch frame flushed (count histogram — a value of "
+    "1 means the channel is effectively unary)",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096),
 )

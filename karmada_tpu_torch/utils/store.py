@@ -5,8 +5,9 @@ The port's own copy of ``karmada_tpu/utils/store.py``: typed buckets keyed by
 finalizer-aware deletion. Controllers subscribe and reconcile; the plane is
 driven deterministically with ``Runtime.run_until_settled``
 (``utils.worker``); ``checkpoint`` and ``restore`` are the plane's resume.
-The replica seams of the JAX module's store bus (``rv``, ``advance_rv``,
-``unwatch_all``) come with the bus (ROADMAP A7b).
+``rv``, ``advance_rv``, ``kinds`` and ``unwatch_all`` are the seams of the
+store bus (``bus/service.py``): its server lists and watches a primary, and
+its replicas mirror the primary's resource versions.
 
 Ref analogues: client-go informers / fedinformer managers (pkg/util/fedinformer)
 and the apiserver REST semantics the reference assumes.
@@ -75,6 +76,21 @@ class Store:
         # delete_admission likewise guards Delete operations
         self._admission = admission
         self._delete_admission = delete_admission
+
+    @property
+    def rv(self) -> int:
+        """Current resource-version counter (public read for change-gated
+        periodic checkpoints and diagnostics)."""
+        with self._lock:
+            return self._rv
+
+    def advance_rv(self, rv: int) -> None:
+        """Advance the resource-version counter to at least ``rv - 1`` so the
+        NEXT apply stamps ``rv``. The seam for replicas mirroring a primary's
+        version stream (bus ``StoreReplica``): the replica aligns the counter
+        before each replayed apply so its objects carry the primary's rvs."""
+        with self._lock:
+            self._rv = max(self._rv, rv - 1)
 
     # -- mutation ----------------------------------------------------------
 
@@ -259,6 +275,10 @@ class Store:
             self._deliver(event)
         return len(events)
 
+    def kinds(self) -> list[str]:
+        with self._lock:
+            return list(self._buckets.keys())
+
     # -- watch -------------------------------------------------------------
 
     def watch(self, kind: str, handler: WatchHandler, *, replay: bool = True) -> None:
@@ -273,6 +293,12 @@ class Store:
     def watch_all(self, handler: WatchHandler) -> None:
         with self._lock:
             self._all_watchers.append(handler)
+
+    def unwatch_all(self, handler: WatchHandler) -> None:
+        """Unregister a watch_all handler (long-lived stores outlive bus
+        servers; a dead server's handler must not stay on the write path)."""
+        with self._lock:
+            self._all_watchers = [h for h in self._all_watchers if h is not handler]
 
     def _deliver(self, event: Event) -> None:
         # snapshot the handler lists under the lock, call OUTSIDE it — a

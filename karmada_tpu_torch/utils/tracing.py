@@ -17,8 +17,10 @@ Across processes, the trace context rides gRPC invocation metadata
 handler) and a handler records its span under the caller's wave with
 ``server_span``; ``activate`` and ``ContextPropagatingExecutor`` carry the
 context onto fan-out threads, and ``open_manual``/``close_manual`` time a
-window that closes on another thread. The solver sidecar and the estimator
-servers record their ``solver.*`` and ``estimator.*`` spans this way.
+window that closes on another thread (``server_open_manual`` is its
+handler form, for the bus watch's replay window). The solver sidecar, the
+estimator servers and the store bus record their ``solver.*``,
+``estimator.*`` and ``bus.*`` spans this way.
 
 What the JAX module adds on top (the wave-history sampler and the slow-wave
 flight recorder that ``end_wave`` runs, the peer registry, stitching and
@@ -337,6 +339,20 @@ class WaveTracer:
         else:
             wave, trace_id, parent = ctx.wave, ctx.trace_id, ctx.span_id
         return self._new_span(name, wave, trace_id, parent, dict(attrs))
+
+    def server_open_manual(self, name: str, ctx: Optional[TraceContext] = None,
+                           **attrs) -> Span:
+        """``server_span``'s manual-close form — the same re-parenting (a
+        remote caller's span id lands in ``remote_parent`` and ``caller``,
+        the span parentless locally; an in-process caller nests naturally)
+        for a handler window that suspends across the handler thread (the
+        bus watch's replay generator). Close with ``close_manual``."""
+        if ctx is not None and ctx.proc != self.proc:
+            attrs = dict(attrs)
+            attrs["remote_parent"] = ctx.span_id
+            attrs["caller"] = ctx.proc
+            return self._new_span(name, ctx.wave, ctx.trace_id, None, attrs)
+        return self.open_manual(name, ctx, **attrs)
 
     def close_manual(self, sp: Span) -> None:
         sp.end = time.perf_counter()

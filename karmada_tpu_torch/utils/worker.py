@@ -4,16 +4,17 @@ The port's own copy of ``karmada_tpu/utils/worker.py``. Ref:
 pkg/util/worker.go:33-140 (util.AsyncWorker — workqueue + reconcile loop).
 The same enqueue/reconcile contract, driven cooperatively by
 ``Runtime.run_until_settled`` so the plane runs in-process without sleeping
-threads. What the JAX module adds for its serve deployments (wall-clock
-backoff of failing keys, under ``runtime.realtime``, which only the
-localup processes set) comes with them (ROADMAP A7c): a REQUEUE here
-re-enqueues at once, up to ``Worker.MAX_RETRIES``.
+threads, and the same two requeue disciplines: immediate (the default) and
+wall-clock backoff (``runtime.realtime``, which the serve processes set).
 """
 
 from __future__ import annotations
 
 import collections
+import heapq
+import itertools
 import logging
+import time
 from typing import Callable, Hashable, Optional
 
 log = logging.getLogger("karmada_tpu_torch")
@@ -25,8 +26,20 @@ REQUEUE = "requeue"
 
 class Worker:
     """A named reconcile queue. ``reconcile(key)`` returns DONE or REQUEUE
-    (or raises — treated as REQUEUE). A REQUEUE re-enqueues immediately and
-    the key is dropped after MAX_RETRIES.
+    (or raises — treated as REQUEUE with backoff count).
+
+    Two requeue disciplines (pkg/util/worker.go wraps a rate-limiting
+    workqueue — DefaultControllerRateLimiter: per-item exponential backoff
+    5ms..1000s):
+
+    - cooperative (default): REQUEUE re-enqueues immediately and drops the
+      key after MAX_RETRIES — deterministic, for ``run_until_settled``
+      drivers where wall-clock delays would just burn the step budget.
+    - wall-clock (``runtime.realtime = True``, the serve deployments):
+      REQUEUE parks the key for ``backoff_base * 2^(retries-1)`` seconds
+      (capped at ``backoff_max``) and retries indefinitely — a persistently
+      failing key costs one reconcile per backoff window instead of 16
+      hot-loop attempts followed by a permanent drop.
 
     Ownership sharding: keys route to per-ownership-token queues drained
     round-robin (the detector and binding workers shard by namespace; by
@@ -46,6 +59,10 @@ class Worker:
             Callable[[list[Hashable]], dict[Hashable, Optional[str]]]
         ] = None,
         batch_size: int = 1024,
+        runtime: Optional["Runtime"] = None,
+        backoff_base: float = 0.005,
+        backoff_max: float = 300.0,
+        clock: Callable[[], float] = time.monotonic,
         shard_fn: Callable[[Hashable], Hashable] = lambda key: None,
     ):
         self.name = name
@@ -56,14 +73,27 @@ class Worker:
         # queued item instead of paying per-key packing/dispatch.
         self.reconcile_batch = reconcile_batch
         self.batch_size = batch_size
+        self.runtime = runtime
+        self.backoff_base = backoff_base
+        self.backoff_max = backoff_max
+        self.clock = clock
         # key -> ownership token; tokens materialize shard queues lazily
         self.shard_fn = shard_fn
         self._shards: dict[Hashable, collections.deque] = {}
         self._shard_rr: collections.deque = collections.deque()
         self._queued: set[Hashable] = set()
         self._retries: collections.Counter = collections.Counter()
+        self._delayed: list[tuple] = []  # (not_before, seq, key) heap
+        #: live parked entry per key: key -> (not_before, seq). Heap entries
+        #: not matching this map are stale and skipped on promote
+        #: (client-go's delaying queue keeps ONE ready-time per item — the
+        #: earliest)
+        self._parked: dict[Hashable, tuple] = {}
+        self._seq = itertools.count()
 
     def enqueue(self, key: Hashable) -> None:
+        # a direct enqueue supersedes any parked retry of the same key
+        self._parked.pop(key, None)
         if key in self._queued:
             return
         self._queued.add(key)
@@ -95,13 +125,53 @@ class Worker:
                 self._shards.pop(token, None)
         return keys
 
+    def enqueue_after(self, key: Hashable, delay: float) -> None:
+        """Park ``key`` until ``delay`` seconds from now (workqueue
+        AddAfter): the EARLIEST pending ready-time per key wins, and a
+        direct enqueue while parked wins outright (retries sooner)."""
+        due = self.clock() + delay
+        live = self._parked.get(key)
+        if live is not None and live[0] <= due:
+            return
+        entry = (due, next(self._seq), key)
+        self._parked[key] = (due, entry[1])
+        heapq.heappush(self._delayed, entry)
+
+    def _promote_due(self) -> None:
+        now = self.clock()
+        while self._delayed and self._delayed[0][0] <= now:
+            due, seq, key = heapq.heappop(self._delayed)
+            if self._parked.get(key) != (due, seq):
+                continue  # superseded by a direct enqueue or earlier park
+            del self._parked[key]
+            self.enqueue(key)
+
     def __len__(self) -> int:
         return len(self._queued)
+
+    @property
+    def delayed(self) -> int:
+        """Keys parked in a backoff window (not yet due)."""
+        return len(self._parked)
+
+    def next_due(self) -> Optional[float]:
+        """Seconds until the earliest parked key is due (<= 0 if due now),
+        or None when nothing is parked."""
+        while self._delayed and (
+            self._parked.get(self._delayed[0][2])
+            != (self._delayed[0][0], self._delayed[0][1])
+        ):
+            heapq.heappop(self._delayed)  # drop stale heads lazily
+        if not self._delayed:
+            return None
+        return self._delayed[0][0] - self.clock()
 
     def process_one(self) -> bool:
         """Pop and reconcile one key (or one batch when a batch reconciler
         is installed and multiple keys are queued). Returns True if work was
         done."""
+        if self._delayed:
+            self._promote_due()
         if not self._queued:
             return False
         if self.reconcile_batch is not None and len(self._queued) > 1:
@@ -169,7 +239,15 @@ class Worker:
     def _finish(self, key: Hashable, result: Optional[str]) -> None:
         if result == REQUEUE:
             self._retries[key] += 1
-            if self._retries[key] <= self.MAX_RETRIES:
+            if self.runtime is not None and self.runtime.realtime:
+                # exponent is capped: retries grow without bound in
+                # realtime mode and 2**1025 overflows float conversion
+                delay = min(
+                    self.backoff_base * (2 ** min(self._retries[key] - 1, 30)),
+                    self.backoff_max,
+                )
+                self.enqueue_after(key, delay)
+            elif self._retries[key] <= self.MAX_RETRIES:
                 self.enqueue(key)
             else:
                 log.error("worker %s: dropping %r after max retries", self.name, key)
@@ -188,11 +266,22 @@ class Runtime:
     def __init__(self) -> None:
         self.workers: list[Worker] = []
         self._tickers: list[Callable[[], None]] = []
+        #: wall-clock mode (serve deployments): failing keys back off
+        #: exponentially instead of hot-looping; see Worker._finish
+        self.realtime = False
+        #: set when a heartbeat answered False during the last drain
+        self.deposed = False
 
     def new_worker(self, name: str, reconcile, **kw) -> Worker:
-        w = Worker(name, reconcile, **kw)
+        w = Worker(name, reconcile, runtime=self, **kw)
         self.workers.append(w)
         return w
+
+    def next_due(self) -> Optional[float]:
+        """Seconds until the earliest backed-off key anywhere is due, or
+        None — the serve loop's sleep bound."""
+        dues = [d for w in self.workers if (d := w.next_due()) is not None]
+        return min(dues) if dues else None
 
     def add_ticker(self, fn: Callable[[], None]) -> None:
         """Periodic function run at the start of each run_until_settled call
@@ -213,6 +302,20 @@ class Runtime:
     heartbeat = None
     HEARTBEAT_EVERY = 256
 
+    def beat(self) -> bool:
+        """Ask the heartbeat (True when there is none). A False answer marks
+        the runtime deposed: the current drain stops after the item that
+        asked, and ``ControlPlane.settle`` runs no further drain. The
+        scheduler's lease write barrier asks here after each engine pass, so
+        a deposed plane neither writes that pass nor runs it again."""
+        if self.heartbeat is None:
+            return True
+        if self.heartbeat() is False:
+            self.deposed = True
+            return False
+        self.deposed = False
+        return True
+
     def run_until_settled(self, max_steps: int = 100_000, *, tick: bool = True) -> int:
         """Process queued work until quiescent. Returns steps executed.
 
@@ -229,14 +332,16 @@ class Runtime:
         if tick:
             self.tick()
         if self.pending() == 0:
-            return 0
+            due = self.next_due()
+            if due is None or due > 0:
+                return 0  # quiescent (no queued keys, no due-parked keys)
         from .metrics import settle_seconds, worker_queue_depth, worker_reconciles
         from .tracing import tracer
 
         tracer.ensure_wave("settle")
         steps = 0
         next_beat = self.HEARTBEAT_EVERY
-        aborted = False
+        self.deposed = aborted = False
         with tracer.span("settle") as root:
             while steps < max_steps and not aborted:
                 progressed = False
@@ -252,13 +357,14 @@ class Runtime:
                         ):
                             steps += 1
                             drained += 1
-                            if (
+                            if self.deposed:
+                                aborted = True  # a barrier's beat said so
+                            elif (
                                 self.heartbeat is not None
                                 and steps >= next_beat
                             ):
                                 next_beat = steps + self.HEARTBEAT_EVERY
-                                if self.heartbeat() is False:
-                                    aborted = True
+                                aborted = not self.beat()
                         sp.attrs["items"] = drained
                         if not drained:
                             sp.attrs["_discard"] = True

@@ -8,7 +8,10 @@ module's name: each case makes the same calls on the port and asserts the
 same answers that the JAX package's run of the module asserts.
 ``leave_out`` names the cases (``"Class.method"`` or ``"function"``) that
 reach a part of the JAX package the port does not carry; the caller's
-docstring says which and why.
+docstring says which and why. ``swaps`` are (old, new) text replacements
+made after that, each of which must match: a module that runs the cases
+across the packages points some names back at the JAX package with them
+(a JAX process on the port's wire).
 
 ``cpu_plane`` is an autouse fixture for such a module: the port's
 ``ControlPlane`` is built on the CPU (its ``device`` default is the card),
@@ -24,9 +27,13 @@ import pytest
 _PACKAGE = re.compile(r"\bkarmada_tpu\b(?!_torch)")
 
 
-def port_cases(name: str, leave_out=()) -> dict:
+def port_cases(name: str, leave_out=(), swaps=()) -> dict:
     path = pathlib.Path(__file__).with_name(f"{name}.py")
     source = _PACKAGE.sub("karmada_tpu_torch", path.read_text())
+    for old, new in swaps:
+        if old not in source:
+            raise ValueError(f"{name}: {old!r} not found")
+        source = source.replace(old, new)
     module = types.ModuleType(f"{name}_on_the_port")
     module.__file__ = str(path)
     exec(compile(source, str(path), "exec"), module.__dict__)
